@@ -1,0 +1,90 @@
+"""Builds the port's CUDA sources into plain-C shared libraries, loaded
+with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` at first use,
+into ``build/repro_torch/`` at the root of the checkout. The library's file
+name carries a hash of its source and flags, so a stale library is never
+loaded. ``build_log[name]`` keeps the compile time and ``ptxas -v`` report
+of the last build in this process.
+
+The libraries link the CUDA runtime as a shared library (``-cudart shared``,
+not nvcc's static default). Loaded after ``torch``, they then bind the
+``libcudart.so.12`` that PyTorch has already loaded, so the kernel wrappers
+and PyTorch share one runtime: one current device per thread, one view of
+the streams. A static runtime would be a second, separate instance, whose
+current device ``torch.cuda.device`` never sets.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-cudart", "shared", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_name_locks: dict[str, threading.Lock] = {}
+_libs: dict[str, ctypes.CDLL] = {}
+build_log: dict[str, dict] = {}
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found; set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu`` (built on first use).
+
+    Different sources build concurrently when called from several threads;
+    one source builds once.
+    """
+    with _lock:
+        lock = _name_locks.setdefault(name, threading.Lock())
+    with lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = _libs[name] = ctypes.CDLL(str(_build(name)))
+        return lib
+
+
+def _build(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    if out.exists():
+        build_log[name] = {"seconds": 0.0, "cached": True, "library": str(out), "ptxas": []}
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        capture_output=True, text=True, timeout=900,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
+    build_log[name] = {
+        "seconds": time.perf_counter() - t0,
+        "cached": False,
+        "library": str(out),
+        "ptxas": [ln.strip() for ln in proc.stderr.splitlines() if ln.strip()],
+    }
+    return out

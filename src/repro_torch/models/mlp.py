@@ -1,0 +1,55 @@
+"""Feed-forward blocks: SwiGLU/GeGLU (gated) and plain GELU MLP (whisper).
+
+Ported from the reference's ``repro/models/mlp.py``; the products stay
+plain ``torch.einsum`` (the reference leaves them to XLA, outside any
+kernel).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .common import act_fn
+
+
+def gated_mlp_params(cfg, a, d_ff: int | None = None) -> dict:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    return {
+        "w_gate": a.param((d, ff)),
+        "w_up": a.param((d, ff)),
+        "w_down": a.param((ff, d)),
+    }
+
+
+def gated_mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    act = act_fn(cfg.act if cfg.act in ("silu", "gelu") else "silu")
+    g = torch.einsum("bsd,df->bsf", x, p["w_gate"])
+    u = torch.einsum("bsd,df->bsf", x, p["w_up"])
+    return torch.einsum("bsf,fd->bsd", act(g) * u, p["w_down"])
+
+
+def dense_mlp_params(cfg, a, d_ff: int | None = None) -> dict:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    return {
+        "w1": a.param((d, ff)),
+        "b1": a.param((ff,), "zeros"),
+        "w2": a.param((ff, d)),
+        "b2": a.param((d,), "zeros"),
+    }
+
+
+def dense_mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    h = F.gelu(torch.einsum("bsd,df->bsf", x, p["w1"]) + p["b1"], approximate="tanh")
+    return torch.einsum("bsf,fd->bsd", h, p["w2"]) + p["b2"]
+
+
+def mlp_params(cfg, a, d_ff: int | None = None) -> dict:
+    if cfg.act == "gelu_mlp":
+        return dense_mlp_params(cfg, a, d_ff)
+    return gated_mlp_params(cfg, a, d_ff)
+
+
+def mlp_apply(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "gelu_mlp":
+        return dense_mlp(cfg, p, x)
+    return gated_mlp(cfg, p, x)
