@@ -5,14 +5,18 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 
     python3 chip_smoke.py
 
-It builds every hand-written kernel from ``src/repro_torch/csrc`` with nvcc,
-holds each against its plain PyTorch version on the card and times it, then
-serves full-width tinyllama-1.1b (random weights from seed 0) through
-``repro_torch.ServeEngine``: once in float32 against the port's own
-sequential batch-1 decode, once in bfloat16 as the measured main path, with
-the kernels' launch counters read around that run. Each phase prints one
-JSON line; any failure exits non-zero. The last two lines are the card's
-``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
+It builds every hand-written kernel from ``src/repro_torch/csrc`` with nvcc
+(flash attention and the SSD scan, one nvcc each, started together), holds
+each against its plain PyTorch version on the card and times it, then
+serves three full-width models (random weights from seed 0) through
+``repro_torch.ServeEngine``, one after another: tinyllama-1.1b (flash
+attention prefill), mamba2-1.3b (SSD prefill) and hymba-1.5b (both). Each is
+served once in float32 against the port's own sequential batch-1 decode and
+once in bfloat16 as its measured main path, with every kernel's launch
+counter set to 0 just before that run and read just after. Each phase prints
+one JSON line; any failure exits non-zero. The last three lines are the
+kernels line, the card's ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX or of the reference package.
 """
@@ -36,8 +40,15 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
-ARCH = "tinyllama-1.1b"
-SERVE = dict(max_slots=4, max_len=1024, page_size=64)
+# the served paths, in order: (arch, engine settings, kernels every prefill
+# launches once per layer). hymba's max_len stays above its window of 1024:
+# at window >= max_len the engine cannot store the prefill's ring cache
+# (ROADMAP F6, in the reference engine too)
+PATHS = (
+    ("tinyllama-1.1b", dict(max_slots=4, max_len=1024, page_size=64), ("flash_attention",)),
+    ("mamba2-1.3b", dict(max_slots=4, max_len=1024, page_size=64), ("ssd",)),
+    ("hymba-1.5b", dict(max_slots=4, max_len=2048, page_size=64), ("flash_attention", "ssd")),
+)
 N_REQUESTS, NEW_TOKENS, PROMPT_RANGE = 8, 32, (64, 512)
 TIE_GAP = 1e-3  # a token mismatch at a top-2 logit gap below this is a near-tie
 
@@ -82,7 +93,7 @@ def phase_device() -> dict:
 
 # -- build ----------------------------------------------------------------------
 
-KERNEL_SOURCES = ("flash_attention",)
+KERNEL_SOURCES = ("flash_attention", "ssd")
 
 
 def phase_build() -> None:
@@ -179,6 +190,10 @@ def phase_kernels() -> dict:
             ("MQA KV=1", 1, 8, 1, 256, 256, 64, True, None, None, False, dt),
             ("Dh=32", 2, 4, 2, 200, 200, 32, True, None, None, False, dt),
             ("Dh=128", 1, 8, 2, 300, 300, 128, True, None, None, True, dt),
+            # hymba's prefill: H=25 KV=5 (a group of 5), global and window layers
+            ("hymba global S=300", 1, 25, 5, 300, 300, 64, True, None, None, True, dt),
+            ("hymba window=1024 S=300", 1, 25, 5, 300, 300, 64, True, 1024, None, True, dt),
+            ("hymba window=1024 S=1100", 1, 25, 5, 1100, 1100, 64, True, 1024, None, True, dt),
         ]
     worst = 0.0
     for i, case in enumerate(cases):
@@ -230,6 +245,113 @@ def phase_kernels() -> dict:
     return {"flash_attention": {"max_abs_err": worst, "timings": timings}}
 
 
+def _ssd_inputs(B, S, H, P, N, dtype, seed, laws="wide"):
+    """x, B and C as the model hands them over: split views of one (B, S,
+    H*P + 2N) activation. laws "wide": dt = softplus(N(0, 1)), A = -exp(U[0,
+    1)), so the state decays within a few rows; "model": the model's init
+    laws, log-uniform dt in [1e-3, 0.1) and A in [-16, -1), so the state
+    carries across whole chunks."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda", 0)
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=g, device=dev).to(dtype)
+    x = xbc[..., : H * P].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., H * P : H * P + N], xbc[..., H * P + N :]
+    if laws == "model":
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        dt = torch.exp(lo + (hi - lo) * torch.rand((B, S, H), generator=g, device=dev))
+        A = -(1.0 + 15.0 * torch.rand((H,), generator=g, device=dev))
+    else:
+        dt = F.softplus(torch.randn((B, S, H), generator=g, device=dev))
+        A = -torch.exp(torch.rand((H,), generator=g, device=dev))
+    return x, dt, A, Bm, Cm
+
+
+def _ssd_bound(B, S, H, P, N, cl, elem_bytes, peak_flops):
+    """Least time for the scan: x, B and C (elem_bytes), dt and A (f32) read
+    once, y written once and the f32 final state written once. FLOPs: C B^T
+    over each chunk's causal pairs (shared by the heads), and per head M x
+    over the same pairs, the inter-chunk term C state for every chunk but
+    the first (which enters with a zero state), and the state update of
+    every chunk."""
+    full, rest = divmod(S, cl)
+    chunks = [cl] * full + ([rest] if rest else [])
+    pairs = sum(n * (n + 1) // 2 for n in chunks)
+    entering = S - chunks[0]
+    flops = B * (2 * N * pairs + H * (2 * P * pairs + 2 * N * P * entering + 2 * N * P * S))
+    nbytes = (elem_bytes * (2 * B * S * H * P + 2 * B * S * N) + 4 * (B * S * H + H)
+              + 4 * B * H * P * N)
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_ssd_kernels() -> dict:
+    import torch
+
+    from repro_torch.kernels.ssd import scaled_error, ssd_bshp, ssd_ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # scaled error: max |kernel - plain| / max(1, max |plain|); both compute in
+    # f32 from the same inputs, so bf16 differs by about one rounding of y
+    tol = {bf16: 1e-2, f32: 1e-4}
+    # (label, B, S, H, P, N, chunk, dt/A laws)
+    shapes = [(f"mamba2 S={S}", 1, S, 64, 64, 128, 256, "wide") for S in (300, 512, 1024)]
+    shapes += [
+        ("mamba2 S=512 model's dt/A", 1, 512, 64, 64, 128, 256, "model"),
+        ("hymba S=300", 1, 300, 25, 64, 16, 64, "wide"),
+        ("B=2 H=25 N=128 chunk 64 S=100", 2, 100, 25, 64, 128, 64, "wide"),
+        ("S=50 < chunk 256", 1, 50, 4, 64, 128, 256, "wide"),
+        ("P=40 N=24 chunk 32 S=70", 2, 70, 3, 40, 24, 32, "wide"),
+        ("B=2 H=5 P=32 N=16 chunk 64 S=130", 2, 130, 5, 32, 16, 64, "wide"),
+    ]
+    worst, worst_scaled = 0.0, 0.0
+    for i, (label, B, S, H, P, N, chunk, laws) in enumerate(shapes):
+        for dt_ in (bf16, f32):
+            x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, dt_, 200 + i, laws)
+            kw = dict(chunk=chunk, return_final_state=True)
+            got = ssd_bshp(x, dt, A, Bm, Cm, **kw)
+            want = ssd_ref(x, dt, A, Bm, Cm, **kw)
+            torch.cuda.synchronize()
+            errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+            scaled = [scaled_error(g, w) for g, w in zip(got, want)]
+            finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+            ok = finite and max(scaled) <= tol[dt_]
+            where = {}
+            if not ok:  # say which side is off, against a CPU float64 run
+                cpu = ssd_ref(*(t.double().cpu() for t in (x, dt, A, Bm, Cm)), **kw)
+                where = {"kernel_vs_cpu_f64": [(g.cpu().double() - c).abs().max().item()
+                                               for g, c in zip(got, cpu)],
+                         "plain_vs_cpu_f64": [(w.cpu().double() - c).abs().max().item()
+                                              for w, c in zip(want, cpu)]}
+            emit("kernels", kernel="ssd", case=label, dtype=str(dt_).split(".")[-1],
+                 shape=[B, S, H, P, N, chunk], laws=laws, max_abs_err=errs, scaled_err=scaled,
+                 tol=tol[dt_], finite=finite, ok=ok, **where)
+            check(ok, f"ssd {label} {dt_}: scaled errors (y, state) {scaled} > {tol[dt_]}")
+            worst, worst_scaled = max(worst, *errs), max(worst_scaled, *scaled)
+
+    timings = {}
+    for label, B, S, H, P, N, chunk in (
+        ("mamba2 S=512", 1, 512, 64, 64, 128, 256),
+        ("mamba2 S=1024", 1, 1024, 64, 64, 128, 256),
+        ("hymba S=512", 1, 512, 25, 64, 16, 64),
+    ):
+        x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, bf16, 300 + S)
+        kw = dict(chunk=chunk, return_final_state=True)
+        ms = _time_ms(lambda: ssd_bshp(x, dt, A, Bm, Cm, **kw), iters=20)
+        plain_ms = _time_ms(lambda: ssd_ref(x, dt, A, Bm, Cm, **kw), iters=20)
+        bound_ms, bound_by = _ssd_bound(B, S, H, P, N, chunk, 2, PEAK_BF16_FLOPS)
+        # no single PyTorch call computes the SSD scan
+        timings[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                              bound_ms=bound_ms, bound_by=bound_by)
+        emit("kernels", kernel="ssd", timing=f"{label} bf16 B={B} H={H} P={P} N={N} chunk={chunk}",
+             **timings[label])
+    return {"ssd": {"max_abs_err": worst, "max_scaled_err": worst_scaled, "timings": timings}}
+
+
 # -- serve ----------------------------------------------------------------------
 
 
@@ -241,14 +363,14 @@ def _prompts(vocab: int) -> list:
 
 def _sequential(model, params, prompt, budget, width):
     """The port's own batch-1 path: prefill, then decode_step one token at a
-    time, provisioned at the engine's width. Returns tokens and each step's
-    top-2 logit gap."""
+    time, provisioned at the engine's width (sliding-window rings re-laid to
+    the engine's modulus). Returns tokens and each step's top-2 logit gap."""
     import torch
 
     from repro_torch.models.lm import extend_caches
 
     logits, caches = model.prefill(params, {"tokens": prompt[None]})
-    caches = extend_caches(caches, width - prompt.size)
+    caches = extend_caches(caches, width - prompt.size, window=model.cfg.window)
     toks, gaps = [], []
     for i in range(budget):
         top = torch.topk(logits[0, -1].float(), 2).values
@@ -259,12 +381,12 @@ def _sequential(model, params, prompt, budget, width):
     return toks, gaps
 
 
-def _serve(model, params, prompts):
+def _serve(model, params, prompts, serve_kw):
     import torch
 
     from repro_torch.serve import ServeEngine
 
-    with ServeEngine(model, params, **SERVE) as engine:
+    with ServeEngine(model, params, **serve_kw) as engine:
         t0 = time.perf_counter()
         handles = [engine.submit(p, NEW_TOKENS) for p in prompts]
         outs = [list(map(int, h.result(600))) for h in handles]
@@ -281,18 +403,19 @@ def _serve(model, params, prompts):
     return outs, marks, wall, stats
 
 
-def _layer_times(model, params) -> dict:
+def _layer_times(model, params, serve_kw) -> dict:
     """Host-clock times of one prefill and one 4-lane decode step at full
     width, and the device-busy share of the decode step from a profiler
     trace (the sum of its kernels' durations on the one stream)."""
     import torch
 
+    from repro_torch.tree import tree_map
+
     cfg = model.cfg
-    S, lanes, width = 300, SERVE["max_slots"], SERVE["max_len"]
+    S, lanes, width = 300, serve_kw["max_slots"], serve_kw["max_len"]
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, S))
-    caches = model.cache_shapes(lanes, width)
-    caches = {g: {"attn": {k: torch.zeros(m.shape, dtype=m.dtype, device=model.device)
-                           for k, m in c["attn"].items()}} for g, c in caches.items()}
+    caches = tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype, device=model.device),
+                      model.cache_shapes(lanes, width))
     tok = torch.zeros((lanes, 1), dtype=torch.long, device=model.device)
     idx = torch.tensor([100, 300, 500, 700], device=model.device)[:lanes]
 
@@ -316,6 +439,7 @@ def _layer_times(model, params) -> dict:
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     return {
+        "arch": cfg.name,
         "prefill_ms_S300": prefill_ms,
         "decode_step_ms_4lanes": decode_ms,
         "decode_traced_ms": traced_ms,
@@ -325,51 +449,67 @@ def _layer_times(model, params) -> dict:
     }
 
 
-def phase_serve() -> dict:
+def _counters() -> dict:
+    """Each kernel's wrapper, whose ``launches`` it adds one to per launch."""
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.ssd import ssd_bshp
+
+    return {"flash_attention": flash_attention_bhsd, "ssd": ssd_bshp}
+
+
+def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple) -> dict:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.models import build_model
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    base = get_config(ARCH)
+    base = get_config(arch)
     prompts = _prompts(base.vocab_size)
 
     # f32, TF32 off: the engine against sequential batch-1 decode
     model = build_model(base.replace(dtype="float32"))
     params = model.init(seed=0)
-    outs, _marks, wall, stats = _serve(model, params, prompts)
+    outs, _marks, wall, stats = _serve(model, params, prompts, serve_kw)
     mismatches = []
     for r, (prompt, out) in enumerate(zip(prompts, outs)):
-        ref, gaps = _sequential(model, params, prompt, NEW_TOKENS, SERVE["max_len"])
+        ref, gaps = _sequential(model, params, prompt, NEW_TOKENS, serve_kw["max_len"])
         if out != ref:
             i = next(j for j, (a, b) in enumerate(zip(out, ref)) if a != b)
             mismatches.append({"request": r, "step": i, "top2_gap": gaps[i]})
-    emit("serve", dtype="float32", requests=len(prompts), wall_s=wall, ticks=stats["ticks"],
-         preemptions=stats["preemptions"], mismatches=mismatches)
+    emit("serve", arch=arch, dtype="float32", requests=len(prompts), wall_s=wall,
+         ticks=stats["ticks"], preemptions=stats["preemptions"], mismatches=mismatches,
+         phase_s=time.perf_counter() - t_start)
     for m in mismatches:
         check(m["top2_gap"] < TIE_GAP,
-              f"float32 engine tokens differ from sequential decode at a gap of {m['top2_gap']}")
+              f"{arch} float32 engine tokens differ from sequential decode at a gap of "
+              f"{m['top2_gap']}")
     del model, params
     gc.collect()  # the closed engine sits in a reference cycle holding the f32 weights
     torch.cuda.empty_cache()
 
-    # bf16: the measured main path, warmed up by one request first
+    # bf16: the measured main path, warmed up by one request first; every
+    # kernel's count is set to 0 just before the run and read just after
+    t_bf16 = time.perf_counter()
     model = build_model(base.replace(dtype="bfloat16"))
     params = model.init(seed=0)
-    _serve(model, params, prompts[:1])
+    _serve(model, params, prompts[:1], serve_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_bhsd.launches = 0
-    outs, marks, wall, stats = _serve(model, params, prompts)
-    launches = flash_attention_bhsd.launches
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    outs, marks, wall, stats = _serve(model, params, prompts, serve_kw)
+    launches = {name: fn.launches for name, fn in counters.items()}
     prefills = len(prompts) + stats["preemptions"]
     n_tok = sum(len(o) for o in outs)
     ttft = [m["ttft"] for m in marks]
     res = {
+        "arch": arch,
         "dtype": "bfloat16",
+        "serve": serve_kw,
         "requests": len(prompts),
         "prompt_lens": [int(p.size) for p in prompts],
         "tokens": n_tok,
@@ -379,20 +519,78 @@ def phase_serve() -> dict:
         "ttft_p99_s": float(np.percentile(ttft, 99)),
         # TTFT = admission wait + prefill + wait for a slot, per request
         "ttft_parts_s": {k: [m[k] for m in marks] for k in ("admit", "prefill", "slot_wait")},
+        "ttft_sum_s": sum(ttft),
+        "ttft_share": {k: sum(m[k] for m in marks) / sum(ttft)
+                       for k in ("admit", "prefill", "slot_wait")},
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "ticks": stats["ticks"],
         "preemptions": stats["preemptions"],
-        "flash_attention_launches": launches,
+        "launches": launches,
         "prefills": prefills,
     }
     emit("serve", **res)
-    emit("layers", **_layer_times(model, params))
+    emit("layers", **_layer_times(model, params, serve_kw))
     check(all(len(o) == NEW_TOKENS and all(0 <= t < base.vocab_size for t in o) for o in outs),
-          "bf16 run: a request came back short or with an out-of-vocabulary token")
-    check(launches >= base.num_layers * prefills,
-          f"flash kernel launched {launches} times for {prefills} prefills of "
-          f"{base.num_layers} layers")
+          f"{arch} bf16 run: a request came back short or with an out-of-vocabulary token")
+    for name in path_kernels:
+        check(launches[name] >= base.num_layers * prefills,
+              f"{arch}: {name} launched {launches[name]} times for {prefills} prefills of "
+              f"{base.num_layers} layers")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("serve", arch=arch, bf16_phase_s=time.perf_counter() - t_bf16,
+         phase_s=time.perf_counter() - t_start)
     return res
+
+
+def _kernel_line(kern: dict, serves: list) -> dict:
+    """The kernels JSON line: launches summed over the served paths' measured
+    runs (and listed per path), the rest from the kernels phases."""
+
+    def launches(name):
+        by_path = {s["arch"]: s["launches"][name] for s in serves}
+        return sum(by_path.values()), by_path
+
+    fa, t_fa = kern["flash_attention"], kern["flash_attention"]["timings"][512]
+    ssd, t_ssd = kern["ssd"], kern["ssd"]["timings"]["mamba2 S=512"]
+    fa_n, fa_by = launches("flash_attention")
+    ssd_n, ssd_by = launches("ssd")
+    return {
+        "kernels": [
+            {
+                "name": "flash_attention",
+                "route": "cuda",
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:30",
+                "launches": fa_n,
+                "launches_by_path": fa_by,
+                "max_abs_err": fa["max_abs_err"],
+                "ms": t_fa["ms"],
+                "plain_ms": t_fa["plain_ms"],
+                "bound_ms": t_fa["bound_ms"],
+                "bound_by": t_fa["bound_by"],
+                "library_ms": t_fa["library_ms"],
+                "at": "B=1 H=32 KV=4 Dh=64 Sq=Sk=512 bf16 causal",
+            },
+            {
+                "name": "ssd",
+                "route": "cuda",
+                "source": "src/repro_torch/csrc/ssd.cu",
+                "replaces": "src/repro/kernels/ssd.py:29",
+                "launches": ssd_n,
+                "launches_by_path": ssd_by,
+                "max_abs_err": ssd["max_abs_err"],
+                "max_scaled_err": ssd["max_scaled_err"],
+                "ms": t_ssd["ms"],
+                "plain_ms": t_ssd["plain_ms"],
+                "bound_ms": t_ssd["bound_ms"],
+                "bound_by": t_ssd["bound_by"],
+                "library_ms": t_ssd["library_ms"],
+                "at": "B=1 S=512 H=64 P=64 N=128 chunk 256 bf16, with the final state",
+            },
+        ]
+    }
 
 
 def main() -> int:
@@ -405,31 +603,15 @@ def main() -> int:
         return 1
     import repro_torch  # noqa: F401  (fails first in a directory without the port)
 
+    t0 = time.perf_counter()
     dev = phase_device()
     phase_build()
     kern = phase_kernels()
-    serve = phase_serve()
-    fa = kern["flash_attention"]
-    t512 = fa["timings"][512]
-    line = {
-        "kernels": [
-            {
-                "name": "flash_attention",
-                "route": "cuda",
-                "source": "src/repro_torch/csrc/flash_attention.cu",
-                "replaces": "src/repro/kernels/flash_attention.py:30",
-                "launches": serve["flash_attention_launches"],
-                "max_abs_err": fa["max_abs_err"],
-                "ms": t512["ms"],
-                "plain_ms": t512["plain_ms"],
-                "bound_ms": t512["bound_ms"],
-                "bound_by": t512["bound_by"],
-                "library_ms": t512["library_ms"],
-                "at": "B=1 H=32 KV=4 Dh=64 Sq=Sk=512 bf16 causal",
-            }
-        ]
-    }
-    print(json.dumps(line))
+    kern.update(phase_ssd_kernels())
+    emit("timing", kernels_phases_s=time.perf_counter() - t0)
+    serves = [phase_serve(arch, serve_kw, path_kernels) for arch, serve_kw, path_kernels in PATHS]
+    emit("timing", total_s=time.perf_counter() - t0)
+    print(json.dumps(_kernel_line(kern, serves)))
     print(dev["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                              "count": dev["count"]}}))

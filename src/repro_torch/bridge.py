@@ -5,7 +5,10 @@ scan-stacked: every leaf under ``layers/s0/...`` has a leading ``(L, ...)``
 dim. :func:`params_from_jax` takes that tree with numpy leaves (the caller
 converts; this module imports no JAX) and returns the port's
 :class:`~repro_torch.models.common.ParamTree`, splitting stacked leaves into
-one entry per layer. bf16 leaves pass through float32, which is exact.
+one entry per layer. Each leaf takes the shape and dtype that the port's own
+parameter plan declares for it (the model dtype, or float32 for the SSM's
+``a_log``, ``d_skip`` and ``dt_bias``), whatever the source array's dtype;
+bf16 leaves pass through float32, which is exact.
 """
 from __future__ import annotations
 
@@ -13,23 +16,41 @@ import numpy as np
 import torch
 
 from .models.common import DTYPES, ParamTree
-from .models.lm import check_supported, stack_plan
+from .models.lm import check_supported, param_tree, stack_plan
 from .tree import tree_map
+
+
+class _Declared:
+    """A parameter allocator that draws nothing: each leaf is an empty meta
+    tensor with the shape and dtype the port's plan declares."""
+
+    def __init__(self, dtype: torch.dtype) -> None:
+        self.dtype = dtype
+
+    def param(self, shape, init="normal", scale=None, dtype=None) -> torch.Tensor:
+        return torch.empty(tuple(shape), dtype=dtype or self.dtype, device="meta")
 
 
 def params_from_jax(cfg, tree: dict, device="cpu") -> ParamTree:
     check_supported(cfg)
-    dtype = DTYPES[cfg.dtype]
+    declared = param_tree(cfg, _Declared(DTYPES[cfg.dtype]))
 
-    def conv(a) -> torch.Tensor:
-        return torch.tensor(np.asarray(a, dtype=np.float32), device=device).to(dtype)
+    def conv(a, decl: torch.Tensor, stacked: int = 0) -> torch.Tensor:
+        a = np.asarray(a)
+        want = (stacked, *decl.shape) if stacked else tuple(decl.shape)
+        if a.shape != want:
+            raise ValueError(f"reference leaf of shape {a.shape}, the port declares {want}")
+        return torch.tensor(a.astype(np.float32), device=device).to(decl.dtype)
 
-    out = {k: tree_map(conv, v) for k, v in tree.items() if k != "layers"}
+    out = {k: tree_map(conv, v, declared[k]) for k, v in tree.items() if k != "layers"}
     layers = {}
     for grp in stack_plan(cfg):
-        group = tree_map(conv, tree["layers"][grp.name])
+        src, decl = tree["layers"][grp.name], declared["layers"][grp.name]
         if grp.kind == "scan":
+            group = tree_map(lambda a, d: conv(a, d, grp.count), src, decl[0])
             group = [tree_map(lambda t, i=i: t[i], group) for i in range(grp.count)]
+        else:
+            group = tree_map(conv, src, decl)
         layers[grp.name] = group
     out["layers"] = layers
     return ParamTree(out)

@@ -88,3 +88,50 @@ def _build(name: str) -> Path:
         "ptxas": [ln.strip() for ln in proc.stderr.splitlines() if ln.strip()],
     }
     return out
+
+
+class FirstLaunchGuard:
+    """Holds the first launch of each kernel instantiation in a process
+    against the kernel's plain version, and raises on a disagreement. It
+    guards against a first-launch fault seen once on the card and not yet
+    explained (``PERF.md``, Open questions), which would otherwise serve wrong
+    tokens silently.
+
+    ``check(key, case)`` returns at once for a key already checked. Otherwise
+    ``case()`` makes a small input and returns ``(launch, want)``: ``launch()``
+    runs the kernel on it and ``want`` is the plain version's result, one
+    tensor or a tuple. ``error(got, want)`` measures each output; if the worst
+    is above ``TOL``, a second launch on the same input is measured for the
+    message and the check raises, leaving the key unchecked. The cost (one
+    small launch and one synchronization) is paid once per key.
+    """
+
+    TOL = 5e-2  # far above rounding in either dtype, far below a wrong result
+
+    def __init__(self, kernel: str, error) -> None:
+        self.kernel = kernel
+        self.error = error
+        self.checked: set = set()
+        self._lock = threading.Lock()
+
+    def _worst(self, got, want) -> float:
+        if not isinstance(want, tuple):
+            got, want = (got,), (want,)
+        return max(self.error(g, w) for g, w in zip(got, want))
+
+    def check(self, key, case) -> None:
+        if key in self.checked:
+            return
+        with self._lock:
+            if key in self.checked:
+                return
+            launch, want = case()
+            err = self._worst(launch(), want)
+            if not err <= self.TOL:
+                err2 = self._worst(launch(), want)
+                raise RuntimeError(
+                    f"{self.kernel} first-launch check failed for {key}: error {err} against "
+                    f"the plain version (tolerance {self.TOL}); a second launch on the same "
+                    f"inputs: {err2}"
+                )
+            self.checked.add(key)

@@ -13,9 +13,8 @@ fallback from one to the other.
 
 The first launch of each kernel instantiation (device, dtype, head_dim) in
 a process is preceded by a check launch on a small input, held against the
-plain version; a disagreement raises. It guards against a first-launch
-fault seen once on the card and not yet explained (``PERF.md``, Open
-questions), which would otherwise serve wrong tokens silently.
+plain version by :class:`~repro_torch.kernels.build.FirstLaunchGuard`; a
+disagreement raises.
 """
 from __future__ import annotations
 
@@ -33,10 +32,11 @@ HEAD_DIMS = (32, 64, 128)
 
 _fn_lock = threading.Lock()
 _count_lock = threading.Lock()
-_check_lock = threading.Lock()
 _fn = None
-_checked: set = set()  # (device index, dtype, head_dim) whose first launch passed
-CHECK_TOL = 5e-2  # far above rounding in either dtype, far below a wrong result
+# keyed by (device index, dtype, head_dim)
+_guard = build.FirstLaunchGuard(
+    "flash_attention", lambda got, want: (got.float() - want.float()).abs().max().item()
+)
 
 
 def _kernel_fn():
@@ -170,30 +170,22 @@ def _launch(q, k, v, *, causal, window, k_len) -> torch.Tensor:
 
 def _check_first_launch(device: torch.device, dtype: torch.dtype, Dh: int) -> None:
     """Before the first launch of an instantiation in this process, launch it
-    on a small causal GQA input and hold the result against the plain
-    version; raise if they disagree. Checked instantiations are remembered,
-    so the cost (one small launch and one synchronization) is paid once."""
-    key = (device.index, dtype, Dh)
-    if key in _checked:
-        return
-    with _check_lock:
-        if key in _checked or dtype not in _DTYPE_CODES or Dh not in HEAD_DIMS:
-            return  # checked meanwhile, or _launch will refuse the call
+    on a small causal GQA input and hold the result (max abs error) against
+    the plain version; raise if they disagree."""
+    if dtype not in _DTYPE_CODES or Dh not in HEAD_DIMS:
+        return  # _launch will refuse the call
+
+    def case():
         g = torch.Generator(device=device).manual_seed(0)
         shapes = [(1, 2, 64, Dh), (1, 1, 64, Dh), (1, 1, 64, Dh)]
         q, k, v = (torch.randn(s, generator=g, device=device).to(dtype) for s in shapes)
-        got = _launch(q, k, v, causal=True, window=None, k_len=None)
-        want = flash_attention_ref(q, k, v, causal=True)
-        err = (got.float() - want.float()).abs().max().item()
-        if not err <= CHECK_TOL:
-            again = _launch(q, k, v, causal=True, window=None, k_len=None)
-            err2 = (again.float() - want.float()).abs().max().item()
-            raise RuntimeError(
-                f"flash_attention first-launch check failed on {device} ({dtype}, head_dim "
-                f"{Dh}): max abs error {err} against the plain version (tolerance "
-                f"{CHECK_TOL}); a second launch on the same inputs: {err2}"
-            )
-        _checked.add(key)
+
+        def launch():
+            return _launch(q, k, v, causal=True, window=None, k_len=None)
+
+        return launch, flash_attention_ref(q, k, v, causal=True)
+
+    _guard.check((device.index, dtype, Dh), case)
 
 
 flash_attention_bhsd.launches = 0

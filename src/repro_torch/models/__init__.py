@@ -1,4 +1,5 @@
-"""repro_torch.models — the dense decoder LM, ported from ``repro.models``."""
+"""repro_torch.models — the decoder LM (dense, SSM, hybrid), ported from
+``repro.models``."""
 from .common import init_params
 from .lm import Model, build_model, stack_plan
 

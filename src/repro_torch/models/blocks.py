@@ -1,8 +1,12 @@
 """Decoder blocks, ported from the reference's ``repro/models/blocks.py``.
 
-This slice carries the dense-decoder path: pre-norm attention, then a
-pre-norm MLP. The other families (MoE, SSM, hybrid, enc-dec, VLM) come with
-later slices; their blocks raise ``NotImplementedError`` here.
+Families carried so far:
+  dense           pre-norm attention + gated MLP
+  ssm             pre-norm Mamba2 SSD block (no separate MLP)
+  hybrid (hymba)  parallel attention + SSD heads on separately normed
+                  inputs, ``x + 0.5 * (attn + ssm)``, then the MLP
+The other families (MoE, enc-dec, VLM) come with later slices; their
+blocks raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -13,15 +17,21 @@ import torch
 from .attention import gqa_attention, gqa_cache_shape, gqa_params
 from .common import rms_norm
 from .mlp import mlp_apply, mlp_params
+from .ssm import ssm_apply, ssm_cache_shape, ssm_params
 
 
 def check_supported(cfg) -> None:
     """Raise for a config whose blocks this slice does not carry."""
-    if cfg.family != "dense" or cfg.attention != "gqa" or cfg.norm != "rms" or not cfg.use_rope:
+    rope_gqa = cfg.attention == "gqa" and cfg.use_rope
+    ok = cfg.norm == "rms" and not cfg.is_moe and not cfg.is_encdec and (
+        (cfg.family in ("dense", "hybrid") and rope_gqa)
+        or (cfg.family == "ssm" and cfg.attention == "none")
+    )
+    if not ok:
         raise NotImplementedError(
-            f"the port carries the dense GQA RMSNorm RoPE decoder only; {cfg.name} "
-            f"(family={cfg.family!r}, attention={cfg.attention!r}, norm={cfg.norm!r}) "
-            "waits for a later slice"
+            "the port carries the dense and hybrid GQA RMSNorm RoPE decoders and the "
+            f"attention-free SSM decoder; {cfg.name} (family={cfg.family!r}, "
+            f"attention={cfg.attention!r}, norm={cfg.norm!r}) waits for a later slice"
         )
 
 
@@ -35,12 +45,17 @@ def _norm(cfg, p, x: torch.Tensor) -> torch.Tensor:
 
 def block_params(cfg, a) -> dict:
     check_supported(cfg)
-    return {
-        "attn": gqa_params(cfg, a),
-        "attn_norm": _norm_params(cfg, a),
-        "mlp_norm": _norm_params(cfg, a),
-        "mlp": mlp_params(cfg, a),
-    }
+    p: dict = {}
+    if cfg.attention == "gqa":
+        p["attn"] = gqa_params(cfg, a)
+        p["attn_norm"] = _norm_params(cfg, a)
+    if cfg.family in ("ssm", "hybrid"):
+        p["ssm"] = ssm_params(cfg, a)
+        p["ssm_norm"] = _norm_params(cfg, a)
+    if cfg.d_ff > 0:
+        p["mlp_norm"] = _norm_params(cfg, a)
+        p["mlp"] = mlp_params(cfg, a)
+    return p
 
 
 def block_apply(
@@ -57,27 +72,46 @@ def block_apply(
     window: Optional[int] = None,  # None = full attention (global layers)
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Returns (x_out, new_cache). Decode writes the cache in place."""
-    h = _norm(cfg, p["attn_norm"], x)
-    a_out, a_cache = gqa_attention(
-        cfg,
-        p["attn"],
-        h,
-        positions,
-        window=window,
-        prefix_len=prefix_len,
-        bidirectional=bidirectional,
-        cache=cache.get("attn") if cache else None,
-        cache_index=cache_index,
-        return_cache=return_cache,
-    )
-    x = x + a_out
-    h = _norm(cfg, p["mlp_norm"], x)
-    x = x + mlp_apply(cfg, p["mlp"], h)
-    return x, ({"attn": a_cache} if a_cache is not None else None)
+    new_cache: dict = {}
+    s_out = None
+    if cfg.family in ("ssm", "hybrid"):
+        s_out, s_cache = ssm_apply(
+            cfg, p["ssm"], _norm(cfg, p["ssm_norm"], x),
+            cache=cache.get("ssm") if cache else None, return_cache=return_cache,
+        )
+        if s_cache is not None:
+            new_cache["ssm"] = s_cache
+    if "attn" in p:
+        a_out, a_cache = gqa_attention(
+            cfg,
+            p["attn"],
+            _norm(cfg, p["attn_norm"], x),
+            positions,
+            window=window,
+            prefix_len=prefix_len,
+            bidirectional=bidirectional,
+            cache=cache.get("attn") if cache else None,
+            cache_index=cache_index,
+            return_cache=return_cache,
+        )
+        if a_cache is not None:
+            new_cache["attn"] = a_cache
+        # hybrid: parallel attention + SSD heads (hymba)
+        x = x + (a_out if s_out is None else 0.5 * (a_out + s_out))
+    else:
+        x = x + s_out
+    if "mlp" in p:
+        x = x + mlp_apply(cfg, p["mlp"], _norm(cfg, p["mlp_norm"], x))
+    return x, (new_cache or None)
 
 
 def block_cache_shape(cfg, batch: int, seq: int, dtype, *, is_global: bool = True) -> dict:
     """Cache shapes for ONE layer (meta tensors). seq = the KV length kept."""
-    ring = (not is_global) and cfg.window is not None and cfg.window < seq
-    kv_len = min(seq, cfg.window) if ring else seq
-    return {"attn": gqa_cache_shape(cfg, batch, kv_len, dtype, ring=ring)}
+    c: dict = {}
+    if cfg.attention == "gqa":
+        ring = (not is_global) and cfg.window is not None and cfg.window < seq
+        kv_len = min(seq, cfg.window) if ring else seq
+        c["attn"] = gqa_cache_shape(cfg, batch, kv_len, dtype, ring=ring)
+    if cfg.family in ("ssm", "hybrid"):
+        c["ssm"] = ssm_cache_shape(cfg, batch, dtype)
+    return c

@@ -67,8 +67,12 @@ class Init:
     ``normal`` is fan-in scaled (the contracted dims: ``shape[0]`` for
     matrices, every dim but the last above that — so a layer-stacked leaf
     counts its stacking dim, exactly as the reference does), ``embed`` is a
-    normal times ``scale``, ``zeros`` is zero. Draws come from
+    normal times ``scale``, ``zeros`` and ``ones`` are constant, ``ssm_dt``
+    is the Mamba dt bias (softplus-inverse of a log-uniform dt in [0.001,
+    0.1)) and ``ssm_a`` the log of a uniform A in [1, 16). Draws come from
     one ``torch.Generator`` in call order, so one seed gives one model.
+    ``dtype`` overrides the model dtype for one leaf, as the reference keeps
+    the SSM's per-head ``a_log``, ``d_skip`` and ``dt_bias`` in float32.
     """
 
     def __init__(self, generator: torch.Generator, device, dtype: torch.dtype) -> None:
@@ -77,11 +81,25 @@ class Init:
         self.dtype = dtype
 
     def param(
-        self, shape: Sequence[int], init: str = "normal", scale: Optional[float] = None
+        self,
+        shape: Sequence[int],
+        init: str = "normal",
+        scale: Optional[float] = None,
+        dtype: Optional[torch.dtype] = None,
     ) -> torch.Tensor:
         shape = tuple(shape)
+        dtype = dtype or self.dtype
         if init == "zeros":
-            return torch.zeros(shape, dtype=self.dtype, device=self.device)
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        if init == "ones":
+            return torch.ones(shape, dtype=dtype, device=self.device)
+        if init in ("ssm_dt", "ssm_a"):
+            u = torch.rand(shape, generator=self.generator, device=self.device)
+            if init == "ssm_a":  # A in [1, 16), stored as its log
+                return torch.log(1.0 + 15.0 * u).to(dtype)
+            lo, hi = 0.001, 0.1
+            dt = torch.exp(u * (math.log(hi) - math.log(lo)) + math.log(lo))
+            return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
         if init == "normal":
             if scale is None:
                 fan_in = shape[0] if len(shape) <= 2 else math.prod(shape[:-1])
@@ -91,7 +109,7 @@ class Init:
         else:
             raise ValueError(f"unknown init {init!r}")
         x = torch.randn(shape, generator=self.generator, device=self.device, dtype=torch.float32)
-        return (x * scale).to(self.dtype)
+        return (x * scale).to(dtype)
 
 
 class StackedInit:
@@ -101,8 +119,14 @@ class StackedInit:
     def __init__(self, init: Init, num_layers: int) -> None:
         self._init, self._L = init, num_layers
 
-    def param(self, shape: Sequence[int], init: str = "normal", scale: Optional[float] = None):
-        return self._init.param((self._L, *shape), init, scale)
+    def param(
+        self,
+        shape: Sequence[int],
+        init: str = "normal",
+        scale: Optional[float] = None,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        return self._init.param((self._L, *shape), init, scale, dtype)
 
 
 def init_params(cfg, generator: torch.Generator, device, dtype: torch.dtype) -> ParamTree:

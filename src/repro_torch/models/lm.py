@@ -1,11 +1,12 @@
 """The decoder-only LM: prefill and per-lane decode, ported from the
-reference's ``repro/models/lm.py`` for the dense family.
+reference's ``repro/models/lm.py`` for the dense, SSM and hybrid families.
 
 The reference scans over layer-stacked params; here each layer group is a
 list of per-layer parameter modules and the scan is a Python loop. Caches
 keep the reference's stacked layout — ``{"s0": {"attn": {"k": (L, B, S, KV,
-Dh), "v": ...}}}`` — and decode writes each lane's new row into them in
-place.
+Dh), "v": ...}, "ssm": {"conv": (L, B, K-1, C), "state": (L, B, H, P, N)}}}``
+— and decode writes each lane's new row, conv window and state into them
+in place.
 """
 from __future__ import annotations
 
@@ -89,7 +90,7 @@ def param_tree(cfg, a) -> dict:
 
 
 class Model:
-    """Dense decoder LM over a parameter tree (``ParamTree``).
+    """Decoder LM (dense, SSM or hybrid) over a parameter tree (``ParamTree``).
 
     ``device`` defaults to ``cuda:0`` and raises without a GPU; tests pass
     ``device="cpu"``. ``prefill`` and ``decode_step`` run under
@@ -128,8 +129,9 @@ class Model:
         return torch.einsum("bsd,dv->bsv", x, p["lm_head"])
 
     def _layers(self, p, x, positions, *, caches=None, cache_index=None):
-        """The layer loop. Prefill (no ``caches``) returns the new stacked
-        caches; decode writes into ``caches`` in place and returns None."""
+        """The layer loop. Prefill (no ``caches``) returns the new caches,
+        stacked per scan group; decode hands each layer views of its slice
+        of ``caches``, writes into them in place and returns None."""
         prefill = caches is None
         caches_out: dict = {}
         for grp in self.plan:

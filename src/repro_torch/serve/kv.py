@@ -135,25 +135,35 @@ def ring_modulus(caches: dict) -> Optional[int]:
     return acc[0] if acc else None
 
 
+def _is_ssm(node: Any) -> bool:
+    return isinstance(node, dict) and "conv" in node and "state" in node
+
+
+# the batch axis of a model cache leaf, counted from its end
+_BATCH_AX_FROM_END = {"k": 4, "v": 4, "pos": 2, "conv": 3, "state": 4}
+
+
 def lane_view(caches: dict) -> dict:
     """The model's decode layout of a slot-major cache tree, as views.
 
-    A slot-major GQA leaf ``(slots, ..., 1, S, KV, Dh)`` (ring positions
-    ``(slots, ..., 1, W)``) becomes ``(..., slots, S, KV, Dh)``: the slot
-    axis takes the place of the batch-1 axis. Writes through the views land
-    in the slot-major tensors.
+    A slot-major leaf ``(slots, ..., 1, *rest)`` becomes ``(..., slots,
+    *rest)``: the slot axis takes the place of the batch-1 axis. That
+    covers GQA K/V ``(S, KV, Dh)`` and ring positions ``(W,)``, and the SSM's
+    conv window ``(K-1, C)`` and state ``(H, P, N)``, with or without a
+    leading layers axis. Writes through the views land in the slot-major
+    tensors.
     """
 
     def walk(node):
-        if _is_gqa(node):
+        if _is_gqa(node) or _is_ssm(node):
             out = {}
             for key, leaf in node.items():
-                b_ax = leaf.ndim - (2 if key == "pos" else 4)
+                b_ax = leaf.ndim - _BATCH_AX_FROM_END[key]
                 out[key] = leaf.squeeze(b_ax).movedim(0, b_ax - 1)
             return out
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
-        raise NotImplementedError("lane_view handles GQA caches only in this slice")
+        raise NotImplementedError("lane_view handles GQA and SSM caches only in this slice")
 
     return walk(caches)
 

@@ -1,8 +1,9 @@
 """The port's serving engine (``repro_torch.serve.ServeEngine``) on reduced
-tinyllama at float32: continuous batching equals the port's sequential
-single-request decode token for token, preempt/resume is bit-identical,
-the engine's tokens equal the reference JAX engine's on the same prompts
-and weights, and the engine refuses to pick a device it does not have."""
+tinyllama, mamba2 and hymba at float32: continuous batching equals the
+port's sequential single-request decode token for token, preempt/resume is
+bit-identical, the engine's tokens equal the reference JAX engine's on the
+same prompts and weights, recurrent-state families refuse prefill buckets,
+and the engine refuses to pick a device it does not have."""
 import jax
 import numpy as np
 import pytest
@@ -161,3 +162,64 @@ def test_engine_refuses_a_model_on_another_device(tiny):
     _cfg, model, params = tiny
     with pytest.raises(ValueError):
         ServeEngine(model, params, device="meta")
+
+
+SSM_ARCHS = ["mamba2-1.3b", "hymba-1.5b"]
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_family_matches_single_request_decode(arch):
+    """Recurrent-state caches (no bucketing) through the engine: its tokens
+    equal the port's sequential decode and the JAX engine's, on the
+    reference's weights. Hymba's prompts straddle its window of 8."""
+    jcfg = jax_get_reduced(arch).replace(dtype="float32")
+    cfg = get_reduced(arch).replace(dtype="float32")
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    model = build_model(cfg, device="cpu")
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams))
+    MAX_LEN = 20
+    prompts = _prompts(cfg, 1, [5, 11, 3])
+    budgets = [6, 4, 5]
+    refs = [sequential_decode(model, params, p, b, MAX_LEN) for p, b in zip(prompts, budgets)]
+    with ServeEngine(model, params, max_slots=2, max_len=MAX_LEN, device="cpu") as engine:
+        outs = engine.generate(prompts, budgets, timeout=120)
+    with JaxServeEngine(jmodel, jparams, max_slots=2, max_len=MAX_LEN) as engine:
+        want = engine.generate(prompts, budgets, timeout=300)
+    for ref, out, w in zip(refs, outs, want):
+        assert list(map(int, out)) == ref == list(map(int, w))
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_page_pressure_preempts_and_resumes_bit_identical(arch):
+    """A preempted sequence resumes by an exact-length re-prefill, which
+    rebuilds its conv window and state; mamba2 holds no page leaves at all,
+    so only the page accounting forces the preemption."""
+    cfg = get_reduced(arch).replace(dtype="float32")
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    MAX_LEN = 24
+    prompts = _prompts(cfg, 5, [5, 5, 5])
+    budgets = [12, 11, 10]
+    refs = [sequential_decode(model, params, p, b, MAX_LEN) for p, b in zip(prompts, budgets)]
+    with ServeEngine(
+        model, params, max_slots=2, max_len=MAX_LEN, page_size=4, num_pages=6, device="cpu"
+    ) as engine:
+        outs = engine.generate(prompts, budgets, timeout=120)
+        stats = engine.stats()
+    for ref, out in zip(refs, outs):
+        assert list(map(int, out)) == ref
+    assert stats["preemptions"] >= 1
+    assert stats["completed"] == 3
+    assert stats["kv"]["pages_live"] == 0
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_prefill_buckets_are_rejected_for_recurrent_state(arch):
+    """Pad tokens would run through the SSM's recurrence (and hymba's
+    window), so neither family may bucket its prompts."""
+    cfg = get_reduced(arch).replace(dtype="float32")
+    model = build_model(cfg, device="cpu")
+    assert not ServeEngine.supports_prefill_buckets(cfg)
+    with pytest.raises(ValueError, match="prefill_buckets"):
+        ServeEngine(model, model.init(0), prefill_buckets=(8, 16), device="cpu")

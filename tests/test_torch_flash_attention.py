@@ -102,12 +102,12 @@ def test_first_launch_check_raises_on_a_wrong_result(monkeypatch, dtype):
     unchecked), a right one is remembered. The launch is stood in for on
     the CPU; on the card it is the kernel."""
     cpu = torch.device("cpu")
-    monkeypatch.setattr(tfa, "_checked", set())
+    monkeypatch.setattr(tfa._guard, "checked", set())
     monkeypatch.setattr(tfa, "_launch", lambda q, k, v, **kw: torch.full_like(q, 320.0))
     with pytest.raises(RuntimeError, match="first-launch check failed"):
         tfa._check_first_launch(cpu, dtype, 64)
-    assert not tfa._checked
+    assert not tfa._guard.checked
     monkeypatch.setattr(tfa, "_launch", lambda q, k, v, **kw: tfa.flash_attention_ref(
         q, k, v, causal=kw["causal"], window=kw["window"], k_len=kw["k_len"]))
     tfa._check_first_launch(cpu, dtype, 64)
-    assert tfa._checked == {(None, dtype, 64)}
+    assert tfa._guard.checked == {(None, dtype, 64)}

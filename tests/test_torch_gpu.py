@@ -3,8 +3,8 @@ device and import nothing of JAX, so they run on the GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-The CUDA flash kernel is held against its plain version over the mask and
-shape sweep, and a small model served on the card is held against the same
+The CUDA flash and SSD kernels are held against their plain versions over
+shape sweeps, and small models served on the card are held against the same
 weights decoded on the CPU."""
 import numpy as np
 import pytest
@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.configs import get_reduced
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ssd as tssd
 from repro_torch.models import build_model
 from repro_torch.models.lm import extend_caches
 from repro_torch.serve import ServeEngine
@@ -52,11 +53,97 @@ def test_flash_kernel_matches_plain_version_on_card(dtype):
         got = tfa.flash_attention(q, k, v, **mask)
         torch.cuda.synchronize()
         assert tfa.flash_attention_bhsd.launches == before + 1
-        assert (0, dt, Dh) in tfa._checked  # its first launch was checked
+        assert (0, dt, Dh) in tfa._guard.checked  # its first launch was checked
         want = tfa.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                        **mask).transpose(1, 2)
         err = (got.float() - want.float()).abs().max().item()
         assert err <= tol, (name, dtype, err)
+
+
+# (B, S, H, P, N, chunk, laws); x, B and C are handed over as the model's
+# split views of one (B, S, H*P + 2N) activation. laws "wide": dt =
+# softplus(N(0, 1)), A = -exp(U[0, 1)), so the state decays within a few rows;
+# "model": the model's init laws (log-uniform dt in [1e-3, 0.1), A in
+# [-16, -1)), so the state carries across whole chunks and the 32-row steps
+SSD_SWEEP = {
+    "mamba2 heads, ragged S=300, chunk 256": (1, 300, 64, 64, 128, 256, "wide"),
+    "mamba2 heads, S=512, chunk 256, model's dt/A": (1, 512, 64, 64, 128, 256, "model"),
+    "hymba heads, H=25 N=16, chunk 64": (1, 300, 25, 64, 16, 64, "wide"),
+    "B=2 H=25 N=128, chunk 64": (2, 100, 25, 64, 128, 64, "wide"),
+    "S < chunk 256": (1, 50, 4, 64, 128, 256, "wide"),
+    "reduced mamba2, chunk 8": (2, 37, 8, 16, 16, 8, "wide"),
+    "reduced hymba N=8, chunk 8": (1, 19, 4, 16, 8, 8, "wide"),
+    "P=40 ragged P tile, N=24": (2, 70, 3, 40, 24, 32, "wide"),
+    "B=2 H=5 P=32, chunk 64": (2, 130, 5, 32, 16, 64, "wide"),
+}
+
+
+def _dt_a(rng, B, S, H, laws):
+    """dt (B, S, H) and A (H,) in float32 numpy, by the named laws."""
+    if laws == "model":
+        lo, hi = np.log(1e-3), np.log(1e-1)
+        dt = np.exp(rng.uniform(lo, hi, (B, S, H)))
+        return dt, -rng.uniform(1.0, 16.0, H)
+    return np.log1p(np.exp(rng.standard_normal((B, S, H)))), -np.exp(rng.uniform(0.0, 1.0, H))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_matches_plain_version_on_card(dtype):
+    dev = _cuda()
+    dt_, tol = {"float32": (torch.float32, 1e-4), "bfloat16": (torch.bfloat16, 1e-2)}[dtype]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(1)
+    for name, (B, S, H, P, N, chunk, laws) in SSD_SWEEP.items():
+        xbc = torch.from_numpy(rng.standard_normal((B, S, H * P + 2 * N))).to(dev, dt_)
+        x = xbc[..., : H * P].reshape(B, S, H, P)
+        Bm, Cm = xbc[..., H * P : H * P + N], xbc[..., H * P + N :]
+        dt, A = (torch.from_numpy(a).to(dev, torch.float32) for a in _dt_a(rng, B, S, H, laws))
+        kw = dict(chunk=chunk, return_final_state=True)
+        before = tssd.ssd_bshp.launches
+        y, state = tssd.ssd_bshp(x, dt, A, Bm, Cm, **kw)
+        torch.cuda.synchronize()
+        assert tssd.ssd_bshp.launches == before + 1
+        assert (0, dt_) in tssd._guard.checked  # its first launch was checked
+        want_y, want_state = tssd.ssd_ref(x, dt, A, Bm, Cm, **kw)
+        assert y.dtype == dt_ and state.dtype == torch.float32
+        for got, want in ((y, want_y), (state, want_state)):
+            assert torch.isfinite(got.float()).all(), name
+            assert tssd.scaled_error(got, want) <= tol, (name, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b"])
+def test_small_ssm_model_served_on_card_matches_cpu_decode(arch):
+    """Every prefill on the card runs the SSD kernel once per layer (and
+    hymba's the flash kernel too); the tokens equal the same weights'
+    sequential decode on the CPU."""
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # head_dim 32: the flash kernel is built for head dims 32, 64 and 128
+    cfg = get_reduced(arch).replace(dtype="float32", head_dim=32)
+    cpu_model = build_model(cfg, device="cpu")
+    params = cpu_model.init(0)
+    model = build_model(cfg, device=dev)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (5, 70, 13)]
+    refs = []
+    for prompt in prompts:
+        logits, caches = cpu_model.prefill(params, {"tokens": prompt[None]})
+        caches = extend_caches(caches, 96 - prompt.size, window=cfg.window)
+        out = [int(torch.argmax(logits[0, -1]))]
+        for i in range(5):
+            logits, caches = cpu_model.decode_step(params, [[out[-1]]], caches, [prompt.size + i])
+            out.append(int(torch.argmax(logits[0, -1])))
+        refs.append(out)
+    ssd0, fa0 = tssd.ssd_bshp.launches, tfa.flash_attention_bhsd.launches
+    with ServeEngine(model, params.to(dev), max_slots=2, max_len=96, page_size=16) as engine:
+        outs = engine.generate(prompts, 6, timeout=300)
+    assert tssd.ssd_bshp.launches - ssd0 == cfg.num_layers * len(prompts)
+    want_fa = cfg.num_layers * len(prompts) if cfg.attention == "gqa" else 0
+    assert tfa.flash_attention_bhsd.launches - fa0 == want_fa
+    for ref, out in zip(refs, outs):
+        assert list(map(int, out)) == ref
 
 
 @pytest.mark.gpu

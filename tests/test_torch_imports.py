@@ -36,9 +36,10 @@ def test_no_jax_or_reference_import(path):
 def test_importing_the_port_loads_no_jax_or_reference_module():
     code = (
         "import sys, repro_torch, repro_torch.bridge, repro_torch.configs, "
-        "repro_torch.core, repro_torch.kernels, repro_torch.serve\n"
+        "repro_torch.core, repro_torch.kernels, repro_torch.kernels.ssd, "
+        "repro_torch.models.ssm, repro_torch.serve\n"
         "from repro_torch.configs import get_config\n"
-        "[get_config(a) for a in ('tinyllama-1.1b', 'mamba2-1.3b')]\n"
+        "[get_config(a) for a in ('tinyllama-1.1b', 'mamba2-1.3b', 'hymba-1.5b')]\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "sys.exit(f'loaded {bad}' if bad else 0)\n"
     )

@@ -1,13 +1,15 @@
 """The port's KV-cache pools (``repro_torch.serve.kv``): slot and page
 accounting, the per-family pad walks, ring re-layout, and the bit-identity
 of the paged layout with the flat one through prefill writes and a decode
-tick. Mirrors ``tests/serve/test_kv.py`` on reduced tinyllama at float32."""
+tick. Mirrors ``tests/serve/test_kv.py`` on reduced tinyllama at float32;
+the SSM leaves (slot-major, never paged) on reduced mamba2 and hymba."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_reduced
 from repro_torch.models import build_model
+from repro_torch.models.lm import extend_caches
 from repro_torch.serve.kv import (
     PagedKVCache,
     SlotKVCache,
@@ -273,3 +275,93 @@ def test_paged_write_validates():
         kv.write(slot, cache, 9)  # exceeds max_len
     with pytest.raises(ValueError):
         kv.write(slot, cache, 8)  # needs 2 pages, slot holds 1
+
+
+# ---------------------------------------------------------------------------
+# SSM leaves: slot-indexed, viewed onto the decode batch axis
+# ---------------------------------------------------------------------------
+
+
+def test_lane_view_maps_ssm_leaves_without_a_copy():
+    """State ``(slots, L, 1, H, P, N)`` -> ``(L, slots, H, P, N)`` and conv
+    ``(slots, L, 1, K-1, C)`` -> ``(L, slots, K-1, C)``; a single (global)
+    layer's leaves have no layers axis. Writes land in the slot-major pool."""
+    state = torch.arange(3 * 2 * 4 * 2 * 3, dtype=torch.float32).reshape(3, 2, 1, 4, 2, 3)
+    conv = torch.arange(3 * 2 * 3 * 5, dtype=torch.float32).reshape(3, 2, 1, 3, 5)
+    g_state = torch.zeros(3, 1, 4, 2, 3)
+    g_conv = torch.zeros(3, 1, 3, 5)
+    view = lane_view({
+        "s0": {"ssm": {"conv": conv, "state": state}},
+        "g1": {"ssm": {"conv": g_conv, "state": g_state}},
+    })
+    s, g = view["s0"]["ssm"], view["g1"]["ssm"]
+    assert s["state"].shape == (2, 3, 4, 2, 3) and s["conv"].shape == (2, 3, 3, 5)
+    assert g["state"].shape == (3, 4, 2, 3) and g["conv"].shape == (3, 3, 5)
+    assert torch.equal(s["state"][1, 2], state[2, 1, 0])
+    assert s["state"].data_ptr() == state.data_ptr()  # views, not copies
+    s["state"][0, 1].copy_(torch.full((4, 2, 3), -1.0))  # lane 1 of layer 0
+    s["conv"][1, 2, 0, 4] = -2.0
+    g["state"][2] = 7.0
+    assert (state[1, 0, 0] == -1.0).all() and not (state[0] == -1.0).any()
+    assert conv[2, 1, 0, 0, 4].item() == -2.0
+    assert (g_state[2] == 7.0).all() and not g_state[:2].any()
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b"])
+def test_ssm_decode_tick_writes_through_the_lane_view(arch):
+    """One decode step over a flat and a paged pool: both write each lane's
+    conv window and state into its own slot and agree bit for bit."""
+    cfg = get_reduced(arch).replace(dtype="float32")
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    MAX, lens = 16, (3, 11)
+    flat = SlotKVCache(model, max_slots=2, max_len=MAX)
+    paged = PagedKVCache(model, max_slots=2, max_len=MAX, page_size=4)
+    feeds = {}
+    for i, S in enumerate(lens):
+        cache = _prefill(model, params, S, seed=20 + i)
+        flat.write(flat.alloc(), cache, S)
+        paged.write(paged.alloc(paged.pages_for(S + 1)), cache, S)
+        feeds[i] = S
+    grp = next(g.name for g in model.plan if g.kind == "scan")
+    before = flat.read_slot(1)[grp]["ssm"]["state"].clone()
+    tok, idx = torch.tensor([[5], [9]]), torch.tensor(lens)
+    logits_f, _ = model.decode_step(params, tok, lane_view(flat.buffers), idx)
+    tables, dest = paged.tick_inputs(feeds)
+    gathered = paged.gather(paged.pools, torch.as_tensor(tables, dtype=torch.long))
+    logits_p, _ = model.decode_step(params, tok, lane_view(gathered), idx)
+    paged.scatter(paged.pools, gathered, torch.as_tensor(dest, dtype=torch.long), idx)
+    assert torch.equal(logits_f, logits_p)
+    for slot in range(2):
+        assert _leaves_equal(flat.read_slot(slot), paged.read_slot(slot))
+    after = flat.read_slot(1)[grp]["ssm"]["state"]
+    assert not torch.equal(after, before)  # the step landed in slot 1's pool row
+    # and it is what a batch-1 decode of that sequence alone computes
+    alone = extend_caches(_prefill(model, params, lens[1], seed=21), MAX - lens[1],
+                          window=cfg.window)
+    logits_1, _ = model.decode_step(params, [[9]], alone, [lens[1]])
+    torch.testing.assert_close(logits_f[1:], logits_1, atol=1e-5, rtol=1e-5)
+
+
+def test_paged_pool_without_page_leaves():
+    """mamba2 keeps no growable leaf: every pool is slot-major, and the
+    pages are accounting only — alloc, write, gather, grow, free still work."""
+    cfg = get_reduced("mamba2-1.3b").replace(dtype="float32")
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    kv = PagedKVCache(model, max_slots=2, max_len=16, page_size=4, num_pages=5)
+    state = kv.pools["s0"]["ssm"]["state"]
+    assert state.shape == (2, cfg.num_layers, 1, 8, 16, 16)  # slots, no page axis
+    cache = _prefill(model, params, 6, seed=3)
+    slot = kv.alloc(kv.pages_for(6))
+    assert kv.pages_live == 2
+    kv.write(slot, cache, 6)
+    got = kv.read_slot(slot)["s0"]["ssm"]
+    assert torch.equal(got["state"], cache["s0"]["ssm"]["state"])
+    assert torch.equal(got["conv"], cache["s0"]["ssm"]["conv"])
+    gathered = kv.gather(kv.pools, torch.as_tensor(kv.tick_inputs({slot: 6})[0], dtype=torch.long))
+    assert gathered["s0"]["ssm"]["state"] is state  # slot leaves are the pool itself
+    assert kv.grow_to(slot, 16) and kv.pages_live == 4
+    assert kv.alloc(2) is None  # one page left
+    kv.free(slot)
+    assert kv.pages_live == 0 and kv.num_free == 2
