@@ -7,16 +7,21 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 
 It builds every hand-written kernel from ``src/repro_torch/csrc`` with nvcc
 (flash attention and the SSD scan, one nvcc each, started together), holds
-each against its plain PyTorch version on the card and times it, then
-serves three full-width models (random weights from seed 0) through
-``repro_torch.ServeEngine``, one after another: tinyllama-1.1b (flash
-attention prefill), mamba2-1.3b (SSD prefill) and hymba-1.5b (both). Each is
-served once in float32 against the port's own sequential batch-1 decode and
-once in bfloat16 as its measured main path, with every kernel's launch
-counter set to 0 just before that run and read just after. Each phase prints
-one JSON line; any failure exits non-zero. The last three lines are the
-kernels line, the card's ``nvidia-smi`` name and power limit, and
-``{"ok": true, "device": ...}``.
+each against its plain PyTorch version on the card in bf16 (the
+tensor-core design) and f32 (the FMA design), and times the bf16 kernel,
+its plain version and, where there is one, the PyTorch call computing the
+same function: by CUDA events over back-to-back eager calls, and as device
+time by CUDA-graph replay. It then serves three full-width models (random
+weights from seed 0) through ``repro_torch.ServeEngine``, one after
+another: tinyllama-1.1b (flash attention prefill), mamba2-1.3b (SSD
+prefill) and hymba-1.5b (both). Each is served once in float32 against the
+port's own sequential batch-1 decode and once in bfloat16 as its measured
+main path, with every kernel's launch counter set to 0 just before that run
+and read just after, followed by host times and profiler traces of one
+S=300 prefill and one 4-lane decode step. Each phase prints one JSON line;
+any failure exits non-zero. The last three lines are the kernels line, the
+card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+...}``.
 
 It imports nothing of JAX or of the reference package.
 """
@@ -25,6 +30,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -151,6 +157,45 @@ def _time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of one call: ``calls`` calls captured in one CUDA graph,
+    replayed ``replays`` times between CUDA events, so the host's enqueue
+    time (the wrapper's Python, the launches) drops out of the reading."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def _times(kernel, plain, library, iters: int) -> dict:
+    """``ms``, ``plain_ms`` and ``library_ms`` by CUDA events over back-to-back
+    eager calls (the host's enqueue time included where it is the longer),
+    and the kernel's and the library call's device time from CUDA-graph
+    replay (``device_ms``, ``library_device_ms``). The plain version is not
+    captured: its matmuls would leave a cuBLAS workspace for the capture
+    stream allocated, which the serve phases' peak memory would count."""
+    out = {"ms": _time_ms(kernel, iters), "plain_ms": _time_ms(plain, iters),
+           "library_ms": None if library is None else _time_ms(library, iters)}
+    out["device_ms"] = _graph_ms(kernel)
+    out["library_device_ms"] = None if library is None else _graph_ms(library)
+    return out
+
+
 def _attention_bound(B, H, KV, Sq, Sk, Dh, elem_bytes, causal, peak_flops):
     """Least time for the work: each input read once, the output written
     once; FLOPs over the (q, k) pairs the mask leaves visible."""
@@ -227,21 +272,22 @@ def phase_kernels() -> dict:
         worst = max(worst, err)
 
     timings = {}
-    for S in (512, 1024):
-        B, H, KV, Dh = 1, 32, 4, 64
-        q, k, v = _qkv(B, H, KV, S, S, Dh, bf16, seed=100 + S, model_layout=True)
+    for label, H, KV, S in (("tinyllama S=512", 32, 4, 512), ("tinyllama S=1024", 32, 4, 1024),
+                            ("hymba S=512", 25, 5, 512)):
+        B, Dh = 1, 64
+        q, k, v = _qkv(B, H, KV, S, S, Dh, bf16, seed=100 + S + H, model_layout=True)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         qc, kc, vc = (t.contiguous() for t in (qt, kt, vt))
-        ms = _time_ms(lambda: flash_attention(q, k, v, causal=True))
-        plain_ms = _time_ms(lambda: flash_attention_ref(qt, kt, vt, causal=True))
-        library_ms = _time_ms(
-            lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
+        timings[label] = _times(
+            lambda: flash_attention(q, k, v, causal=True),
+            lambda: flash_attention_ref(qt, kt, vt, causal=True),
+            lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True),
+            iters=50,
         )
         bound_ms, bound_by = _attention_bound(B, H, KV, S, S, Dh, 2, True, PEAK_BF16_FLOPS)
-        timings[S] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
-        emit("kernels", kernel="flash_attention", timing=f"tinyllama causal bf16 Sq=Sk={S}",
-             **timings[S])
+        timings[label].update(bound_ms=bound_ms, bound_by=bound_by)
+        emit("kernels", kernel="flash_attention",
+             timing=f"{label} bf16 causal B={B} H={H} KV={KV} Dh={Dh}", **timings[label])
     return {"flash_attention": {"max_abs_err": worst, "timings": timings}}
 
 
@@ -341,12 +387,11 @@ def phase_ssd_kernels() -> dict:
     ):
         x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, bf16, 300 + S)
         kw = dict(chunk=chunk, return_final_state=True)
-        ms = _time_ms(lambda: ssd_bshp(x, dt, A, Bm, Cm, **kw), iters=20)
-        plain_ms = _time_ms(lambda: ssd_ref(x, dt, A, Bm, Cm, **kw), iters=20)
-        bound_ms, bound_by = _ssd_bound(B, S, H, P, N, chunk, 2, PEAK_BF16_FLOPS)
         # no single PyTorch call computes the SSD scan
-        timings[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                              bound_ms=bound_ms, bound_by=bound_by)
+        timings[label] = _times(lambda: ssd_bshp(x, dt, A, Bm, Cm, **kw),
+                                lambda: ssd_ref(x, dt, A, Bm, Cm, **kw), None, iters=20)
+        bound_ms, bound_by = _ssd_bound(B, S, H, P, N, chunk, 2, PEAK_BF16_FLOPS)
+        timings[label].update(bound_ms=bound_ms, bound_by=bound_by)
         emit("kernels", kernel="ssd", timing=f"{label} bf16 B={B} H={H} P={P} N={N} chunk={chunk}",
              **timings[label])
     return {"ssd": {"max_abs_err": worst, "max_scaled_err": worst_scaled, "timings": timings}}
@@ -403,10 +448,40 @@ def _serve(model, params, prompts, serve_kw):
     return outs, marks, wall, stats
 
 
+def _traced(fn) -> dict:
+    """One call of ``fn`` under the profiler: host-clock ms to the end of its
+    device work, the device-busy ms (the sum of its kernels' durations on the
+    one stream), the idle share, the launch count, and the device ms of the
+    port's kernels by name (K1 ``flash_fwd_*``, K2 ``ssd_*``)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    ports = {}  # device ms of each of the port's kernels, by its short name
+    for e in kernels:
+        name = re.search(r"(flash_fwd_\w+|ssd_\w+)", e.name)
+        if name:
+            ports[name.group(1)] = ports.get(name.group(1), 0.0) + e.time_range.elapsed_us() / 1e3
+    return {
+        "traced_ms": traced_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / traced_ms if traced_ms else None,
+        "kernel_launches": len(kernels),
+        "k1_device_ms": sum(v for k, v in ports.items() if k.startswith("flash_fwd")),
+        "k2_device_ms": sum(v for k, v in ports.items() if k.startswith("ssd_")),
+        "port_kernels_device_ms": ports,
+    }
+
+
 def _layer_times(model, params, serve_kw) -> dict:
-    """Host-clock times of one prefill and one 4-lane decode step at full
-    width, and the device-busy share of the decode step from a profiler
-    trace (the sum of its kernels' durations on the one stream)."""
+    """Host-clock times of one prefill (S=300) and one 4-lane decode step at
+    full width, and a profiler trace of each (:func:`_traced`)."""
     import torch
 
     from repro_torch.tree import tree_map
@@ -428,25 +503,17 @@ def _layer_times(model, params, serve_kw) -> dict:
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / n
 
-    prefill_ms = host_ms(lambda: model.prefill(params, {"tokens": tokens}), 5)
-    decode_ms = host_ms(lambda: model.decode_step(params, tok, caches, idx), 10)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
+    def prefill():
+        model.prefill(params, {"tokens": tokens})
+
+    def decode():
         model.decode_step(params, tok, caches, idx)
-        torch.cuda.synchronize()
-        traced_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    return {
-        "arch": cfg.name,
-        "prefill_ms_S300": prefill_ms,
-        "decode_step_ms_4lanes": decode_ms,
-        "decode_traced_ms": traced_ms,
-        "decode_device_busy_ms": busy_ms,
-        "decode_device_idle_share": 1.0 - busy_ms / traced_ms if traced_ms else None,
-        "decode_kernel_launches": len(kernels),
-    }
+
+    out = {"arch": cfg.name, "prefill_ms_S300": host_ms(prefill, 5),
+           "decode_step_ms_4lanes": host_ms(decode, 10)}
+    out.update({f"prefill_{k}": v for k, v in _traced(prefill).items()})
+    out.update({f"decode_{k}": v for k, v in _traced(decode).items()})
+    return out
 
 
 def _counters() -> dict:
@@ -546,13 +613,18 @@ def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple) -> dict:
 
 def _kernel_line(kern: dict, serves: list) -> dict:
     """The kernels JSON line: launches summed over the served paths' measured
-    runs (and listed per path), the rest from the kernels phases."""
+    runs (and listed per path), the rest from the kernels phases; ``design``
+    names the bf16 kernel's instruction path."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import design as fa_design
+    from repro_torch.kernels.ssd import DESIGNS as SSD_DESIGNS
 
     def launches(name):
         by_path = {s["arch"]: s["launches"][name] for s in serves}
         return sum(by_path.values()), by_path
 
-    fa, t_fa = kern["flash_attention"], kern["flash_attention"]["timings"][512]
+    fa, t_fa = kern["flash_attention"], kern["flash_attention"]["timings"]["tinyllama S=512"]
     ssd, t_ssd = kern["ssd"], kern["ssd"]["timings"]["mamba2 S=512"]
     fa_n, fa_by = launches("flash_attention")
     ssd_n, ssd_by = launches("ssd")
@@ -571,6 +643,9 @@ def _kernel_line(kern: dict, serves: list) -> dict:
                 "bound_ms": t_fa["bound_ms"],
                 "bound_by": t_fa["bound_by"],
                 "library_ms": t_fa["library_ms"],
+                "device_ms": t_fa["device_ms"],
+                "library_device_ms": t_fa["library_device_ms"],
+                "design": fa_design(torch.bfloat16, 64),
                 "at": "B=1 H=32 KV=4 Dh=64 Sq=Sk=512 bf16 causal",
             },
             {
@@ -587,6 +662,9 @@ def _kernel_line(kern: dict, serves: list) -> dict:
                 "bound_ms": t_ssd["bound_ms"],
                 "bound_by": t_ssd["bound_by"],
                 "library_ms": t_ssd["library_ms"],
+                "device_ms": t_ssd["device_ms"],
+                "library_device_ms": t_ssd["library_device_ms"],
+                "design": SSD_DESIGNS[torch.bfloat16],
                 "at": "B=1 S=512 H=64 P=64 N=128 chunk 256 bf16, with the final state",
             },
         ]

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.common import DTYPES, ParamTree
+from .models.common import DTYPES, ParamTree, resolve_device
 from .models.lm import check_supported, param_tree, stack_plan
 from .tree import tree_map
 
@@ -31,7 +31,11 @@ class _Declared:
         return torch.empty(tuple(shape), dtype=dtype or self.dtype, device="meta")
 
 
-def params_from_jax(cfg, tree: dict, device="cpu") -> ParamTree:
+def params_from_jax(cfg, tree: dict, device=None) -> ParamTree:
+    """The port's parameters from the reference's tree, on ``device``: the
+    caller's, else ``cuda:0`` (:func:`~repro_torch.models.common.resolve_device`,
+    which raises without a GPU, as every entry point of the port does)."""
+    device = resolve_device(device)
     check_supported(cfg)
     declared = param_tree(cfg, _Declared(DTYPES[cfg.dtype]))
 

@@ -3,8 +3,8 @@ with ctypes.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` at first use,
 into ``build/repro_torch/`` at the root of the checkout. The library's file
-name carries a hash of its source and flags, so a stale library is never
-loaded. ``build_log[name]`` keeps the compile time and ``ptxas -v`` report
+name carries a hash of its source, the shared headers ``csrc/*.cuh`` and the
+flags, so a stale library is never loaded. ``build_log[name]`` keeps the compile time and ``ptxas -v`` report
 of the last build in this process.
 
 The libraries link the CUDA runtime as a shared library (``-cudart shared``,
@@ -66,7 +66,11 @@ def library(name: str) -> ctypes.CDLL:
 
 def _build(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    sha = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        sha.update(header.read_bytes())
+    sha.update(" ".join(NVCC_FLAGS).encode())
+    digest = sha.hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
         build_log[name] = {"seconds": 0.0, "cached": True, "library": str(out), "ptxas": []}
@@ -88,6 +92,25 @@ def _build(name: str) -> Path:
         "ptxas": [ln.strip() for ln in proc.stderr.splitlines() if ln.strip()],
     }
     return out
+
+
+def require_16_byte_rows(kernel: str, **tensors) -> None:
+    """The bf16 kernels fill shared memory with 16-byte copies (cp.async):
+    each tensor's base address, and every stride but the last (contiguous)
+    one, must be a multiple of 16 bytes. Raises ``ValueError`` for the first
+    tensor that is not, before anything is launched. Takes tensors on any
+    device, the meta device included (there the address is the storage
+    offset)."""
+    for label, t in tensors.items():
+        size, bits = t.element_size(), t.data_ptr()
+        for n, stride in zip(t.shape[:-1], t.stride()[:-1]):
+            if n > 1:
+                bits |= stride * size
+        if bits % 16:  # the address or some stride is off a 16-byte boundary
+            raise ValueError(
+                f"{kernel}: {label} (address offset {t.data_ptr() % 16}, strides "
+                f"{tuple(t.stride())}, {size}-byte elements) is not 16-byte aligned"
+            )
 
 
 class FirstLaunchGuard:

@@ -9,7 +9,9 @@ Replaces the reference's Pallas TPU kernel ``repro/kernels/flash_attention.py``
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch
 the kernel (or raise), CPU tensors take the plain version. There is no
-fallback from one to the other.
+fallback from one to the other. On the card, bfloat16 (the served path)
+runs on the tensor cores and float32 (the parity path) on FMA tiles:
+:func:`design`.
 
 The first launch of each kernel instantiation (device, dtype, head_dim) in
 a process is preceded by a check launch on a small input, held against the
@@ -29,6 +31,15 @@ from . import build
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+
+
+def design(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel design a launch of this dtype and head dim runs, as
+    ``csrc/flash_attention.cu`` names them."""
+    if dtype == torch.float32:
+        return "fma-f32"
+    return "wgmma" if head_dim == 64 else "mma.sync"
+
 
 _fn_lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -120,75 +131,15 @@ def flash_attention_bhsd(
 ) -> torch.Tensor:
     """Flash attention in layout (batch, heads, seq, head_dim).
 
-    CUDA tensors launch the kernel; any stride is taken as long as the last
-    dim is contiguous, and the output has q's memory order. CPU tensors
-    take :func:`flash_attention_ref`. ``flash_attention_bhsd.launches``
-    counts kernel launches (the first-launch check's are not counted).
+    CUDA tensors launch the kernel: any stride is taken as long as the last
+    dim is contiguous (and, in bfloat16, every other stride and the base
+    address are 16-byte aligned: :func:`check_inputs`), and the output has
+    q's memory order. CPU tensors take :func:`flash_attention_ref`.
+    ``flash_attention_bhsd.launches`` counts kernel launches through this
+    function and :func:`flash_attention` (the first-launch check's are not
+    counted).
     """
-    devices = {t.device.type for t in (q, k, v)}
-    if devices == {"cpu"}:
-        return flash_attention_ref(q, k, v, causal=causal, window=window, k_len=k_len)
-    if devices != {"cuda"} or len({t.device for t in (q, k, v)}) != 1:
-        raise ValueError(f"q, k, v must share one CUDA device (or all be on the CPU): {devices}")
-    _check_first_launch(q.device, q.dtype, q.shape[-1])
-    o = _launch(q, k, v, causal=causal, window=window, k_len=k_len)
-    with _count_lock:
-        flash_attention_bhsd.launches += 1
-    return o
-
-
-def _launch(q, k, v, *, causal, window, k_len) -> torch.Tensor:
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
-    B, H, Sq, Dh = q.shape
-    _, KV, Sk, _ = k.shape
-    if k.shape[0] != B or k.shape[3] != Dh or KV < 1 or H % KV:
-        raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)}")
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"head_dim {Dh} not in the kernel's {HEAD_DIMS}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one of float32, bfloat16")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("the head_dim axis must be contiguous")
-    k_len = Sk if k_len is None else int(k_len)
-    if k_len < 0:
-        raise ValueError(f"k_len must be >= 0, got {k_len}")
-    o = torch.empty_like(q)
-    fn = _kernel_fn()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPE_CODES[q.dtype],
-            q.device.index, B, H, KV, Sq, Sk, Dh,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            int(causal), 0 if window is None else int(window), k_len, Dh**-0.5, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd failed to launch: cudaError_t {err}")
-    return o
-
-
-def _check_first_launch(device: torch.device, dtype: torch.dtype, Dh: int) -> None:
-    """Before the first launch of an instantiation in this process, launch it
-    on a small causal GQA input and hold the result (max abs error) against
-    the plain version; raise if they disagree."""
-    if dtype not in _DTYPE_CODES or Dh not in HEAD_DIMS:
-        return  # _launch will refuse the call
-
-    def case():
-        g = torch.Generator(device=device).manual_seed(0)
-        shapes = [(1, 2, 64, Dh), (1, 1, 64, Dh), (1, 1, 64, Dh)]
-        q, k, v = (torch.randn(s, generator=g, device=device).to(dtype) for s in shapes)
-
-        def launch():
-            return _launch(q, k, v, causal=True, window=None, k_len=None)
-
-        return launch, flash_attention_ref(q, k, v, causal=True)
-
-    _guard.check((device.index, dtype, Dh), case)
-
-
-flash_attention_bhsd.launches = 0
+    return _attention(q, k, v, causal, window, k_len, bshd=False)
 
 
 def flash_attention(
@@ -200,10 +151,95 @@ def flash_attention(
     window: Optional[int] = None,
     k_len: Optional[int] = None,
 ) -> torch.Tensor:
-    """Model-layout wrapper: the transposes are views (the kernel reads
-    through strides), and the output comes back as (B, Sq, H, Dh)."""
-    out = flash_attention_bhsd(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, window=window, k_len=k_len,
+    """:func:`flash_attention_bhsd` in the model's layout: the kernel reads
+    (B, S, H, Dh) through its strides, and the output comes back as (B, Sq,
+    H, Dh)."""
+    return _attention(q, k, v, causal, window, k_len, bshd=True)
+
+
+def _attention(q, k, v, causal, window, k_len, *, bshd):
+    devices = {t.device.type for t in (q, k, v)}
+    if devices == {"cpu"}:
+        if bshd:
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        o = flash_attention_ref(q, k, v, causal=causal, window=window, k_len=k_len)
+        return o.transpose(1, 2) if bshd else o
+    if devices != {"cuda"} or len({t.device for t in (q, k, v)}) != 1:
+        raise ValueError(f"q, k, v must share one CUDA device (or all be on the CPU): {devices}")
+    k_len = check_inputs(q, k, v, k_len, bshd=bshd)
+    _check_first_launch(q.device, q.dtype, q.shape[-1])
+    o = _launch(q, k, v, causal=causal, window=window, k_len=k_len, bshd=bshd)
+    with _count_lock:
+        flash_attention_bhsd.launches += 1
+    return o
+
+
+def check_inputs(q, k, v, k_len=None, *, bshd=False) -> int:
+    """What the kernel takes, checked on any device (the meta device
+    included) before anything is launched: (B, H, Sq, Dh) q and (B, KV, Sk,
+    Dh) k and v (or (B, S, heads, Dh) with ``bshd``) with H a multiple of
+    KV, Dh one of :data:`HEAD_DIMS`, one dtype of float32 or bfloat16, a
+    contiguous last dim and, for bfloat16, 16-byte aligned base addresses
+    and strides. Returns ``k_len`` (Sk if None); raises ``ValueError`` on
+    anything else."""
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
+    hd, sd = (2, 1) if bshd else (1, 2)
+    B, H, Dh = q.shape[0], q.shape[hd], q.shape[3]
+    KV, Sk = k.shape[hd], k.shape[sd]
+    if k.shape[0] != B or k.shape[3] != Dh or KV < 1 or H % KV:
+        raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)}")
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"head_dim {Dh} not in the kernel's {HEAD_DIMS}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one of float32, bfloat16")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("the head_dim axis must be contiguous")
+    if q.dtype == torch.bfloat16:
+        build.require_16_byte_rows("flash_attention", q=q, k=k, v=v)
+    k_len = Sk if k_len is None else int(k_len)
+    if k_len < 0:
+        raise ValueError(f"k_len must be >= 0, got {k_len}")
+    return k_len
+
+
+def _launch(q, k, v, *, causal, window, k_len, bshd=False) -> torch.Tensor:
+    hd, sd = (2, 1) if bshd else (1, 2)
+    B, H, Sq, Dh = q.shape[0], q.shape[hd], q.shape[sd], q.shape[3]
+    KV, Sk = k.shape[hd], k.shape[sd]
+    o = torch.empty_like(q)
+    strides = []
+    for t in (q, k, v, o):  # (batch, head, seq) strides
+        st = t.stride()
+        strides += (st[0], st[hd], st[sd])
+    err = _kernel_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPE_CODES[q.dtype],
+        q.device.index, B, H, KV, Sq, Sk, Dh, *strides,
+        int(causal), 0 if window is None else int(window), k_len, Dh**-0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    return out.transpose(1, 2)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd failed to launch: cudaError_t {err}")
+    return o
+
+
+def _check_first_launch(device: torch.device, dtype: torch.dtype, Dh: int) -> None:
+    """Before the first launch of an instantiation in this process, launch it
+    on a small causal GQA input (two key tiles, the second ragged) and hold
+    the result (max abs error) against the plain version; raise if they
+    disagree."""
+
+    def case():
+        g = torch.Generator(device=device).manual_seed(0)
+        shapes = [(1, 2, 100, Dh), (1, 1, 100, Dh), (1, 1, 100, Dh)]
+        q, k, v = (torch.randn(s, generator=g, device=device).to(dtype) for s in shapes)
+
+        def launch():
+            return _launch(q, k, v, causal=True, window=None, k_len=q.shape[2])
+
+        return launch, flash_attention_ref(q, k, v, causal=True)
+
+    _guard.check((device.index, dtype, Dh), case)
+
+
+flash_attention_bhsd.launches = 0

@@ -13,7 +13,10 @@ the oracle; the port's prefill takes this kernel.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch
 the kernel (or raise), CPU tensors take the plain version. There is no
-fallback from one to the other. As for flash attention, the first launch of
+fallback from one to the other. On the card, bfloat16 (the served path)
+runs three chunk-parallel launches on the tensor cores, with f32 scratch
+from ``torch.empty``, and float32 (the parity path) one FMA launch that
+walks the chunks: :data:`DESIGNS`. As for flash attention, the first launch of
 each instantiation (device, dtype) in a process is preceded by a check
 launch on a small ragged input, held against the plain version; a
 disagreement raises.
@@ -32,6 +35,8 @@ from . import build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 128  # the kernel keeps N <= 128 state columns per thread row
 MAX_CHUNK = 1024  # the chunk's decay prefix sum lives in shared memory
+# the kernel's design for each dtype, as csrc/ssd.cu names it
+DESIGNS = {torch.bfloat16: "mma.sync", torch.float32: "fma-f32"}
 
 _fn_lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -44,7 +49,7 @@ def _kernel_fn():
         if _fn is None:
             fn = build.library("ssd").ssd_fwd
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            fn.argtypes = [ptr] * 7 + [i32] * 8 + [i64] * 13 + [ptr]
+            fn.argtypes = [ptr] * 8 + [i32] * 8 + [i64] * 13 + [ptr]
             fn.restype = i32
             _fn = fn
         return _fn
@@ -164,7 +169,8 @@ def ssd_bshp(
     """The SSD scan in layout (batch, seq, heads, head_dim), from a zero state.
 
     CUDA tensors launch the kernel: x, B and C in float32 or bfloat16 with
-    a contiguous last dim (any other strides), y comes back contiguous in
+    a contiguous last dim (any other strides; in bfloat16, 16-byte aligned
+    ones: :func:`check_inputs`), y comes back contiguous in
     x's dtype and the final state ``(B, H, P, N)`` in float32. Any S is
     taken: a ragged last chunk is masked, not padded. CPU tensors take
     :func:`ssd_ref`. ``ssd_bshp.launches`` counts kernel launches (the
@@ -176,14 +182,22 @@ def ssd_bshp(
         return ssd_ref(x, dt, A, Bm, Cm, chunk=chunk, return_final_state=return_final_state)
     if devices != {"cuda"} or len({t.device for t in tensors}) != 1:
         raise ValueError(f"x, dt, A, B, C must share one CUDA device (or all be on the CPU): {devices}")
+    cl = check_inputs(x, dt, A, Bm, Cm, chunk)
     _check_first_launch(x.device, x.dtype)
-    y, final = _launch(x, dt, A, Bm, Cm, chunk=chunk)
+    y, final = _launch(x, dt, A, Bm, Cm, chunk=cl)
     with _count_lock:
         ssd_bshp.launches += 1
     return (y, final) if return_final_state else y
 
 
-def _launch(x, dt, A, Bm, Cm, *, chunk):
+def check_inputs(x, dt, A, Bm, Cm, chunk) -> int:
+    """What the kernel takes, checked on any device (the meta device
+    included) before anything is launched: x (B, S, H, P), dt (B, S, H), A
+    (H,), B and C (B, S, N) with 1 <= N <= :data:`MAX_STATE`, x, B and C in
+    one dtype of float32 or bfloat16 with a contiguous last dim and, for
+    bfloat16, P and N multiples of 8 and 16-byte aligned base addresses and
+    strides. Returns the chunk length ``min(chunk, S)``; raises
+    ``ValueError`` on anything else."""
     if x.ndim != 4 or dt.ndim != 3 or A.ndim != 1 or Bm.ndim != 3 or Bm.shape != Cm.shape:
         raise ValueError(
             f"bad shapes x={tuple(x.shape)} dt={tuple(dt.shape)} A={tuple(A.shape)} "
@@ -202,20 +216,34 @@ def _launch(x, dt, A, Bm, Cm, *, chunk):
         raise ValueError(f"dtypes {x.dtype}/{Bm.dtype}/{Cm.dtype}: need one of float32, bfloat16")
     if any(t.stride(-1) != 1 for t in (x, Bm, Cm)):
         raise ValueError("the last dims of x, B and C must be contiguous")
+    if x.dtype == torch.bfloat16:
+        if P % 8 or N % 8:
+            raise ValueError(f"bfloat16 takes P and N in multiples of 8, got P={P} N={N}")
+        build.require_16_byte_rows("ssd", x=x, B=Bm, C=Cm)
+    return cl
+
+
+def _launch(x, dt, A, Bm, Cm, *, chunk):
+    """``chunk`` is the chunk length as :func:`check_inputs` returns it."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    cl = chunk
     dt = dt.float()
     A = A.float().contiguous()
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     final = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
-    fn = _kernel_fn()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = fn(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            y.data_ptr(), final.data_ptr(),
-            _DTYPE_CODES[x.dtype], x.device.index, B, S, H, P, N, cl,
-            *x.stride()[:3], *dt.stride(), Bm.stride(0), Bm.stride(1),
-            Cm.stride(0), Cm.stride(1), *y.stride()[:3], stream,
-        )
+    scratch = None
+    if x.dtype == torch.bfloat16:  # each chunk's (P, N) state and its sum of dA
+        nc = -(-S // cl)
+        scratch = torch.empty(B * nc * H * (P * N + 1), dtype=torch.float32, device=x.device)
+    err = _kernel_fn()(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        y.data_ptr(), final.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        _DTYPE_CODES[x.dtype], x.device.index, B, S, H, P, N, cl,
+        *x.stride()[:3], *dt.stride(), Bm.stride(0), Bm.stride(1),
+        Cm.stride(0), Cm.stride(1), *y.stride()[:3],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
     if err != 0:
         raise RuntimeError(f"ssd_fwd failed to launch: cudaError_t {err}")
     return y, final
@@ -237,8 +265,6 @@ def _check_first_launch(device: torch.device, dtype: torch.dtype) -> None:
     """Before the first launch of an instantiation in this process, launch it
     on a small input with a ragged last chunk and hold y and the final state
     (scaled error) against the plain version; raise if they disagree."""
-    if dtype not in _DTYPE_CODES:
-        return  # _launch will refuse the call
 
     def case():
         g = torch.Generator(device=device).manual_seed(0)

@@ -106,7 +106,7 @@ def test_engine_tokens_equal_the_reference_engine():
     jmodel = jax_build_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
     model = build_model(cfg, device="cpu")
-    params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams))
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams), device="cpu")
     prompts = _prompts(cfg, 7, [6, 11, 4, 9])
     budgets = [6, 4, 7, 5]
     kw = dict(max_slots=2, max_len=24, page_size=4)
@@ -177,7 +177,7 @@ def test_ssm_family_matches_single_request_decode(arch):
     jmodel = jax_build_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
     model = build_model(cfg, device="cpu")
-    params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams))
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams), device="cpu")
     MAX_LEN = 20
     prompts = _prompts(cfg, 1, [5, 11, 3])
     budgets = [6, 4, 5]

@@ -111,3 +111,50 @@ def test_first_launch_check_raises_on_a_wrong_result(monkeypatch, dtype):
         q, k, v, causal=kw["causal"], window=kw["window"], k_len=kw["k_len"]))
     tfa._check_first_launch(cpu, dtype, 64)
     assert tfa._guard.checked == {(None, dtype, 64)}
+
+
+def _views(device, dtype, offset=0, seq_pad=0):
+    """q, k, v in the model's layout (B, S, heads, Dh) as views into flat
+    buffers: ``offset`` elements from the buffer's start, rows ``seq_pad``
+    elements longer than the heads they hold."""
+    B, S, H, KV, Dh = 1, 8, 4, 2, 32
+
+    def view(heads):
+        row = heads * Dh + seq_pad
+        flat = torch.zeros(offset + B * S * row, dtype=dtype, device=device)
+        return flat[offset:].view(B, S, row)[..., : heads * Dh].view(B, S, heads, Dh)
+
+    return view(H), view(KV), view(KV)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize(
+    "offset,seq_pad", [(1, 0), (0, 4), (4, 0)], ids=["base-2-bytes", "row-8-bytes", "base-8-bytes"]
+)
+def test_bf16_views_off_16_byte_boundaries_raise_before_launch(device, offset, seq_pad):
+    """The bf16 kernel copies 16-byte pieces: a base address or a stride
+    that is not a multiple of 16 bytes is refused by the input check, which
+    runs on any device and ahead of the first-launch check and the launch."""
+    q, k, v = _views(device, torch.bfloat16, offset, seq_pad)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.check_inputs(q, k, v, bshd=True)
+    aligned = _views(device, torch.bfloat16)
+    assert tfa.check_inputs(*aligned, bshd=True) == 8
+    assert tfa.check_inputs(*(t.transpose(1, 2) for t in aligned)) == 8
+    # the f32 design reads single elements and takes the same views
+    assert tfa.check_inputs(*_views(device, torch.float32, offset, seq_pad), bshd=True) == 8
+
+
+def test_input_check_refuses_what_the_kernel_does_not_take():
+    q, k, v = _views("meta", torch.bfloat16)
+    assert tfa.check_inputs(q, k[:, :, :1], v[:, :, :1], bshd=True) == 8  # MQA
+    for bad, match in [
+        ((q[..., :16], k, v), "bad shapes"),
+        ((q[:, :, :3], k, v), "bad shapes"),  # 3 heads over 2 kv-heads
+        ((q.float(), k, v), "dtypes"),
+        ((q.half(), k.half(), v.half()), "dtypes"),
+    ]:
+        with pytest.raises(ValueError, match=match):
+            tfa.check_inputs(*bad, bshd=True)
+    with pytest.raises(ValueError, match="k_len"):
+        tfa.check_inputs(q, k, v, -1, bshd=True)

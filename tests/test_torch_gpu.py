@@ -3,9 +3,10 @@ device and import nothing of JAX, so they run on the GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-The CUDA flash and SSD kernels are held against their plain versions over
-shape sweeps, and small models served on the card are held against the same
-weights decoded on the CPU."""
+The CUDA flash and SSD kernels are held against their plain versions, in
+bf16 (the tensor-core designs) and f32 (the FMA designs), over shape sweeps
+and tile edges, and small models served on the card are held against the
+same weights decoded on the CPU."""
 import numpy as np
 import pytest
 import torch
@@ -38,26 +39,58 @@ def _cuda():
     return torch.device("cuda", 0)
 
 
+# tile edges of both designs (bf16 tensor cores, f32 FMA tiles), one
+# case each: a window across 18 key tiles, rectangular Sq < Sk, and the
+# head dims other than 64 with ragged lengths
+FLASH_EDGES = {
+    "hymba H=25 KV=5, window 1024, Sq=Sk=1100": (1, 25, 5, 1100, 1100, 64, True, 1024, None),
+    "rectangular Sq=64 Sk=192": (2, 4, 2, 64, 192, 64, False, None, None),
+    "rectangular causal Sq=64 Sk=192": (1, 4, 2, 64, 192, 64, True, None, None),
+    "Dh=32 ragged S=300": (1, 4, 2, 300, 300, 32, True, None, None),
+    "Dh=128 ragged S=445": (1, 4, 2, 445, 445, 128, True, None, None),
+}
+FLASH_TOL = {"float32": (torch.float32, 1e-4), "bfloat16": (torch.bfloat16, 2e-2)}
+
+
+def _flash_error(dev, rng, dt, case) -> float:
+    """One launch in the model's layout against the plain version: max abs
+    error; the launch is counted and its instantiation was first checked."""
+    B, H, KV, Sq, Sk, Dh, causal, window, k_len = case
+    shapes = [(B, Sq, H, Dh), (B, Sk, KV, Dh), (B, Sk, KV, Dh)]
+    q, k, v = (torch.from_numpy(rng.standard_normal(s)).to(dev, dt) for s in shapes)
+    mask = dict(causal=causal, window=window, k_len=k_len)
+    before = tfa.flash_attention_bhsd.launches
+    got = tfa.flash_attention(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bhsd.launches == before + 1
+    assert (0, dt, Dh) in tfa._guard.checked  # its first launch was checked
+    want = tfa.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   **mask).transpose(1, 2)
+    assert torch.isfinite(got.float()).all()
+    return (got.float() - want.float()).abs().max().item()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_matches_plain_version_on_card(dtype):
     dev = _cuda()
-    dt, tol = {"float32": (torch.float32, 1e-4), "bfloat16": (torch.bfloat16, 2e-2)}[dtype]
+    dt, tol = FLASH_TOL[dtype]
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(0)
-    for name, (B, H, KV, Sq, Sk, Dh, causal, window, k_len) in SWEEP.items():
-        shapes = [(B, Sq, H, Dh), (B, Sk, KV, Dh), (B, Sk, KV, Dh)]  # model layout
-        q, k, v = (torch.from_numpy(rng.standard_normal(s)).to(dev, dt) for s in shapes)
-        mask = dict(causal=causal, window=window, k_len=k_len)
-        before = tfa.flash_attention_bhsd.launches
-        got = tfa.flash_attention(q, k, v, **mask)
-        torch.cuda.synchronize()
-        assert tfa.flash_attention_bhsd.launches == before + 1
-        assert (0, dt, Dh) in tfa._guard.checked  # its first launch was checked
-        want = tfa.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                       **mask).transpose(1, 2)
-        err = (got.float() - want.float()).abs().max().item()
+    for name, case in SWEEP.items():
+        err = _flash_error(dev, rng, dt, case)
         assert err <= tol, (name, dtype, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(FLASH_EDGES))
+def test_flash_kernel_tile_edges_on_card(name, dtype):
+    dev = _cuda()
+    dt, tol = FLASH_TOL[dtype]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    err = _flash_error(dev, np.random.default_rng(5), dt, FLASH_EDGES[name])
+    assert err <= tol, (name, dtype, err)
 
 
 # (B, S, H, P, N, chunk, laws); x, B and C are handed over as the model's
@@ -87,29 +120,59 @@ def _dt_a(rng, B, S, H, laws):
     return np.log1p(np.exp(rng.standard_normal((B, S, H)))), -np.exp(rng.uniform(0.0, 1.0, H))
 
 
+# tile edges of both designs: 18 chunks through the bf16 state-passing
+# launch, chunk 8, P and N off the 16-wide MMA tile, and hymba's N=16
+SSD_EDGES = {
+    "S=1100 chunk 64, 18 chunks, model's dt/A": (1, 1100, 25, 64, 16, 64, "model"),
+    "chunk 8, S=37": (2, 37, 8, 16, 16, 8, "wide"),
+    "P=40 N=24, chunk 32": (2, 70, 3, 40, 24, 32, "wide"),
+    "N=16, chunk 64, S=130": (2, 130, 5, 64, 16, 64, "wide"),
+}
+SSD_TOL = {"float32": (torch.float32, 1e-4), "bfloat16": (torch.bfloat16, 1e-2)}
+
+
+def _ssd_errors(dev, rng, dt_, case) -> list:
+    """One launch on the model's split views against the plain version:
+    scaled errors of y and the final state; the launch is counted and its
+    instantiation was first checked."""
+    B, S, H, P, N, chunk, laws = case
+    xbc = torch.from_numpy(rng.standard_normal((B, S, H * P + 2 * N))).to(dev, dt_)
+    x = xbc[..., : H * P].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., H * P : H * P + N], xbc[..., H * P + N :]
+    dt, A = (torch.from_numpy(a).to(dev, torch.float32) for a in _dt_a(rng, B, S, H, laws))
+    kw = dict(chunk=chunk, return_final_state=True)
+    before = tssd.ssd_bshp.launches
+    y, state = tssd.ssd_bshp(x, dt, A, Bm, Cm, **kw)
+    torch.cuda.synchronize()
+    assert tssd.ssd_bshp.launches == before + 1
+    assert (0, dt_) in tssd._guard.checked  # its first launch was checked
+    want_y, want_state = tssd.ssd_ref(x, dt, A, Bm, Cm, **kw)
+    assert y.dtype == dt_ and state.dtype == torch.float32
+    assert all(torch.isfinite(t.float()).all() for t in (y, state))
+    return [tssd.scaled_error(y, want_y), tssd.scaled_error(state, want_state)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_kernel_matches_plain_version_on_card(dtype):
     dev = _cuda()
-    dt_, tol = {"float32": (torch.float32, 1e-4), "bfloat16": (torch.bfloat16, 1e-2)}[dtype]
+    dt_, tol = SSD_TOL[dtype]
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(1)
-    for name, (B, S, H, P, N, chunk, laws) in SSD_SWEEP.items():
-        xbc = torch.from_numpy(rng.standard_normal((B, S, H * P + 2 * N))).to(dev, dt_)
-        x = xbc[..., : H * P].reshape(B, S, H, P)
-        Bm, Cm = xbc[..., H * P : H * P + N], xbc[..., H * P + N :]
-        dt, A = (torch.from_numpy(a).to(dev, torch.float32) for a in _dt_a(rng, B, S, H, laws))
-        kw = dict(chunk=chunk, return_final_state=True)
-        before = tssd.ssd_bshp.launches
-        y, state = tssd.ssd_bshp(x, dt, A, Bm, Cm, **kw)
-        torch.cuda.synchronize()
-        assert tssd.ssd_bshp.launches == before + 1
-        assert (0, dt_) in tssd._guard.checked  # its first launch was checked
-        want_y, want_state = tssd.ssd_ref(x, dt, A, Bm, Cm, **kw)
-        assert y.dtype == dt_ and state.dtype == torch.float32
-        for got, want in ((y, want_y), (state, want_state)):
-            assert torch.isfinite(got.float()).all(), name
-            assert tssd.scaled_error(got, want) <= tol, (name, dtype)
+    for name, case in SSD_SWEEP.items():
+        errs = _ssd_errors(dev, rng, dt_, case)
+        assert max(errs) <= tol, (name, dtype, errs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(SSD_EDGES))
+def test_ssd_kernel_tile_edges_on_card(name, dtype):
+    dev = _cuda()
+    dt_, tol = SSD_TOL[dtype]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = _ssd_errors(dev, np.random.default_rng(6), dt_, SSD_EDGES[name])
+    assert max(errs) <= tol, (name, dtype, errs)
 
 
 @pytest.mark.gpu

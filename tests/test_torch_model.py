@@ -30,7 +30,7 @@ def _pair(**overrides):
     jm = jax_build_model(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     tm = build_model(cfg, device="cpu")
-    tp = params_from_jax(cfg, jax.tree.map(np.asarray, jp))
+    tp = params_from_jax(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, tm, tp
 
 
@@ -162,6 +162,24 @@ def test_model_defaults_to_the_gpu():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Model(cfg)
+
+
+def test_bridge_defaults_to_the_gpu(models):
+    """The bridge resolves its device as every entry point does: the card
+    unless the caller asks for the CPU, and without a GPU the same error as
+    ``build_model``."""
+    jp = models[1]
+    cfg = get_reduced("tinyllama-1.1b").replace(dtype="float32")
+    tree = jax.tree.map(np.asarray, jp)
+    if torch.cuda.is_available():
+        tp = params_from_jax(cfg, tree)
+        assert {t.device for t in tp.parameters()} == {torch.device("cuda", 0)}
+        return
+    with pytest.raises(RuntimeError) as want:
+        build_model(cfg)
+    with pytest.raises(RuntimeError) as got:
+        params_from_jax(cfg, tree)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("arch", ["paligemma-3b", "granite-moe-1b-a400m", "whisper-medium"])

@@ -161,3 +161,44 @@ def test_first_launch_check_raises_on_a_wrong_result(monkeypatch, dtype):
         tssd.ssd_ref(x, dt, A, Bm, Cm, chunk=chunk, return_final_state=True)))
     tssd._check_first_launch(cpu, dtype)
     assert tssd._guard.checked == {(None, dtype)}
+
+
+def _split_views(device, dtype, P=16, N=16, offset=0, row_pad=0):
+    """x, B and C as the model hands them over: split views of one (B, S,
+    H*P + 2N + row_pad) activation starting ``offset`` elements into its
+    buffer; dt and A in float32."""
+    B, S, H = 1, 10, 2
+    row = H * P + 2 * N + row_pad
+    flat = torch.zeros(offset + B * S * row, dtype=dtype, device=device)
+    xbc = flat[offset:].view(B, S, row)
+    x = xbc[..., : H * P].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., H * P : H * P + N], xbc[..., H * P + N : H * P + 2 * N]
+    dt = torch.zeros((B, S, H), device=device)
+    A = torch.zeros((H,), device=device)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize(
+    "offset,row_pad", [(1, 0), (0, 4), (4, 0)], ids=["base-2-bytes", "row-8-bytes", "base-8-bytes"]
+)
+def test_bf16_views_off_16_byte_boundaries_raise_before_launch(device, offset, row_pad):
+    """The bf16 kernels copy 16-byte pieces: a base address or a stride that
+    is not a multiple of 16 bytes is refused by the input check, which runs
+    on any device and ahead of the first-launch check and the launches."""
+    args = _split_views(device, torch.bfloat16, offset=offset, row_pad=row_pad)
+    with pytest.raises(ValueError, match="16-byte"):
+        tssd.check_inputs(*args, chunk=4)
+    assert tssd.check_inputs(*_split_views(device, torch.bfloat16), chunk=4) == 4
+    assert tssd.check_inputs(*_split_views(device, torch.bfloat16), chunk=64) == 10
+    # the f32 design reads single elements and takes the same views
+    f32 = _split_views(device, torch.float32, offset=offset, row_pad=row_pad)
+    assert tssd.check_inputs(*f32, chunk=4) == 4
+
+
+@pytest.mark.parametrize("P,N", [(12, 16), (16, 12)])
+def test_bf16_head_and_state_widths_off_8_raise(P, N):
+    args = _split_views("meta", torch.bfloat16, P=P, N=N)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tssd.check_inputs(*args, chunk=4)
+    assert tssd.check_inputs(*_split_views("meta", torch.float32, P=P, N=N), chunk=4) == 4

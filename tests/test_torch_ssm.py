@@ -37,7 +37,7 @@ def _pair(arch, dtype="float32"):
     jm = jax_build_model(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     tm = build_model(cfg, device="cpu")
-    tp = params_from_jax(cfg, jax.tree.map(np.asarray, jp))
+    tp = params_from_jax(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, tm, tp
 
 
@@ -142,7 +142,7 @@ def test_ssm_block_prefill_and_decode_match_reference(arch):
     cfg = get_reduced(arch).replace(dtype="float32")
     jm = jax_build_model(jax_get_reduced(arch).replace(dtype="float32"))
     jp = jm.init(jax.random.PRNGKey(0))
-    tp = params_from_jax(cfg, jax.tree.map(np.asarray, jp))
+    tp = params_from_jax(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     g = next(iter(jp["layers"]))
     jlayer = jax.tree.map(lambda a: a[0], jp["layers"][g]["ssm"]) if g.startswith("s") \
         else jp["layers"][g]["ssm"]
@@ -180,7 +180,8 @@ def test_bridge_takes_each_leaf_dtype_from_the_ports_plan(arch):
     cfg = get_reduced(arch).replace(dtype="bfloat16")
     jp = jax_build_model(jax_get_reduced(arch).replace(dtype="float32")).init(
         jax.random.PRNGKey(0))
-    bridged = dict(params_from_jax(cfg, jax.tree.map(np.asarray, jp)).named_parameters())
+    tree = jax.tree.map(np.asarray, jp)
+    bridged = dict(params_from_jax(cfg, tree, device="cpu").named_parameters())
     own = dict(build_model(cfg, device="cpu").init(seed=0).named_parameters())
     assert bridged.keys() == own.keys()
     for name, leaf in own.items():
@@ -188,7 +189,7 @@ def test_bridge_takes_each_leaf_dtype_from_the_ports_plan(arch):
     assert {name.rsplit(".", 1)[-1] for name, leaf in own.items()
             if leaf.dtype == torch.float32} == set(SSM_F32_LEAVES)
     with pytest.raises(ValueError, match="the port declares"):
-        params_from_jax(cfg.replace(d_model=cfg.d_model * 2), jax.tree.map(np.asarray, jp))
+        params_from_jax(cfg.replace(d_model=cfg.d_model * 2), tree, device="cpu")
 
 
 def test_init_draws_the_reference_laws_and_dtypes():
