@@ -7,7 +7,8 @@
 // kv-head h / (H / KV), masks causal (top-left aligned, positions from 0),
 // sliding window (k > q - window) and valid length (k < k_len), finite -1e30
 // for masked scores, the denominator floored at 1e-30, output in the input
-// dtype. Forward only.
+// dtype. With a non-null `lse` it also writes each row's log-sum-exp, which
+// the backward (csrc/flash_attention_bwd.cu) recomputes P from.
 //
 // What bounds it on this card: at tinyllama prefill (H=32, KV=4, Dh=64) the
 // work is 4 * Sq * Sk/2 * Dh FLOPs per head against q, k, v and o moved once,
@@ -83,6 +84,7 @@ struct Params {
   int window;  // <= 0: no window
   int k_len;   // keys at positions >= k_len are masked
   float scale;
+  float* lse;  // optional (B, H, Sq) f32 row statistics m + log(l); null: not written
 };
 
 // the key range [k_lo, k_hi) a q tile starting at q0 can see, k_lo on a
@@ -310,7 +312,12 @@ __global__ void __launch_bounds__(MMA_THREADS, mma_min_blocks<DH>()) flash_fwd_m
     const float mm = fmaxf(m[i], m1);
     a0[i] = exp2_ftz(m[i] - mm);
     a1[i] = exp2_ftz(m1 - mm);
-    inv[i] = 1.f / fmaxf(l[i] * a0[i] + l1 * a1[i], 1e-30f);
+    const float lsum = fmaxf(l[i] * a0[i] + l1 * a1[i], 1e-30f);
+    inv[i] = 1.f / lsum;
+    // the row statistics for the backward, natural log: (m + log2 l) ln 2
+    const int qi = row0 + 8 * i;
+    if (p.lse != nullptr && t == 0 && qi < p.Sq)
+      p.lse[(long long)bh * p.Sq + qi] = (mm + log2f(lsum)) * 0.6931471805599453f;
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -488,7 +495,12 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_fwd_wgmma(Params p) {
     const float mm = fmaxf(m[i], m1);
     a0[i] = exp2_ftz(m[i] - mm);
     a1[i] = exp2_ftz(m1 - mm);
-    inv[i] = 1.f / fmaxf(l[i] * a0[i] + l1 * a1[i], 1e-30f);
+    const float lsum = fmaxf(l[i] * a0[i] + l1 * a1[i], 1e-30f);
+    inv[i] = 1.f / lsum;
+    // the row statistics for the backward, natural log: (m + log2 l) ln 2
+    const int qi = row0 + 8 * i;
+    if (p.lse != nullptr && t == 0 && qi < p.Sq)
+      p.lse[(long long)bh * p.Sq + qi] = (mm + log2f(lsum)) * 0.6931471805599453f;
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -636,6 +648,7 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32(Params p) {
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < DC; ++c) og[qi * p.o_ss + tx + 16 * c] = acc[i][c] / denom;
+    if (p.lse != nullptr && tx == 0) p.lse[(long long)bh * p.Sq + qi] = m[i] + logf(denom);
   }
 }
 
@@ -699,7 +712,10 @@ struct DeviceScope {
 // ordinal the tensors live on and `stream` one of its streams; the launch
 // makes it the thread's current device of the CUDA runtime this library is
 // linked against (with -cudart shared, PyTorch's) and then restores the
-// previous one. Returns the launch's cudaError_t (0 = success).
+// previous one. `lse`, if not null, receives each row's f32 statistics
+// m + log(max(l, 1e-30)) in natural-log units, laid out (B, H, Sq)
+// contiguous, for the backward (flash_attention_bwd.cu); serving passes
+// null. Returns the launch's cudaError_t (0 = success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int device,
     int B, int H, int KV, int Sq, int Sk, int Dh,
@@ -707,7 +723,7 @@ extern "C" int flash_attention_fwd(
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
-    int causal, int window, int k_len, float scale, void* stream) {
+    int causal, int window, int k_len, float scale, float* lse, void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Sk < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (device < 0 || device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
@@ -715,7 +731,7 @@ extern "C" int flash_attention_fwd(
   if (scope.err != cudaSuccess) return (int)scope.err;
   Params p{q, k, v, o, B, H, KV, Sq, Sk,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-           causal, window, k_len, scale};
+           causal, window, k_len, scale, lse};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf16 = dtype == 1;
   switch (Dh) {

@@ -224,7 +224,13 @@ def check_inputs(x, dt, A, Bm, Cm, chunk) -> int:
 
 
 def _launch(x, dt, A, Bm, Cm, *, chunk):
-    """``chunk`` is the chunk length as :func:`check_inputs` returns it."""
+    """``chunk`` is the chunk length as :func:`check_inputs` returns it.
+    Raises under autograd: the kernel has no backward yet, and its output
+    would carry no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        raise RuntimeError(
+            "ssd's kernel has no backward yet: its output would carry no gradient"
+        )
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     cl = chunk

@@ -8,9 +8,11 @@ sequence per call and the engine ``vmap``s it, so here ``cache_index`` is
 a ``(B,)`` tensor and every lane has its own RoPE position, cache write
 offset and valid length.
 
-Prefill (``Sq > 1``) on a CUDA tensor always runs the hand-written flash
-kernel (``repro_torch.kernels.flash_attention``); decode (``Sq == 1``) and
-every CPU call take the dense einsum path, as the reference does.
+Prefill and the training forward (``Sq > 1``) on a CUDA tensor always run
+the hand-written flash kernel (``repro_torch.kernels.flash_attention``),
+under autograd through its ``FlashAttention`` function, whose backward is
+the hand-written backward kernel; decode (``Sq == 1``) and every CPU call
+take the dense einsum path, as the reference does.
 """
 from __future__ import annotations
 

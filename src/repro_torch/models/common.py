@@ -40,15 +40,18 @@ class ParamTree(nn.Module):
     """A nested parameter tree indexed like the reference's param dict.
 
     ``p["attn"]["wq"]`` reads a leaf; lists (the per-layer entries of a
-    layer group) become ``nn.ModuleList``s. Parameters never require grad:
-    this slice serves, it does not train.
+    layer group) become ``nn.ModuleList``s. Every leaf is a trainable
+    ``nn.Parameter`` (``requires_grad=True``), so ``Model.loss`` has
+    gradients for all of them; serving runs under ``torch.inference_mode``
+    and builds no graph. :meth:`tree` gives the same leaves as nested dicts
+    and lists, the form the optimizer and the checkpoints take.
     """
 
     def __init__(self, tree: dict) -> None:
         super().__init__()
         for name, value in tree.items():
             if isinstance(value, torch.Tensor):
-                self.register_parameter(name, nn.Parameter(value, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(value, requires_grad=True))
             elif isinstance(value, list):
                 self.add_module(name, nn.ModuleList(ParamTree(v) for v in value))
             else:
@@ -59,6 +62,14 @@ class ParamTree(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+    def tree(self) -> dict:
+        """The leaves (the ``nn.Parameter``s themselves) as nested dicts,
+        with a list per layer group."""
+        out: dict = dict(self._parameters)
+        for name, mod in self._modules.items():
+            out[name] = [m.tree() for m in mod] if isinstance(mod, nn.ModuleList) else mod.tree()
+        return out
 
 
 class Init:

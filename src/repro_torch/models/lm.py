@@ -1,5 +1,6 @@
-"""The decoder-only LM: prefill and per-lane decode, ported from the
-reference's ``repro/models/lm.py`` for the dense, SSM and hybrid families.
+"""The decoder-only LM: the training loss, prefill and per-lane decode,
+ported from the reference's ``repro/models/lm.py`` for the dense, SSM and
+hybrid families.
 
 The reference scans over layer-stacked params; here each layer group is a
 list of per-layer parameter modules and the scan is a Python loop. Caches
@@ -16,6 +17,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..tree import tree_map
 from .blocks import (
@@ -89,12 +92,29 @@ def param_tree(cfg, a) -> dict:
     return p
 
 
+def cross_entropy(
+    logits: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-mean CE in f32. Returns (loss, token_count)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    ce = lse - ll
+    if mask is None:
+        return ce.mean(), torch.tensor(float(ce.numel()), device=ce.device)
+    m = mask.float()
+    n = torch.clamp(m.sum(), min=1.0)
+    return (ce * m).sum() / n, n
+
+
 class Model:
     """Decoder LM (dense, SSM or hybrid) over a parameter tree (``ParamTree``).
 
     ``device`` defaults to ``cuda:0`` and raises without a GPU; tests pass
-    ``device="cpu"``. ``prefill`` and ``decode_step`` run under
-    ``torch.inference_mode`` on the calling thread.
+    ``device="cpu"``. ``loss`` builds the autograd graph (the layers under
+    ``torch.utils.checkpoint`` when ``cfg.remat`` is not "none");
+    ``prefill`` and ``decode_step`` run under ``torch.inference_mode`` on the
+    calling thread.
     """
 
     def __init__(self, cfg, device=None) -> None:
@@ -118,7 +138,8 @@ class Model:
         return torch.as_tensor(np.asarray(a), dtype=torch.long, device=self.device)
 
     def _embed_tokens(self, p, tokens: torch.Tensor) -> torch.Tensor:
-        x = p["embed"][tokens].to(self.dtype)
+        # F.embedding: its backward sums rows without atomics on the card
+        x = F.embedding(tokens, p["embed"]).to(self.dtype)
         if self.cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=self.dtype)
         return x
@@ -128,10 +149,25 @@ class Model:
             return torch.einsum("bsd,vd->bsv", x, p["embed"])
         return torch.einsum("bsd,dv->bsv", x, p["lm_head"])
 
-    def _layers(self, p, x, positions, *, caches=None, cache_index=None):
+    def _layers(self, p, x, positions, *, caches=None, cache_index=None, forward=False):
         """The layer loop. Prefill (no ``caches``) returns the new caches,
         stacked per scan group; decode hands each layer views of its slice
-        of ``caches``, writes into them in place and returns None."""
+        of ``caches``, writes into them in place and returns None. The
+        training ``forward`` builds no cache and, when ``cfg.remat`` is not
+        "none" and grad is on, runs each layer under
+        ``torch.utils.checkpoint`` (its activations recomputed in the
+        backward, as the reference's ``jax.checkpoint``)."""
+        if forward:
+            remat = self.cfg.remat != "none" and torch.is_grad_enabled()
+            for grp in self.plan:
+                window = None if grp.is_global else self.cfg.window
+                gp = p["layers"][grp.name]
+                for lp in gp if grp.kind == "scan" else [gp]:
+                    run = lambda xx, lp=lp, w=window: block_apply(  # noqa: E731
+                        self.cfg, lp, xx, positions, window=w
+                    )[0]
+                    x = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+            return x, None
         prefill = caches is None
         caches_out: dict = {}
         for grp in self.plan:
@@ -155,6 +191,61 @@ class Model:
                     tree_map(lambda *cs: torch.stack(cs), *new) if grp.kind == "scan" else new[0]
                 )
         return x, (caches_out if prefill else None)
+
+    # -- train -------------------------------------------------------------------
+
+    def loss(self, p, batch: dict) -> Tuple[torch.Tensor, dict]:
+        """Token-mean cross-entropy of ``batch["targets"]`` (optionally
+        weighted by ``batch["loss_mask"]``) given ``batch["tokens"]``, both
+        (B, S), with autograd: ``loss.backward()`` or ``torch.autograd.grad``
+        gives every parameter's gradient. Returns (loss, {"ce", "aux",
+        "tokens"}); the dense, SSM and hybrid families have no auxiliary
+        loss, so ``aux`` is 0. On the card, SSM layers raise until the SSD
+        kernel has a backward."""
+        cfg = self.cfg
+        tokens = self._as_index(batch["tokens"])
+        x = self._embed_tokens(p, tokens)
+        S = x.shape[1]
+        positions = torch.arange(S, device=self.device)
+        x, _ = self._layers(p, x, positions, forward=True)
+        x = _norm(cfg, p["final_norm"], x)
+        targets = self._as_index(batch["targets"])
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=self.device)
+        if cfg.loss_chunk and S > cfg.loss_chunk:
+            ce, n = self._chunked_ce(p, x, targets, mask, cfg.loss_chunk)
+        else:
+            ce, n = cross_entropy(self._head(p, x), targets, mask)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return ce + aux, {"ce": ce, "aux": aux, "tokens": n}
+
+    def _chunked_ce(self, p, x, targets, mask, chunk: int):
+        """CE over ``chunk``-position slices whose logits are recomputed in
+        the backward (``torch.utils.checkpoint``), so the full (B, S, V)
+        logits never exist at once. Positions past the last whole chunk are
+        dropped, as in the reference."""
+        S = x.shape[1]
+        nc = S // chunk
+        if mask is None:
+            mask = torch.ones(targets.shape, dtype=torch.float32, device=x.device)
+
+        def one(xx, tt, mm):
+            lf = self._head(p, xx).float()
+            lse = torch.logsumexp(lf, dim=-1)
+            ll = torch.gather(lf, -1, tt[..., None].long())[..., 0]
+            return ((lse - ll) * mm).sum()
+
+        sums, ns = [], []
+        for c in range(nc):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            mm = mask[:, sl].float()
+            part = (checkpoint(one, x[:, sl], targets[:, sl], mm, use_reentrant=False)
+                    if torch.is_grad_enabled() else one(x[:, sl], targets[:, sl], mm))
+            sums.append(part)
+            ns.append(mm.sum())
+        n = torch.clamp(torch.stack(ns).sum(), min=1.0)
+        return torch.stack(sums).sum() / n, n
 
     # -- serving ------------------------------------------------------------------
 

@@ -14,6 +14,11 @@ which the reference's prefill computes with its oracle. Decode is the
 plain recurrent step, as in the reference, and writes the conv window and
 the state into the cache tensors in place (the reference returns updated
 copies of donated buffers).
+
+Under autograd the full-sequence path differentiates on the CPU, where the
+scan is the plain ``ssd_ref``; on the card it raises ``NotImplementedError``
+until the SSD kernel has a backward, rather than return an output without
+a gradient.
 """
 from __future__ import annotations
 
@@ -104,6 +109,11 @@ def ssm_apply(
 
     new_cache = None
     if cache is None:
+        if u.is_cuda and torch.is_grad_enabled() and zxbcdt.requires_grad:
+            raise NotImplementedError(
+                "training an SSM layer on the card needs the SSD kernel's backward, "
+                "which comes with the next slice of the port"
+            )
         xBC, tail = _causal_conv(xBC, p["conv_w"], p["conv_b"])
         xc, Bc, Cc = torch.split(xBC, [di, N, N], dim=-1)
         x = xc.reshape(B, S, nh, Pd)

@@ -6,7 +6,10 @@ device and import nothing of JAX, so they run on the GPU machine with
 The CUDA flash and SSD kernels are held against their plain versions, in
 bf16 (the tensor-core designs) and f32 (the FMA designs), over shape sweeps
 and tile edges, and small models served on the card are held against the
-same weights decoded on the CPU."""
+same weights decoded on the CPU. Flash attention's backward is held against
+its plain version over the same sweeps; a train step of a small model on
+the card against the same step on the CPU; and a restarted training run
+against an uninterrupted one, bit for bit."""
 import numpy as np
 import pytest
 import torch
@@ -235,3 +238,139 @@ def test_small_model_served_on_card_matches_cpu_decode():
     assert tfa.flash_attention_bhsd.launches - before == cfg.num_layers * len(prompts)
     for ref, out in zip(refs, outs):
         assert list(map(int, out)) == ref
+
+
+# -- training: K1's backward, the train step, a bit-exact restart ------------------------
+
+
+def _bwd_error(dev, rng, dt, case) -> float:
+    """One set of backward launches in the model's layout against the plain
+    version: the largest error of dq, dk and dv, each over max(1, its
+    largest value); the set is counted and its instantiation was checked."""
+    B, H, KV, Sq, Sk, Dh, causal, window, k_len = case
+    shapes = [(B, Sq, H, Dh), (B, Sk, KV, Dh), (B, Sk, KV, Dh), (B, Sq, H, Dh)]
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s)).to(dev, dt) for s in shapes)
+    mask = dict(causal=causal, window=window, k_len=k_len)
+    with torch.no_grad():
+        o, lse = tfa.flash_attention_lse(q, k, v, bshd=True, **mask)
+    before = tfa.flash_attention_bwd.launches
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, bshd=True, **mask)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd.launches == before + 1
+    assert (0, dt, Dh) in tfa._bwd_guard.checked  # its first launch was checked
+    want = tfa.flash_attention_bwd_ref(*(t.transpose(1, 2) for t in (q, k, v, o)), lse,
+                                       do.transpose(1, 2), **mask)
+    errs = []
+    for g, w in zip(got, want):
+        w = w.transpose(1, 2).float()
+        assert torch.isfinite(g.float()).all()
+        errs.append((g.float() - w).abs().max().item() / max(1.0, w.abs().max().item()))
+    return max(errs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernel_matches_plain_version_on_card(dtype):
+    dev = _cuda()
+    dt, tol = FLASH_TOL[dtype]
+    rng = np.random.default_rng(11)
+    for name, case in {**SWEEP, **FLASH_EDGES}.items():
+        err = _bwd_error(dev, rng, dt, case)
+        assert err <= tol, (name, dtype, err)
+
+
+@pytest.mark.gpu
+def test_autograd_goes_through_the_kernels_and_raw_launches_refuse():
+    """Under autograd the model's flash call is the autograd Function, whose
+    backward launches the backward kernels; the raw launches of K1 and K2
+    and an SSM layer's forward raise rather than return an output without a
+    gradient."""
+    dev = _cuda()
+    rng = np.random.default_rng(12)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s)).to(dev, torch.float32)
+                   for s in [(1, 70, 4, 32), (1, 70, 2, 32), (1, 70, 2, 32), (1, 70, 4, 32)])
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    fwd0, bwd0 = tfa.flash_attention_bhsd.launches, tfa.flash_attention_bwd.launches
+    out = tfa.flash_attention(q, k, v, causal=True)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.backward(do)
+    assert tfa.flash_attention_bhsd.launches == fwd0 + 1
+    assert tfa.flash_attention_bwd.launches == bwd0 + 1
+    with torch.no_grad():
+        o, lse = tfa.flash_attention_lse_ref(*(t.transpose(1, 2) for t in (q, k, v)))
+    want = tfa.flash_attention_bwd_ref(*(t.detach().transpose(1, 2) for t in (q, k, v)), o, lse,
+                                       do.transpose(1, 2))
+    for t, w in zip((q, k, v), want):
+        torch.testing.assert_close(t.grad, w.transpose(1, 2), atol=1e-4, rtol=1e-4)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        tfa._launch(q, k, v, causal=True, window=None, k_len=70, bshd=True)
+    x = torch.zeros((1, 16, 2, 16), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tssd._launch(x, torch.ones((1, 16, 2), device=dev), -torch.ones(2, device=dev),
+                     torch.zeros((1, 16, 16), device=dev), torch.zeros((1, 16, 16), device=dev),
+                     chunk=16)
+    cfg = get_reduced("mamba2-1.3b").replace(dtype="float32")
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    with pytest.raises(NotImplementedError, match="backward"):
+        model.loss(params, {"tokens": np.zeros((1, 8), np.int32),
+                            "targets": np.zeros((1, 8), np.int32)})
+
+
+def _train_cfg():
+    # head_dim 32: the flash kernels are built for head dims 32, 64 and 128
+    return get_reduced("tinyllama-1.1b").replace(dtype="float32", head_dim=32)
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu():
+    """One step of reduced tinyllama (loss, autograd through both K1
+    kernels, AdamW) on the card against the same step on the CPU."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.common import ParamTree
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _train_cfg()
+    batch = SyntheticTokens(cfg.vocab_size, 40, 2, seed=0).batch(0)
+    ocfg = AdamWConfig(lr=1e-3, grad_clip=0.5)
+    cpu_params = build_model(cfg, device="cpu").init(0)
+    card_params = ParamTree(tree_map(lambda t: t.detach().to(dev), cpu_params.tree()))
+    out = {}
+    for device, params in (("cpu", cpu_params), (dev, card_params)):
+        model = build_model(cfg, device=device)
+        tree = params.tree()
+        state = adamw_init(ocfg, tree)
+        loss, _ = model.loss(params, batch)
+        grads = tree_unflatten(tree, torch.autograd.grad(loss, tree_leaves(tree)))
+        _, state, met = adamw_update(ocfg, 1e-3, tree, grads, state)
+        out[str(device)] = (loss.item(), met["grad_norm"].item(),
+                            [t.detach().cpu() for t in tree_leaves(tree)])
+    (l0, n0, p0), (l1, n1, p1) = out.values()
+    assert l1 == pytest.approx(l0, rel=1e-4) and n1 == pytest.approx(n0, rel=1e-4)
+    for a, b in zip(p0, p1):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_restart_resumes_bit_exactly_on_card(tmp_path):
+    """Crash at step 7, restart from the step-5 checkpoint: params and AdamW
+    state equal an uninterrupted run's bit for bit (the backward kernels
+    use no float atomics)."""
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    dev = _cuda()
+    base = dict(num_steps=10, checkpoint_every=5, log_every=100, seq_len=32, global_batch=2,
+                lr=1e-3, seed=3)
+    with Trainer(_train_cfg(), TrainerConfig(**base), str(tmp_path / "a"), device=dev) as tr:
+        ref = tr.run(resume=False)
+    with Trainer(_train_cfg(), TrainerConfig(**base, fail_at_step=7), str(tmp_path / "b"),
+                 device=dev) as tr:
+        out = tr.run_with_restarts(max_restarts=1)
+    pairs = [(ref["params"].tree(), out["params"].tree()), (ref["opt"], out["opt"])]
+    for tree_a, tree_b in pairs:
+        for a, b in zip(tree_leaves(tree_a), tree_leaves(tree_b)):
+            assert a.device.type == "cuda" and torch.equal(a, b)

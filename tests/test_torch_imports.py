@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the reference package, and
-importing the whole port loads neither."""
+``chip_smoke.py`` imports JAX, ``ml_dtypes`` or anything of the reference
+package, and importing the whole port loads none of them."""
 import ast
 import subprocess
 import sys
@@ -14,7 +14,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chi
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imports(path: Path) -> list:
@@ -37,10 +37,12 @@ def test_importing_the_port_loads_no_jax_or_reference_module():
     code = (
         "import sys, repro_torch, repro_torch.bridge, repro_torch.configs, "
         "repro_torch.core, repro_torch.kernels, repro_torch.kernels.ssd, "
-        "repro_torch.models.ssm, repro_torch.serve\n"
+        "repro_torch.models.ssm, repro_torch.serve, repro_torch.optim, repro_torch.data, "
+        "repro_torch.checkpoint, repro_torch.runtime, repro_torch.launch.train\n"
         "from repro_torch.configs import get_config\n"
         "[get_config(a) for a in ('tinyllama-1.1b', 'mamba2-1.3b', 'hymba-1.5b')]\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
         "sys.exit(f'loaded {bad}' if bad else 0)\n"
     )
     proc = subprocess.run(

@@ -150,12 +150,14 @@ def test_ssm_block_prefill_and_decode_match_reference(arch):
     rng = np.random.default_rng(11)
     u = rng.standard_normal((2, 13, cfg.d_model)).astype(np.float32)
     jout, jcache = jax_ssm_apply(cfg, jlayer, jnp.asarray(u), return_cache=True)
-    tout, tcache = ssm_apply(cfg, tlayer, torch.from_numpy(u), return_cache=True)
+    with torch.no_grad():  # the parameters are trainable: no graph for a parity read
+        tout, tcache = ssm_apply(cfg, tlayer, torch.from_numpy(u), return_cache=True)
     _close(tout, jout)
     _close_caches(tcache, jcache)
     u1 = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
     jout, jcache = jax_ssm_apply(cfg, jlayer, jnp.asarray(u1), cache=jcache)
-    tout, none = ssm_apply(cfg, tlayer, torch.from_numpy(u1), cache=tcache)
+    with torch.no_grad():
+        tout, none = ssm_apply(cfg, tlayer, torch.from_numpy(u1), cache=tcache)
     assert none is None  # decode wrote the window and the state in place
     _close(tout, jout)
     _close_caches(tcache, jcache)
