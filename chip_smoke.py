@@ -8,8 +8,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 It builds every hand-written kernel from ``src/repro_torch/csrc`` with nvcc
 (flash attention, its backward and the SSD scan, one nvcc each, started
 together), holds each against its plain PyTorch version on the card in bf16
-(the tensor-core design; the backward's FMA tiles) and f32 (the FMA
-design), flash attention's backward also at the training shapes, and times the bf16 kernel, its plain version and, where there is
+(the tensor-core designs) and f32 (the FMA designs), flash attention's
+backward also at the training shapes (in bf16 also in ulps, beside a
+lower-precision control and SDPA's own backward), and times the bf16
+kernel, its plain version and, where there is
 one, the PyTorch call computing the same function: by CUDA events over
 back-to-back eager calls, and as device time by CUDA-graph replay (for
 SDPA's autograd backward, by a profiler trace). It then trains full-width
@@ -55,9 +57,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 # the served paths, in order: (arch, engine settings, kernels every prefill
-# launches once per layer). hymba's max_len stays above its window of 1024:
-# at window >= max_len the engine cannot store the prefill's ring cache
-# (ROADMAP F6, in the reference engine too)
+# launches once per layer). hymba's max_len stays above its window of 1024,
+# so its window layers serve from ring caches
 PATHS = (
     ("tinyllama-1.1b", dict(max_slots=4, max_len=1024, page_size=64), ("flash_attention",)),
     ("mamba2-1.3b", dict(max_slots=4, max_len=1024, page_size=64), ("ssd",)),
@@ -119,13 +120,51 @@ def phase_build() -> None:
     for name in KERNEL_SOURCES:
         log = build.build_log[name]
         emit("build", source=f"src/repro_torch/csrc/{name}.cu", nvcc_s=log["seconds"],
-             cached=log["cached"], ptxas=log["ptxas"])
+             cached=log["cached"], ptxas=log["ptxas"], resources=ptxas_resources(log["ptxas"]))
     version = subprocess.run([build.nvcc(), "--version"], capture_output=True, text=True,
                              timeout=60, check=True).stdout.strip().splitlines()[-1]
     cudart = _mapped_cudart()
     emit("build", total_s=time.perf_counter() - t0, nvcc=version, cudart=cudart)
     check(len(cudart) == 1,
           f"the kernel libraries and PyTorch must share one CUDA runtime; mapped: {cudart}")
+
+
+def _kernel_label(mangled: str) -> str:
+    """``bwd_dq_mma<64,true>`` or ``bwd_dkdv<float,128>`` from an Itanium-mangled
+    kernel name in an anonymous namespace (``_ZN<len><name>...I...E``)."""
+    i = mangled.find("_ZN") + 3
+    name = mangled
+    while 2 < i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j : j + n], j + n
+    types = {"f": "float", "13__nv_bfloat16": "bf16"}
+    args = re.findall(r"(f|13__nv_bfloat16)?L([ib])(\d+)E", mangled[i:])
+    values = [v if kind == "i" else ("true" if v == "1" else "false") for _, kind, v in args]
+    return f"{name}<{','.join([types[t] for t, _, _ in args if t] + values)}>"
+
+
+def ptxas_resources(lines: list) -> dict:
+    """Registers and spill bytes of each kernel instantiation in a ``ptxas
+    -v`` report, keyed by :func:`_kernel_label`."""
+    out, current = {}, None
+    for ln in lines:
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            current = _kernel_label(m.group(1))
+            out[current] = {}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[current].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[current]["registers"] = int(m.group(1))
+    return out
 
 
 def _mapped_cudart() -> list:
@@ -371,10 +410,12 @@ def _bwd_bf16_control(q, k, v, o, lse, do, *, causal, window, k_len):
     return dq.reshape(B, H, Sq, Dh).to(bf16), dk.to(bf16), dv.to(bf16)
 
 
-def _bwd_case(q, k, v, do, kw, model_layout) -> tuple:
+def _bwd_case(q, k, v, do, kw, model_layout, library=None) -> tuple:
     """One check of K1's forward (output and lse) and backward against the
-    plain versions on the same inputs; the bf16 control read beside it.
-    Returns the kernel's (o, lse) and the readings."""
+    plain versions on the same inputs; the bf16 control read beside it, and
+    ``library()``'s gradients (in q's layout), when given, read the same
+    way (printed, not gated). Returns the kernel's (o, lse) and the
+    readings."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -409,6 +450,12 @@ def _bwd_case(q, k, v, do, kw, model_layout) -> tuple:
         r["ulp_tol"] = BWD_ULP_TOL
         ok = ok and max(r["ulp_err"].values()) <= BWD_ULP_TOL
         del ctl
+    if library is not None:
+        lib = library()
+        names = ("dq", "dk", "dv")
+        r["library_scaled_err"] = {n: _scaled(a, b) for n, a, b in zip(names, lib, want)}
+        r["library_ulp_err"] = {n: _ulps(a, b) for n, a, b in zip(names, lib, want)}
+        del lib
     r["ok"] = ok
     del got, want
     return o, lse, r
@@ -478,7 +525,17 @@ def phase_flash_bwd() -> dict:
     q, k, v = _qkv(B, H, KV, S, S, Dh, bf16, seed=1000, model_layout=True)
     do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1001),
                      device=q.device).to(bf16)
-    o, lse, r = _bwd_case(q, k, v, do, dict(causal=True, window=None, k_len=None), True)
+
+    def sdpa_grads():
+        """SDPA's own forward and autograd backward on the same inputs, in
+        the model's layout: what a library backward reads on this gate."""
+        qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+        grads = torch.autograd.grad(out, (qs, ks, vs), do.transpose(1, 2).contiguous())
+        return [g.transpose(1, 2) for g in grads]
+
+    o, lse, r = _bwd_case(q, k, v, do, dict(causal=True, window=None, k_len=None), True,
+                          library=sdpa_grads)
     label = f"train bf16 causal B={B} H={H} KV={KV} Dh={Dh} S={S}"
     emit("kernels", kernel="flash_attention_bwd", case=label, dtype="bfloat16",
          shape=[B, H, KV, S, S, Dh], **r)
@@ -519,7 +576,8 @@ def phase_flash_bwd() -> dict:
     emit("kernels", kernel="flash_attention_bwd", timing=label, **t)
     del out, qs, ks, vs
     return {"flash_attention_bwd": {"max_scaled_err": worst, "max_abs_err": worst_abs,
-                                    "max_ulp_err": worst_ulp, "timing": t}}
+                                    "max_ulp_err": worst_ulp, "timing": t,
+                                    "train_shape": r}}
 
 
 def _ssd_inputs(B, S, H, P, N, dtype, seed, laws="wide"):
@@ -702,7 +760,7 @@ def _traced(fn, top: int = 3) -> dict:
         ms = e.time_range.elapsed_us() / 1e3
         ms0, n0 = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms0 + ms, n0 + 1)
-        name = re.search(r"(flash_fwd_\w+|ssd_\w+|bwd_(?:dkdv|dq|preprocess))", e.name)
+        name = re.search(r"(flash_fwd_\w+|ssd_\w+|bwd_(?:dkdv|dq|preprocess)(?:_mma)?)", e.name)
         if name:
             ports[name.group(1)] = ports.get(name.group(1), 0.0) + ms
     heaviest = sorted(by_name.items(), key=lambda kv: -kv[1][0])
@@ -1112,7 +1170,10 @@ def _kernel_line(kern: dict, serves: list, train: dict) -> dict:
     path."""
     import torch
 
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
     from repro_torch.kernels.flash_attention import design as fa_design
+    from repro_torch.kernels.flash_attention import design_bwd
     from repro_torch.kernels.ssd import DESIGNS as SSD_DESIGNS
 
     def launches(name):
@@ -1186,7 +1247,16 @@ def _kernel_line(kern: dict, serves: list, train: dict) -> dict:
                 "library_ms": t_bwd["library_ms"],
                 "device_ms": t_bwd["device_ms"],
                 "library_device_ms": t_bwd["library_device_ms"],
-                "design": "fma",
+                "design": design_bwd(torch.bfloat16, 64),
+                "design_by_dtype_head_dim": {
+                    str(dt).split(".")[-1]: {dh: design_bwd(dt, dh) for dh in HEAD_DIMS}
+                    for dt in (torch.bfloat16, torch.float32)},
+                "ptxas": {k: v for k, v in ptxas_resources(
+                    build.build_log["flash_attention_bwd"]["ptxas"]).items()
+                    if not k.startswith("bwd_preprocess")},
+                "train_shape_ulp_err": bwd["train_shape"]["ulp_err"],
+                "train_shape_control_ulp_err": bwd["train_shape"]["control_ulp_err"],
+                "train_shape_library_ulp_err": bwd["train_shape"]["library_ulp_err"],
                 "at": "B=4 H=32 KV=4 Dh=64 Sq=Sk=2048 bf16 causal; library: the autograd "
                       "backward of F.scaled_dot_product_attention",
             },

@@ -25,27 +25,65 @@
 //  - bwd_dkdv: one CTA per (batch * kv-head, 64-key tile), heaviest causal
 //    tiles (the first) dispatched first. It keeps its K and V tile in
 //    shared memory and dK, dV in registers, walks the G q-heads of its
-//    group and, for each, the 64-row q tiles the mask lets see its keys,
+//    group and, for each, the q tiles the mask lets see its keys,
 //    recomputing P and dS per tile, and writes dK and dV once.
 //  - bwd_dq: one CTA per (batch * q-head, 64-row q tile), heaviest first,
 //    walking the key tiles its rows see, and writes dQ once.
+// A per-key-tile dQ partial (the usual way to avoid atomics) would take
+// about 2 GB at the training shape; recomputing P and dS in bwd_dq costs
+// two of its products instead.
 //
 // What bounds it on this card: at tinyllama's training shapes (B=4, H=32,
-// KV=4, Dh=64, S=2048, causal) the work is about 2.5x the forward's FLOPs
-// against q, k, v, o, dO and lse read and dq, dk, dv written once, so it is
-// bounded by operations (tensor-core peak) by a wide margin. This first
-// design is simple and right rather than fast: every product runs on FMA
-// tiles on the FP32 pipes (both dtypes; bf16 operands are widened to f32
-// in shared memory), each thread owning a 4 x 4 micro-tile of the 64 x 64
-// score tile and 4 rows x Dh/16 columns of its gradient tile. The products
-// are bound by shared-memory reads as much as by the FMA pipes. Moving
-// them onto the tensor cores (mma.sync / wgmma, as the forward's bf16
-// form) is the next step for this kernel.
+// KV=4, Dh=64, S=2048, causal) the work is 2.5x the forward's FLOPs against
+// q, k, v, o, dO and lse read and dq, dk, dv written once, so it is bounded
+// by tensor-core operations by a wide margin.
+//
+// bf16 (the trained path; bwd_dkdv_mma, bwd_dq_mma): every product on the
+// tensor cores with bf16 operands and f32 sums, 4 warps (one warpgroup) a
+// CTA, warp w owning rows 16 w .. 16 w + 15 of the CTA's 64-row tile (keys
+// in bwd_dkdv, q rows in bwd_dq). Operands stay bf16 in shared memory,
+// filled by 16-byte cp.async; the streamed tiles (Q, dO with their lse and
+// D in bwd_dkdv; K, V in bwd_dq) are double-buffered, the next loading
+// while this one computes.
+//  - Head dim 64 (the trained one): wgmma.m64n64k16 from tiles in the
+//    128-byte swizzle. The score products read both operands from shared
+//    memory (K-major); the gradient products take P^T, dS^T or dS from
+//    registers and dO, Q or K from shared memory (MN-major), as the
+//    forward's P V does.
+//  - Head dims 32 and 128: mma.sync.m16n8k16 fed by ldmatrix from rows
+//    padded by 16 bytes, the same products warp by warp.
+//  - bwd_dkdv computes S^T = K Q^T and dP^T = V dO^T with the keys as the M
+//    dimension, so P^T and dS^T come out in the accumulator layout that is
+//    the A operand of dV += P^T dO and dK += dS^T Q: they never leave
+//    registers (the layout the forward uses for P V). bwd_dq computes
+//    S = Q K^T and dP = dO V^T, then dQ += dS K with dS from registers.
+//  - Precision: S and dP are exact products of bf16 inputs. P and dS are
+//    f32 in registers; one bf16 rounding of them before their products
+//    would cost tens of bf16 ulps in the gradients, so each is split into a
+//    bf16 hi part and a bf16 lo part (lo = bf16(x - hi)) and each product
+//    that takes P or dS (dV, dK, dQ) is issued twice into the same f32 sum:
+//    10 tensor-core products a (q, key) tile pair where the bound counts 5.
+//  - At Dh = 128 the streamed tiles hold 32 rows (q rows in bwd_dkdv, keys
+//    in bwd_dq), so a warp's dK and dV (or dQ) accumulators, 128 (64) f32
+//    registers, fit beside the score fragments.
+// What holds the bf16 form back next (about 1.1 ms at the training shape
+// on an H100 SXM at 700 W, twice PyTorch's SDPA backward): the split's
+// doubled products, and each warpgroup waiting for its products before
+// its softmax, with no second warpgroup or producer warp to overlap them.
+//
+// f32 (the parity path; bwd_dkdv, bwd_dq): FMA tiles on the FP32 pipes, as
+// the forward's f32 form: the tensor cores take no f32 operand that holds a
+// 1e-4 tolerance. Each thread owns a 4 x 4 micro-tile of the 64 x 64 score
+// tile and 4 rows x Dh/16 columns of its gradient tile, operands in padded
+// f32 shared-memory tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <type_traits>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -88,16 +126,6 @@ template <>
 __device__ __forceinline__ float ld<__nv_bfloat16>(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
-template <typename T>
-__device__ __forceinline__ void st(T* p, float x);
-template <>
-__device__ __forceinline__ void st<float>(float* p, float x) {
-  *p = x;
-}
-template <>
-__device__ __forceinline__ void st<__nv_bfloat16>(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ bool visible(const Params& p, int k_valid, int qi, int kj) {
   bool ok = kj < k_valid;
@@ -124,7 +152,7 @@ __global__ void __launch_bounds__(THREADS) bwd_preprocess(Params p) {
   if (lane == 0) p.delta[(long long)bh * p.Sq + qi] = acc;
 }
 
-// -- shared pieces of the two gradient kernels -------------------------------------
+// -- f32: FMA tiles ----------------------------------------------------------------
 
 template <int DH>
 constexpr int smem_bytes() {
@@ -134,11 +162,12 @@ constexpr int smem_bytes() {
 }
 
 // rows [r0, r0 + 64) of a (seq, Dh) slice into a padded f32 tile, zeros past n
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long ss, int r0, int n) {
+template <int DH>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long ss, int r0,
+                                          int n) {
   for (int i = threadIdx.x; i < BQ * DH; i += THREADS) {
     const int r = i / DH, d = i % DH;
-    dst[r * (DH + 1) + d] = r0 + r < n ? ld(src + (long long)(r0 + r) * ss + d) : 0.f;
+    dst[r * (DH + 1) + d] = r0 + r < n ? src[(long long)(r0 + r) * ss + d] : 0.f;
   }
 }
 
@@ -193,7 +222,7 @@ __device__ __forceinline__ void scores(const Params& p, int k_valid, int q0, int
 
 // -- dK, dV ---------------------------------------------------------------------
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(THREADS) bwd_dkdv(Params p) {
   constexpr int QS = DH + 1;
   constexpr int DC = DH / 16;  // gradient columns per thread
@@ -213,8 +242,8 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv(Params p) {
   const int G = p.H / p.KV;
   const int k_valid = min(p.k_len, p.Sk);
 
-  load_tile<T, DH>(k_s, static_cast<const T*>(p.k) + b * p.sk.b + kvh * p.sk.h, p.sk.s, k0, p.Sk);
-  load_tile<T, DH>(v_s, static_cast<const T*>(p.v) + b * p.sv.b + kvh * p.sv.h, p.sv.s, k0, p.Sk);
+  load_tile<DH>(k_s, static_cast<const float*>(p.k) + b * p.sk.b + kvh * p.sk.h, p.sk.s, k0, p.Sk);
+  load_tile<DH>(v_s, static_cast<const float*>(p.v) + b * p.sv.b + kvh * p.sv.h, p.sv.s, k0, p.Sk);
 
   // the q rows that can see a key of this tile: causal q >= k0; window
   // q < k_last + window; none when the tile lies past the valid length
@@ -231,12 +260,12 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv(Params p) {
 
   for (int hg = 0; hg < G; ++hg) {
     const int h = kvh * G + hg, bh = b * p.H + h;
-    const T* qg = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
-    const T* dog = static_cast<const T*>(p.dO) + b * p.sdo.b + h * p.sdo.h;
+    const float* qg = static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h;
+    const float* dog = static_cast<const float*>(p.dO) + b * p.sdo.b + h * p.sdo.h;
     for (int q0 = q_lo; q0 < q_hi; q0 += BQ) {
       __syncthreads();  // the previous tile's readers are done
-      load_tile<T, DH>(q_s, qg, p.sq.s, q0, p.Sq);
-      load_tile<T, DH>(do_s, dog, p.sdo.s, q0, p.Sq);
+      load_tile<DH>(q_s, qg, p.sq.s, q0, p.Sq);
+      load_tile<DH>(do_s, dog, p.sdo.s, q0, p.Sq);
       for (int r = tid; r < BQ; r += THREADS) {
         const bool in = q0 + r < p.Sq;
         lse_s[r] = in ? p.lse[(long long)bh * p.Sq + q0 + r] : 0.f;
@@ -271,23 +300,23 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv(Params p) {
     }
   }
 
-  T* dkg = static_cast<T*>(p.dk) + b * p.sdk.b + kvh * p.sdk.h;
-  T* dvg = static_cast<T*>(p.dv) + b * p.sdv.b + kvh * p.sdv.h;
+  float* dkg = static_cast<float*>(p.dk) + b * p.sdk.b + kvh * p.sdk.h;
+  float* dvg = static_cast<float*>(p.dv) + b * p.sdv.b + kvh * p.sdv.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kj = k0 + 4 * ty + i;
     if (kj >= p.Sk) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      st(dkg + (long long)kj * p.sdk.s + tx + 16 * c, dk[i][c] * p.scale);
-      st(dvg + (long long)kj * p.sdv.s + tx + 16 * c, dv[i][c]);
+      dkg[(long long)kj * p.sdk.s + tx + 16 * c] = dk[i][c] * p.scale;
+      dvg[(long long)kj * p.sdv.s + tx + 16 * c] = dv[i][c];
     }
   }
 }
 
 // -- dQ -------------------------------------------------------------------------
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(THREADS) bwd_dq(Params p) {
   constexpr int QS = DH + 1;
   constexpr int DC = DH / 16;
@@ -307,8 +336,8 @@ __global__ void __launch_bounds__(THREADS) bwd_dq(Params p) {
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last (heaviest causal) tiles first
   const int k_valid = min(p.k_len, p.Sk);
 
-  load_tile<T, DH>(q_s, static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.s, q0, p.Sq);
-  load_tile<T, DH>(do_s, static_cast<const T*>(p.dO) + b * p.sdo.b + h * p.sdo.h, p.sdo.s, q0,
+  load_tile<DH>(q_s, static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.s, q0, p.Sq);
+  load_tile<DH>(do_s, static_cast<const float*>(p.dO) + b * p.sdo.b + h * p.sdo.h, p.sdo.s, q0,
                    p.Sq);
   for (int r = tid; r < BQ; r += THREADS) {
     const bool in = q0 + r < p.Sq;
@@ -319,8 +348,8 @@ __global__ void __launch_bounds__(THREADS) bwd_dq(Params p) {
   const int q_last = min(q0 + BQ, p.Sq) - 1;
   const int k_hi = p.causal ? min(k_valid, q_last + 1) : k_valid;
   const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) / BK * BK : 0;
-  const T* kg = static_cast<const T*>(p.k) + b * p.sk.b + kvh * p.sk.h;
-  const T* vg = static_cast<const T*>(p.v) + b * p.sv.b + kvh * p.sv.h;
+  const float* kg = static_cast<const float*>(p.k) + b * p.sk.b + kvh * p.sk.h;
+  const float* vg = static_cast<const float*>(p.v) + b * p.sv.b + kvh * p.sv.h;
 
   float dq[4][DC];
 #pragma unroll
@@ -330,8 +359,8 @@ __global__ void __launch_bounds__(THREADS) bwd_dq(Params p) {
 
   for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done (and q, dO are in)
-    load_tile<T, DH>(k_s, kg, p.sk.s, k0, p.Sk);
-    load_tile<T, DH>(v_s, vg, p.sv.s, k0, p.Sk);
+    load_tile<DH>(k_s, kg, p.sk.s, k0, p.Sk);
+    load_tile<DH>(v_s, vg, p.sv.s, k0, p.Sk);
     __syncthreads();
     scores<DH>(p, k_valid, q0, k0, q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s);
     __syncthreads();
@@ -350,13 +379,402 @@ __global__ void __launch_bounds__(THREADS) bwd_dq(Params p) {
     }
   }
 
-  T* dqg = static_cast<T*>(p.dq) + b * p.sdq.b + h * p.sdq.h;
+  float* dqg = static_cast<float*>(p.dq) + b * p.sdq.b + h * p.sdq.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + 4 * ty + i;
     if (qi >= p.Sq) continue;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) st(dqg + (long long)qi * p.sdq.s + tx + 16 * c, dq[i][c] * p.scale);
+    for (int c = 0; c < DC; ++c) dqg[(long long)qi * p.sdq.s + tx + 16 * c] = dq[i][c] * p.scale;
+  }
+}
+
+// -- bf16: tensor cores ------------------------------------------------------------
+
+constexpr int MMA_THREADS = 128;  // 4 warps (one warpgroup), each 16 rows of the CTA's tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+// rows of a streamed tile: q rows in bwd_dkdv, keys in bwd_dq
+template <int DH>
+__host__ __device__ constexpr int stream_rows() {
+  return DH <= 64 ? 64 : 32;
+}
+
+// A bf16 tile's layout in shared memory. For mma.sync (WG false): rows
+// padded by 16 bytes, so each ldmatrix phase reads 8 rows from 8 distinct
+// bank groups. For wgmma (WG, Dh = 64 only): 128-byte rows in the 128-byte
+// swizzle of tensor_core.cuh, tiles 1 KiB aligned.
+template <int DH, bool WG>
+__host__ __device__ constexpr int tile_bytes(int rows) {
+  return WG ? rows * 128 : rows * (DH + 8) * 2;
+}
+// the byte offset of 16-byte piece pc of row r
+template <int DH, bool WG>
+__device__ __forceinline__ int piece_at(int r, int pc) {
+  if constexpr (WG) {
+    return tc::swz128(r, pc);
+  } else {
+    return r * (DH + 8) * 2 + pc * 16;
+  }
+}
+// element (r, c) of a padded tile, for ldmatrix
+template <int DH>
+__device__ __forceinline__ const __nv_bfloat16* at(const unsigned char* tile, int r, int c) {
+  return reinterpret_cast<const __nv_bfloat16*>(tile) + r * (DH + 8) + c;
+}
+
+// the fixed 64-row tiles and two stages of the two streamed tiles;
+// bwd_dkdv adds two stages of the streamed q rows' lse and D, and the
+// swizzled layout 1 KiB of alignment slack
+template <int DH, bool WG>
+constexpr int tc_smem_bytes(bool stats) {
+  return 2 * tile_bytes<DH, WG>(64) + 4 * tile_bytes<DH, WG>(stream_rows<DH>()) +
+         (stats ? 4 * stream_rows<DH>() * 4 : 0) + (WG ? 1024 : 0);
+}
+
+template <bool WG>
+__device__ __forceinline__ unsigned char* tiles_base(unsigned char* smem) {
+  if constexpr (WG) {  // the swizzle is a function of the address
+    return smem + ((1024 - (tc::smem_u32(smem) & 1023)) & 1023);
+  } else {
+    return smem;
+  }
+}
+
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// rows [r0, r0 + n) of a (seq, Dh) slice into a tile by 16-byte copies,
+// zeros from row `len` of the slice on
+template <int DH, bool WG>
+__device__ __forceinline__ void cp_rows(unsigned char* dst, const __nv_bfloat16* src,
+                                        long long ss, int r0, int n, int len) {
+  constexpr int CH = DH / 8;
+  for (int c = threadIdx.x; c < n * CH; c += MMA_THREADS) {
+    const int r = c / CH, pc = c % CH, i = r0 + r;
+    tc::cp_async16(dst + piece_at<DH, WG>(r, pc), src + (long long)min(i, len - 1) * ss + 8 * pc,
+                   i < len);
+  }
+}
+
+// X = Y Z^T for one warp's 16 rows of Y (rows y0.. of tile y) against the
+// n rows of tile z, both padded (mma.sync); acc zeroed first
+template <int DH, int N>
+__device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4], const unsigned char* y, int y0,
+                                        const unsigned char* z, int lane) {
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < DH / 16; ++kd) {
+    uint32_t a[4];
+    tc::ldsm_x4(a, at<DH>(y, y0 + tc::x_row(lane), 16 * kd + tc::x_col(lane)));
+#pragma unroll
+    for (int np = 0; np < N / 16; ++np) {
+      uint32_t r[4];
+      tc::ldsm_x4(r, at<DH>(z, 16 * np + tc::y_row(lane), 16 * kd + tc::y_col(lane)));
+      tc::mma(acc[2 * np], a, r[0], r[1]);
+      tc::mma(acc[2 * np + 1], a, r[2], r[3]);
+    }
+  }
+}
+
+// acc += X Z over the m rows of padded tile z, X (16 x m) an f32 fragment
+// split into hi + lo A operands (mma.sync)
+template <int DH, int M>
+__device__ __forceinline__ void mma_split_ab(float (&acc)[DH / 8][4], const float (&x)[M / 8][4],
+                                             const unsigned char* z, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < M / 16; ++kk) {
+    uint32_t hi[4], lo[4];
+    tc::pack_a_split(hi, lo, x[2 * kk], x[2 * kk + 1]);
+#pragma unroll
+    for (int dn = 0; dn < DH / 16; ++dn) {
+      uint32_t r[4];
+      tc::ldsm_x4_trans(r, at<DH>(z, 16 * kk + tc::x_row(lane), 16 * dn + tc::x_col(lane)));
+      tc::mma(acc[2 * dn], hi, r[0], r[1]);
+      tc::mma(acc[2 * dn], lo, r[0], r[1]);
+      tc::mma(acc[2 * dn + 1], hi, r[2], r[3]);
+      tc::mma(acc[2 * dn + 1], lo, r[2], r[3]);
+    }
+  }
+}
+
+// The products of the wgmma form (Dh = 64, 64 x 64 tiles over the
+// warpgroup).
+
+// x = Y Z^T and x2 = Y2 Z2^T, one group: all four tiles K-major in shared memory
+__device__ __forceinline__ void wgmma_abt2(float (&x)[8][4], uint64_t y, uint64_t z,
+                                           float (&x2)[8][4], uint64_t y2, uint64_t z2) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] = x2[n][e] = 0.f;
+  tc::wgmma_fence();
+#pragma unroll
+  for (int kd = 0; kd < 4; ++kd)  // 16 head dims (32 bytes of a swizzled row) a step
+    tc::wgmma_ss(x, y + 2 * kd, z + 2 * kd, kd);
+#pragma unroll
+  for (int kd = 0; kd < 4; ++kd) tc::wgmma_ss(x2, y2 + 2 * kd, z2 + 2 * kd, kd);
+  tc::wgmma_commit();
+  tc::wgmma_wait0();
+}
+
+// acc += X Z: X an f32 fragment as hi + lo register A operands, Z MN-major
+// in shared memory
+__device__ __forceinline__ void wgmma_split_ab(float (&acc)[8][4], const float (&x)[8][4],
+                                               uint64_t z) {
+  uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) tc::pack_a_split(hi[kk], lo[kk], x[2 * kk], x[2 * kk + 1]);
+  tc::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {  // 16 rows of Z a step
+    tc::wgmma_rs_tb(acc, hi[kk], z + (16 * 128 >> 4) * kk);
+    tc::wgmma_rs_tb(acc, lo[kk], z + (16 * 128 >> 4) * kk);
+  }
+  tc::wgmma_commit();
+  tc::wgmma_wait0();
+}
+
+template <int DH, bool WG>
+__global__ void __launch_bounds__(MMA_THREADS) bwd_dkdv_mma(Params p) {
+  using bf16 = __nv_bfloat16;
+  constexpr int QN = stream_rows<DH>();  // q rows of a streamed tile
+  constexpr int NQ = QN / 8;             // n-tiles of S^T (q columns)
+  constexpr int ND = DH / 8;             // n-tiles of dK and dV
+  constexpr int TK = tile_bytes<DH, WG>(BK), TQ = tile_bytes<DH, WG>(QN);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* k_s = tiles_base<WG>(smem_raw);
+  unsigned char* v_s = k_s + TK;
+  unsigned char* q_s = v_s + TK;    // [stage]
+  unsigned char* do_s = q_s + 2 * TQ;  // [stage]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * TQ);  // [stage][QN]
+  float* dl_s = lse_s + 2 * QN;                             // [stage][QN]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int bkv = blockIdx.x, b = bkv / p.KV, kvh = bkv % p.KV;
+  const int k0 = blockIdx.y * BK;  // the first key tiles see the most q rows under causality
+  const int G = p.H / p.KV;
+  const int k_valid = min(p.k_len, p.Sk);
+
+  cp_rows<DH, WG>(k_s, static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h, p.sk.s, k0,
+                  BK, p.Sk);
+  cp_rows<DH, WG>(v_s, static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h, p.sv.s, k0,
+                  BK, p.Sk);
+
+  // the q rows that can see a key of this tile: causal q >= k0; window
+  // q < k_last + window; none when the tile lies past the valid length.
+  // The CTA walks n_q q tiles for each of the G q-heads, one stream.
+  const int q_lo = p.causal ? k0 / QN * QN : 0;
+  int q_hi = p.Sq;
+  if (p.window > 0) q_hi = min(q_hi, k0 + BK - 1 + p.window);
+  if (k0 >= k_valid) q_hi = 0;
+  const int n_q = q_hi > q_lo ? (q_hi - q_lo + QN - 1) / QN : 0;
+  const int n_it = G * n_q;
+
+  auto load_q = [&](int it, int stage) {
+    const int h = kvh * G + it / n_q, q0 = q_lo + (it % n_q) * QN;
+    cp_rows<DH, WG>(q_s + stage * TQ, static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h,
+                    p.sq.s, q0, QN, p.Sq);
+    cp_rows<DH, WG>(do_s + stage * TQ,
+                    static_cast<const bf16*>(p.dO) + b * p.sdo.b + h * p.sdo.h, p.sdo.s, q0, QN,
+                    p.Sq);
+    const long long row = (long long)(b * p.H + h) * p.Sq;
+    for (int r = threadIdx.x; r < QN; r += MMA_THREADS) {
+      const int qi = q0 + r;
+      const long long at_ = row + min(qi, p.Sq - 1);
+      tc::cp_async4(lse_s + stage * QN + r, p.lse + at_, qi < p.Sq);
+      tc::cp_async4(dl_s + stage * QN + r, p.delta + at_, qi < p.Sq);
+    }
+  };
+  if (n_it > 0) load_q(0, 0);
+  tc::cp_async_commit();  // with K and V
+
+  const float sl2 = p.scale * LOG2E;  // P = 2^(S * scale * log2(e) - lse * log2(e))
+  const int kr = k0 + 16 * warp + (lane >> 2);  // this lane's keys: kr and kr + 8
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_it) load_q(it + 1, stage ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // this tile (and, the first time, K and V) has landed
+    if constexpr (WG) tc::fence_proxy_async();
+    __syncthreads();
+    const int q0 = q_lo + (it % n_q) * QN;
+    const unsigned char* qs = q_s + stage * TQ;
+    const unsigned char* ds = do_s + stage * TQ;
+    const float* ls = lse_s + stage * QN;
+    const float* dls = dl_s + stage * QN;
+
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x QN q rows
+    float s[NQ][4], dp[NQ][4];
+    if constexpr (WG) {
+      wgmma_abt2(s, tc::sw128_desc(k_s), tc::sw128_desc(qs), dp, tc::sw128_desc(v_s),
+                 tc::sw128_desc(ds));
+    } else {
+      mma_abt<DH, QN>(s, k_s, 16 * warp, qs, lane);
+      mma_abt<DH, QN>(dp, v_s, 16 * warp, ds, lane);
+    }
+
+    // P^T and dS^T in place, f32; only tiles at the diagonal, the window's
+    // edge, the valid length or the ragged q end evaluate the mask
+    const bool edge = (p.causal && q0 < k0 + BK - 1) ||
+                      (p.window > 0 && k0 <= q0 + QN - 1 - p.window) || k0 + BK > k_valid ||
+                      q0 + QN > p.Sq;
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      const float2 l = *reinterpret_cast<const float2*>(ls + 8 * n + 2 * t);
+      const float2 d = *reinterpret_cast<const float2*>(dls + 8 * n + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q0 + 8 * n + 2 * t + (e & 1), kj = kr + 8 * (e >> 1);
+        float pr = exp2_ftz(s[n][e] * sl2 - ((e & 1) ? l.y : l.x) * LOG2E);
+        if (edge && !(qi < p.Sq && visible(p, k_valid, qi, kj))) pr = 0.f;
+        s[n][e] = pr;
+        dp[n][e] = pr * (dp[n][e] - ((e & 1) ? d.y : d.x));
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q, P^T and dS^T as hi + lo A operands
+    if constexpr (WG) {
+      wgmma_split_ab(dv, s, tc::sw128_desc(ds));
+      wgmma_split_ab(dk, dp, tc::sw128_desc(qs));
+    } else {
+      mma_split_ab<DH, QN>(dv, s, ds, lane);
+      mma_split_ab<DH, QN>(dk, dp, qs, lane);
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  tc::cp_async_wait<0>();  // with no q tile at all, K and V may still be in flight
+
+  bf16* dkg = static_cast<bf16*>(p.dk) + b * p.sdk.b + kvh * p.sdk.h;
+  bf16* dvg = static_cast<bf16*>(p.dv) + b * p.sdv.b + kvh * p.sdv.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kj = kr + 8 * i;
+    if (kj >= p.Sk) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<uint32_t*>(dkg + kj * p.sdk.s + 8 * n + 2 * t) =
+          tc::pack_bf16(dk[n][2 * i] * p.scale, dk[n][2 * i + 1] * p.scale);
+      *reinterpret_cast<uint32_t*>(dvg + kj * p.sdv.s + 8 * n + 2 * t) =
+          tc::pack_bf16(dv[n][2 * i], dv[n][2 * i + 1]);
+    }
+  }
+}
+
+template <int DH, bool WG>
+__global__ void __launch_bounds__(MMA_THREADS) bwd_dq_mma(Params p) {
+  using bf16 = __nv_bfloat16;
+  constexpr int KN = stream_rows<DH>();  // keys of a streamed tile
+  constexpr int NK = KN / 8;             // n-tiles of S (keys)
+  constexpr int ND = DH / 8;             // n-tiles of dQ
+  constexpr int TQ = tile_bytes<DH, WG>(BQ), TK = tile_bytes<DH, WG>(KN);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* q_s = tiles_base<WG>(smem_raw);
+  unsigned char* do_s = q_s + TQ;
+  unsigned char* k_s = do_s + TQ;    // [stage]
+  unsigned char* v_s = k_s + 2 * TK;  // [stage]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int kvh = h / (p.H / p.KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last (heaviest causal) tiles first
+  const int k_valid = min(p.k_len, p.Sk);
+
+  cp_rows<DH, WG>(q_s, static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.s, q0, BQ,
+                  p.Sq);
+  cp_rows<DH, WG>(do_s, static_cast<const bf16*>(p.dO) + b * p.sdo.b + h * p.sdo.h, p.sdo.s, q0,
+                  BQ, p.Sq);
+  // the keys these rows see, as the forward walks them
+  const int q_last = min(q0 + BQ, p.Sq) - 1;
+  const int k_hi = p.causal ? min(k_valid, q_last + 1) : k_valid;
+  const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) / KN * KN : 0;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h;
+  auto load_kv = [&](int kt, int stage) {
+    cp_rows<DH, WG>(k_s + stage * TK, kg, p.sk.s, kt, KN, p.Sk);
+    cp_rows<DH, WG>(v_s + stage * TK, vg, p.sv.s, kt, KN, p.Sk);
+  };
+  if (k_lo < k_hi) load_kv(k_lo, 0);
+  tc::cp_async_commit();  // with Q and dO
+
+  // this lane's q rows qr and qr + 8, and their lse (log2 domain) and D
+  const int qr = q0 + 16 * warp + (lane >> 2);
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = qr + 8 * i;
+    const long long at_ = (long long)bh * p.Sq + min(qi, p.Sq - 1);
+    lse2[i] = qi < p.Sq ? p.lse[at_] * LOG2E : 0.f;
+    dl[i] = qi < p.Sq ? p.delta[at_] : 0.f;
+  }
+  const float sl2 = p.scale * LOG2E;
+  float dq[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  int stage = 0;
+  for (int kt = k_lo; kt < k_hi; kt += KN, stage ^= 1) {
+    if (kt + KN < k_hi) load_kv(kt + KN, stage ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // this tile (and, the first time, Q and dO) has landed
+    if constexpr (WG) tc::fence_proxy_async();
+    __syncthreads();
+    const unsigned char* ks = k_s + stage * TK;
+    const unsigned char* vs = v_s + stage * TK;
+
+    // S = Q K^T and dP = dO V^T: this warp's 16 q rows x KN keys
+    float s[NK][4], dp[NK][4];
+    if constexpr (WG) {
+      wgmma_abt2(s, tc::sw128_desc(q_s), tc::sw128_desc(ks), dp, tc::sw128_desc(do_s),
+                 tc::sw128_desc(vs));
+    } else {
+      mma_abt<DH, KN>(s, q_s, 16 * warp, ks, lane);
+      mma_abt<DH, KN>(dp, do_s, 16 * warp, vs, lane);
+    }
+
+    const bool edge = (p.causal && kt + KN - 1 > q0) || (p.window > 0 && kt <= q_last - p.window) ||
+                      kt + KN > k_valid || q0 + BQ > p.Sq;
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, qi = qr + 8 * i, kj = kt + 8 * n + 2 * t + (e & 1);
+        float pr = exp2_ftz(s[n][e] * sl2 - lse2[i]);
+        if (edge && !(qi < p.Sq && visible(p, k_valid, qi, kj))) pr = 0.f;
+        dp[n][e] = pr * (dp[n][e] - dl[i]);
+      }
+
+    // dQ += dS K, dS as hi + lo A operands
+    if constexpr (WG) {
+      wgmma_split_ab(dq, dp, tc::sw128_desc(ks));
+    } else {
+      mma_split_ab<DH, KN>(dq, dp, ks, lane);
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  tc::cp_async_wait<0>();  // with no key tile at all, Q and dO may still be in flight
+
+  bf16* dqg = static_cast<bf16*>(p.dq) + b * p.sdq.b + h * p.sdq.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = qr + 8 * i;
+    if (qi >= p.Sq) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(dqg + qi * p.sdq.s + 8 * n + 2 * t) =
+          tc::pack_bf16(dq[n][2 * i] * p.scale, dq[n][2 * i + 1] * p.scale);
   }
 }
 
@@ -377,15 +795,27 @@ cudaError_t launch(const Params& p, int device, cudaStream_t stream) {
   static std::atomic<bool> set_dkdv[MAX_DEVICES], set_dq[MAX_DEVICES];
   const int q_tiles = (p.Sq + BQ - 1) / BQ, k_tiles = (p.Sk + BK - 1) / BK;
   if (q_tiles > 65535 || k_tiles > 65535) return cudaErrorInvalidValue;
-  constexpr int smem = smem_bytes<DH>();
   bwd_preprocess<T, DH><<<dim3((p.Sq + 7) / 8, p.B * p.H), THREADS, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if ((err = opt_in_smem(bwd_dkdv<T, DH>, smem, device, set_dkdv)) != cudaSuccess) return err;
-  bwd_dkdv<T, DH><<<dim3(p.B * p.KV, k_tiles), THREADS, smem, stream>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = opt_in_smem(bwd_dq<T, DH>, smem, device, set_dq)) != cudaSuccess) return err;
-  bwd_dq<T, DH><<<dim3(p.B * p.H, q_tiles), THREADS, smem, stream>>>(p);
+  const dim3 dkdv_grid(p.B * p.KV, k_tiles), dq_grid(p.B * p.H, q_tiles);
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int smem = smem_bytes<DH>();
+    if ((err = opt_in_smem(bwd_dkdv<DH>, smem, device, set_dkdv)) != cudaSuccess) return err;
+    bwd_dkdv<DH><<<dkdv_grid, THREADS, smem, stream>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = opt_in_smem(bwd_dq<DH>, smem, device, set_dq)) != cudaSuccess) return err;
+    bwd_dq<DH><<<dq_grid, THREADS, smem, stream>>>(p);
+  } else {
+    constexpr bool WG = DH == 64;  // wgmma at head dim 64, mma.sync at 32 and 128
+    constexpr int smem_kv = tc_smem_bytes<DH, WG>(true), smem_q = tc_smem_bytes<DH, WG>(false);
+    if ((err = opt_in_smem(bwd_dkdv_mma<DH, WG>, smem_kv, device, set_dkdv)) != cudaSuccess)
+      return err;
+    bwd_dkdv_mma<DH, WG><<<dkdv_grid, MMA_THREADS, smem_kv, stream>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = opt_in_smem(bwd_dq_mma<DH, WG>, smem_q, device, set_dq)) != cudaSuccess) return err;
+    bwd_dq_mma<DH, WG><<<dq_grid, MMA_THREADS, smem_q, stream>>>(p);
+  }
   return cudaGetLastError();
 }
 

@@ -32,6 +32,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred
                "r"(pred ? 16 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// 4 bytes global -> shared (a row statistic); a false `pred` zero-fills
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(pred ? 4 : 0));
+}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
@@ -87,6 +92,24 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&s0)[4],
   a[1] = pack_bf16(s0[2], s0[3]);
   a[2] = pack_bf16(s1[0], s1[1]);
   a[3] = pack_bf16(s1[2], s1[3]);
+}
+
+// The same A operand as a bf16 hi part and a bf16 lo part, hi = bf16(x)
+// and lo = bf16(x - hi): two products, hi then lo, into one f32 sum carry
+// about 16 bits of each f32 value where one bf16 carries 8.
+__device__ __forceinline__ void split_bf16(uint32_t& hi, uint32_t& lo, float x0, float x1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+__device__ __forceinline__ void pack_a_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                             const float (&s0)[4], const float (&s1)[4]) {
+  split_bf16(hi[0], lo[0], s0[0], s0[1]);
+  split_bf16(hi[1], lo[1], s0[2], s0[3]);
+  split_bf16(hi[2], lo[2], s1[0], s1[1]);
+  split_bf16(hi[3], lo[3], s1[2], s1[3]);
 }
 
 // -- wgmma (sm_90a) ---------------------------------------------------------------

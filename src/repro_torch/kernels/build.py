@@ -4,8 +4,10 @@ with ctypes.
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` at first use,
 into ``build/repro_torch/`` at the root of the checkout. The library's file
 name carries a hash of its source, the shared headers ``csrc/*.cuh`` and the
-flags, so a stale library is never loaded. ``build_log[name]`` keeps the compile time and ``ptxas -v`` report
-of the last build in this process.
+flags, so a stale library is never loaded. ``build_log[name]`` keeps the
+compile time of the last build in this process and the ``ptxas -v`` report
+of the library (kept beside it as ``<library>.ptxas``, so a library built
+by an earlier process reports it too).
 
 The libraries link the CUDA runtime as a shared library (``-cudart shared``,
 not nvcc's static default). Loaded after ``torch``, they then bind the
@@ -72,8 +74,10 @@ def _build(name: str) -> Path:
     sha.update(" ".join(NVCC_FLAGS).encode())
     digest = sha.hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
+    report = out.with_name(out.name + ".ptxas")
     if out.exists():
-        build_log[name] = {"seconds": 0.0, "cached": True, "library": str(out), "ptxas": []}
+        ptxas = report.read_text().splitlines() if report.exists() else []
+        build_log[name] = {"seconds": 0.0, "cached": True, "library": str(out), "ptxas": ptxas}
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -84,29 +88,41 @@ def _build(name: str) -> Path:
     )
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+    ptxas = [ln.strip() for ln in proc.stderr.splitlines() if ln.strip()]
+    report_tmp = report.with_name(f"{report.name}.{os.getpid()}.tmp")
+    report_tmp.write_text("\n".join(ptxas))
+    os.replace(report_tmp, report)
     os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
     build_log[name] = {
         "seconds": time.perf_counter() - t0,
         "cached": False,
         "library": str(out),
-        "ptxas": [ln.strip() for ln in proc.stderr.splitlines() if ln.strip()],
+        "ptxas": ptxas,
     }
     return out
+
+
+def rows_16_byte_aligned(t) -> bool:
+    """Whether ``t``'s base address and every stride but the last (of a
+    dimension longer than 1) are multiples of 16 bytes. Takes tensors on any
+    device, the meta device included (there the address is the storage
+    offset)."""
+    size, bits = t.element_size(), t.data_ptr()
+    for n, stride in zip(t.shape[:-1], t.stride()[:-1]):
+        if n > 1:
+            bits |= stride * size
+    return bits % 16 == 0
 
 
 def require_16_byte_rows(kernel: str, **tensors) -> None:
     """The bf16 kernels fill shared memory with 16-byte copies (cp.async):
     each tensor's base address, and every stride but the last (contiguous)
-    one, must be a multiple of 16 bytes. Raises ``ValueError`` for the first
-    tensor that is not, before anything is launched. Takes tensors on any
-    device, the meta device included (there the address is the storage
-    offset)."""
+    one, must be a multiple of 16 bytes (:func:`rows_16_byte_aligned`).
+    Raises ``ValueError`` for the first tensor that is not, before anything
+    is launched."""
     for label, t in tensors.items():
-        size, bits = t.element_size(), t.data_ptr()
-        for n, stride in zip(t.shape[:-1], t.stride()[:-1]):
-            if n > 1:
-                bits |= stride * size
-        if bits % 16:  # the address or some stride is off a 16-byte boundary
+        size = t.element_size()
+        if not rows_16_byte_aligned(t):
             raise ValueError(
                 f"{kernel}: {label} (address offset {t.data_ptr() % 16}, strides "
                 f"{tuple(t.stride())}, {size}-byte elements) is not 16-byte aligned"

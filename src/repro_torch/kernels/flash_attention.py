@@ -15,9 +15,12 @@ probabilities from the forward's row statistics ``lse``.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch
 the kernels (or raise), CPU tensors take the plain versions. There is no
-fallback from one to the other. On the card, the forward in bfloat16 (the
-served path) runs on the tensor cores and in float32 (the parity path) on
-FMA tiles (:func:`design`); the backward runs on FMA tiles in both.
+fallback from one to the other. On the card, bfloat16 (the served and
+trained path) runs on the tensor cores and float32 (the parity path) on
+FMA tiles, forward (:func:`design`) and backward (:func:`design_bwd`). The
+bf16 backward splits P and dS into bf16 hi and lo parts for the products
+that take them, so its gradients keep the precision of the f32 formulas to
+within one bf16 rounding.
 
 Under autograd (grad enabled and an input requiring grad) the wrappers go
 through :class:`FlashAttention`, whose backward launches the backward
@@ -50,6 +53,18 @@ def design(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.float32:
         return "fma-f32"
     return "wgmma" if head_dim == 64 else "mma.sync"
+
+
+def design_bwd(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward's design for this dtype and head dim, as
+    ``csrc/flash_attention_bwd.cu`` names them: bf16 on the tensor cores
+    with P and dS split into hi + lo bf16 parts, on ``wgmma`` at head dim 64
+    and ``mma.sync`` at 32 and 128; f32 on FMA tiles."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} not in the kernel's {HEAD_DIMS}")
+    if dtype == torch.float32:
+        return "fma-f32"
+    return ("wgmma" if head_dim == 64 else "mma.sync") + "-split"
 
 
 _fn_lock = threading.Lock()
@@ -303,7 +318,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None, k_len=
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} {do.dtype} "
                          f"must match q {tuple(q.shape)} {q.dtype}")
-    do = do if do.stride(-1) == 1 else do.contiguous()
+    if do.stride(-1) != 1 or (do.dtype == torch.bfloat16 and not build.rows_16_byte_aligned(do)):
+        do = do.contiguous()  # the bf16 kernels copy dO's rows in 16-byte pieces
     _check_first_bwd_launch(q.device, q.dtype, q.shape[-1])
     grads = _launch_bwd(q, k, v, o, lse, do, causal=causal, window=window, k_len=k_len,
                         bshd=bshd)

@@ -14,6 +14,10 @@ Cache kinds, by leaf signature:
                             smaller prefill ring is re-laid-out into the
                             target ring by the ``slot = pos % W`` invariant.
                             ``pos`` keeps one row per lane, ``(..., B, W)``.
+                            Where the window reaches ``max_len`` the slots
+                            keep plain K/V, and a prefill's ring (in order,
+                            as its prompt is no longer than the window) is
+                            written as plain K/V (:func:`drop_rings`).
 * ``{"ckv", "krope"}``      MLA compressed latents — pad along seq.
 * anything else             fixed size (SSM state, static encoder K/V) —
                             pass through.
@@ -115,6 +119,26 @@ def pad_caches_to(caches: dict, extra: int, *, ring_w: Optional[int] = None) -> 
         if isinstance(node, dict):
             # cross-attn caches hold static encoder K/V: never grown
             return {k: (v if k == "cross" else walk(v)) for k, v in node.items()}
+        return node
+
+    return walk(caches)
+
+
+def drop_rings(caches: dict) -> dict:
+    """A prefill cache's ring leaves as plain K/V, for a slot layout that
+    keeps no ring (the window reaches ``max_len``: ``block_cache_shape``).
+
+    A prefill of ``S <= max_len <= window`` tokens returns a ring of
+    modulus ``S`` whose slot ``p % S = p`` holds position ``p``: its rows
+    are already in position order, so dropping ``pos`` leaves the plain
+    cache the slot layout expects.
+    """
+
+    def walk(node):
+        if _is_gqa(node) and "pos" in node:
+            return {"k": node["k"], "v": node["v"]}
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
         return node
 
     return walk(caches)
@@ -285,6 +309,8 @@ class SlotKVCache:
             raise ValueError(f"prefill length {prefill_len} exceeds max_len {self.max_len}")
         with self._lock:
             self._target_len[slot] = max(self._target_len[slot], prefill_len)
+        if self._ring_w is None:
+            cache = drop_rings(cache)
         padded = pad_caches_to(cache, self.max_len - prefill_len, ring_w=self._ring_w)
         tree_map(lambda b, n: b[slot].copy_(n), self.buffers, padded)
 
@@ -576,6 +602,8 @@ class PagedKVCache:
             page_ids = self._index(self._table[slot, :npg])
             self._target_len[slot] = max(self._target_len[slot], prefill_len)
         ps = self.page_size
+        if self._ring_w is None:
+            cache = drop_rings(cache)
         grown = pad_caches_to(cache, npg * ps - prefill_len, ring_w=self._ring_w)
 
         def up(spec: _LeafSpec, pool: torch.Tensor, leaf: torch.Tensor) -> None:

@@ -3,7 +3,15 @@ tinyllama, mamba2 and hymba at float32: continuous batching equals the
 port's sequential single-request decode token for token, preempt/resume is
 bit-identical, the engine's tokens equal the reference JAX engine's on the
 same prompts and weights, recurrent-state families refuse prefill buckets,
-and the engine refuses to pick a device it does not have."""
+and the engine refuses to pick a device it does not have.
+
+Tests whose claim rests on an interleaving of the engine's threads pin it
+with :class:`_ScriptedEngine` rather than hope for it: a prefill's time on a
+loaded host is not bounded, so whether two sequences are resident together
+is otherwise a matter of luck."""
+import threading
+import time
+
 import jax
 import numpy as np
 import pytest
@@ -16,7 +24,57 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_reduced
 from repro_torch.models import build_model
 from repro_torch.models.lm import extend_caches
+from repro_torch.core import ThreadPool
 from repro_torch.serve import ServeEngine
+
+
+class _ScriptedEngine(ServeEngine):
+    """:class:`ServeEngine` with the timing of its threads pinned.
+
+    ``hold_first_tick=n``: the first decode tick waits until ``n`` prefilled
+    sequences wait to join, so they start decoding together. ``after={rid:
+    rids}``: request ``rid``'s first prefill waits until every request in
+    ``rids`` has finished. ``preempt_at=t``: before the decode tick that
+    follows ``t`` decode steps, the youngest resident is preempted (once).
+    """
+
+    def __init__(self, *args, hold_first_tick=0, after=None, preempt_at=None, **kw):
+        super().__init__(*args, **kw)
+        self._hold = hold_first_tick
+        self._after = after or {}
+        self._preempt_at = preempt_at
+        self._finished: set = set()
+        self._finished_cv = threading.Condition()
+
+    def _tick_body(self):
+        deadline = time.monotonic() + 60
+        while self._hold:
+            with self._lock:
+                if len(self._joinq) >= self._hold:
+                    self._hold = 0
+                    break
+            if time.monotonic() > deadline:
+                raise TimeoutError("the held prefills never arrived")
+            time.sleep(1e-3)
+        with self._lock:
+            if self._preempt_at == self._ticks and self._active:
+                self._preempt_locked(max(self._active.values(), key=lambda s: s.p.order))
+                self._preempt_at = None
+        super()._tick_body()
+
+    def _prefill_one(self, p):
+        wait = set(self._after.get(p.handle.rid, ()))
+        if wait and not p.tokens:
+            with self._finished_cv:
+                if not self._finished_cv.wait_for(lambda: wait <= self._finished, 60):
+                    raise TimeoutError(f"requests {wait} never finished")
+        super()._prefill_one(p)
+
+    def _resolve(self, retired):
+        super()._resolve(retired)
+        with self._finished_cv:
+            self._finished.update(seq.handle.rid for seq, _ in retired)
+            self._finished_cv.notify_all()
 
 
 @pytest.fixture(scope="module")
@@ -88,8 +146,10 @@ def test_page_pressure_preempts_and_resumes_bit_identical(tiny):
     budgets = [12, 11, 10]
     refs = [sequential_decode(model, params, p, b, MAX_LEN) for p, b in zip(prompts, budgets)]
     # 2 residents x 6 pages/seq would need 12 pages; 6 forces preemption
-    with ServeEngine(
-        model, params, max_slots=2, max_len=MAX_LEN, page_size=4, num_pages=6, device="cpu"
+    # once the first two decode together
+    with _ScriptedEngine(
+        model, params, max_slots=2, max_len=MAX_LEN, page_size=4, num_pages=6, device="cpu",
+        hold_first_tick=2,
     ) as engine:
         outs = engine.generate(prompts, budgets, timeout=120)
         stats = engine.stats()
@@ -194,7 +254,10 @@ def test_ssm_family_matches_single_request_decode(arch):
 def test_ssm_page_pressure_preempts_and_resumes_bit_identical(arch):
     """A preempted sequence resumes by an exact-length re-prefill, which
     rebuilds its conv window and state; mamba2 holds no page leaves at all,
-    so only the page accounting forces the preemption."""
+    so only the page accounting forces the preemption. The first two
+    sequences start decoding together: if one ran alone (its neighbour's
+    prefill slow on a loaded host), the pages would never run out
+    (:func:`test_ssm_residents_that_never_overlap_are_not_preempted`)."""
     cfg = get_reduced(arch).replace(dtype="float32")
     model = build_model(cfg, device="cpu")
     params = model.init(0)
@@ -202,8 +265,9 @@ def test_ssm_page_pressure_preempts_and_resumes_bit_identical(arch):
     prompts = _prompts(cfg, 5, [5, 5, 5])
     budgets = [12, 11, 10]
     refs = [sequential_decode(model, params, p, b, MAX_LEN) for p, b in zip(prompts, budgets)]
-    with ServeEngine(
-        model, params, max_slots=2, max_len=MAX_LEN, page_size=4, num_pages=6, device="cpu"
+    with _ScriptedEngine(
+        model, params, max_slots=2, max_len=MAX_LEN, page_size=4, num_pages=6, device="cpu",
+        hold_first_tick=2,
     ) as engine:
         outs = engine.generate(prompts, budgets, timeout=120)
         stats = engine.stats()
@@ -212,6 +276,81 @@ def test_ssm_page_pressure_preempts_and_resumes_bit_identical(arch):
     assert stats["preemptions"] >= 1
     assert stats["completed"] == 3
     assert stats["kv"]["pages_live"] == 0
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_residents_that_never_overlap_are_not_preempted(arch):
+    """The interleaving the page-pressure test must not meet: each sequence
+    decodes alone (request 2's prefill waits for request 0, request 1's for
+    both), so no two hold pages together and nothing is preempted. The
+    tokens still equal the sequential decode's; only ``preemptions`` stays
+    0, the assert that failed when the timing happened this way by chance."""
+    cfg = get_reduced(arch).replace(dtype="float32")
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    MAX_LEN = 24
+    prompts = _prompts(cfg, 5, [5, 5, 5])
+    budgets = [12, 11, 10]
+    refs = [sequential_decode(model, params, p, b, MAX_LEN) for p, b in zip(prompts, budgets)]
+    with ThreadPool(4, name="scripted") as pool, _ScriptedEngine(
+        model, params, max_slots=2, max_len=MAX_LEN, page_size=4, num_pages=6, device="cpu",
+        pool=pool, after={1: (0, 2), 2: (0,)},
+    ) as engine:
+        outs = engine.generate(prompts, budgets, timeout=120)
+        stats = engine.stats()
+    for ref, out in zip(refs, outs):
+        assert list(map(int, out)) == ref
+    assert stats["preemptions"] == 0
+    assert stats["completed"] == 3 and stats["kv"]["pages_live"] == 0
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_resume_after_preemption_at_every_tick_matches_sequential_decode(arch):
+    """A sequence preempted after any number of its decode steps (1 to the
+    last before it finishes) resumes by a chunked re-prefill of prompt +
+    generated prefix; its tokens still equal the stepped recurrence of the
+    sequential decode, at every tick."""
+    cfg = get_reduced(arch).replace(dtype="float32")
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    MAX_LEN = 24
+    prompt = _prompts(cfg, 8, [6])[0]
+    budget = 9
+    ref = sequential_decode(model, params, prompt, budget, MAX_LEN)
+    for tick in range(1, budget - 1):
+        with _ScriptedEngine(
+            model, params, max_slots=2, max_len=MAX_LEN, page_size=4, device="cpu",
+            preempt_at=tick,
+        ) as engine:
+            out = engine.submit(prompt, budget).result(120)
+            stats = engine.stats()
+        assert list(map(int, out)) == ref, f"preempted at tick {tick}"
+        assert stats["preemptions"] == 1 and stats["kv"]["pages_live"] == 0
+
+
+@pytest.mark.parametrize("kv_layout", ["paged", "flat"])
+def test_window_reaching_max_len_serves_like_sequential_decode(kv_layout):
+    """Reduced hymba (window 8) at ``max_len=8``: the slots keep plain K/V
+    (no ring), while each prefill returns a ring of its prompt's length.
+    The engine lays it out as plain K/V; its tokens equal the port's
+    sequential decode (the JAX engine fails on this cache write)."""
+    cfg = get_reduced("hymba-1.5b").replace(dtype="float32")
+    assert cfg.window == 8
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    MAX_LEN = 8
+    prompts = _prompts(cfg, 6, [3, 5, 2])
+    budgets = [5, 4, 6]  # prompt + budget - 1 <= max_len: no truncation
+    refs = [sequential_decode(model, params, p, b, MAX_LEN) for p, b in zip(prompts, budgets)]
+    with ServeEngine(
+        model, params, max_slots=2, max_len=MAX_LEN, page_size=4, kv_layout=kv_layout,
+        device="cpu",
+    ) as engine:
+        outs = engine.generate(prompts, budgets, timeout=120)
+        stats = engine.stats()
+    for ref, out in zip(refs, outs):
+        assert list(map(int, out)) == ref
+    assert stats["truncations"] == 0
 
 
 @pytest.mark.parametrize("arch", SSM_ARCHS)

@@ -158,3 +158,135 @@ def test_input_check_refuses_what_the_kernel_does_not_take():
             tfa.check_inputs(*bad, bshd=True)
     with pytest.raises(ValueError, match="k_len"):
         tfa.check_inputs(q, k, v, -1, bshd=True)
+
+
+# -- the precision of the bf16 backward's design ---------------------------------------
+#
+# The kernel's bf16 backward runs its products on the tensor cores: bf16
+# operands, f32 sums. Q, K, V and dO are bf16 already, so S = Q Kᵀ and dP =
+# dO Vᵀ are exact products; P = exp(S·scale − lse) and dS = P∘(dP − D) are f32
+# in registers, and each is split into a bf16 hi part and a bf16 lo part
+# before the products that take it (dV = Pᵀ dO, dK = dSᵀ Q, dQ = dS K), each
+# issued twice into one f32 sum. The emulation below repeats that in PyTorch
+# and is held in bf16 ulps against the plain f32 formulas, at the gate that
+# ``chip_smoke.py`` holds the kernel to (BWD_ULP_TOL); rounding P and dS to
+# one bf16 each instead reads well above it on the same inputs.
+
+BWD_ULP_TOL = 2.0
+
+# (B, H, KV, S, Dh, causal, window, k_len)
+BWD_PRECISION_CASES = {
+    "causal gqa dh64": (1, 8, 2, 256, 64, True, None, None),
+    "mqa dh128 ragged": (1, 4, 1, 200, 128, True, None, None),
+    "window dh32": (2, 4, 4, 192, 32, True, 48, None),
+    "k_len bidirectional dh64": (1, 4, 2, 160, 64, False, None, 120),
+    "mha dh32": (1, 2, 2, 256, 32, True, None, None),
+}
+
+
+def _bf16_ulps(got, want) -> float:
+    """Largest error in bf16 ulps of each plain entry, entries under 2^-8 of
+    the largest counted at that floor's ulp (``chip_smoke._ulps``)."""
+    w = want.float()
+    mag = torch.maximum(w.abs(), w.abs().max() * 2.0**-8)
+    _, e = torch.frexp(mag)
+    ulp = torch.ldexp(torch.ones_like(mag), e - 8)
+    return ((got.float() - w).abs() / ulp).max().item()
+
+
+def _split(x):
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def _bwd_emulation(q, k, v, o, lse, do, *, causal, window, k_len, split):
+    """The bf16 backward's arithmetic in PyTorch: products of bf16 operands
+    summed in f32, P and dS split into hi + lo parts (``split``) or rounded
+    to one bf16 each. (B, H, S, Dh) layout, bf16 in and out."""
+    B, H, Sq, Dh = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G, scale = H // KV, Dh**-0.5
+
+    def grouped(t):
+        return t.reshape(B, KV, G, Sq, Dh).float()
+
+    def mm(eq, a, b):  # bf16 operands, f32 sums
+        return torch.einsum(eq, a.float(), b.float())
+
+    def parts(x):
+        return _split(x) if split else (x.to(torch.bfloat16),)
+
+    qg, og, dog, kf, vf = grouped(q), grouped(o), grouped(do), k.float(), v.float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, kf)
+    mask = tfa._mask(Sq, Sk, causal, window, k_len, q.device)
+    p = torch.where(mask, torch.exp(s * scale - lse.reshape(B, KV, G, Sq, 1)), 0.0)
+    delta = (dog * og).sum(dim=-1, keepdim=True)
+    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dog, vf) - delta)
+    dv = sum(mm("bkgqs,bkgqd->bksd", x, dog) for x in parts(p))
+    dk = sum(mm("bkgqs,bkgqd->bksd", x, qg) for x in parts(ds)) * scale
+    dq = sum(mm("bkgqs,bksd->bkgqd", x, kf) for x in parts(ds)) * scale
+    bf16 = torch.bfloat16
+    return dq.reshape(B, H, Sq, Dh).to(bf16), dk.to(bf16), dv.to(bf16)
+
+
+def _bwd_precision_inputs(name):
+    B, H, KV, S, Dh, causal, window, k_len = BWD_PRECISION_CASES[name]
+    rng = np.random.default_rng(len(name))
+    shapes = [(B, H, S, Dh), (B, KV, S, Dh), (B, KV, S, Dh), (B, H, S, Dh)]
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(torch.bfloat16)
+                   for s in shapes)
+    mask = dict(causal=causal, window=window, k_len=k_len)
+    o, lse = tfa.flash_attention_lse_ref(q, k, v, **mask)
+    want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, **mask)
+    return (q, k, v, o, lse, do), mask, want
+
+
+@pytest.mark.parametrize("name", list(BWD_PRECISION_CASES))
+def test_bf16_bwd_design_with_split_p_and_ds_holds_the_ulp_gate(name):
+    args, mask, want = _bwd_precision_inputs(name)
+    got = _bwd_emulation(*args, **mask, split=True)
+    for g, w, label in zip(got, want, ("dq", "dk", "dv")):
+        assert torch.isfinite(g.float()).all()
+        assert _bf16_ulps(g, w) <= BWD_ULP_TOL, (name, label, _bf16_ulps(g, w))
+
+
+@pytest.mark.parametrize("name", list(BWD_PRECISION_CASES))
+def test_bf16_bwd_with_p_and_ds_rounded_once_fails_the_ulp_gate(name):
+    """The control: the same products with P and dS rounded to one bf16
+    each (half the tensor-core products) read above the gate."""
+    args, mask, want = _bwd_precision_inputs(name)
+    got = _bwd_emulation(*args, **mask, split=False)
+    worst = max(_bf16_ulps(g, w) for g, w in zip(got, want))
+    assert worst > BWD_ULP_TOL, (name, worst)
+
+
+def test_split_parts_carry_sixteen_bits():
+    """hi + lo recovers an f32 value to about 2^-16 of it, where one bf16
+    keeps 2^-8."""
+    x = torch.from_numpy(np.random.default_rng(0).random(4096, dtype=np.float32)) + 1e-3
+    hi, lo = _split(x)
+    rel = ((hi.float() + lo.float()) - x).abs() / x
+    assert rel.max().item() <= 2.0**-16
+    assert ((hi.float() - x).abs() / x).max().item() > 2.0**-10
+
+
+def test_backward_design_names():
+    assert tfa.design_bwd(torch.float32, 64) == "fma-f32"
+    assert tfa.design_bwd(torch.bfloat16, 64) == "wgmma-split"
+    for dh in (32, 128):
+        assert tfa.design_bwd(torch.bfloat16, dh) == "mma.sync-split"
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.design_bwd(torch.bfloat16, 96)
+
+
+def test_rows_16_byte_aligned_reads_address_and_strides():
+    """The predicate behind the bf16 input check, which the backward also
+    reads to copy a misaligned dO before its 16-byte loads."""
+    from repro_torch.kernels import build
+
+    base = torch.zeros(4 * 8 * 64, dtype=torch.bfloat16)
+    assert build.rows_16_byte_aligned(base.view(4, 8, 64))
+    assert not build.rows_16_byte_aligned(base[1:1 + 4 * 8 * 32].view(4, 8, 32))
+    assert not build.rows_16_byte_aligned(base[: 32 * 60].view(32, 60))  # 120-byte rows
+    # a broadcast dimension (stride 0) reads one row again: aligned
+    assert build.rows_16_byte_aligned(base[:64].expand(8, 64))

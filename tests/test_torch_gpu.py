@@ -7,7 +7,8 @@ The CUDA flash and SSD kernels are held against their plain versions, in
 bf16 (the tensor-core designs) and f32 (the FMA designs), over shape sweeps
 and tile edges, and small models served on the card are held against the
 same weights decoded on the CPU. Flash attention's backward is held against
-its plain version over the same sweeps; a train step of a small model on
+its plain version over the same sweeps and its own tile edges, in bf16 also
+in ulps, and two of its launches against each other bit for bit; a train step of a small model on
 the card against the same step on the CPU; and a restarted training run
 against an uninterrupted one, bit for bit."""
 import numpy as np
@@ -277,6 +278,89 @@ def test_flash_bwd_kernel_matches_plain_version_on_card(dtype):
     for name, case in {**SWEEP, **FLASH_EDGES}.items():
         err = _bwd_error(dev, rng, dt, case)
         assert err <= tol, (name, dtype, err)
+
+
+# tile edges of the bf16 backward's design (64-key and 64-row tiles, 32-row
+# streamed tiles at Dh=128): one tile short of 64, k_len in the middle of a
+# key tile, a window edge inside a tile, ragged lengths at every head dim
+BWD_EDGES = {
+    "S=40 < one tile": (1, 4, 2, 40, 40, 64, True, None, None),
+    "k_len=100 mid-tile Sk=192": (1, 4, 2, 192, 192, 64, True, None, 100),
+    "window 70 S=200": (1, 4, 2, 200, 200, 64, True, 70, None),
+    "window 33 Dh=128 S=161": (1, 4, 1, 161, 161, 128, True, 33, None),
+    "Dh=32 ragged S=97 MQA": (2, 4, 1, 97, 97, 32, True, None, None),
+    "bidirectional k_len=50 Dh=128 Sq=70 Sk=130": (1, 2, 2, 70, 130, 128, False, None, 50),
+}
+BWD_ULP_TOL = 2.0  # chip_smoke.py's gate
+
+
+def _bf16_ulps(got, want) -> float:
+    """Largest error in bf16 ulps of each plain entry, entries under 2^-8 of
+    the largest counted at that floor's ulp (chip_smoke.py's measure)."""
+    w = want.float()
+    mag = torch.maximum(w.abs(), w.abs().max() * 2.0**-8)
+    _, e = torch.frexp(mag)
+    ulp = torch.ldexp(torch.ones_like(mag), e - 8)
+    return ((got.float() - w).abs() / ulp).max().item()
+
+
+def _bwd_inputs(dev, rng, dt, case):
+    B, H, KV, Sq, Sk, Dh, causal, window, k_len = case
+    shapes = [(B, Sq, H, Dh), (B, Sk, KV, Dh), (B, Sk, KV, Dh), (B, Sq, H, Dh)]
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s)).to(dev, dt) for s in shapes)
+    mask = dict(causal=causal, window=window, k_len=k_len)
+    with torch.no_grad():
+        o, lse = tfa.flash_attention_lse(q, k, v, bshd=True, **mask)
+    return (q, k, v, o, lse, do), mask
+
+
+@pytest.mark.gpu
+def test_flash_bwd_bf16_design_holds_the_ulp_gate_on_card():
+    """The bf16 backward (tensor cores, P and dS split into hi + lo) over
+    the sweep, the forward's tile edges and its own: within 2 bf16 ulps and
+    2^-7 scaled of the plain f32 formulas."""
+    dev = _cuda()
+    rng = np.random.default_rng(13)
+    for name, case in {**SWEEP, **FLASH_EDGES, **BWD_EDGES}.items():
+        assert tfa.design_bwd(torch.bfloat16, case[5]).endswith("-split")
+        args, mask = _bwd_inputs(dev, rng, torch.bfloat16, case)
+        got = tfa.flash_attention_bwd(*args, bshd=True, **mask)
+        q, k, v, o, lse, do = args
+        want = tfa.flash_attention_bwd_ref(*(t.transpose(1, 2) for t in (q, k, v, o)), lse,
+                                           do.transpose(1, 2), **mask)
+        for label, g, w in zip(("dq", "dk", "dv"), got, want):
+            w = w.transpose(1, 2)
+            assert torch.isfinite(g.float()).all(), (name, label)
+            scaled = (g.float() - w.float()).abs().max().item() / max(
+                1.0, w.float().abs().max().item())
+            assert scaled <= 2.0**-7, (name, label, scaled)
+            assert _bf16_ulps(g, w) <= BWD_ULP_TOL, (name, label, _bf16_ulps(g, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_is_bitwise_repeatable_on_card(dtype):
+    """No float atomics: two launches on the same inputs give the same
+    dq, dk and dv bit for bit, GQA and the tile edges included."""
+    dev = _cuda()
+    dt, _tol = FLASH_TOL[dtype]
+    rng = np.random.default_rng(14)
+    for name in ("gqa", "window100", "ragged-sq100"):
+        args, mask = _bwd_inputs(dev, rng, dt, SWEEP[name])
+        first = tfa.flash_attention_bwd(*args, bshd=True, **mask)
+        second = tfa.flash_attention_bwd(*args, bshd=True, **mask)
+        for label, a, b in zip(("dq", "dk", "dv"), first, second):
+            assert torch.equal(a, b), (name, dtype, label)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(BWD_EDGES))
+def test_flash_bwd_kernel_tile_edges_on_card(name, dtype):
+    dev = _cuda()
+    dt, tol = FLASH_TOL[dtype]
+    err = _bwd_error(dev, np.random.default_rng(15), dt, BWD_EDGES[name])
+    assert err <= tol, (name, dtype, err)
 
 
 @pytest.mark.gpu

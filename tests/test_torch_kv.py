@@ -13,6 +13,7 @@ from repro_torch.models.lm import extend_caches
 from repro_torch.serve.kv import (
     PagedKVCache,
     SlotKVCache,
+    drop_rings,
     lane_view,
     pad_caches_to,
     ring_modulus,
@@ -106,6 +107,23 @@ def test_ring_growth_relayout():
     assert out["v"].ravel().tolist() == [10, 11, 12, 0, 0]
     with pytest.raises(ValueError):
         pad_caches_to(node, 0, ring_w=2)  # shrink is invalid
+
+
+def test_drop_rings_leaves_plain_kv_in_position_order():
+    """A prefill ring of modulus S (S <= window) holds position p at slot p:
+    without its ``pos`` it is the plain cache of those S positions, ready
+    to pad; plain K/V and other leaves pass through."""
+    k = torch.arange(3, dtype=torch.float32).reshape(1, 3, 1, 1)
+    pos = torch.tensor([[0, 1, 2]], dtype=torch.int32)
+    node = {"s0": {"attn": {"k": k, "v": k + 10, "pos": pos},
+                   "ssm": {"state": torch.ones(1, 2, 3, 4), "conv": torch.ones(1, 8, 4)}},
+            "s1": {"attn": {"k": k, "v": k}}}
+    out = drop_rings(node)
+    assert set(out["s0"]["attn"]) == {"k", "v"} and ring_modulus(out) is None
+    assert out["s0"]["attn"]["k"] is k
+    assert out["s0"]["ssm"]["state"] is node["s0"]["ssm"]["state"]
+    padded = pad_caches_to(out, 2)["s0"]["attn"]
+    assert padded["v"].ravel().tolist() == [10, 11, 12, 0, 0]
 
 
 def test_lane_view_moves_slots_onto_the_batch_axis():
