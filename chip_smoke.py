@@ -6,32 +6,34 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
     python3 chip_smoke.py
 
 It builds every hand-written kernel from ``src/repro_torch/csrc`` with nvcc
-(flash attention, its backward and the SSD scan, one nvcc each, started
-together), holds each against its plain PyTorch version on the card in bf16
-(the tensor-core designs) and f32 (the FMA designs), flash attention's
-backward also at the training shapes (in bf16 also in ulps, beside a
-lower-precision control and SDPA's own backward), and times the bf16
-kernel, its plain version and, where there is
-one, the PyTorch call computing the same function: by CUDA events over
-back-to-back eager calls, and as device time by CUDA-graph replay (for
-SDPA's autograd backward, by a profiler trace). It then trains full-width
-tinyllama-1.1b for a few bf16 steps through ``repro_torch.runtime.Trainer``
-serves three full-width models (random weights from seed 0) through
-``repro_torch.ServeEngine``, one after another: tinyllama-1.1b (flash
-attention prefill), mamba2-1.3b (SSD prefill) and hymba-1.5b (both). Each
-is served once in float32 against the port's own sequential batch-1 decode
-and once in bfloat16 as its measured main path, with every kernel's launch
-counter set to 0 just before that run and read just after, followed by host
-times and profiler traces of one S=300 prefill and one 4-lane decode step.
-It then trains full-width tinyllama-1.1b for a few bf16 steps through
-``repro_torch.runtime.Trainer`` (checking the launch counts of flash
-attention forward and backward, the losses, the AdamW state and the final
-checkpoint, saved into ``build/`` and deleted), and holds the full-width
-f32 gradients through the kernels against those through the plain
-versions. Each phase prints one JSON line;
-any failure exits non-zero. The last three lines are the kernels line, the
-card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
-...}``.
+(flash attention and its backward, the SSD scan and its backward, one nvcc
+each, started together) and holds each against its plain PyTorch version on
+the card in bf16 (the served and trained designs) and f32 (the parity
+designs): flash attention's backward also at tinyllama's and hymba's
+training shapes (in bf16 also in ulps, beside a lower-precision control and
+SDPA's own backward), the SSD scan's backward over the scan's sweep and at
+mamba2's and hymba's training shapes (two launches bit for bit). It times
+each bf16 kernel, its plain version and, where there is one, the PyTorch
+call computing the same function: by CUDA events over back-to-back eager
+calls, and as device time by CUDA-graph replay (for SDPA's autograd
+backward, by a profiler trace).
+
+It then serves three full-width models (random weights from seed 0)
+through ``repro_torch.ServeEngine``, one after another: tinyllama-1.1b
+(flash attention prefill), mamba2-1.3b (SSD prefill) and hymba-1.5b (both).
+Each is served once in float32 against the port's own sequential batch-1
+decode and once in bfloat16 as its measured main path, with every kernel's
+launch counter set to 0 just before that run and read just after, followed
+by host times and profiler traces of one S=300 prefill and one 4-lane
+decode step. It then trains the same three models at full width and depth
+for a few bf16 steps each through ``repro_torch.runtime.Trainer`` (B=4,
+S=2048, remat; checking every kernel's launches a step, the losses, that
+every leaf changed, the AdamW state and the final checkpoint, saved into
+``build/`` and deleted), and holds each model's full-width f32 gradients
+through the kernels against those through the plain versions. Each phase
+prints one JSON line; any failure exits non-zero. The last three lines are
+the kernels line, the card's ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX or of the reference package.
 """
@@ -108,16 +110,13 @@ def phase_device() -> dict:
 
 # -- build ----------------------------------------------------------------------
 
-KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "ssd")
-
-
 def phase_build() -> None:
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:  # one nvcc per source, together
-        list(ex.map(build.library, KERNEL_SOURCES))
-    for name in KERNEL_SOURCES:
+    with ThreadPoolExecutor(len(build.SOURCES)) as ex:  # one nvcc per source, together
+        list(ex.map(build.library, build.SOURCES))
+    for name in build.SOURCES:
         log = build.build_log[name]
         emit("build", source=f"src/repro_torch/csrc/{name}.cu", nvcc_s=log["seconds"],
              cached=log["cached"], ptxas=log["ptxas"], resources=ptxas_resources(log["ptxas"]))
@@ -141,9 +140,10 @@ def _kernel_label(mangled: str) -> str:
         n = int(mangled[i:j])
         name, i = mangled[j : j + n], j + n
     types = {"f": "float", "13__nv_bfloat16": "bf16"}
-    args = re.findall(r"(f|13__nv_bfloat16)?L([ib])(\d+)E", mangled[i:])
-    values = [v if kind == "i" else ("true" if v == "1" else "false") for _, kind, v in args]
-    return f"{name}<{','.join([types[t] for t, _, _ in args if t] + values)}>"
+    type_arg = re.match(r"I(f|13__nv_bfloat16)", mangled[i:])
+    args = re.findall(r"L([ib])(\d+)E", mangled[i:])
+    values = [v if kind == "i" else ("true" if v == "1" else "false") for kind, v in args]
+    return f"{name}<{','.join(([types[type_arg.group(1)]] if type_arg else []) + values)}>"
 
 
 def ptxas_resources(lines: list) -> dict:
@@ -364,6 +364,8 @@ LSE_TOL = {"bfloat16": 1e-4, "float32": 1e-4}
 FWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # tinyllama's training attention: (B, H, KV, S, Dh), causal, bf16
 TRAIN_ATTN = (4, 32, 4, 2048, 64)
+# hymba's: the same B and S, 25 heads in groups of 5
+HYMBA_TRAIN_ATTN = (4, 25, 5, 2048, 64)
 
 
 def _scaled(got, want) -> float:
@@ -534,18 +536,18 @@ def phase_flash_bwd() -> dict:
         grads = torch.autograd.grad(out, (qs, ks, vs), do.transpose(1, 2).contiguous())
         return [g.transpose(1, 2) for g in grads]
 
-    o, lse, r = _bwd_case(q, k, v, do, dict(causal=True, window=None, k_len=None), True,
-                          library=sdpa_grads)
+    o, lse, r_train = _bwd_case(q, k, v, do, dict(causal=True, window=None, k_len=None), True,
+                                library=sdpa_grads)
     label = f"train bf16 causal B={B} H={H} KV={KV} Dh={Dh} S={S}"
     emit("kernels", kernel="flash_attention_bwd", case=label, dtype="bfloat16",
-         shape=[B, H, KV, S, S, Dh], **r)
-    check(r["ok"], f"flash_attention_bwd {label}: {r}")
+         shape=[B, H, KV, S, S, Dh], **r_train)
+    check(r_train["ok"], f"flash_attention_bwd {label}: {r_train}")
     # the ulp gate rejects a lower-precision backward at the path's shapes
-    check(max(r["control_ulp_err"].values()) > BWD_ULP_TOL,
-          f"the bf16 control passes the ulp tolerance at {label}: {r['control_ulp_err']}")
-    worst = max(worst, *r["scaled_err"].values())
-    worst_abs = max(worst_abs, r["max_abs_err"])
-    worst_ulp = max(worst_ulp, *r["ulp_err"].values())
+    check(max(r_train["control_ulp_err"].values()) > BWD_ULP_TOL,
+          f"the bf16 control passes the ulp tolerance at {label}: {r_train['control_ulp_err']}")
+    worst = max(worst, *r_train["scaled_err"].values())
+    worst_abs = max(worst_abs, r_train["max_abs_err"])
+    worst_ulp = max(worst_ulp, *r_train["ulp_err"].values())
     torch.cuda.empty_cache()
 
     qt, kt, vt, ot, dot = (t.transpose(1, 2) for t in (q, k, v, o, do))
@@ -574,10 +576,35 @@ def phase_flash_bwd() -> dict:
                                            calls=5, replays=3),
                     "bound_ms": fwd_bound}
     emit("kernels", kernel="flash_attention_bwd", timing=label, **t)
-    del out, qs, ks, vs
+    del out, qs, ks, vs, q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+
+    # hymba's training attention: a GQA group of 5, the window on 29 of its
+    # 32 layers and the global mask on 3
+    B, H, KV, S, Dh = HYMBA_TRAIN_ATTN
+    hymba = {}
+    for i, (mask, window) in enumerate((("window 1024", 1024), ("global", None))):
+        q, k, v = _qkv(B, H, KV, S, S, Dh, bf16, seed=1100 + i, model_layout=True)
+        do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1110 + i),
+                         device=q.device).to(bf16)
+        kw = dict(causal=True, window=window, k_len=None)
+        o, lse, r = _bwd_case(q, k, v, do, kw, True)
+        label = f"hymba train bf16 {mask} B={B} H={H} KV={KV} Dh={Dh} S={S}"
+        r["device_ms"] = _graph_ms(
+            lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, bshd=True, **kw),
+            calls=5, replays=3)
+        emit("kernels", kernel="flash_attention_bwd", case=label, dtype="bfloat16",
+             shape=[B, H, KV, S, S, Dh], **r)
+        check(r["ok"], f"flash_attention_bwd {label}: {r}")
+        worst = max(worst, *r["scaled_err"].values())
+        worst_abs = max(worst_abs, r["max_abs_err"])
+        worst_ulp = max(worst_ulp, *r["ulp_err"].values())
+        hymba[mask] = r
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
     return {"flash_attention_bwd": {"max_scaled_err": worst, "max_abs_err": worst_abs,
                                     "max_ulp_err": worst_ulp, "timing": t,
-                                    "train_shape": r}}
+                                    "train_shape": r_train, "hymba_train_shape": hymba}}
 
 
 def _ssd_inputs(B, S, H, P, N, dtype, seed, laws="wide"):
@@ -624,6 +651,20 @@ def _ssd_bound(B, S, H, P, N, cl, elem_bytes, peak_flops):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def _ssd_cases() -> list:
+    """K2's sweep, each case in bf16 and f32 (and K2-bwd's): (label, B, S,
+    H, P, N, chunk, dt/A laws)."""
+    shapes = [(f"mamba2 S={S}", 1, S, 64, 64, 128, 256, "wide") for S in (300, 512, 1024)]
+    return shapes + [
+        ("mamba2 S=512 model's dt/A", 1, 512, 64, 64, 128, 256, "model"),
+        ("hymba S=300", 1, 300, 25, 64, 16, 64, "wide"),
+        ("B=2 H=25 N=128 chunk 64 S=100", 2, 100, 25, 64, 128, 64, "wide"),
+        ("S=50 < chunk 256", 1, 50, 4, 64, 128, 256, "wide"),
+        ("P=40 N=24 chunk 32 S=70", 2, 70, 3, 40, 24, 32, "wide"),
+        ("B=2 H=5 P=32 N=16 chunk 64 S=130", 2, 130, 5, 32, 16, 64, "wide"),
+    ]
+
+
 def phase_ssd_kernels() -> dict:
     import torch
 
@@ -633,18 +674,8 @@ def phase_ssd_kernels() -> dict:
     # scaled error: max |kernel - plain| / max(1, max |plain|); both compute in
     # f32 from the same inputs, so bf16 differs by about one rounding of y
     tol = {bf16: 1e-2, f32: 1e-4}
-    # (label, B, S, H, P, N, chunk, dt/A laws)
-    shapes = [(f"mamba2 S={S}", 1, S, 64, 64, 128, 256, "wide") for S in (300, 512, 1024)]
-    shapes += [
-        ("mamba2 S=512 model's dt/A", 1, 512, 64, 64, 128, 256, "model"),
-        ("hymba S=300", 1, 300, 25, 64, 16, 64, "wide"),
-        ("B=2 H=25 N=128 chunk 64 S=100", 2, 100, 25, 64, 128, 64, "wide"),
-        ("S=50 < chunk 256", 1, 50, 4, 64, 128, 256, "wide"),
-        ("P=40 N=24 chunk 32 S=70", 2, 70, 3, 40, 24, 32, "wide"),
-        ("B=2 H=5 P=32 N=16 chunk 64 S=130", 2, 130, 5, 32, 16, 64, "wide"),
-    ]
     worst, worst_scaled = 0.0, 0.0
-    for i, (label, B, S, H, P, N, chunk, laws) in enumerate(shapes):
+    for i, (label, B, S, H, P, N, chunk, laws) in enumerate(_ssd_cases()):
         for dt_ in (bf16, f32):
             x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, dt_, 200 + i, laws)
             kw = dict(chunk=chunk, return_final_state=True)
@@ -684,6 +715,135 @@ def phase_ssd_kernels() -> dict:
         emit("kernels", kernel="ssd", timing=f"{label} bf16 B={B} H={H} P={P} N={N} chunk={chunk}",
              **timings[label])
     return {"ssd": {"max_abs_err": worst, "max_scaled_err": worst_scaled, "timings": timings}}
+
+
+# K2's backward against its plain version. Both compute in f32 from the same
+# inputs, so f32 gradients (every gradient of an f32 case, and ddt and dA,
+# which are f32 in a bf16 case too) differ by the sum order only: scaled,
+# under 1e-4. bf16 gradients (dx, dB and dC of a bf16 case) are held as
+# K1-bwd's are: 2^-7 scaled (BWD_TOL) and BWD_ULP_TOL bf16 ulps.
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+# the training shapes, bf16 with the model's dt/A laws: (label, B, S, H, P,
+# N, chunk)
+SSD_TRAIN = (("mamba2 train", 4, 2048, 64, 64, 128, 256),
+             ("hymba train", 4, 2048, 25, 64, 16, 64))
+
+
+def _ssd_bwd_bound(B, S, H, P, N, cl, elem_bytes, peak_flops):
+    """Least time for the scan's backward: x, B, C and dy (elem_bytes), dt
+    and A (f32) read once; dx, dB, dC (elem_bytes), ddt and dA (f32) written
+    once. FLOPs: C B^T over each chunk's causal pairs (shared by the heads);
+    per head, dy u^T and du = (C B^T e^..)^T dy over the same pairs (P each)
+    and dB and dC from dy u^T e^.. over them (N each); and per head and row
+    the state terms: the chunk states and the dy C^T sums recomputed, g B
+    into du and g^T u into dB, and h^T dy into dC for every chunk but the
+    first (which enters with a zero state)."""
+    full, rest = divmod(S, cl)
+    chunks = [cl] * full + ([rest] if rest else [])
+    pairs = sum(n * (n + 1) // 2 for n in chunks)
+    entering = S - chunks[0]
+    flops = B * (2 * N * pairs + H * (4 * P * pairs + 4 * N * pairs + 8 * P * N * S
+                                      + 2 * P * N * entering))
+    nbytes = elem_bytes * (3 * B * S * H * P + 4 * B * S * N) + 4 * (2 * B * S * H + 2 * H)
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _ssd_bwd_case(x, dt, A, Bm, Cm, dy, dfinal, chunk) -> tuple:
+    """One set of K2-bwd launches against the plain version on the same
+    inputs: each gradient's scaled error, and the bf16 ones' ulps. Returns
+    the kernel's gradients and the readings."""
+    import torch
+
+    from repro_torch.kernels import ssd as tssd
+
+    got = tssd.ssd_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk=chunk)
+    want = tssd.ssd_bwd_ref(x, dt, A, Bm, Cm, dy, dfinal, chunk=chunk)
+    torch.cuda.synchronize()
+    r = {"scaled_err": {}, "ulp_err": {}, "max_abs_err": 0.0, "finite": True,
+         "tol": BWD_TOL, "ulp_tol": BWD_ULP_TOL}
+    ok = True
+    for name, g, w in zip(SSD_BWD_NAMES, got, want):
+        dtype = str(g.dtype).split(".")[-1]
+        r["scaled_err"][name] = _scaled(g, w)
+        r["max_abs_err"] = max(r["max_abs_err"], (g.float() - w.float()).abs().max().item())
+        r["finite"] = r["finite"] and bool(torch.isfinite(g.float()).all())
+        ok = ok and r["scaled_err"][name] <= BWD_TOL[dtype]
+        if g.dtype == torch.bfloat16:
+            r["ulp_err"][name] = _ulps(g, w)
+            ok = ok and r["ulp_err"][name] <= BWD_ULP_TOL
+    r["ok"] = ok and r["finite"]
+    del want
+    return got, r
+
+
+def phase_ssd_bwd() -> dict:
+    """K2's backward against its plain version over K2's sweep in both
+    dtypes (every other case with a gradient of the final state too), then
+    at mamba2's and hymba's training shapes in bf16, where two launches
+    must agree bit for bit and it is timed beside the plain version."""
+    import torch
+
+    from repro_torch.kernels import ssd as tssd
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    worst = worst_abs = worst_ulp = 0.0
+
+    def dy_and_final(x, seed, B, H, P, N, with_final):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        dy = torch.randn(x.shape, generator=g, device=x.device).to(x.dtype)
+        return dy, (torch.randn((B, H, P, N), generator=g, device=x.device) if with_final
+                    else None)
+
+    def tally(r):
+        nonlocal worst, worst_abs, worst_ulp
+        worst = max(worst, *r["scaled_err"].values())
+        worst_abs = max(worst_abs, r["max_abs_err"])
+        worst_ulp = max(worst_ulp, *r["ulp_err"].values(), 0.0)
+
+    for i, (label, B, S, H, P, N, chunk, laws) in enumerate(_ssd_cases()):
+        for dt_ in (bf16, f32):
+            x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, dt_, 400 + i, laws)
+            dy, dfinal = dy_and_final(x, 450 + i, B, H, P, N, with_final=i % 2 == 1)
+            got, r = _ssd_bwd_case(x, dt, A, Bm, Cm, dy, dfinal, chunk)
+            emit("kernels", kernel="ssd_bwd", case=label, dtype=str(dt_).split(".")[-1],
+                 shape=[B, S, H, P, N, chunk], laws=laws, final_state_grad=dfinal is not None,
+                 **r)
+            check(r["ok"], f"ssd_bwd {label} {dt_}: {r}")
+            tally(r)
+            del got
+
+    timings = {}
+    for label, B, S, H, P, N, chunk in SSD_TRAIN:
+        x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, bf16, 500 + H, "model")
+        dy, _ = dy_and_final(x, 550 + H, B, H, P, N, with_final=False)
+        got, r = _ssd_bwd_case(x, dt, A, Bm, Cm, dy, None, chunk)
+        again = tssd.ssd_bwd(x, dt, A, Bm, Cm, dy, chunk=chunk)
+        r["bitwise_repeatable"] = all(torch.equal(a, b) for a, b in zip(got, again))
+        del got, again
+        torch.cuda.empty_cache()
+
+        def kernel():
+            tssd.ssd_bwd(x, dt, A, Bm, Cm, dy, chunk=chunk)
+
+        # no single PyTorch call computes the SSD scan's gradient
+        t = {"ms": _time_ms(kernel, 5, 2),
+             "plain_ms": _time_ms(lambda: tssd.ssd_bwd_ref(x, dt, A, Bm, Cm, dy, chunk=chunk),
+                                  2, 1),
+             "library_ms": None}
+        torch.cuda.empty_cache()
+        t["device_ms"] = _graph_ms(kernel, calls=3, replays=3)
+        t["bound_ms"], t["bound_by"] = _ssd_bwd_bound(B, S, H, P, N, chunk, 2, PEAK_BF16_FLOPS)
+        case = f"{label} bf16 B={B} S={S} H={H} P={P} N={N} chunk={chunk}"
+        emit("kernels", kernel="ssd_bwd", case=case, dtype="bfloat16",
+             shape=[B, S, H, P, N, chunk], laws="model", **r, **t)
+        check(r["ok"] and r["bitwise_repeatable"], f"ssd_bwd {case}: {r}")
+        tally(r)
+        timings[label] = {**t, "case": case}
+        del x, dt, A, Bm, Cm, dy
+        torch.cuda.empty_cache()
+    return {"ssd_bwd": {"max_scaled_err": worst, "max_abs_err": worst_abs,
+                        "max_ulp_err": worst_ulp, "timings": timings}}
 
 
 # -- serve ----------------------------------------------------------------------
@@ -742,7 +902,8 @@ def _traced(fn, top: int = 3) -> dict:
     device work, the device-busy ms (the sum of its kernels' durations on the
     one stream), the idle share, the launch count, the device ms of the
     port's kernels by name (K1 ``flash_fwd_*``, K1's backward ``bwd_*``, K2
-    ``ssd_*``), of the ``top`` heaviest kernels, and of the GEMMs (cuBLAS
+    ``ssd_*``, K2's backward ``ssd_bwd_*``), of the ``top`` heaviest
+    kernels, and of the GEMMs (cuBLAS
     kernels, by name) in all and the ``top`` largest."""
     import torch
 
@@ -760,7 +921,8 @@ def _traced(fn, top: int = 3) -> dict:
         ms = e.time_range.elapsed_us() / 1e3
         ms0, n0 = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms0 + ms, n0 + 1)
-        name = re.search(r"(flash_fwd_\w+|ssd_\w+|bwd_(?:dkdv|dq|preprocess)(?:_mma)?)", e.name)
+        name = re.search(r"(flash_fwd_\w+|ssd_bwd_\w+|ssd_\w+|bwd_(?:dkdv|dq|preprocess)(?:_mma)?)",
+                         e.name)
         if name:
             ports[name.group(1)] = ports.get(name.group(1), 0.0) + ms
     heaviest = sorted(by_name.items(), key=lambda kv: -kv[1][0])
@@ -773,7 +935,9 @@ def _traced(fn, top: int = 3) -> dict:
         "kernel_launches": len(kernels),
         "k1_device_ms": sum(v for k, v in ports.items() if k.startswith("flash_fwd")),
         "k1_bwd_device_ms": sum(v for k, v in ports.items() if k.startswith("bwd_")),
-        "k2_device_ms": sum(v for k, v in ports.items() if k.startswith("ssd_")),
+        "k2_device_ms": sum(v for k, v in ports.items()
+                            if k.startswith("ssd_") and not k.startswith("ssd_bwd_")),
+        "k2_bwd_device_ms": sum(v for k, v in ports.items() if k.startswith("ssd_bwd_")),
         "port_kernels_device_ms": ports,
         "heaviest_kernels": [{"name": n[:120], "device_ms": ms, "calls": c}
                              for n, (ms, c) in heaviest],
@@ -931,41 +1095,67 @@ def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple) -> dict:
     return res
 
 
-# the train cell: tinyllama-1.1b at full width and depth, bf16, remat "full"
-TRAIN_ARCH = "tinyllama-1.1b"
-TRAIN_STEPS = 6
+# the train cells, each at full width and depth: bf16, remat "full", B=4,
+# S=2048, AdamW, prefetched synthetic batches, through the unchanged Trainer
+# (which saves one final checkpoint, into build/, deleted after the phase):
+# (arch, steps)
+TRAIN_CELLS = (("tinyllama-1.1b", 6), ("mamba2-1.3b", 4), ("hymba-1.5b", 4))
 TRAIN_KW = dict(seq_len=2048, global_batch=4, lr=3e-4, warmup=2)
-# the parity run: f32, full width and depth, B=1, S=256; each leaf group's
-# largest gradient error against the plain attention's, over its largest
-# gradient (f32 sums in another order, through 22 layers)
-PARITY_B, PARITY_S, PARITY_TOL = 1, 256, 1e-4
+# the parity runs: f32, full width and depth, B=1, S spanning at least 4
+# chunks of the SSD scan where the model has one: (arch, B, S). Each leaf
+# group's largest gradient error against the plain versions', over its
+# largest gradient (f32 sums in another order, through every layer)
+PARITY_CELLS = (("tinyllama-1.1b", 1, 256), ("mamba2-1.3b", 1, 1024), ("hymba-1.5b", 1, 256))
+PARITY_TOL = 1e-4
 
 
 def _train_counters() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention_bhsd, flash_attention_bwd
+    from repro_torch.kernels.ssd import ssd_bshp, ssd_bwd
 
-    return {"flash_attention": flash_attention_bhsd, "flash_attention_bwd": flash_attention_bwd}
+    return {"flash_attention": flash_attention_bhsd, "flash_attention_bwd": flash_attention_bwd,
+            "ssd": ssd_bshp, "ssd_bwd": ssd_bwd}
+
+
+def _launches_per_step(cfg) -> dict:
+    """Each kernel's launches in one step with remat "full": every layer's
+    forward runs twice (the loss, and its recompute in the backward), its
+    backward once; 0 for a kernel the model does not run."""
+    L = cfg.num_layers
+    attn = cfg.attention == "gqa"
+    ssm = cfg.family in ("ssm", "hybrid")
+    return {"flash_attention": 2 * L * attn, "flash_attention_bwd": L * attn,
+            "ssd": 2 * L * ssm, "ssd_bwd": L * ssm}
 
 
 def _model_flops(cfg, n_params: int, B: int, S: int) -> tuple:
     """Model FLOPs of one step (no remat recompute): 6 N per token for the
     parameter products, N without the embedding table unless the head is
-    tied to it (its forward is a gather, not a product), and causal
-    attention's two products, forward (4 Dh per visible pair per head) and
-    backward (twice that)."""
+    tied to it (its forward is a gather, not a product), and each attention
+    layer's two products over the (q, k) pairs its mask leaves visible
+    (causal, within the window on a window layer), forward (4 Dh per pair
+    per head) and backward (twice that). The SSD scan's own products are not
+    counted."""
+    from repro_torch.models.lm import stack_plan
+
     n = n_params - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
-    pairs = S * (S + 1) // 2
-    attn = 12 * cfg.num_layers * B * cfg.num_heads * cfg.head_dim * pairs
-    formula = ("6*N*B*S + 12*L*B*H*Dh*S*(S+1)/2, N = parameters - the embedding table "
-               "(untied)")
+    attn = 0
+    if cfg.attention == "gqa":
+        for grp in stack_plan(cfg):
+            window = None if grp.is_global else cfg.window
+            pairs = sum(q + 1 if window is None else min(q + 1, window) for q in range(S))
+            attn += 12 * grp.count * B * cfg.num_heads * cfg.head_dim * pairs
+    formula = ("6*N*B*S + 12*B*H*Dh*(visible causal pairs) per attention layer, N = "
+               "parameters - the embedding table (untied)")
     return 6 * n * B * S + attn, formula, n
 
 
-def phase_train() -> dict:
-    """Train full-width tinyllama-1.1b for TRAIN_STEPS bf16 steps through
+def phase_train(arch: str, steps: int) -> dict:
+    """Train full-width ``arch`` for ``steps`` bf16 steps through
     ``repro_torch.runtime.Trainer`` (prefetched synthetic batches, the loss
-    with remat, autograd through K1 forward and backward, AdamW, the final
-    checkpoint saved on the pool into ``build/`` and deleted at the end)."""
+    with remat, autograd through the kernels forward and backward, AdamW,
+    the final checkpoint saved on the pool into ``build/`` and deleted at
+    the end), checking every kernel's launches a step."""
     import shutil
 
     import torch
@@ -978,15 +1168,14 @@ def phase_train() -> dict:
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     allocated = _release_device_memory()
-    cfg = get_config(TRAIN_ARCH).replace(dtype="bfloat16")
-    check(cfg.remat == "full", f"{TRAIN_ARCH} trains with remat {cfg.remat!r}")
+    cfg = get_config(arch).replace(dtype="bfloat16")
+    check(cfg.remat == "full", f"{arch} trains with remat {cfg.remat!r}")
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     ckpt_dir.mkdir(parents=True)
     free = shutil.disk_usage(ckpt_dir).free
-    emit("train", arch=TRAIN_ARCH, **allocated, disk_free_bytes=free)
-    tcfg = TrainerConfig(num_steps=TRAIN_STEPS, checkpoint_every=10 * TRAIN_STEPS, log_every=1,
-                         **TRAIN_KW)
+    emit("train", arch=arch, **allocated, disk_free_bytes=free)
+    tcfg = TrainerConfig(num_steps=steps, checkpoint_every=10 * steps, log_every=1, **TRAIN_KW)
     tr = Trainer(cfg, tcfg, str(ckpt_dir), device="cuda:0")
     try:
         counters = _train_counters()
@@ -1003,13 +1192,13 @@ def phase_train() -> dict:
         save = tr.ckpt.saves[0]
         peak = torch.cuda.max_memory_allocated()
         saved = sorted(p.name for p in ckpt_dir.iterdir())
-        check(saved == [f"step_{TRAIN_STEPS:08d}"], f"checkpoints after the run: {saved}")
+        check(saved == [f"step_{steps:08d}"], f"checkpoints after the run: {saved}")
         on_disk = sum(f.stat().st_size for f in (ckpt_dir / saved[0]).iterdir())
 
         rows = out["metrics"]
         params, opt = out["params"], out["opt"]
         n_params = sum(p.numel() for p in params.parameters())
-        check(len(rows) == TRAIN_STEPS, f"{len(rows)} metric rows for {TRAIN_STEPS} steps")
+        check(len(rows) == steps, f"{len(rows)} metric rows for {steps} steps")
         check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows),
               f"a non-finite loss or grad norm: {rows}")
         init = tr.model.init(tcfg.seed)
@@ -1022,24 +1211,26 @@ def phase_train() -> dict:
                   for part in ("m", "v", "master")}
         dtypes["count"] = str(opt["count"].dtype)
         dtypes["params"] = sorted({str(t.dtype) for t in params.parameters()})
+        # the SSM leaves a_log, d_skip and dt_bias stay f32 in a bf16 model
+        want_params = ["torch.bfloat16"] + (["torch.float32"] if cfg.family != "dense" else [])
         check(dtypes == {"m": ["torch.float32"], "v": ["torch.float32"],
                          "master": ["torch.float32"], "count": "torch.int32",
-                         "params": ["torch.bfloat16"]}, f"state dtypes {dtypes}")
-        per_step = {"flash_attention": 2 * cfg.num_layers, "flash_attention_bwd": cfg.num_layers}
+                         "params": want_params}, f"state dtypes {dtypes}")
+        per_step = _launches_per_step(cfg)
         for name, n in per_step.items():
-            check(launches[name] == n * TRAIN_STEPS,
-                  f"{name} launched {launches[name]} times in {TRAIN_STEPS} steps, "
+            check(launches[name] == n * steps,
+                  f"{arch}: {name} launched {launches[name]} times in {steps} steps, "
                   f"want {n} a step")
 
         # one more step, under the profiler
         state = {"params": params, "opt": opt}
-        batch = to_device(tr.data.batch(TRAIN_STEPS), tr.device)
-        trace = _traced(lambda: tr.train_step(state, batch, TRAIN_STEPS), top=6)
+        batch = to_device(tr.data.batch(steps), tr.device)
+        trace = _traced(lambda: tr.train_step(state, batch, steps), top=6)
         B, S = TRAIN_KW["global_batch"], TRAIN_KW["seq_len"]
         step_s = float(np.median(steps_s[1:]))
         flops, formula, n_matmul = _model_flops(cfg, n_params, B, S)
         res = {
-            "arch": TRAIN_ARCH, "dtype": "bfloat16", "steps": TRAIN_STEPS, "batch": B,
+            "arch": arch, "dtype": "bfloat16", "steps": steps, "batch": B,
             "seq_len": S, "remat": cfg.remat, "params": n_params,
             "loss": [r["loss"] for r in rows], "grad_norm": [r["grad_norm"] for r in rows],
             "lr": [r["lr"] for r in rows],
@@ -1047,7 +1238,7 @@ def phase_train() -> dict:
             "tokens_per_s": B * S / step_s,
             "peak_mem_bytes": peak,
             "launches": launches,
-            "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+            "launches_per_step": {k: v / steps for k, v in launches.items()},
             "model_flops_per_step": flops, "model_flops_formula": formula,
             "model_flops_n": n_matmul,
             "model_flop_share_of_989_tflops": flops / step_s / PEAK_BF16_FLOPS,
@@ -1057,6 +1248,7 @@ def phase_train() -> dict:
             "state_dtypes": dtypes,
         }
         res.update({f"step_{k}": v for k, v in trace.items()})
+        res["step_k2_bwd_share_of_busy"] = trace["k2_bwd_device_ms"] / trace["device_busy_ms"]
         emit("train", **res)
     finally:
         tr.close()
@@ -1065,7 +1257,7 @@ def phase_train() -> dict:
     del tr, out, params, opt, state
     gc.collect()
     torch.cuda.empty_cache()
-    emit("train", arch=TRAIN_ARCH, ckpt_removed=True, phase_s=time.perf_counter() - t_start)
+    emit("train", arch=arch, ckpt_removed=True, phase_s=time.perf_counter() - t_start)
     return res
 
 
@@ -1100,26 +1292,56 @@ def _plain_attention():
     return attention
 
 
-def phase_train_parity() -> dict:
-    """Loss and every gradient of full-width, full-depth tinyllama in f32 on
-    the card, through the kernels and then with the model's attention call
-    patched (here only) to the plain versions; the largest scaled error per
-    leaf group."""
+def _plain_ssd():
+    """The SSM layer's scan call, for the parity run only: the plain
+    versions forward (``ssd_ref``) and backward (``ssd_bwd_ref``)."""
+    import torch
+
+    from repro_torch.kernels import ssd as tssd
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, dt, A, Bm, Cm, chunk):
+            ctx.set_materialize_grads(False)
+            ctx.save_for_backward(x, dt, A, Bm, Cm)
+            ctx.chunk = chunk
+            return tssd.ssd_ref(x, dt, A, Bm, Cm, chunk=chunk, return_final_state=True)
+
+        @staticmethod
+        def backward(ctx, dy, dfinal):
+            x, dt, A, Bm, Cm = ctx.saved_tensors
+            dy = torch.zeros_like(x) if dy is None else dy
+            return (*tssd.ssd_bwd_ref(x, dt, A, Bm, Cm, dy, dfinal, chunk=ctx.chunk), None)
+
+    def ssd_bshp(x, dt, A, Bm, Cm, *, chunk=64, return_final_state=False):
+        y, final = Plain.apply(x, dt, A, Bm, Cm, chunk)
+        return (y, final) if return_final_state else y
+
+    return ssd_bshp
+
+
+def phase_train_parity(arch: str, B: int, S: int) -> dict:
+    """Loss and every gradient of full-width, full-depth ``arch`` in f32 on
+    the card, through the kernels and then with the model's attention and
+    scan calls patched (here only) to the plain versions; the largest
+    scaled error per leaf group."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokens
     from repro_torch.models import attention as attention_mod
     from repro_torch.models import build_model
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.tree import tree_flatten_with_keys
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config(TRAIN_ARCH).replace(dtype="float32")
+    _release_device_memory()
+    cfg = get_config(arch).replace(dtype="float32")
     model = build_model(cfg, device="cuda:0")
     params = model.init(seed=0)
-    batch = SyntheticTokens(cfg.vocab_size, PARITY_S, PARITY_B, seed=0).batch(0)
+    batch = SyntheticTokens(cfg.vocab_size, S, B, seed=0).batch(0)
     keyed = tree_flatten_with_keys(params.tree())
 
     def loss_and_grads():
@@ -1132,12 +1354,12 @@ def phase_train_parity() -> dict:
         fn.launches = 0
     loss_k, grads_k = loss_and_grads()
     launches = {name: fn.launches for name, fn in counters.items()}
-    kernel_fn = attention_mod.flash_attention
-    attention_mod.flash_attention = _plain_attention()
+    kernel_fns = attention_mod.flash_attention, ssm_mod.ssd_bshp
+    attention_mod.flash_attention, ssm_mod.ssd_bshp = _plain_attention(), _plain_ssd()
     try:
         loss_p, grads_p = loss_and_grads()
     finally:
-        attention_mod.flash_attention = kernel_fn
+        attention_mod.flash_attention, ssm_mod.ssd_bshp = kernel_fns
     groups = {}  # leaf group (layer index dropped) -> (max abs diff, max abs plain)
     for (key, _), gk, gp in zip(keyed, grads_k, grads_p):
         group = ".".join(part for part in key.split(".") if not part.isdigit())
@@ -1147,25 +1369,25 @@ def phase_train_parity() -> dict:
     scaled = {g: d / m if m else d for g, (d, m) in groups.items()}
     worst = max(scaled.values())
     finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
-    emit("train_parity", arch=TRAIN_ARCH, dtype="float32", batch=PARITY_B, seq_len=PARITY_S,
+    chunks = -(-S // cfg.ssm_chunk) if cfg.family != "dense" else None
+    emit("train_parity", arch=arch, dtype="float32", batch=B, seq_len=S, ssd_chunks=chunks,
          loss_kernels=loss_k, loss_plain=loss_p, launches=launches, scaled_grad_err=scaled,
          worst=worst, tol=PARITY_TOL, finite=finite, phase_s=time.perf_counter() - t_start)
-    check(finite and np.isfinite(loss_k), "non-finite loss or gradient through the kernels")
+    check(finite and np.isfinite(loss_k), f"{arch}: non-finite loss or gradient through the kernels")
     check(abs(loss_k - loss_p) <= PARITY_TOL * max(1.0, abs(loss_p)),
-          f"loss through the kernels {loss_k} against {loss_p}")
-    check(worst <= PARITY_TOL, f"gradients through the kernels: worst scaled error {worst}")
-    check(launches == {"flash_attention": 2 * cfg.num_layers,
-                       "flash_attention_bwd": cfg.num_layers},
-          f"parity run launches {launches}")
+          f"{arch}: loss through the kernels {loss_k} against {loss_p}")
+    check(worst <= PARITY_TOL, f"{arch}: gradients through the kernels: worst scaled error {worst}")
+    check(chunks is None or chunks >= 4, f"{arch}: the parity run spans {chunks} SSD chunks")
+    check(launches == _launches_per_step(cfg), f"{arch}: parity run launches {launches}")
     del model, params, grads_k, grads_p
     gc.collect()
     torch.cuda.empty_cache()
-    return {"worst": worst, "scaled": scaled}
+    return {"arch": arch, "worst": worst, "scaled": scaled}
 
 
-def _kernel_line(kern: dict, serves: list, train: dict) -> dict:
+def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
     """The kernels JSON line: launches summed over the measured runs of the
-    paths (listed per path: the train run and each served model), the rest
+    paths (listed per path: each train run and each served model), the rest
     from the kernels phases; ``design`` names the bf16 kernel's instruction
     path."""
     import torch
@@ -1174,11 +1396,11 @@ def _kernel_line(kern: dict, serves: list, train: dict) -> dict:
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     from repro_torch.kernels.flash_attention import design as fa_design
     from repro_torch.kernels.flash_attention import design_bwd
+    from repro_torch.kernels.ssd import DESIGN_BWD as SSD_DESIGN_BWD
     from repro_torch.kernels.ssd import DESIGNS as SSD_DESIGNS
 
     def launches(name):
-        by_path = {f"train {train['arch']}": train["launches"][name]} if name in \
-            train["launches"] else {}
+        by_path = {f"train {t['arch']}": t["launches"][name] for t in trains}
         by_path.update({s["arch"]: s["launches"][name] for s in serves if name in s["launches"]})
         return sum(by_path.values()), by_path
 
@@ -1188,6 +1410,8 @@ def _kernel_line(kern: dict, serves: list, train: dict) -> dict:
     ssd_n, ssd_by = launches("ssd")
     bwd, t_bwd = kern["flash_attention_bwd"], kern["flash_attention_bwd"]["timing"]
     bwd_n, bwd_by = launches("flash_attention_bwd")
+    sbwd, t_sbwd = kern["ssd_bwd"], kern["ssd_bwd"]["timings"]["mamba2 train"]
+    sbwd_n, sbwd_by = launches("ssd_bwd")
     return {
         "kernels": [
             {
@@ -1259,6 +1483,37 @@ def _kernel_line(kern: dict, serves: list, train: dict) -> dict:
                 "train_shape_library_ulp_err": bwd["train_shape"]["library_ulp_err"],
                 "at": "B=4 H=32 KV=4 Dh=64 Sq=Sk=2048 bf16 causal; library: the autograd "
                       "backward of F.scaled_dot_product_attention",
+                "hymba_train_shape_device_ms": {
+                    k: v["device_ms"] for k, v in bwd["hymba_train_shape"].items()},
+                "hymba_train_shape_ulp_err": {
+                    k: v["ulp_err"] for k, v in bwd["hymba_train_shape"].items()},
+            },
+            {
+                "name": "ssd_bwd",
+                "route": "cuda",
+                "source": "src/repro_torch/csrc/ssd_bwd.cu",
+                # the Pallas scan has no VJP: the reference differentiates
+                # its oracle ssd_reference through XLA
+                "replaces": "src/repro/models/ssm.py:80",
+                "launches": sbwd_n,
+                "launches_by_path": sbwd_by,
+                "launch_unit": "one set of six kernels (chunk states, state passes, dx/dB, "
+                               "dC, ddt/dA, head sums)",
+                "max_abs_err": sbwd["max_abs_err"],
+                "max_scaled_err": sbwd["max_scaled_err"],
+                "max_ulp_err_bf16": sbwd["max_ulp_err"],
+                "ms": t_sbwd["ms"],
+                "plain_ms": t_sbwd["plain_ms"],
+                "bound_ms": t_sbwd["bound_ms"],
+                "bound_by": t_sbwd["bound_by"],
+                "library_ms": t_sbwd["library_ms"],
+                "device_ms": t_sbwd["device_ms"],
+                "design": SSD_DESIGN_BWD,
+                "ptxas": ptxas_resources(build.build_log["ssd_bwd"]["ptxas"]),
+                "hymba_train_shape": {k: kern["ssd_bwd"]["timings"]["hymba train"][k]
+                                      for k in ("ms", "plain_ms", "device_ms", "bound_ms",
+                                                "bound_by")},
+                "at": t_sbwd["case"] + ", the model's dt/A laws",
             },
         ]
     }
@@ -1280,13 +1535,16 @@ def main() -> int:
     kern = phase_kernels()
     kern.update(phase_flash_bwd())
     kern.update(phase_ssd_kernels())
+    kern.update(phase_ssd_bwd())
     emit("timing", kernels_phases_s=time.perf_counter() - t0)
     serves = [phase_serve(arch, serve_kw, path_kernels) for arch, serve_kw, path_kernels in PATHS]
     emit("timing", serve_phases_s=time.perf_counter() - t0)
-    train = phase_train()
-    phase_train_parity()
+    trains = [phase_train(arch, steps) for arch, steps in TRAIN_CELLS]
+    emit("timing", train_phases_s=time.perf_counter() - t0)
+    for arch, B, S in PARITY_CELLS:
+        phase_train_parity(arch, B, S)
     emit("timing", total_s=time.perf_counter() - t0)
-    print(json.dumps(_kernel_line(kern, serves, train)))
+    print(json.dumps(_kernel_line(kern, serves, trains)))
     print(dev["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                              "count": dev["count"]}}))

@@ -1,5 +1,5 @@
 """Builds the port's CUDA sources into plain-C shared libraries, loaded
-with ctypes.
+with ctypes, and holds the checks the kernel wrappers share.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` at first use,
 into ``build/repro_torch/`` at the root of the checkout. The library's file
@@ -27,7 +27,13 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# the port's kernel sources, ``csrc/<name>.cu``, each built into a library
+# of its own: flash attention forward and backward, the SSD scan forward and
+# backward
+SOURCES = ("flash_attention", "flash_attention_bwd", "ssd", "ssd_bwd")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -100,6 +106,24 @@ def _build(name: str) -> Path:
         "ptxas": ptxas,
     }
     return out
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether a call on these tensors is under autograd: grad enabled and
+    one of them requiring a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def device_type(*tensors) -> str:
+    """"cpu" or "cuda" for tensors that share one device, which decides
+    whether a kernel wrapper takes its plain version or launches; raises
+    ``ValueError`` otherwise."""
+    devices = {t.device.type for t in tensors}
+    if devices == {"cpu"}:
+        return "cpu"
+    if devices != {"cuda"} or len({t.device for t in tensors}) != 1:
+        raise ValueError(f"inputs must share one CUDA device (or all be on the CPU): {devices}")
+    return "cuda"
 
 
 def rows_16_byte_aligned(t) -> bool:

@@ -250,26 +250,12 @@ def flash_attention(
     return _attention(q, k, v, causal, window, k_len, bshd=True)
 
 
-def _needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
-def _devices(*tensors) -> str:
-    """"cpu" or "cuda" for tensors that share one device; raises otherwise."""
-    devices = {t.device.type for t in tensors}
-    if devices == {"cpu"}:
-        return "cpu"
-    if devices != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"inputs must share one CUDA device (or all be on the CPU): {devices}")
-    return "cuda"
-
-
 def _to_bhsd(bshd, *tensors):
     return tuple(t.transpose(1, 2) for t in tensors) if bshd else tensors
 
 
 def _attention(q, k, v, causal, window, k_len, *, bshd):
-    if _needs_grad(q, k, v):
+    if build.needs_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window, k_len, bshd)
     return _forward(q, k, v, causal, window, k_len, bshd, lse=False)
 
@@ -288,7 +274,7 @@ def _forward(q, k, v, causal, window, k_len, bshd, *, lse):
     """One counted forward launch, or the plain version on the CPU; ``lse``:
     also the rows' statistics (serving asks for none, and the kernel then
     writes none)."""
-    if _devices(q, k, v) == "cpu":
+    if build.device_type(q, k, v) == "cpu":
         qt, kt, vt = _to_bhsd(bshd, q, k, v)
         o, stats = flash_attention_lse_ref(qt, kt, vt, causal=causal, window=window, k_len=k_len)
         o = o.transpose(1, 2) if bshd else o
@@ -309,7 +295,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None, k_len=
     dtype and shape. CUDA tensors launch the three backward kernels
     (``flash_attention_bwd.launches`` counts each set of three), CPU tensors
     take :func:`flash_attention_bwd_ref`."""
-    if _devices(q, k, v, o, lse, do) == "cpu":
+    if build.device_type(q, k, v, o, lse, do) == "cpu":
         qt, kt, vt, ot, dot = _to_bhsd(bshd, q, k, v, o, do)
         grads = flash_attention_bwd_ref(qt, kt, vt, ot, lse, dot, causal=causal, window=window,
                                         k_len=k_len)
@@ -381,7 +367,7 @@ def check_inputs(q, k, v, k_len=None, *, bshd=False) -> int:
 def _launch(q, k, v, *, causal, window, k_len, bshd=False, lse=False):
     """One forward launch; with ``lse`` also returns the rows' statistics.
     Raises under autograd: its output carries no gradient."""
-    if _needs_grad(q, k, v):
+    if build.needs_grad(q, k, v):
         raise RuntimeError(
             "flash_attention's raw launch gives no gradient; under autograd call "
             "flash_attention / FlashAttention.apply"

@@ -1,5 +1,6 @@
-"""Mamba2 SSD chunked scan: the hand-written sm_90a kernel
-(``csrc/ssd.cu``), its plain PyTorch version, and the recurrent decode step.
+"""Mamba2 SSD chunked scan: the hand-written sm_90a kernels (forward
+``csrc/ssd.cu``, backward ``csrc/ssd_bwd.cu``), their plain PyTorch
+versions, the autograd Function and the recurrent decode step.
 
 Replaces the reference's Pallas TPU kernel ``repro/kernels/ssd.py``
 (``_kernel`` / ``ssd_bshp``); ``ssd_ref`` ports the oracle
@@ -11,15 +12,24 @@ y and the f32 state after the last real position. The TPU kernel keeps its
 state in scratch and never writes it out, so the reference's prefill takes
 the oracle; the port's prefill takes this kernel.
 
+The backward (:func:`ssd_bwd`, plain version :func:`ssd_bwd_ref`) has no
+Pallas counterpart: the reference trains through XLA's autodiff of the
+oracle. It gives dx, ddt, dA, dB and dC from the inputs, the output's
+gradient and (optionally) the final state's, recomputing the chunk states.
+
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch
-the kernel (or raise), CPU tensors take the plain version. There is no
-fallback from one to the other. On the card, bfloat16 (the served path)
-runs three chunk-parallel launches on the tensor cores, with f32 scratch
-from ``torch.empty``, and float32 (the parity path) one FMA launch that
-walks the chunks: :data:`DESIGNS`. As for flash attention, the first launch of
-each instantiation (device, dtype) in a process is preceded by a check
-launch on a small ragged input, held against the plain version; a
-disagreement raises.
+the kernels (or raise), CPU tensors take the plain versions. There is no
+fallback from one to the other. On the card, bfloat16 (the served and
+trained path) runs three chunk-parallel forward launches on the tensor
+cores, with f32 scratch from ``torch.empty``, and float32 (the parity path)
+one FMA launch that walks the chunks: :data:`DESIGNS`. The backward runs
+FMA tiles in f32 for both dtypes (:data:`DESIGN_BWD`). Under autograd
+(grad enabled and an input requiring grad) :func:`ssd_bshp` goes through
+:class:`SSD`, whose backward launches the backward kernels; the raw
+forward launch refuses to run there. As for flash attention, the first
+launch of each instantiation (device, dtype, forward or backward) in a
+process is preceded by a check launch on a small ragged input, held
+against the plain version; a disagreement raises.
 """
 from __future__ import annotations
 
@@ -35,24 +45,33 @@ from . import build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 128  # the kernel keeps N <= 128 state columns per thread row
 MAX_CHUNK = 1024  # the chunk's decay prefix sum lives in shared memory
+MAX_HEAD_BWD = 64  # the backward keeps a head's P columns in one 64-wide tile
 # the kernel's design for each dtype, as csrc/ssd.cu names it
 DESIGNS = {torch.bfloat16: "mma.sync", torch.float32: "fma-f32"}
+# the backward's, as csrc/ssd_bwd.cu names it: f32 FMA tiles for both dtypes
+DESIGN_BWD = "fma-f32"
 
 _fn_lock = threading.Lock()
 _count_lock = threading.Lock()
-_fn = None
+_fns: dict = {}
 
 
-def _kernel_fn():
-    global _fn
+def _kernel_fn(name: str = "ssd_fwd"):
+    """The C entry ``ssd_fwd`` (library ``ssd``) or ``ssd_bwd`` (library
+    ``ssd_bwd``), loaded and typed once."""
     with _fn_lock:
-        if _fn is None:
-            fn = build.library("ssd").ssd_fwd
+        fn = _fns.get(name)
+        if fn is None:
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            fn.argtypes = [ptr] * 8 + [i32] * 8 + [i64] * 13 + [ptr]
+            if name == "ssd_fwd":
+                fn = build.library("ssd").ssd_fwd
+                fn.argtypes = [ptr] * 8 + [i32] * 8 + [i64] * 13 + [ptr]
+            else:
+                fn = build.library("ssd_bwd").ssd_bwd
+                fn.argtypes = [ptr] * 13 + [i32] * 8 + [i64] * 13 + [ptr]
             fn.restype = i32
-            _fn = fn
-        return _fn
+            _fns[name] = fn
+        return fn
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -137,6 +156,121 @@ def ssd_ref(
     return y
 
 
+def ssd_bwd_ref(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) f32
+    A: torch.Tensor,  # (H,) f32
+    Bm: torch.Tensor,  # (B, S, N)
+    Cm: torch.Tensor,  # (B, S, N)
+    dy: torch.Tensor,  # (B, S, H, P), the output's gradient
+    dfinal: Optional[torch.Tensor] = None,  # (B, H, P, N), the final state's
+    *,
+    chunk: int = 64,
+):
+    """Plain PyTorch version of the backward kernels, by their formulas, in
+    f32, from a zero initial state: the gradients (dx, ddt, dA, dB, dC) of
+    :func:`ssd_ref`'s y and final state for ``dy`` and ``dfinal`` (None:
+    zero), each in its input's dtype.
+
+    Per chunk, with a_t = dt_t A, Λ the inclusive prefix sum of a in the
+    chunk (L its last row), u_j = dt_j x_j, h the state entering the chunk
+    and g the gradient of the state leaving it:
+
+    * the states h entering each chunk, by the forward's pass in order, and
+      g by the reverse pass g_{c-1} = e^{Λ_L} g_c + Σ_i e^{Λ_i} dy_i C_iᵀ;
+    * du_j = Σ_{i≥j} (C_i·B_j) e^{Λ_i-Λ_j} dy_i + e^{Λ_L-Λ_j} g B_j,
+      dx = dt du, and ddt gets x·du;
+    * per head, dC_i = Σ_{j≤i} e^{Λ_i-Λ_j} (dy_i·u_j) B_j + e^{Λ_i} hᵀ dy_i
+      and dB_j = Σ_{i≥j} e^{Λ_i-Λ_j} (dy_i·u_j) C_i + e^{Λ_L-Λ_j} gᵀ u_j,
+      summed over the heads (B and C are shared by them);
+    * the gradient of Λ_t is C_t·dC_t (that head's part) - u_t·du_t, plus
+      ⟨g, state leaving the chunk⟩ at t = L; a's is its reverse prefix sum
+      in the chunk, which adds A da to ddt and gives dA = Σ dt da.
+
+    A ragged last chunk is padded with dt = 0 steps, as in :func:`ssd_ref`.
+    """
+    Bb, S, H, Pd = x.shape
+    N = Bm.shape[-1]
+    cl = min(chunk, S)
+    S_orig = S
+    pad = (-S) % cl
+    if pad:
+        x, dy = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, dy))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm, Cm = (F.pad(t, (0, 0, 0, pad)) for t in (Bm, Cm))
+        S = S + pad
+    nc = S // cl
+
+    Af = A.float()
+    xr = x.float().reshape(Bb, nc, cl, H, Pd)
+    dyr = dy.float().reshape(Bb, nc, cl, H, Pd)
+    dtr = dt.float().reshape(Bb, nc, cl, H)
+    Br = Bm.float().reshape(Bb, nc, cl, N)
+    Cr = Cm.float().reshape(Bb, nc, cl, N)
+    a = (dtr * Af).transpose(2, 3)  # (B, nc, H, cl)
+    cum = torch.cumsum(a, dim=-1)  # Λ
+    decay = torch.exp(_segsum(a))  # (B, nc, H, i, j): e^{Λ_i - Λ_j} for j <= i, else 0
+    to_end = torch.exp(cum[..., -1:] - cum)  # e^{Λ_L - Λ_j}
+    from_start = torch.exp(cum)  # e^{Λ_i}
+    chunk_decay = torch.exp(cum[..., -1])  # (B, nc, H)
+    u = xr * dtr[..., None]  # (B, nc, cl, H, P)
+
+    # the states entering and leaving each chunk, in order over the chunks
+    local = torch.einsum("bchj,bcjn,bcjhp->bchpn", to_end, Br, u)
+    state = torch.zeros((Bb, H, Pd, N), dtype=torch.float32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + local[:, c]
+    h_in = torch.stack(entering, dim=1)  # (B, nc, H, P, N)
+    h_out = torch.cat([h_in[:, 1:], state[:, None]], dim=1)
+
+    # the reverse pass: g[c], the gradient of the state leaving chunk c
+    g_local = torch.einsum("bchi,bcihp,bcin->bchpn", from_start, dyr, Cr)
+    grad = (
+        dfinal.float()
+        if dfinal is not None
+        else torch.zeros((Bb, H, Pd, N), dtype=torch.float32, device=x.device)
+    )
+    leaving = [None] * nc
+    for c in reversed(range(nc)):
+        leaving[c] = grad
+        grad = grad * chunk_decay[:, c, :, None, None] + g_local[:, c]
+    g = torch.stack(leaving, dim=1)  # (B, nc, H, P, N)
+
+    # chunk-local products
+    cb = torch.einsum("bcin,bcjn->bcij", Cr, Br)[:, :, None] * decay  # (B, nc, H, i, j)
+    du_y = torch.einsum("bcihp,bcjhp->bchij", dyr, u) * decay
+    du = torch.einsum("bchij,bcihp->bcjhp", cb, dyr) + torch.einsum(
+        "bchj,bchpn,bcjn->bcjhp", to_end, g, Br
+    )
+    dC_h = torch.einsum("bchij,bcjn->bcihn", du_y, Br) + torch.einsum(
+        "bchi,bcihp,bchpn->bcihn", from_start, dyr, h_in
+    )
+    dB_h = torch.einsum("bchij,bcin->bcjhn", du_y, Cr) + torch.einsum(
+        "bchj,bchpn,bcjhp->bcjhn", to_end, g, u
+    )
+    xdu = (xr * du).sum(-1)  # (B, nc, cl, H)
+    dlam = (Cr[:, :, :, None] * dC_h).sum(-1) - dtr * xdu
+    last = torch.zeros_like(dlam)
+    last[:, :, -1] = (g * h_out).sum((-1, -2))
+    da = torch.flip(torch.cumsum(torch.flip(dlam + last, [2]), dim=2), [2])
+    ddt = xdu + Af * da
+    dA = (dtr * da).sum((0, 1, 2))
+    dx = du * dtr[..., None]
+
+    def seq(t, *tail):
+        return t.reshape(Bb, S, *tail)[:, :S_orig]
+
+    return (
+        seq(dx, H, Pd).to(x.dtype),
+        seq(ddt, H).to(dt.dtype),
+        dA.to(A.dtype),
+        seq(dB_h.sum(3), N).to(Bm.dtype),
+        seq(dC_h.sum(3), N).to(Cm.dtype),
+    )
+
+
 def ssd_decode_step(
     x: torch.Tensor,  # (B, H, P)
     dt: torch.Tensor,  # (B, H) f32
@@ -173,21 +307,79 @@ def ssd_bshp(
     ones: :func:`check_inputs`), y comes back contiguous in
     x's dtype and the final state ``(B, H, P, N)`` in float32. Any S is
     taken: a ragged last chunk is masked, not padded. CPU tensors take
-    :func:`ssd_ref`. ``ssd_bshp.launches`` counts kernel launches (the
-    first-launch check's are not counted).
+    :func:`ssd_ref`. Under autograd the call goes through :class:`SSD`.
+    ``ssd_bshp.launches`` counts forward kernel launches (the first-launch
+    check's are not counted).
     """
-    tensors = (x, dt, A, Bm, Cm)
-    devices = {t.device.type for t in tensors}
-    if devices == {"cpu"}:
-        return ssd_ref(x, dt, A, Bm, Cm, chunk=chunk, return_final_state=return_final_state)
-    if devices != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"x, dt, A, B, C must share one CUDA device (or all be on the CPU): {devices}")
+    if build.needs_grad(x, dt, A, Bm, Cm):
+        y, final = SSD.apply(x, dt, A, Bm, Cm, chunk)
+    else:
+        y, final = _forward(x, dt, A, Bm, Cm, chunk)
+    return (y, final) if return_final_state else y
+
+
+def _forward(x, dt, A, Bm, Cm, chunk):
+    """(y, final state): one counted launch, or the plain version on the CPU."""
+    if build.device_type(x, dt, A, Bm, Cm) == "cpu":
+        return ssd_ref(x, dt, A, Bm, Cm, chunk=chunk, return_final_state=True)
     cl = check_inputs(x, dt, A, Bm, Cm, chunk)
     _check_first_launch(x.device, x.dtype)
-    y, final = _launch(x, dt, A, Bm, Cm, chunk=cl)
+    out = _launch(x, dt, A, Bm, Cm, chunk=cl)
     with _count_lock:
         ssd_bshp.launches += 1
-    return (y, final) if return_final_state else y
+    return out
+
+
+def ssd_bwd(x, dt, A, Bm, Cm, dy, dfinal=None, *, chunk=64):
+    """The gradients (dx, ddt, dA, dB, dC) of the scan's y for its gradient
+    ``dy`` and of its final state for ``dfinal`` (None: zero), each in its
+    input's dtype and shape. CUDA tensors launch the backward kernels
+    (``ssd_bwd.launches`` counts each set), which take what the forward
+    takes (:func:`check_inputs`) with P up to :data:`MAX_HEAD_BWD`; CPU
+    tensors take :func:`ssd_bwd_ref`."""
+    tensors = (x, dt, A, Bm, Cm, dy) + (() if dfinal is None else (dfinal,))
+    if build.device_type(*tensors) == "cpu":
+        return ssd_bwd_ref(x, dt, A, Bm, Cm, dy, dfinal, chunk=chunk)
+    cl = check_inputs(x, dt, A, Bm, Cm, chunk)
+    B, S, H, P = x.shape
+    if P > MAX_HEAD_BWD:
+        raise ValueError(f"the SSD backward takes P up to {MAX_HEAD_BWD}, got P={P}")
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} must match x {tuple(x.shape)} {x.dtype}")
+    if dfinal is not None and tuple(dfinal.shape) != (B, H, P, Bm.shape[-1]):
+        raise ValueError(f"dfinal of shape {tuple(dfinal.shape)}, want {(B, H, P, Bm.shape[-1])}")
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()  # the kernels read rows along P
+    _check_first_bwd_launch(x.device, x.dtype)
+    grads = _launch_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk=cl)
+    with _count_lock:
+        ssd_bwd.launches += 1
+    return grads
+
+
+class SSD(torch.autograd.Function):
+    """The SSD scan with a gradient: the forward launches the scan kernel
+    (the plain version on the CPU) and keeps its inputs; the backward
+    launches the backward kernels, which recompute the chunk states (the
+    plain version on the CPU). ``apply(x, dt, A, B, C, chunk)`` returns (y,
+    final state); a final state left out of the loss has no gradient, taken
+    as zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        ctx.set_materialize_grads(False)
+        y, final = _forward(x, dt, A, Bm, Cm, chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, Bm, Cm = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = ssd_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk=ctx.chunk)
+        return (*grads, None)
 
 
 def check_inputs(x, dt, A, Bm, Cm, chunk) -> int:
@@ -225,11 +417,12 @@ def check_inputs(x, dt, A, Bm, Cm, chunk) -> int:
 
 def _launch(x, dt, A, Bm, Cm, *, chunk):
     """``chunk`` is the chunk length as :func:`check_inputs` returns it.
-    Raises under autograd: the kernel has no backward yet, and its output
+    Raises under autograd: this launch has no backward, and its output
     would carry no gradient."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, Bm, Cm)):
+    if build.needs_grad(x, dt, A, Bm, Cm):
         raise RuntimeError(
-            "ssd's kernel has no backward yet: its output would carry no gradient"
+            "ssd's raw launch has no backward: its output would carry no gradient; under "
+            "autograd call ssd_bshp or SSD.apply"
         )
     B, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -253,6 +446,42 @@ def _launch(x, dt, A, Bm, Cm, *, chunk):
     if err != 0:
         raise RuntimeError(f"ssd_fwd failed to launch: cudaError_t {err}")
     return y, final
+
+
+def _launch_bwd(x, dt, A, Bm, Cm, dy, dfinal, *, chunk):
+    """One set of the backward launches (``csrc/ssd_bwd.cu``): the chunk
+    states, the state passes in order and in reverse, dx and dB per head, dC
+    per head, ddt and dA, and the sums of dB and dC over the heads. f32
+    scratch for the states, the per-head partials and the row terms comes
+    from ``torch.empty``."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = -(-S // chunk)
+    dt32 = dt.float()
+    A32 = A.float().contiguous()
+    if dfinal is not None:
+        dfinal = dfinal.float().contiguous()
+    dev, f32 = x.device, torch.float32
+    dx = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
+    ddt = torch.empty((B, S, H), dtype=f32, device=dev)
+    dA = torch.empty((H,), dtype=f32, device=dev)
+    dB = torch.empty((B, S, N), dtype=Bm.dtype, device=dev)
+    dC = torch.empty((B, S, N), dtype=Cm.dtype, device=dev)
+    scratch = torch.empty(2 * B * nc * H * (P * N + 1) + 2 * B * S * H * (N + 1), dtype=f32,
+                          device=dev)
+    err = _kernel_fn("ssd_bwd")(
+        x.data_ptr(), dt32.data_ptr(), A32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        dy.data_ptr(), None if dfinal is None else dfinal.data_ptr(),
+        dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        scratch.data_ptr(),
+        _DTYPE_CODES[x.dtype], dev.index, B, S, H, P, N, chunk,
+        *x.stride()[:3], *dt32.stride(), Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
+        *dy.stride()[:3],
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"ssd_bwd failed to launch: cudaError_t {err}")
+    return dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC
 
 
 def scaled_error(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -291,4 +520,35 @@ def _check_first_launch(device: torch.device, dtype: torch.dtype) -> None:
     _guard.check((device.index, dtype), case)
 
 
+_bwd_guard = build.FirstLaunchGuard("ssd_bwd", scaled_error)  # keyed by (device index, dtype)
+
+
+def _check_first_bwd_launch(device: torch.device, dtype: torch.dtype) -> None:
+    """The same for the backward: two chunks, the second ragged, a random dy
+    and final-state gradient; each gradient's error is scaled by its
+    largest value."""
+
+    def case():
+        g = torch.Generator(device=device).manual_seed(1)
+        B, S, H, P, N, chunk = 1, 100, 3, 16, 16, 64
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=device)
+
+        x, Bm, Cm, dy = (randn(*s).to(dtype) for s in [(B, S, H, P), (B, S, N), (B, S, N),
+                                                       (B, S, H, P)])
+        dt = F.softplus(randn(B, S, H))
+        A = -torch.exp(torch.rand((H,), generator=g, device=device))
+        dfinal = randn(B, H, P, N)
+        args = (x, dt, A, Bm, Cm, dy, dfinal)
+
+        def launch():
+            return _launch_bwd(*args, chunk=chunk)
+
+        return launch, ssd_bwd_ref(*args, chunk=chunk)
+
+    _bwd_guard.check((device.index, dtype), case)
+
+
 ssd_bshp.launches = 0
+ssd_bwd.launches = 0

@@ -200,8 +200,7 @@ class Model:
         (B, S), with autograd: ``loss.backward()`` or ``torch.autograd.grad``
         gives every parameter's gradient. Returns (loss, {"ce", "aux",
         "tokens"}); the dense, SSM and hybrid families have no auxiliary
-        loss, so ``aux`` is 0. On the card, SSM layers raise until the SSD
-        kernel has a backward."""
+        loss, so ``aux`` is 0."""
         cfg = self.cfg
         tokens = self._as_index(batch["tokens"])
         x = self._embed_tokens(p, tokens)

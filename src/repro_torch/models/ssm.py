@@ -15,10 +15,9 @@ plain recurrent step, as in the reference, and writes the conv window and
 the state into the cache tensors in place (the reference returns updated
 copies of donated buffers).
 
-Under autograd the full-sequence path differentiates on the CPU, where the
-scan is the plain ``ssd_ref``; on the card it raises ``NotImplementedError``
-until the SSD kernel has a backward, rather than return an output without
-a gradient.
+Under autograd the full-sequence scan goes through the autograd Function
+``kernels.ssd.SSD``: on the card its backward is the hand-written backward
+kernel, on the CPU the plain ``ssd_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -109,11 +108,6 @@ def ssm_apply(
 
     new_cache = None
     if cache is None:
-        if u.is_cuda and torch.is_grad_enabled() and zxbcdt.requires_grad:
-            raise NotImplementedError(
-                "training an SSM layer on the card needs the SSD kernel's backward, "
-                "which comes with the next slice of the port"
-            )
         xBC, tail = _causal_conv(xBC, p["conv_w"], p["conv_b"])
         xc, Bc, Cc = torch.split(xBC, [di, N, N], dim=-1)
         x = xc.reshape(B, S, nh, Pd)

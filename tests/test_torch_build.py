@@ -51,3 +51,9 @@ def test_the_library_name_follows_the_headers(fake_toolchain):
     (fake_toolchain / "h.cuh").write_text("// header, changed\n")
     second = build._build("k")
     assert second != first and not build.build_log["k"]["cached"]
+
+
+def test_every_kernel_source_is_listed():
+    """``build.SOURCES`` names every ``csrc/*.cu``, so a run that builds the
+    listed sources (``chip_smoke.py``) builds every kernel of the port."""
+    assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == sorted(build.SOURCES)

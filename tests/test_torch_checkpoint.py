@@ -16,6 +16,10 @@ from repro.checkpoint import save_pytree as jax_save_pytree
 from repro_torch.checkpoint import CheckpointManager, load_pytree, save_pytree
 from repro_torch.core import ThreadPool
 
+# the suite runs in several worker processes that share the host's cores:
+# one intra-op thread each keeps them from crowding out one another
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 

@@ -27,6 +27,10 @@ from repro_torch.models.lm import extend_caches
 from repro_torch.core import ThreadPool
 from repro_torch.serve import ServeEngine
 
+# the suite runs in several worker processes that share the host's cores:
+# one intra-op thread each keeps them from crowding out one another
+torch.set_num_threads(1)
+
 
 class _ScriptedEngine(ServeEngine):
     """:class:`ServeEngine` with the timing of its threads pinned.

@@ -13,6 +13,10 @@ from repro.kernels.flash_attention import flash_attention_bhsd as jax_flash
 from repro.kernels.ref import attention_ref as jax_attention_ref
 from repro_torch.kernels import flash_attention as tfa
 
+# the suite runs in several worker processes that share the host's cores:
+# one intra-op thread each keeps them from crowding out one another
+torch.set_num_threads(1)
+
 TOL = 2e-5
 
 

@@ -8,9 +8,10 @@ bf16 (the tensor-core designs) and f32 (the FMA designs), over shape sweeps
 and tile edges, and small models served on the card are held against the
 same weights decoded on the CPU. Flash attention's backward is held against
 its plain version over the same sweeps and its own tile edges, in bf16 also
-in ulps, and two of its launches against each other bit for bit; a train step of a small model on
-the card against the same step on the CPU; and a restarted training run
-against an uninterrupted one, bit for bit."""
+in ulps, and two of its launches against each other bit for bit, and the
+SSD scan's backward the same way; a train step of each small model
+(tinyllama, mamba2, hymba) on the card against the same step on the CPU;
+and a restarted training run against an uninterrupted one, bit for bit."""
 import numpy as np
 import pytest
 import torch
@@ -241,6 +242,83 @@ def test_small_model_served_on_card_matches_cpu_decode():
         assert list(map(int, out)) == ref
 
 
+# -- K2's backward ----------------------------------------------------------------------
+
+SSD_BWD_TOL = 1e-4  # scaled, for f32 gradients: the f32 cases', and ddt and dA in bf16
+
+
+def _ssd_bwd_inputs(dev, rng, dt_, case, with_final):
+    """The forward's inputs as the model hands them over (split views),
+    a random dy in x's dtype and, ``with_final``, a random f32 gradient of
+    the final state."""
+    B, S, H, P, N, chunk, laws = case
+    xbc = torch.from_numpy(rng.standard_normal((B, S, H * P + 2 * N))).to(dev, dt_)
+    x = xbc[..., : H * P].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., H * P : H * P + N], xbc[..., H * P + N :]
+    dt, A = (torch.from_numpy(a).to(dev, torch.float32) for a in _dt_a(rng, B, S, H, laws))
+    dy = torch.from_numpy(rng.standard_normal((B, S, H, P))).to(dev, dt_)
+    dfinal = None
+    if with_final:
+        dfinal = torch.from_numpy(rng.standard_normal((B, H, P, N))).to(dev, torch.float32)
+    return (x, dt, A, Bm, Cm, dy, dfinal), chunk
+
+
+def _ssd_bwd_check(dev, rng, dt_, case, with_final):
+    """One set of backward launches against the plain version: each
+    gradient's scaled error, and in bf16 the bf16 gradients' ulps; the set
+    is counted and its instantiation was first checked."""
+    args, chunk = _ssd_bwd_inputs(dev, rng, dt_, case, with_final)
+    before = tssd.ssd_bwd.launches
+    got = tssd.ssd_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert tssd.ssd_bwd.launches == before + 1
+    assert (0, dt_) in tssd._bwd_guard.checked
+    want = tssd.ssd_bwd_ref(*args, chunk=chunk)
+    out = {}
+    for label, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, label
+        assert torch.isfinite(g.float()).all(), label
+        scaled = tssd.scaled_error(g, w)
+        if g.dtype == torch.bfloat16:
+            assert scaled <= 2.0**-7 and _bf16_ulps(g, w) <= BWD_ULP_TOL, (label, scaled,
+                                                                          _bf16_ulps(g, w))
+        else:
+            assert scaled <= SSD_BWD_TOL, (label, scaled)
+        out[label] = scaled
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_bwd_kernel_matches_plain_version_on_card(dtype):
+    """K2's backward over the forward's sweep and tile edges, with and
+    without a final-state gradient: f32 gradients within 1e-4 scaled, bf16
+    ones within 2^-7 scaled and 2 bf16 ulps of the plain f32 formulas."""
+    dev = _cuda()
+    dt_, _tol = SSD_TOL[dtype]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(21)
+    for i, (name, case) in enumerate({**SSD_SWEEP, **SSD_EDGES}.items()):
+        errs = _ssd_bwd_check(dev, rng, dt_, case, with_final=i % 2 == 1)
+        assert errs, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_bwd_is_bitwise_repeatable_on_card(dtype):
+    """No float atomics: two launches give the same five gradients bit for
+    bit, the sums over heads, batch and sequence included."""
+    dev = _cuda()
+    dt_, _tol = SSD_TOL[dtype]
+    rng = np.random.default_rng(22)
+    for name in ("mamba2 heads, ragged S=300, chunk 256", "B=2 H=25 N=128, chunk 64"):
+        args, chunk = _ssd_bwd_inputs(dev, rng, dt_, SSD_SWEEP[name], with_final=True)
+        first = tssd.ssd_bwd(*args, chunk=chunk)
+        second = tssd.ssd_bwd(*args, chunk=chunk)
+        for label, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), first, second):
+            assert torch.equal(a, b), (name, dtype, label)
+
+
 # -- training: K1's backward, the train step, a bit-exact restart ------------------------
 
 
@@ -393,23 +471,31 @@ def test_autograd_goes_through_the_kernels_and_raw_launches_refuse():
         tssd._launch(x, torch.ones((1, 16, 2), device=dev), -torch.ones(2, device=dev),
                      torch.zeros((1, 16, 16), device=dev), torch.zeros((1, 16, 16), device=dev),
                      chunk=16)
+    # an SSM layer's scan under autograd is SSD: the scan kernel forward, the
+    # backward kernels backward (with remat "full", the forward twice)
     cfg = get_reduced("mamba2-1.3b").replace(dtype="float32")
     model = build_model(cfg, device=dev)
     params = model.init(0)
-    with pytest.raises(NotImplementedError, match="backward"):
-        model.loss(params, {"tokens": np.zeros((1, 8), np.int32),
-                            "targets": np.zeros((1, 8), np.int32)})
+    fwd0, bwd0 = tssd.ssd_bshp.launches, tssd.ssd_bwd.launches
+    loss, _ = model.loss(params, {"tokens": np.zeros((1, 8), np.int32),
+                                  "targets": np.zeros((1, 8), np.int32)})
+    loss.backward()
+    assert tssd.ssd_bshp.launches - fwd0 == 2 * cfg.num_layers
+    assert tssd.ssd_bwd.launches - bwd0 == cfg.num_layers
+    assert all(torch.isfinite(p.grad).all() for p in params.parameters())
 
 
-def _train_cfg():
+def _train_cfg(arch="tinyllama-1.1b"):
     # head_dim 32: the flash kernels are built for head dims 32, 64 and 128
-    return get_reduced("tinyllama-1.1b").replace(dtype="float32", head_dim=32)
+    return get_reduced(arch).replace(dtype="float32", head_dim=32)
 
 
 @pytest.mark.gpu
-def test_train_step_on_card_matches_cpu():
-    """One step of reduced tinyllama (loss, autograd through both K1
-    kernels, AdamW) on the card against the same step on the CPU."""
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-1.3b", "hymba-1.5b"])
+def test_train_step_on_card_matches_cpu(arch):
+    """One step of a reduced model (loss, autograd through K1 and its
+    backward, K2 and its backward, AdamW) on the card against the same step
+    on the CPU, where the kernels' plain versions stand in."""
     from repro_torch.data import SyntheticTokens
     from repro_torch.models.common import ParamTree
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
@@ -417,7 +503,7 @@ def test_train_step_on_card_matches_cpu():
 
     dev = _cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = _train_cfg()
+    cfg = _train_cfg(arch)
     batch = SyntheticTokens(cfg.vocab_size, 40, 2, seed=0).batch(0)
     ocfg = AdamWConfig(lr=1e-3, grad_clip=0.5)
     cpu_params = build_model(cfg, device="cpu").init(0)
@@ -427,11 +513,15 @@ def test_train_step_on_card_matches_cpu():
         model = build_model(cfg, device=device)
         tree = params.tree()
         state = adamw_init(ocfg, tree)
+        ssd0, ssd_bwd0 = tssd.ssd_bshp.launches, tssd.ssd_bwd.launches
         loss, _ = model.loss(params, batch)
         grads = tree_unflatten(tree, torch.autograd.grad(loss, tree_leaves(tree)))
         _, state, met = adamw_update(ocfg, 1e-3, tree, grads, state)
         out[str(device)] = (loss.item(), met["grad_norm"].item(),
                             [t.detach().cpu() for t in tree_leaves(tree)])
+        if device == dev and cfg.family in ("ssm", "hybrid"):  # remat: the forward twice
+            assert tssd.ssd_bshp.launches - ssd0 == 2 * cfg.num_layers
+            assert tssd.ssd_bwd.launches - ssd_bwd0 == cfg.num_layers
     (l0, n0, p0), (l1, n1, p1) = out.values()
     assert l1 == pytest.approx(l0, rel=1e-4) and n1 == pytest.approx(n0, rel=1e-4)
     for a, b in zip(p0, p1):

@@ -19,6 +19,10 @@ from repro_torch.serve.kv import (
     ring_modulus,
 )
 
+# the suite runs in several worker processes that share the host's cores:
+# one intra-op thread each keeps them from crowding out one another
+torch.set_num_threads(1)
+
 
 def _tiny_model(**overrides):
     cfg = get_reduced("tinyllama-1.1b").replace(dtype="float32", **overrides)

@@ -20,6 +20,10 @@ from repro_torch.configs import get_reduced
 from repro_torch.models import Model, build_model
 from repro_torch.models.lm import extend_caches
 
+# the suite runs in several worker processes that share the host's cores:
+# one intra-op thread each keeps them from crowding out one another
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 

@@ -27,6 +27,10 @@ from repro_torch.optim import (
     global_norm,
 )
 
+# the suite runs in several worker processes that share the host's cores:
+# one intra-op thread each keeps them from crowding out one another
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 

@@ -15,6 +15,10 @@ from repro.models.ssm import ssd_decode_step as jax_ssd_decode_step
 from repro.models.ssm import ssd_reference as jax_ssd_reference
 from repro_torch.kernels import ssd as tssd
 
+# the suite runs in several worker processes that share the host's cores:
+# one intra-op thread each keeps them from crowding out one another
+torch.set_num_threads(1)
+
 TOL = dict(atol=2e-4, rtol=2e-4)
 
 

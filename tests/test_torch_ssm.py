@@ -25,6 +25,10 @@ from repro_torch.models import build_model
 from repro_torch.models.lm import extend_caches
 from repro_torch.models.ssm import ssm_apply
 
+# the suite runs in several worker processes that share the host's cores:
+# one intra-op thread each keeps them from crowding out one another
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCHS = ["mamba2-1.3b", "hymba-1.5b"]
 SSM_F32_LEAVES = ("a_log", "d_skip", "dt_bias")

@@ -38,6 +38,10 @@ from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.runtime import Trainer, TrainerConfig
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
+# the suite runs in several worker processes that share the host's cores:
+# one intra-op thread each keeps them from crowding out one another
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 CPU = torch.device("cpu")
 ARCHS = ("tinyllama-1.1b", "mamba2-1.3b", "hymba-1.5b")
@@ -419,43 +423,67 @@ def test_prefetcher_orders_and_resumes():
 
 
 def test_prefetcher_overlaps_slow_source():
-    class SlowSource:
+    """The prefetcher runs the source's ``batch`` calls concurrently: each
+    call is held until a second one is in flight beside it (a serial
+    prefetcher would hold its first call for good), and the batches still
+    come out in order. Counted, not timed, so a loaded host cannot fail it."""
+    lock = threading.Lock()
+    in_flight = {"now": 0, "most": 0}
+    overlapped = threading.Event()
+
+    class HeldSource:
         def batch(self, step):
-            time.sleep(0.02)
+            with lock:
+                in_flight["now"] += 1
+                in_flight["most"] = max(in_flight["most"], in_flight["now"])
+                if in_flight["now"] >= 2:
+                    overlapped.set()
+            try:
+                overlapped.wait(60)
+            finally:
+                with lock:
+                    in_flight["now"] -= 1
             return {"x": np.full((2,), step)}
 
     with ThreadPool(4) as pool:
-        with Prefetcher(SlowSource(), pool=pool, depth=4, device="cpu") as pf:
-            pf.get()
-            t0 = time.perf_counter()
-            for _ in range(8):
-                pf.get()
-            elapsed = time.perf_counter() - t0
-    assert elapsed < 0.15, elapsed
+        with Prefetcher(HeldSource(), pool=pool, depth=4, device="cpu") as pf:
+            for step in range(9):
+                assert int(pf.get()["x"][0]) == step
+    assert overlapped.is_set() and in_flight["most"] >= 2, in_flight
 
 
 def test_prefetcher_close_cancels_and_drains():
     calls = []
+    started = threading.Event()
     release = threading.Event()
 
     class SlowSource:
         def batch(self, step):
             calls.append(step)
-            release.wait(5)
+            started.set()
+            release.wait(60)
             return {"x": np.full((2,), step)}
 
     with ThreadPool(1) as pool:
         pf = Prefetcher(SlowSource(), pool=pool, depth=4, device="cpu")
-        for _ in range(100):
-            if calls:
-                break
-            time.sleep(0.005)
+        assert started.wait(60)
         assert calls == [0]
-        threading.Timer(0.1, release.set).start()
+        queued = [pf._inflight[step] for step in (1, 2, 3)]
+
+        def release_once_cancelled():
+            # the running step 0 is let go only after close() has cancelled
+            # the queued steps, whatever the host's load
+            for _ in range(60000):
+                if all(f.cancelled() for f in queued):
+                    break
+                time.sleep(0.001)
+            release.set()
+
+        threading.Thread(target=release_once_cancelled, daemon=True).start()
         pf.close()
         assert calls == [0]
         assert not pf._inflight
-        assert pool.wait_idle(timeout=10)
+        assert pool.wait_idle(timeout=60)
         ok = []
         pool.run(lambda: ok.append(1))
         assert ok == [1]
@@ -463,15 +491,17 @@ def test_prefetcher_close_cancels_and_drains():
 
 def test_prefetcher_close_waits_for_running_task():
     done = []
+    started = threading.Event()
 
     class Source:
         def batch(self, step):
+            started.set()
             time.sleep(0.05)
             done.append(step)
             return {"x": np.full((2,), step)}
 
     pf = Prefetcher(Source(), depth=2, device="cpu")
-    time.sleep(0.01)
+    assert started.wait(60)  # a produce is running when close() comes
     pf.close()
     assert done, "running produce was abandoned instead of drained"
 
