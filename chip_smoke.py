@@ -12,7 +12,9 @@ the card in bf16 (the served and trained designs) and f32 (the parity
 designs): flash attention's backward also at tinyllama's and hymba's
 training shapes (in bf16 also in ulps, beside a lower-precision control and
 SDPA's own backward), the SSD scan's backward over the scan's sweep and at
-mamba2's and hymba's training shapes (two launches bit for bit). It times
+mamba2's and hymba's training shapes (two launches bit for bit; in bf16 also
+in ulps, beside the tensor-core design with its split operands rounded
+once). It times
 each bf16 kernel, its plain version and, where there is one, the PyTorch
 call computing the same function: by CUDA events over back-to-back eager
 calls, and as device time by CUDA-graph replay (for SDPA's autograd
@@ -463,10 +465,10 @@ def _bwd_case(q, k, v, do, kw, model_layout, library=None) -> tuple:
     return o, lse, r
 
 
-def _profiled_ms(fn, calls: int = 10) -> float:
-    """Device time of one call as the sum of its kernels' durations in a
-    profiler trace of ``calls`` calls (for calls that autograd runs, which
-    a CUDA graph capture does not take as they are)."""
+def _profiled_ms(fn, calls: int = 10) -> dict:
+    """Device ms of one call per kernel name, from a profiler trace of
+    ``calls`` calls (for calls that autograd runs, which a CUDA graph
+    capture does not take as they are)."""
     import torch
 
     for _ in range(3):
@@ -477,8 +479,11 @@ def _profiled_ms(fn, calls: int = 10) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    return out
 
 
 def _attention_bwd_bound(B, H, KV, S, Dh, elem_bytes, peak_flops):
@@ -566,8 +571,8 @@ def phase_flash_bwd() -> dict:
         lambda: fa.flash_attention_bwd_ref(qt, kt, vt, ot, lse, dot, causal=True), 3, 1),
         "library_ms": _time_ms(library, 10)}
     t["device_ms"] = _graph_ms(kernel, calls=5, replays=3)
-    t["library_device_ms"] = _profiled_ms(library)
-    t["kernel_profiled_ms"] = _profiled_ms(kernel, calls=3)
+    t["library_device_ms"] = sum(_profiled_ms(library).values())
+    t["kernel_profiled_ms"] = sum(_profiled_ms(kernel, calls=3).values())
     t["bound_ms"], t["bound_by"] = _attention_bwd_bound(B, H, KV, S, Dh, 2, PEAK_BF16_FLOPS)
     fwd_bound, _ = _attention_bound(B, H, KV, S, S, Dh, 2, True, PEAK_BF16_FLOPS)
     t["forward"] = {"ms": _time_ms(lambda: fa.flash_attention_lse(q, k, v, causal=True,
@@ -723,6 +728,10 @@ def phase_ssd_kernels() -> dict:
 # under 1e-4. bf16 gradients (dx, dB and dC of a bf16 case) are held as
 # K1-bwd's are: 2^-7 scaled (BWD_TOL) and BWD_ULP_TOL bf16 ulps.
 SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+# the bf16 design's launches (csrc/ssd_bwd.cu), but for the state pass it
+# shares with the f32 form as ssd_bwd_state_pass<true>
+SSD_BWD_BF16_LAUNCHES = ("ssd_bwd_chunk_state_mma", "ssd_bwd_scores", "ssd_bwd_dx_mma",
+                         "ssd_bwd_dbdc", "ssd_bwd_finish_mma")
 # the training shapes, bf16 with the model's dt/A laws: (label, B, S, H, P,
 # N, chunk)
 SSD_TRAIN = (("mamba2 train", 4, 2048, 64, 64, 128, 256),
@@ -732,27 +741,145 @@ SSD_TRAIN = (("mamba2 train", 4, 2048, 64, 64, 128, 256),
 def _ssd_bwd_bound(B, S, H, P, N, cl, elem_bytes, peak_flops):
     """Least time for the scan's backward: x, B, C and dy (elem_bytes), dt
     and A (f32) read once; dx, dB, dC (elem_bytes), ddt and dA (f32) written
-    once. FLOPs: C B^T over each chunk's causal pairs (shared by the heads);
-    per head, dy u^T and du = (C B^T e^..)^T dy over the same pairs (P each)
-    and dB and dC from dy u^T e^.. over them (N each); and per head and row
-    the state terms: the chunk states and the dy C^T sums recomputed, g B
-    into du and g^T u into dB, and h^T dy into dC for every chunk but the
-    first (which enters with a zero state)."""
+    once. FLOPs, the least work of the function: over each chunk's causal
+    pairs, C B^T and, since B and C are shared by the heads, the chunk-local
+    dB and dC from the scores summed over the heads (N each, once); per
+    head, dy x^T and du = (C B^T e^..)^T dy over the same pairs (P each);
+    and per head and row the state terms: the chunk states and the dy C^T
+    sums recomputed, g B into du and g^T u into dB, and h^T dy into dC for
+    every chunk but the first (which enters with a zero state). A count
+    that takes the chunk-local dB and dC per head instead adds H 4 N per
+    pair, work the head sums show the function does not need."""
     full, rest = divmod(S, cl)
     chunks = [cl] * full + ([rest] if rest else [])
     pairs = sum(n * (n + 1) // 2 for n in chunks)
     entering = S - chunks[0]
-    flops = B * (2 * N * pairs + H * (4 * P * pairs + 4 * N * pairs + 8 * P * N * S
-                                      + 2 * P * N * entering))
+    flops = B * (6 * N * pairs + H * (4 * P * pairs + 8 * P * N * S + 2 * P * N * entering))
     nbytes = elem_bytes * (3 * B * S * H * P + 4 * B * S * N) + 4 * (2 * B * S * H + 2 * H)
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def _ssd_bwd_emulation(x, dt, A, Bm, Cm, dy, dfinal=None, *, chunk, split):
+    """The bf16 backward kernels' arithmetic (``csrc/ssd_bwd.cu``) in plain
+    PyTorch, gradients in the inputs' dtypes, on the inputs' device.
+    ``split`` True: every f32 operand of a product (the weighted rows of the
+    chunk states, the states h and g, W1 = G e^{..} and the head-summed Ŵ2)
+    as bf16 hi + lo parts, one product each, summed in f32; False: those
+    operands rounded to one bf16 each (the control, read beside the kernel
+    here); None: no rounding (the restructured formulas in f32).
+    ``tests/test_torch_ssd_bwd.py`` holds it to the plain version and to
+    ``jax.vjp`` of the reference's oracle.
+
+    Per chunk, with G = C·Bᵀ formed once for all heads and, per head, W2 =
+    (dy·xᵀ) dt_j e^{Λ_i-Λ_j} over j ≤ i:
+
+    * du_j = e^{Λ_L-Λ_j} B_j gᵀ + Σ_{i≥j} W1[i][j] dy_i, dx = dt du;
+    * dC = Ŵ2 B + Σ_h e^{Λ_i} dy_i h, dB = Ŵ2ᵀ C + Σ_h e^{Λ_L-Λ_j} dt_j x_j g,
+      with Ŵ2 = Σ_h W2;
+    * the gradient of Λ_t per head is rowsum_t(W2∘G) − colsum_t(W2∘G) +
+      e^{Λ_t} C_t·(hᵀ dy_t) − dt_t x_t·du_t's state part, and the last row
+      adds ⟨g, state leaving⟩ = e^{Λ_L}⟨g, h⟩ + Σ_j dt_j x_j·du_j's state
+      part, from the same numbers (the state h as the kernels read it back).
+    """
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ssd as tssd
+
+    def parts(t):
+        if split is None:
+            return (t,)
+        hi = t.to(torch.bfloat16).float()
+        return (hi, (t - hi).to(torch.bfloat16).float()) if split else (hi,)
+
+    def mm(eq, op, other):  # the split operand first, an exact one second
+        return sum(torch.einsum(eq, part, other) for part in parts(op))
+
+    Bb, S, H, Pd = x.shape
+    N = Bm.shape[-1]
+    cl = min(chunk, S)
+    S_orig = S
+    pad = (-S) % cl
+    if pad:
+        x, dy = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, dy))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm, Cm = (F.pad(t, (0, 0, 0, pad)) for t in (Bm, Cm))
+        S = S + pad
+    nc = S // cl
+    Af = A.float()
+    xr = x.float().reshape(Bb, nc, cl, H, Pd)
+    dyr = dy.float().reshape(Bb, nc, cl, H, Pd)
+    dtr = dt.float().reshape(Bb, nc, cl, H)
+    Br = Bm.float().reshape(Bb, nc, cl, N)
+    Cr = Cm.float().reshape(Bb, nc, cl, N)
+    a = (dtr * Af).transpose(2, 3)  # (B, nc, H, cl)
+    cum = torch.cumsum(a, dim=-1)
+    decay = torch.exp(tssd._segsum(a))  # (B, nc, H, i, j)
+    to_end = torch.exp(cum[..., -1:] - cum).transpose(2, 3)  # (B, nc, cl, H)
+    from_start = torch.exp(cum).transpose(2, 3)
+    chunk_decay = torch.exp(cum[..., -1])  # (B, nc, H)
+
+    # the chunk states, their weighted rows split
+    local = mm("bcjhp,bcjn->bchpn", xr * (to_end * dtr)[..., None], Br)
+    g_local = mm("bcihp,bcin->bchpn", dyr * from_start[..., None], Cr)
+    zeros = torch.zeros((Bb, H, Pd, N), device=x.device)
+    state, entering = zeros, []
+    for c in range(nc):
+        entering.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + local[:, c]
+    h_in = torch.stack(entering, dim=1)
+    grad = dfinal.float() if dfinal is not None else zeros
+    leaving = [None] * nc
+    for c in reversed(range(nc)):
+        leaving[c] = grad
+        grad = grad * chunk_decay[:, c, :, None, None] + g_local[:, c]
+    g = torch.stack(leaving, dim=1)
+
+    # dx: the state part, then the decayed C·Bᵀ split
+    G = torch.einsum("bcin,bcjn->bcij", Cr, Br)
+    du_state = to_end[..., None] * mm("bchpn,bcjn->bcjhp", g, Br)
+    xds = (xr * du_state).sum(-1)
+    du = du_state + mm("bchij,bcihp->bcjhp", G[:, :, None] * decay, dyr)
+    xdu = (xr * du).sum(-1)
+
+    # the scores, summed over the heads before their N-wide products
+    W2 = torch.einsum("bcihp,bcjhp->bchij", dyr, xr) * dtr.transpose(2, 3)[:, :, :, None] * decay
+    W2G = W2 * G[:, :, None]
+    W2h = W2.sum(2)
+    dC_h = mm("bchpn,bcihp->bcihn", h_in, dyr)  # each head's hᵀ dy_i
+    dC = mm("bcij,bcjn->bcin", W2h, Br) + (from_start[..., None] * dC_h).sum(3)
+    dB = mm("bcij,bcin->bcjn", W2h, Cr) + (
+        (to_end * dtr)[..., None] * mm("bchpn,bcjhp->bcjhn", g, xr)).sum(3)
+
+    # the gradient of Λ: rowsum − colsum, the state terms, the last row
+    cst = from_start * (dC_h * Cr[:, :, :, None]).sum(-1)
+    dlam = (W2G.sum(-1) - W2G.sum(-2)).transpose(2, 3) + cst - dtr * xds
+    h_read = sum(parts(h_in))  # the entering state as the state pass reads it back
+    last = torch.zeros_like(dlam)
+    last[:, :, -1] = chunk_decay * (g * h_read).sum((-1, -2)) + (dtr * xds).sum(2)
+    da = torch.flip(torch.cumsum(torch.flip(dlam + last, [2]), dim=2), [2])
+    ddt = xdu + Af * da
+    dA = (dtr * da).sum((0, 1, 2))
+
+    def seq(t, *tail):
+        return t.reshape(Bb, S, *tail)[:, :S_orig]
+
+    return (
+        seq(du * dtr[..., None], H, Pd).to(x.dtype),
+        seq(ddt, H),
+        dA,
+        seq(dB, N).to(Bm.dtype),
+        seq(dC, N).to(Cm.dtype),
+    )
+
+
 def _ssd_bwd_case(x, dt, A, Bm, Cm, dy, dfinal, chunk) -> tuple:
     """One set of K2-bwd launches against the plain version on the same
-    inputs: each gradient's scaled error, and the bf16 ones' ulps. Returns
-    the kernel's gradients and the readings."""
+    inputs: each gradient's scaled error, and the bf16 ones' ulps beside
+    those of the control, the bf16 design with its split operands rounded
+    once (:func:`_ssd_bwd_emulation`). Returns the kernel's gradients and
+    the readings."""
     import torch
 
     from repro_torch.kernels import ssd as tssd
@@ -772,6 +899,12 @@ def _ssd_bwd_case(x, dt, A, Bm, Cm, dy, dfinal, chunk) -> tuple:
         if g.dtype == torch.bfloat16:
             r["ulp_err"][name] = _ulps(g, w)
             ok = ok and r["ulp_err"][name] <= BWD_ULP_TOL
+    if x.dtype == torch.bfloat16:
+        ctl = _ssd_bwd_emulation(x, dt, A, Bm, Cm, dy, dfinal, chunk=chunk, split=False)
+        r["control_ulp_err"] = {n: _ulps(c, w) for n, c, w in zip(SSD_BWD_NAMES, ctl, want)
+                                if c.dtype == torch.bfloat16}
+        r["control_scaled_err"] = {n: _scaled(c, w) for n, c, w in zip(SSD_BWD_NAMES, ctl, want)}
+        del ctl
     r["ok"] = ok and r["finite"]
     del want
     return got, r
@@ -781,9 +914,11 @@ def phase_ssd_bwd() -> dict:
     """K2's backward against its plain version over K2's sweep in both
     dtypes (every other case with a gradient of the final state too), then
     at mamba2's and hymba's training shapes in bf16, where two launches
-    must agree bit for bit and it is timed beside the plain version."""
+    must agree bit for bit, the single-rounding control must read above the
+    ulp gate, and it is timed beside the plain version."""
     import torch
 
+    from repro_torch.kernels import build
     from repro_torch.kernels import ssd as tssd
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -813,6 +948,9 @@ def phase_ssd_bwd() -> dict:
             tally(r)
             del got
 
+    # the registers and spills of the trained design's launches
+    ptxas = {k: v for k, v in ptxas_resources(build.build_log["ssd_bwd"]["ptxas"]).items()
+             if k.split("<")[0] in SSD_BWD_BF16_LAUNCHES or k == "ssd_bwd_state_pass<true>"}
     timings = {}
     for label, B, S, H, P, N, chunk in SSD_TRAIN:
         x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, bf16, 500 + H, "model")
@@ -833,13 +971,21 @@ def phase_ssd_bwd() -> dict:
              "library_ms": None}
         torch.cuda.empty_cache()
         t["device_ms"] = _graph_ms(kernel, calls=3, replays=3)
+        launches = ((re.search(r"ssd_bwd_\w+", k), ms) for k, ms in _profiled_ms(kernel, 3).items())
+        t["kernel_profiled_ms"] = {m.group(0): ms for m, ms in launches if m}  # by short name
         t["bound_ms"], t["bound_by"] = _ssd_bwd_bound(B, S, H, P, N, chunk, 2, PEAK_BF16_FLOPS)
+        t["design"] = tssd.DESIGN_BWD[bf16]
+        t["ptxas"] = ptxas
         case = f"{label} bf16 B={B} S={S} H={H} P={P} N={N} chunk={chunk}"
         emit("kernels", kernel="ssd_bwd", case=case, dtype="bfloat16",
              shape=[B, S, H, P, N, chunk], laws="model", **r, **t)
         check(r["ok"] and r["bitwise_repeatable"], f"ssd_bwd {case}: {r}")
+        # the ulp gate rejects the single-rounding control at the path's shapes
+        check(max(r["control_ulp_err"].values()) > BWD_ULP_TOL,
+              f"the bf16 control passes the ulp tolerance at {case}: {r['control_ulp_err']}")
         tally(r)
-        timings[label] = {**t, "case": case}
+        timings[label] = {**t, "case": case, "ulp_err": r["ulp_err"],
+                          "control_ulp_err": r["control_ulp_err"]}
         del x, dt, A, Bm, Cm, dy
         torch.cuda.empty_cache()
     return {"ssd_bwd": {"max_scaled_err": worst, "max_abs_err": worst_abs,
@@ -1497,8 +1643,8 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                 "replaces": "src/repro/models/ssm.py:80",
                 "launches": sbwd_n,
                 "launches_by_path": sbwd_by,
-                "launch_unit": "one set of six kernels (chunk states, state passes, dx/dB, "
-                               "dC, ddt/dA, head sums)",
+                "launch_unit": "one set of six kernels (bf16: chunk states, state passes, "
+                               "scores, dx, dB/dC, ddt/dA)",
                 "max_abs_err": sbwd["max_abs_err"],
                 "max_scaled_err": sbwd["max_scaled_err"],
                 "max_ulp_err_bf16": sbwd["max_ulp_err"],
@@ -1508,11 +1654,16 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                 "bound_by": t_sbwd["bound_by"],
                 "library_ms": t_sbwd["library_ms"],
                 "device_ms": t_sbwd["device_ms"],
-                "design": SSD_DESIGN_BWD,
-                "ptxas": ptxas_resources(build.build_log["ssd_bwd"]["ptxas"]),
+                "design": SSD_DESIGN_BWD[torch.bfloat16],
+                "design_by_dtype": {str(dt).split(".")[-1]: d for dt, d in SSD_DESIGN_BWD.items()},
+                "ptxas": t_sbwd["ptxas"],
+                "kernel_profiled_ms": t_sbwd["kernel_profiled_ms"],
+                "train_shape_ulp_err": t_sbwd["ulp_err"],
+                "train_shape_control_ulp_err": t_sbwd["control_ulp_err"],
                 "hymba_train_shape": {k: kern["ssd_bwd"]["timings"]["hymba train"][k]
                                       for k in ("ms", "plain_ms", "device_ms", "bound_ms",
-                                                "bound_by")},
+                                                "bound_by", "kernel_profiled_ms", "ulp_err",
+                                                "control_ulp_err")},
                 "at": t_sbwd["case"] + ", the model's dt/A laws",
             },
         ]

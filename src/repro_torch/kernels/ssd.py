@@ -22,8 +22,11 @@ the kernels (or raise), CPU tensors take the plain versions. There is no
 fallback from one to the other. On the card, bfloat16 (the served and
 trained path) runs three chunk-parallel forward launches on the tensor
 cores, with f32 scratch from ``torch.empty``, and float32 (the parity path)
-one FMA launch that walks the chunks: :data:`DESIGNS`. The backward runs
-FMA tiles in f32 for both dtypes (:data:`DESIGN_BWD`). Under autograd
+one FMA launch that walks the chunks: :data:`DESIGNS`. The backward's
+bfloat16 form runs its products on the tensor cores, each f32 operand split
+into bf16 hi + lo parts, with C·Bᵀ formed once per chunk and the scores
+summed over the heads before their N-wide products; its float32 form runs
+FMA tiles (:data:`DESIGN_BWD`). Under autograd
 (grad enabled and an input requiring grad) :func:`ssd_bshp` goes through
 :class:`SSD`, whose backward launches the backward kernels; the raw
 forward launch refuses to run there. As for flash attention, the first
@@ -48,8 +51,9 @@ MAX_CHUNK = 1024  # the chunk's decay prefix sum lives in shared memory
 MAX_HEAD_BWD = 64  # the backward keeps a head's P columns in one 64-wide tile
 # the kernel's design for each dtype, as csrc/ssd.cu names it
 DESIGNS = {torch.bfloat16: "mma.sync", torch.float32: "fma-f32"}
-# the backward's, as csrc/ssd_bwd.cu names it: f32 FMA tiles for both dtypes
-DESIGN_BWD = "fma-f32"
+# the backward's, as csrc/ssd_bwd.cu names it: bf16 on mma.sync with the f32
+# operands split into bf16 hi + lo parts, f32 on FMA tiles
+DESIGN_BWD = {torch.bfloat16: "mma.sync-split", torch.float32: "fma-f32"}
 
 _fn_lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -57,8 +61,8 @@ _fns: dict = {}
 
 
 def _kernel_fn(name: str = "ssd_fwd"):
-    """The C entry ``ssd_fwd`` (library ``ssd``) or ``ssd_bwd`` (library
-    ``ssd_bwd``), loaded and typed once."""
+    """The C entry ``ssd_fwd`` (library ``ssd``), or ``ssd_bwd`` or
+    ``ssd_bwd_scratch_floats`` (library ``ssd_bwd``), loaded and typed once."""
     with _fn_lock:
         fn = _fns.get(name)
         if fn is None:
@@ -66,10 +70,15 @@ def _kernel_fn(name: str = "ssd_fwd"):
             if name == "ssd_fwd":
                 fn = build.library("ssd").ssd_fwd
                 fn.argtypes = [ptr] * 8 + [i32] * 8 + [i64] * 13 + [ptr]
-            else:
+                fn.restype = i32
+            elif name == "ssd_bwd":
                 fn = build.library("ssd_bwd").ssd_bwd
                 fn.argtypes = [ptr] * 13 + [i32] * 8 + [i64] * 13 + [ptr]
-            fn.restype = i32
+                fn.restype = i32
+            else:
+                fn = build.library("ssd_bwd").ssd_bwd_scratch_floats
+                fn.argtypes = [i32] * 7
+                fn.restype = i64
             _fns[name] = fn
         return fn
 
@@ -348,8 +357,8 @@ def ssd_bwd(x, dt, A, Bm, Cm, dy, dfinal=None, *, chunk=64):
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} must match x {tuple(x.shape)} {x.dtype}")
     if dfinal is not None and tuple(dfinal.shape) != (B, H, P, Bm.shape[-1]):
         raise ValueError(f"dfinal of shape {tuple(dfinal.shape)}, want {(B, H, P, Bm.shape[-1])}")
-    if dy.stride(-1) != 1:
-        dy = dy.contiguous()  # the kernels read rows along P
+    if dy.stride(-1) != 1 or (dy.dtype == torch.bfloat16 and not build.rows_16_byte_aligned(dy)):
+        dy = dy.clone(memory_format=torch.contiguous_format)  # rows along P, 16-byte copies
     _check_first_bwd_launch(x.device, x.dtype)
     grads = _launch_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk=cl)
     with _count_lock:
@@ -449,14 +458,14 @@ def _launch(x, dt, A, Bm, Cm, *, chunk):
 
 
 def _launch_bwd(x, dt, A, Bm, Cm, dy, dfinal, *, chunk):
-    """One set of the backward launches (``csrc/ssd_bwd.cu``): the chunk
-    states, the state passes in order and in reverse, dx and dB per head, dC
-    per head, ddt and dA, and the sums of dB and dC over the heads. f32
-    scratch for the states, the per-head partials and the row terms comes
-    from ``torch.empty``."""
+    """One set of the six backward launches (``csrc/ssd_bwd.cu``). bfloat16:
+    the chunk states, the state passes, the scores (C·Bᵀ and the scores
+    summed over the heads), dx, dB and dC, and ddt and dA; float32: the
+    chunk states, the state passes, dx and dB per head, dC per head, ddt and
+    dA, and the sums of dB and dC over the heads. The f32 scratch, of the
+    size the library gives for the form, comes from ``torch.empty``."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
-    nc = -(-S // chunk)
     dt32 = dt.float()
     A32 = A.float().contiguous()
     if dfinal is not None:
@@ -467,14 +476,15 @@ def _launch_bwd(x, dt, A, Bm, Cm, dy, dfinal, *, chunk):
     dA = torch.empty((H,), dtype=f32, device=dev)
     dB = torch.empty((B, S, N), dtype=Bm.dtype, device=dev)
     dC = torch.empty((B, S, N), dtype=Cm.dtype, device=dev)
-    scratch = torch.empty(2 * B * nc * H * (P * N + 1) + 2 * B * S * H * (N + 1), dtype=f32,
-                          device=dev)
+    code = _DTYPE_CODES[x.dtype]
+    scratch = torch.empty(_kernel_fn("ssd_bwd_scratch_floats")(code, B, S, H, P, N, chunk),
+                          dtype=f32, device=dev)
     err = _kernel_fn("ssd_bwd")(
         x.data_ptr(), dt32.data_ptr(), A32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         dy.data_ptr(), None if dfinal is None else dfinal.data_ptr(),
         dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
         scratch.data_ptr(),
-        _DTYPE_CODES[x.dtype], dev.index, B, S, H, P, N, chunk,
+        code, dev.index, B, S, H, P, N, chunk,
         *x.stride()[:3], *dt32.stride(), Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
         *dy.stride()[:3],
         torch.cuda.current_stream(dev).cuda_stream,

@@ -9,9 +9,14 @@ and tile edges, and small models served on the card are held against the
 same weights decoded on the CPU. Flash attention's backward is held against
 its plain version over the same sweeps and its own tile edges, in bf16 also
 in ulps, and two of its launches against each other bit for bit, and the
-SSD scan's backward the same way; a train step of each small model
-(tinyllama, mamba2, hymba) on the card against the same step on the CPU;
-and a restarted training run against an uninterrupted one, bit for bit."""
+SSD scan's backward the same way (at mamba2's training shape beside a
+control that rounds the bf16 design's split operands once); a train step
+of each small model (tinyllama, mamba2, hymba) on the card against the
+same step on the CPU; and a restarted training run against an
+uninterrupted one, bit for bit."""
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -317,6 +322,39 @@ def test_ssd_bwd_is_bitwise_repeatable_on_card(dtype):
         second = tssd.ssd_bwd(*args, chunk=chunk)
         for label, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), first, second):
             assert torch.equal(a, b), (name, dtype, label)
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_bf16_design_holds_the_ulp_gate_on_card():
+    """The bf16 backward (tensor cores, the f32 operands split into bf16 hi
+    + lo) at mamba2's training shape with the model's dt/A laws: within 2
+    bf16 ulps and 2^-7 scaled of the plain f32 formulas (ddt and dA within
+    1e-4 scaled), where the same design with its split operands rounded once
+    (``chip_smoke._ssd_bwd_emulation``) reads above the gate."""
+    dev = _cuda()
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert tssd.DESIGN_BWD[torch.bfloat16] == "mma.sync-split"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    case = (4, 2048, 64, 64, 128, 256, "model")
+    args, chunk = _ssd_bwd_inputs(dev, np.random.default_rng(23), torch.bfloat16, case, False)
+    got = tssd.ssd_bwd(*args, chunk=chunk)
+    want = tssd.ssd_bwd_ref(*args, chunk=chunk)
+    ctl = chip_smoke._ssd_bwd_emulation(*args, chunk=chunk, split=False)
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    ulps, ctl_ulps = {}, {}
+    for label, g, w, c in zip(names, got, want, ctl):
+        assert torch.isfinite(g.float()).all(), label
+        scaled = tssd.scaled_error(g, w)
+        if g.dtype == torch.bfloat16:
+            ulps[label], ctl_ulps[label] = _bf16_ulps(g, w), _bf16_ulps(c, w)
+            assert scaled <= 2.0**-7, (label, scaled)
+        else:
+            assert scaled <= SSD_BWD_TOL, (label, scaled)
+    assert max(ulps.values()) <= BWD_ULP_TOL, (ulps, ctl_ulps)
+    assert min(ctl_ulps.values()) > BWD_ULP_TOL, (ulps, ctl_ulps)
 
 
 # -- training: K1's backward, the train step, a bit-exact restart ------------------------

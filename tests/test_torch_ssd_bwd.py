@@ -4,9 +4,17 @@ plain version ``ssd_bwd_ref`` against autograd through the port's
 ``repro.models.ssm.ssd_reference``, for dx, ddt, dA, dB and dC (f32, each
 gradient's largest error over max(1, its largest value) within 1e-4); the
 autograd Function ``SSD``, which the scan and the SSM layer take under
-autograd; and the backward's first-launch check. The CUDA kernel
-(``csrc/ssd_bwd.cu``) is held against the plain version on the card by
+autograd; the backward's first-launch check; and a plain-PyTorch emulation
+of the bf16 kernels' arithmetic (``chip_smoke._ssd_bwd_emulation``: bf16
+operands, f32 sums, f32 operands split into bf16 hi + lo parts, C·Bᵀ shared
+by the heads, the scores summed over the heads, the rowsum − colsum form of
+the gradient of the decays), held to the plain version within the on-card
+gates beside a control that rounds the split operands once. The CUDA kernels
+(``csrc/ssd_bwd.cu``) are held against the plain version on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``."""
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +25,13 @@ from repro.models.ssm import ssd_reference as jax_ssd_reference
 from repro_torch.configs import get_reduced
 from repro_torch.kernels import ssd as tssd
 from repro_torch.models import build_model
+
+# the bf16 design's emulation, which chip_smoke.py also reads on the card
+_spec = importlib.util.spec_from_file_location("chip_smoke",
+                                               Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+_ssd_bwd_emulation = chip_smoke._ssd_bwd_emulation
 
 # the suite runs in several worker processes that share the host's cores:
 # one intra-op thread each keeps them from crowding out one another
@@ -191,3 +206,94 @@ def test_first_bwd_launch_check_raises_on_a_wrong_result(monkeypatch, dtype):
                         lambda *args, chunk: tssd.ssd_bwd_ref(*args, chunk=chunk))
     tssd._check_first_bwd_launch(cpu, dtype)
     assert tssd._bwd_guard.checked == {(None, dtype)}
+
+
+# -- the bf16 kernels' arithmetic ---------------------------------------------------------
+
+BWD_ULP_TOL = 2.0  # chip_smoke.py's gate for the bf16 gradients, with 2^-7 scaled
+F32_GRAD_TOL = 1e-4  # and for the f32 ones (ddt and dA), scaled
+
+# (B, S, H, P, N, chunk, dt/A laws, with a final-state gradient)
+EMULATION_CASES = {
+    "chunk 256, model's dt/A": (1, 512, 4, 16, 32, 256, "model", True),
+    "ragged, narrow heads, chunk 32": (2, 70, 3, 8, 16, 32, "wide", True),
+    "hymba's N=16, chunk 64": (1, 300, 4, 16, 16, 64, "wide", False),
+}
+
+
+def _emulation_inputs(name):
+    """The case's inputs, x, B, C and dy in bf16, by the case's dt/A laws
+    (``tests/test_torch_gpu.py``'s): "model" is the model's init, log-uniform
+    dt in [1e-3, 0.1) and A in [-16, -1), so the state carries across whole
+    chunks; "wide" is dt = softplus(N(0, 1)), A = -exp(U[0, 1))."""
+    B, S, H, P, N, chunk, laws, with_final = EMULATION_CASES[name]
+    rng = np.random.default_rng(len(name))
+    arrays, dy, dfinal = _inputs(len(name), B, S, H, P, N)
+    x, dt, A, Bm, Cm = (torch.from_numpy(a) for a in arrays)
+    if laws == "model":
+        dt = torch.from_numpy(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (B, S, H)))).float()
+        A = torch.from_numpy(-rng.uniform(1.0, 16.0, H)).float()
+    bf16 = torch.bfloat16
+    args = (x.to(bf16), dt, A, Bm.to(bf16), Cm.to(bf16), torch.from_numpy(dy).to(bf16),
+            torch.from_numpy(dfinal) if with_final else None)
+    return args, chunk
+
+
+def _gate_readings(got, want):
+    """(ulps of each bf16 gradient, scaled error of each gradient)."""
+    pairs = list(zip(NAMES, got, want))
+    ulps = {n: chip_smoke._ulps(g, w) for n, g, w in pairs if g.dtype == torch.bfloat16}
+    scaled = {n: _scaled(g.float().numpy(), w.float().numpy()) for n, g, w in pairs}
+    return ulps, scaled
+
+
+@pytest.mark.parametrize("name", list(EMULATION_CASES))
+def test_bf16_bwd_design_with_split_operands_holds_the_ulp_gate(name):
+    args, chunk = _emulation_inputs(name)
+    want = tssd.ssd_bwd_ref(*args, chunk=chunk)
+    got = _ssd_bwd_emulation(*args, chunk=chunk, split=True)
+    ulps, scaled = _gate_readings(got, want)
+    assert set(ulps) == {"dx", "dB", "dC"}
+    for label in NAMES:
+        assert torch.isfinite(got[NAMES.index(label)].float()).all(), label
+        if label in ulps:
+            assert ulps[label] <= BWD_ULP_TOL and scaled[label] <= 2.0**-7, (name, label, ulps,
+                                                                             scaled)
+        else:
+            assert scaled[label] <= F32_GRAD_TOL, (name, label, scaled)
+
+
+@pytest.mark.parametrize("name", list(EMULATION_CASES))
+def test_bf16_bwd_with_split_operands_rounded_once_fails_the_ulp_gate(name):
+    """The control: the same products with each split operand rounded to
+    one bf16 read well above the gate, in every bf16 gradient."""
+    args, chunk = _emulation_inputs(name)
+    want = tssd.ssd_bwd_ref(*args, chunk=chunk)
+    ulps, _ = _gate_readings(_ssd_bwd_emulation(*args, chunk=chunk, split=False), want)
+    assert min(ulps.values()) > BWD_ULP_TOL, (name, ulps)
+
+
+@pytest.mark.parametrize("name", ["four chunks", "ragged last chunk", "H=5 sums dB and dC over heads"])
+def test_restructured_f32_formulas_match_jax_vjp(name):
+    """The bf16 design's formulas in f32 (shared C·Bᵀ, the scores summed over
+    the heads, the rowsum − colsum gradient of the decays, the last row's
+    term from the same numbers) against ``jax.vjp`` of the oracle."""
+    B, S, H, P, N, chunk, with_final = CASES[name]
+    arrays, dy, dfinal = _inputs(len(name), B, S, H, P, N)
+    if not with_final:
+        dfinal = np.zeros_like(dfinal)
+    got = _ssd_bwd_emulation(*(torch.from_numpy(a) for a in arrays), torch.from_numpy(dy),
+                             torch.from_numpy(dfinal), chunk=chunk, split=None)
+
+    def f(*args):
+        return jax_ssd_reference(*args, chunk=chunk, return_final_state=True)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in arrays))
+    ref = vjp((jnp.asarray(dy), jnp.asarray(dfinal)))
+    for label, g, j in zip(NAMES, got, ref):
+        assert g.dtype == torch.float32, label
+        assert _scaled(g.numpy(), np.asarray(j)) <= TOL, (name, label, _scaled(g.numpy(), j))
+
+
+def test_backward_design_names():
+    assert tssd.DESIGN_BWD == {torch.bfloat16: "mma.sync-split", torch.float32: "fma-f32"}
