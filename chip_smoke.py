@@ -23,11 +23,15 @@ backward, by a profiler trace).
 It then serves three full-width models (random weights from seed 0)
 through ``repro_torch.ServeEngine``, one after another: tinyllama-1.1b
 (flash attention prefill), mamba2-1.3b (SSD prefill) and hymba-1.5b (both).
-Each is served once in float32 against the port's own sequential batch-1
-decode and once in bfloat16 as its measured main path, with every kernel's
-launch counter set to 0 just before that run and read just after, followed
-by host times and profiler traces of one S=300 prefill and one 4-lane
-decode step. It then trains the same three models at full width and depth
+The engine runs every decode tick, and tinyllama's bucketed prefills, by
+replaying CUDA graphs it captured when it was built. Each model is served
+once in float32 against the port's own sequential batch-1 decode and once
+in bfloat16 as its measured main path, with every kernel's launch counter
+set to 0 just before that run and read just after (a graph's replays count
+the launches its capture recorded), and every tick checked to be a graph
+replay; then host times and profiler traces of one S=300 prefill and one
+4-lane decode step, eager beside the captured tick (the host's launches
+per tick, at most 10 by graph). It then trains the same three models at full width and depth
 for a few bf16 steps each through ``repro_torch.runtime.Trainer`` (B=4,
 S=2048, remat; checking every kernel's launches a step, the losses, that
 every leaf changed, the AdamW state and the final checkpoint, saved into
@@ -61,15 +65,20 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 # the served paths, in order: (arch, engine settings, kernels every prefill
-# launches once per layer). hymba's max_len stays above its window of 1024,
-# so its window layers serve from ring caches
+# launches once per layer). tinyllama's prompts are padded to buckets that
+# cover PROMPT_RANGE, so its prefills replay captured graphs; hymba's max_len
+# stays above its window of 1024, so its window layers serve from ring caches
 PATHS = (
-    ("tinyllama-1.1b", dict(max_slots=4, max_len=1024, page_size=64), ("flash_attention",)),
+    ("tinyllama-1.1b", dict(max_slots=4, max_len=1024, page_size=64,
+                            prefill_buckets=(128, 256, 512)), ("flash_attention",)),
     ("mamba2-1.3b", dict(max_slots=4, max_len=1024, page_size=64), ("ssd",)),
     ("hymba-1.5b", dict(max_slots=4, max_len=2048, page_size=64), ("flash_attention", "ssd")),
 )
 N_REQUESTS, NEW_TOKENS, PROMPT_RANGE = 8, 32, (64, 512)
 TIE_GAP = 1e-3  # a token mismatch at a top-2 logit gap below this is a near-tie
+# the host's calls that put work on the card, as the profiler names them
+HOST_LAUNCH = re.compile(r"^(cudaLaunchKernel|cuLaunchKernel|cudaGraphLaunch|cudaMemcpyAsync)")
+MAX_TICK_HOST_LAUNCHES = 10  # a 4-lane decode tick by graph replay
 
 
 def emit(phase: str, **fields) -> None:
@@ -1046,7 +1055,10 @@ def _serve(model, params, prompts, serve_kw):
 def _traced(fn, top: int = 3) -> dict:
     """One call of ``fn`` under the profiler: host-clock ms to the end of its
     device work, the device-busy ms (the sum of its kernels' durations on the
-    one stream), the idle share, the launch count, the device ms of the
+    one stream), the idle share, the count of kernels the card ran, the
+    host's calls that issued work (``host_launches``: kernel launches, graph
+    launches and async copies, :data:`HOST_LAUNCH`; a graph replay runs many
+    kernels for one call), the device ms of the
     port's kernels by name (K1 ``flash_fwd_*``, K1's backward ``bwd_*``, K2
     ``ssd_*``, K2's backward ``ssd_bwd_*``), of the ``top`` heaviest
     kernels, and of the GEMMs (cuBLAS
@@ -1059,7 +1071,12 @@ def _traced(fn, top: int = 3) -> dict:
         fn()
         torch.cuda.synchronize()
         traced_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    host_calls: dict = {}  # the host's launches and copies, by runtime call
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and HOST_LAUNCH.match(e.name):
+            host_calls[e.name] = host_calls.get(e.name, 0) + 1
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     ports = {}  # device ms of each of the port's kernels, by its short name
     by_name = {}  # device ms and count of every kernel, by its full name
@@ -1079,6 +1096,8 @@ def _traced(fn, top: int = 3) -> dict:
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / traced_ms if traced_ms else None,
         "kernel_launches": len(kernels),
+        "host_launches": sum(host_calls.values()),
+        "host_launches_by_call": host_calls,
         "k1_device_ms": sum(v for k, v in ports.items() if k.startswith("flash_fwd")),
         "k1_bwd_device_ms": sum(v for k, v in ports.items() if k.startswith("bwd_")),
         "k2_device_ms": sum(v for k, v in ports.items()
@@ -1096,10 +1115,18 @@ def _traced(fn, top: int = 3) -> dict:
 
 def _layer_times(model, params, serve_kw) -> dict:
     """Host-clock times of one prefill (S=300) and one 4-lane decode step at
-    full width, and a profiler trace of each (:func:`_traced`)."""
+    full width, and a profiler trace of each (:func:`_traced`): eager (the
+    model's ``decode_step``), and the engine's tick (gather, decode, scatter,
+    argmax over a paged pool of the serve settings) run eagerly and as its
+    captured graph (``tick_eager_*``, ``tick_graph_*``; the graph's time
+    includes the copies in and out). For a family that buckets its prompts,
+    also the S=300 prefill by replay of the 512 bucket's graph, with the
+    copy of its static cache (``prefill_graph_*``, ``prefill_clone_*``)."""
     import torch
 
-    from repro_torch.tree import tree_map
+    from repro_torch.serve import PagedKVCache, ServeEngine
+    from repro_torch.serve.graphs import DecodeGraph, PrefillGraphs
+    from repro_torch.tree import tree_leaves, tree_map
 
     cfg = model.cfg
     S, lanes, width = 300, serve_kw["max_slots"], serve_kw["max_len"]
@@ -1124,10 +1151,45 @@ def _layer_times(model, params, serve_kw) -> dict:
     def decode():
         model.decode_step(params, tok, caches, idx)
 
+    kv = PagedKVCache(model, lanes, width, page_size=serve_kw["page_size"])
+    graph = DecodeGraph(model, params, kv)
+    tick_in = (np.zeros((lanes, 1), np.int64), idx.cpu().numpy(), {})
+    graph.run(*tick_in)  # the static inputs now hold the lanes' positions
+
+    def tick_graph():
+        graph.run(*tick_in)
+
+    def tick_eager():
+        with torch.inference_mode():
+            graph.body()["next"].cpu()
+
     out = {"arch": cfg.name, "prefill_ms_S300": host_ms(prefill, 5),
-           "decode_step_ms_4lanes": host_ms(decode, 10)}
+           "decode_step_ms_4lanes": host_ms(decode, 10),
+           "tick_eager_ms_4lanes": host_ms(tick_eager, 10),
+           "tick_graph_ms_4lanes": host_ms(tick_graph, 10),
+           "tick_graph_capture_s": graph.stats()["capture_s"]}
     out.update({f"prefill_{k}": v for k, v in _traced(prefill).items()})
     out.update({f"decode_{k}": v for k, v in _traced(decode).items()})
+    out.update({f"tick_eager_{k}": v for k, v in _traced(tick_eager).items()})
+    out.update({f"tick_graph_{k}": v for k, v in _traced(tick_graph).items()})
+    if ServeEngine.supports_prefill_buckets(cfg):
+        bucket = 512
+        graphs = PrefillGraphs(model, params, (bucket,))
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :S] = tokens[0]
+
+        def prefill_graph():
+            graphs.run(padded, S - 1)
+
+        # a bucket's cache, of the shape the replay clones out of its static one
+        static = model.prefill(params, {"tokens": padded})[1]
+        out.update({
+            "prefill_graph_ms_S300": host_ms(prefill_graph, 5),
+            "prefill_graph_bucket": bucket,
+            "prefill_clone_ms": _time_ms(lambda: tree_map(torch.clone, static), 20, 2),
+            "prefill_clone_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(static)),
+        })
+        out.update({f"prefill_graph_{k}": v for k, v in _traced(prefill_graph).items()})
     return out
 
 
@@ -1151,6 +1213,75 @@ def _release_device_memory() -> dict:
     torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
     return {"allocated_left_bytes": left, "allocated_at_start_bytes": torch.cuda.memory_allocated()}
+
+
+def phase_readback() -> dict:
+    """What a tick's read-back does to another thread's launches onto the
+    same stream: one thread replays a CUDA graph of 2000 small kernels and
+    reads 4 values back after each replay, by a blocking ``.cpu()`` or by
+    the engine's ``read_back`` (pinned memory and an event), while another
+    times 2500 launches of a small kernel, as an eager prefill beside the
+    decode ticks makes. In turns: blocking, event, event, blocking.
+    Reported, not gated."""
+    import threading
+
+    import torch
+
+    from repro_torch.serve.graphs import read_back
+
+    x = torch.zeros(1 << 20, device="cuda")
+    y = torch.zeros(64, device="cuda")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2000):
+            x.mul_(1.0000001)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(2000):
+            x.mul_(1.0000001)
+
+    def launches_ms():
+        t0 = time.perf_counter()
+        for _ in range(2500):
+            y.add_(1)
+        return 1e3 * (time.perf_counter() - t0)
+
+    def ticks(blocking, stop, started):
+        while not stop.is_set():
+            graph.replay()
+            x[:4].cpu() if blocking else read_back(x[:4])
+            started.set()
+
+    graph_ms = _time_ms(graph.replay, 10, 2)
+    out = {"graph_device_ms": graph_ms, "launches_alone_ms": launches_ms(),
+           "launches_beside_ticks_ms": {"blocking": [], "event": []}}
+    for blocking in (True, False, False, True):
+        stop, started = threading.Event(), threading.Event()
+        th = threading.Thread(target=ticks, args=(blocking, stop, started))
+        th.start()
+        started.wait(60)
+        out["launches_beside_ticks_ms"]["blocking" if blocking else "event"].append(launches_ms())
+        stop.set()
+        th.join(60)
+        check(not th.is_alive(), "the read-back probe's tick thread did not stop")
+    torch.cuda.synchronize()
+    del graph
+    emit("readback", **out)
+    return out
+
+
+def _check_graph_replays(arch: str, dtype: str, stats: dict, requests: int,
+                         serve_kw: dict) -> None:
+    """Every decode tick replayed the decode graph, and with prompt buckets
+    every first prefill replayed its bucket's graph (a resume runs eagerly)."""
+    graphs = stats["graphs"]
+    check(graphs["decode"]["replays"] == stats["ticks"] > 0,
+          f"{arch} {dtype}: {graphs['decode']['replays']} decode graph replays for "
+          f"{stats['ticks']} ticks")
+    if serve_kw.get("prefill_buckets"):
+        n = sum(g["replays"] for k, g in graphs.items() if k.startswith("prefill_"))
+        check(n == requests, f"{arch} {dtype}: {n} prefill graph replays for {requests} prompts")
 
 
 def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple) -> dict:
@@ -1178,7 +1309,9 @@ def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple) -> dict:
             mismatches.append({"request": r, "step": i, "top2_gap": gaps[i]})
     emit("serve", arch=arch, dtype="float32", requests=len(prompts), wall_s=wall,
          ticks=stats["ticks"], preemptions=stats["preemptions"], mismatches=mismatches,
+         graph_replays={k: g["replays"] for k, g in stats["graphs"].items()},
          phase_s=time.perf_counter() - t_start)
+    _check_graph_replays(arch, "float32", stats, len(prompts), serve_kw)
     for m in mismatches:
         check(m["top2_gap"] < TIE_GAP,
               f"{arch} float32 engine tokens differ from sequential decode at a gap of "
@@ -1199,7 +1332,13 @@ def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple) -> dict:
     for fn in counters.values():
         fn.launches = 0
     outs, marks, wall, stats = _serve(model, params, prompts, serve_kw)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    # the wrappers count the launches they run; a graph's replay runs the
+    # launches its capture recorded, without the wrappers
+    eager = {name: fn.launches for name, fn in counters.items()}
+    graphs = stats["graphs"]
+    replayed = {name: sum(g["replays"] * g["captured_launches"].get(name, 0)
+                          for g in graphs.values()) for name in counters}
+    launches = {name: eager[name] + replayed[name] for name in counters}
     prefills = len(prompts) + stats["preemptions"]
     n_tok = sum(len(o) for o in outs)
     ttft = [m["ttft"] for m in marks]
@@ -1223,16 +1362,47 @@ def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple) -> dict:
         "ticks": stats["ticks"],
         "preemptions": stats["preemptions"],
         "launches": launches,
+        "launches_eager": eager,
+        "launches_replayed": replayed,
+        "graphs": graphs,
         "prefills": prefills,
     }
     emit("serve", **res)
-    emit("layers", **_layer_times(model, params, serve_kw))
+    _check_graph_replays(arch, "bfloat16", stats, len(prompts), serve_kw)
+    lay = _layer_times(model, params, serve_kw)
+    emit("layers", **lay)
+    res["layers"] = lay
+    emit("serve_graphs", arch=arch, ticks=stats["ticks"],
+         graph_replays={k: g["replays"] for k, g in graphs.items()},
+         capture_ms={k: 1e3 * g["capture_s"] for k, g in graphs.items()},
+         captured_launches={k: g["captured_launches"] for k, g in graphs.items()},
+         peak_mem_bytes=res["peak_mem_bytes"], tokens_per_s=res["tokens_per_s"],
+         tick_host_launches={"eager decode_step": lay["decode_host_launches"],
+                             "eager tick": lay["tick_eager_host_launches"],
+                             "graph tick": lay["tick_graph_host_launches"]},
+         tick_device_busy_ms={"eager decode_step": lay["decode_device_busy_ms"],
+                              "eager tick": lay["tick_eager_device_busy_ms"],
+                              "graph tick": lay["tick_graph_device_busy_ms"]},
+         tick_host_ms={"eager decode_step": lay["decode_step_ms_4lanes"],
+                       "eager tick": lay["tick_eager_ms_4lanes"],
+                       "graph tick": lay["tick_graph_ms_4lanes"]})
+    check(lay["tick_eager_host_launches"] > MAX_TICK_HOST_LAUNCHES,
+          f"{arch}: the trace counts {lay['tick_eager_host_launches']} host launches for an "
+          "eager tick: the profiler's runtime calls are not being read")
+    check(lay["tick_graph_host_launches"] <= MAX_TICK_HOST_LAUNCHES,
+          f"{arch}: a decode tick by graph replay issues {lay['tick_graph_host_launches']} "
+          f"host launches ({lay['tick_graph_host_launches_by_call']})")
     check(all(len(o) == NEW_TOKENS and all(0 <= t < base.vocab_size for t in o) for o in outs),
           f"{arch} bf16 run: a request came back short or with an out-of-vocabulary token")
     for name in path_kernels:
         check(launches[name] >= base.num_layers * prefills,
-              f"{arch}: {name} launched {launches[name]} times for {prefills} prefills of "
+              f"{arch}: {name} launched {launches[name]} times ({eager[name]} by its wrapper, "
+              f"{replayed[name]} by graph replays) for {prefills} prefills of "
               f"{base.num_layers} layers")
+        if serve_kw.get("prefill_buckets"):  # every first prefill replays a captured graph
+            check(replayed[name] >= base.num_layers * len(prompts),
+                  f"{arch}: graph replays ran {name} {replayed[name]} times for "
+                  f"{len(prompts)} bucketed prefills of {base.num_layers} layers")
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1688,6 +1858,7 @@ def main() -> int:
     kern.update(phase_ssd_kernels())
     kern.update(phase_ssd_bwd())
     emit("timing", kernels_phases_s=time.perf_counter() - t0)
+    phase_readback()
     serves = [phase_serve(arch, serve_kw, path_kernels) for arch, serve_kw, path_kernels in PATHS]
     emit("timing", serve_phases_s=time.perf_counter() - t0)
     trains = [phase_train(arch, steps) for arch, steps in TRAIN_CELLS]

@@ -18,6 +18,7 @@ current device ``torch.cuda.device`` never sets.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -41,6 +42,8 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+_tally = threading.local()
 _name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, dict] = {}
@@ -108,6 +111,39 @@ def _build(name: str) -> Path:
     return out
 
 
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph; False where
+    PyTorch has no CUDA (the query itself raises there)."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def count_launch(wrapper, name: str) -> None:
+    """Records one launch of a kernel through ``wrapper``: adds one to
+    ``wrapper.launches`` where the kernel runs now, and to ``name``'s entry
+    of the calling thread's open :func:`launch_tally`. A launch into a CUDA
+    graph being captured runs nothing yet, so it counts in the tally only:
+    each replay of the graph runs it, without the wrapper."""
+    counts = getattr(_tally, "counts", None)
+    if counts is not None:
+        counts[name] = counts.get(name, 0) + 1
+    if not capturing():
+        with _count_lock:
+            wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def launch_tally():
+    """Counts, by kernel name, the launches the calling thread's kernel
+    wrappers record inside the block (:func:`count_launch`), captured ones
+    included; other threads' launches are not counted."""
+    outer = getattr(_tally, "counts", None)
+    _tally.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _tally.counts = outer
+
+
 def needs_grad(*tensors) -> bool:
     """Whether a call on these tensors is under autograd: grad enabled and
     one of them requiring a gradient."""
@@ -166,7 +202,9 @@ class FirstLaunchGuard:
     tensor or a tuple. ``error(got, want)`` measures each output; if the worst
     is above ``TOL``, a second launch on the same input is measured for the
     message and the check raises, leaving the key unchecked. The cost (one
-    small launch and one synchronization) is paid once per key.
+    small launch and one synchronization) is paid once per key. A key not yet
+    checked raises inside a CUDA graph capture (the check must have run in an
+    eager warm-up before it): the check is never skipped.
     """
 
     TOL = 5e-2  # far above rounding in either dtype, far below a wrong result
@@ -185,6 +223,13 @@ class FirstLaunchGuard:
     def check(self, key, case) -> None:
         if key in self.checked:
             return
+        if capturing():
+            # the check synchronises with the host, which a capture forbids
+            raise RuntimeError(
+                f"{self.kernel}: the first launch of {key} is reached inside a CUDA graph "
+                "capture, where its first-launch check cannot run; launch it eagerly "
+                "(a warm-up run) before capturing"
+            )
         with self._lock:
             if key in self.checked:
                 return

@@ -68,7 +68,6 @@ def design_bwd(dtype: torch.dtype, head_dim: int) -> str:
 
 
 _fn_lock = threading.Lock()
-_count_lock = threading.Lock()
 _fns: dict = {}
 # keyed by (device index, dtype, head_dim)
 _guard = build.FirstLaunchGuard(
@@ -230,7 +229,8 @@ def flash_attention_bhsd(
     autograd the call goes through :class:`FlashAttention`.
     ``flash_attention_bhsd.launches`` counts forward kernel launches through
     this function and :func:`flash_attention` (the first-launch checks' are
-    not counted).
+    not counted, nor a launch into a CUDA graph being captured:
+    :func:`~repro_torch.kernels.build.count_launch`).
     """
     return _attention(q, k, v, causal, window, k_len, bshd=False)
 
@@ -282,8 +282,7 @@ def _forward(q, k, v, causal, window, k_len, bshd, *, lse):
     k_len = check_inputs(q, k, v, k_len, bshd=bshd)
     _check_first_launch(q.device, q.dtype, q.shape[-1])
     out = _launch(q, k, v, causal=causal, window=window, k_len=k_len, bshd=bshd, lse=lse)
-    with _count_lock:
-        flash_attention_bhsd.launches += 1
+    build.count_launch(flash_attention_bhsd, "flash_attention")
     return out
 
 
@@ -309,8 +308,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None, k_len=
     _check_first_bwd_launch(q.device, q.dtype, q.shape[-1])
     grads = _launch_bwd(q, k, v, o, lse, do, causal=causal, window=window, k_len=k_len,
                         bshd=bshd)
-    with _count_lock:
-        flash_attention_bwd.launches += 1
+    build.count_launch(flash_attention_bwd, "flash_attention_bwd")
     return grads
 
 

@@ -56,7 +56,6 @@ DESIGNS = {torch.bfloat16: "mma.sync", torch.float32: "fma-f32"}
 DESIGN_BWD = {torch.bfloat16: "mma.sync-split", torch.float32: "fma-f32"}
 
 _fn_lock = threading.Lock()
-_count_lock = threading.Lock()
 _fns: dict = {}
 
 
@@ -318,7 +317,8 @@ def ssd_bshp(
     taken: a ragged last chunk is masked, not padded. CPU tensors take
     :func:`ssd_ref`. Under autograd the call goes through :class:`SSD`.
     ``ssd_bshp.launches`` counts forward kernel launches (the first-launch
-    check's are not counted).
+    check's are not counted, nor a launch into a CUDA graph being captured:
+    :func:`~repro_torch.kernels.build.count_launch`).
     """
     if build.needs_grad(x, dt, A, Bm, Cm):
         y, final = SSD.apply(x, dt, A, Bm, Cm, chunk)
@@ -334,8 +334,7 @@ def _forward(x, dt, A, Bm, Cm, chunk):
     cl = check_inputs(x, dt, A, Bm, Cm, chunk)
     _check_first_launch(x.device, x.dtype)
     out = _launch(x, dt, A, Bm, Cm, chunk=cl)
-    with _count_lock:
-        ssd_bshp.launches += 1
+    build.count_launch(ssd_bshp, "ssd")
     return out
 
 
@@ -361,8 +360,7 @@ def ssd_bwd(x, dt, A, Bm, Cm, dy, dfinal=None, *, chunk=64):
         dy = dy.clone(memory_format=torch.contiguous_format)  # rows along P, 16-byte copies
     _check_first_bwd_launch(x.device, x.dtype)
     grads = _launch_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk=cl)
-    with _count_lock:
-        ssd_bwd.launches += 1
+    build.count_launch(ssd_bwd, "ssd_bwd")
     return grads
 
 

@@ -252,11 +252,14 @@ class Model:
     def prefill(self, p, batch: dict, *, last_pos=None) -> Tuple[torch.Tensor, dict]:
         """Fill the KV cache for a prompt; logits for the next-token position.
 
-        ``last_pos`` (int, optional) selects which position's logits to
-        return; default is the final one. The engine uses it for
-        right-padded prompt buckets: pad tokens fill cache slots beyond
-        ``last_pos`` but are causally invisible to it, and decode masks them
-        via the valid length before they are ever attended.
+        ``last_pos`` (optional) selects which position's logits to return;
+        default is the final one. The engine uses it for right-padded prompt
+        buckets: pad tokens fill cache slots beyond ``last_pos`` but are
+        causally invisible to it, and decode masks them via the valid length
+        before they are ever attended. It is an int, or a one-element index
+        tensor on the model's device, read on the device (``index_select``):
+        a CUDA graph of one bucket's prefill then serves every prompt length
+        in the bucket. Both forms give the same logits.
         """
         tokens = self._as_index(batch["tokens"])
         x = self._embed_tokens(p, tokens)
@@ -264,8 +267,12 @@ class Model:
         positions = torch.arange(S, device=self.device)
         x, caches = self._layers(p, x, positions)
         x = _norm(self.cfg, p["final_norm"], x)
-        t = S - 1 if last_pos is None else int(last_pos)
-        return self._head(p, x[:, t : t + 1]), caches
+        if isinstance(last_pos, torch.Tensor):
+            last = x.index_select(1, last_pos.reshape(1))
+        else:
+            t = S - 1 if last_pos is None else int(last_pos)
+            last = x[:, t : t + 1]
+        return self._head(p, last), caches
 
     @torch.inference_mode()
     def decode_step(self, p, tokens, caches: dict, index) -> Tuple[torch.Tensor, dict]:

@@ -2,11 +2,15 @@
 from the reference's ``repro/serve/engine.py`` onto ``repro_torch.core``.
 
 The reference touches JAX in three places: the jits built in ``__init__``,
-the prefill task body and the decode tick. Here those are plain PyTorch on
-the model's device, under ``torch.inference_mode`` entered inside each task
-body (it is thread-local, and the bodies run on pool worker threads). The
-rest — admission heap, deadline bands, preemption, breaker, streaming and
-``submit_async`` — is the reference's code unchanged.
+the prefill task body and the decode tick. Here the jits are CUDA graphs
+captured in ``__init__`` (``serve/graphs.py``): the decode tick, and one
+prefill per prompt bucket; an exact-length prefill (no buckets, or a resume
+after preemption) runs eagerly, as the reference compiles one program per
+length for it. All run on the model's device under
+``torch.inference_mode`` entered inside each task body (it is thread-local,
+and the bodies run on pool worker threads). The rest — admission heap,
+deadline bands, preemption, breaker, streaming and ``submit_async`` — is
+the reference's code unchanged.
 
 The serving path is expressed as prioritized tasks on the paper's thread
 pool (DESIGN.md §7):
@@ -104,7 +108,8 @@ from ..core import (
 )
 
 from ..models.common import resolve_device
-from .kv import PagedKVCache, SlotKVCache, lane_view
+from .graphs import DecodeGraph, PrefillGraphs, read_back
+from .kv import PagedKVCache, SlotKVCache
 
 __all__ = [
     "ServeEngine",
@@ -392,11 +397,12 @@ class ServeEngine:
         Shared :class:`ThreadPool`; the engine owns a 2-worker pool if None.
     prefill_buckets:
         Optional ascending prompt-length buckets. Prompts are right-padded to
-        the smallest fitting bucket so prefill compiles once per bucket
-        instead of once per length. Only valid for full-attention families
-        (pad tokens are causally invisible and masked by ``valid_len`` during
-        decode); SSM/hybrid state and sliding-window rings would absorb the
-        pad tokens, so bucketing is rejected there.
+        the smallest fitting bucket so prefill is captured once per bucket
+        (one CUDA graph each) instead of running per length. Only valid for
+        full-attention families (pad tokens are causally invisible and
+        masked by ``valid_len`` during decode); SSM/hybrid state and
+        sliding-window rings would absorb the pad tokens, so bucketing is
+        rejected there.
     prefill_lookahead:
         How many prefills may run/wait beyond free slot capacity (default:
         ``max_slots``). Speculative prefills keep the join queue warm so a
@@ -482,7 +488,15 @@ class ServeEngine:
             self.kv = SlotKVCache(model, max_slots, max_len)
         else:
             raise ValueError(f"kv_layout must be 'paged' or 'flat', got {kv_layout!r}")
-        self._paged = kv_layout == "paged"
+        # the tick and the bucketed prefills as CUDA graphs, the reference's
+        # jits: captured here, while no slot is live and before ``submit``
+        # can start a prefill of this engine on another pool thread (on the
+        # CPU the same bodies run through the same static buffers). A failed
+        # capture raises; nothing falls back to eager decode
+        self._decode_graph = DecodeGraph(model, params, self.kv)
+        self._prefill_graphs = (
+            PrefillGraphs(model, params, self._buckets) if self._buckets else None
+        )
 
         self._lock = threading.Lock()
         self._idle = threading.Condition(self._lock)
@@ -694,7 +708,14 @@ class ServeEngine:
         banded mode on first use. §13 adds ``preemptions`` (page-pressure
         evictions to the admit queue), ``rejected`` (``QueueFull``
         backpressure), ``deadline_misses`` and the live ``waiting`` depth.
+        ``graphs`` has, for the decode graph and each bucket's prefill graph
+        (``prefill_<bucket>``), its ``replays``, the ``captured_launches`` of
+        the port's kernels by name (each replay runs them again without their
+        wrappers, which count eager launches only) and ``capture_s``.
         """
+        graphs = {"decode": self._decode_graph.stats()}
+        if self._prefill_graphs is not None:
+            graphs.update(self._prefill_graphs.stats())
         with self._lock:
             occ = self._occupancy_sum / self._ticks if self._ticks else 0.0
             plan = self._tick_graph.replay_plan
@@ -710,6 +731,7 @@ class ServeEngine:
                 "tokens_out": self._tokens_out,
                 "ticks": self._ticks,
                 "tick_replays": plan.replays if plan is not None else 0,
+                "graphs": graphs,
                 "mean_occupancy": occ,
                 "kv": self.kv.stats(),
                 "pool": self.pool.stats(),
@@ -809,13 +831,16 @@ class ServeEngine:
             handle.prefill_start_t = time.monotonic()
         toks = np.zeros((1, pad), np.int32)
         toks[0, :plen] = seq_toks
-        with torch.inference_mode():
-            logits, cache = self.model.prefill(
-                self.params,
-                {"tokens": torch.as_tensor(toks, device=self.device)},
-                last_pos=plen - 1,
-            )
-            first = int(torch.argmax(logits[0, -1]))  # waits for the device
+        if self._prefill_graphs is not None and not p.tokens:
+            cache, first = self._prefill_graphs.run(toks, plen - 1)
+        else:  # an exact-length prefill (no buckets, or a resume) runs eagerly
+            with torch.inference_mode():
+                logits, cache = self.model.prefill(
+                    self.params,
+                    {"tokens": torch.as_tensor(toks, device=self.device)},
+                    last_pos=plen - 1,
+                )
+                first = int(read_back(torch.argmax(logits[0, -1])))  # waits for the device
         if not p.tokens:
             handle.prefill_done_t = time.monotonic()
         p.joined = (cache, first, pad)
@@ -1019,26 +1044,11 @@ class ServeEngine:
         self._resolve(retired)
 
     def _decode(self, tok_np: np.ndarray, idx_np: np.ndarray, feeds: dict) -> np.ndarray:
-        """One greedy decode step over every slot lane; idle lanes decode
-        garbage that is never read (flat: their own free slot; paged: the
-        scratch page). Returns the next token of each lane, ``(slots, 1)``."""
-        dev = self.device
-        with torch.inference_mode():
-            tok = torch.as_tensor(tok_np, dtype=torch.long, device=dev)
-            idx = torch.as_tensor(idx_np, dtype=torch.long, device=dev)
-            if self._paged:
-                tables, dest = self.kv.tick_inputs(feeds)
-                caches = self.kv.gather(
-                    self.kv.pools, torch.as_tensor(tables, dtype=torch.long, device=dev)
-                )
-            else:
-                caches = self.kv.buffers  # decode writes its rows in place
-            logits, _ = self.model.decode_step(self.params, tok, lane_view(caches), idx)
-            if self._paged:
-                dest_t = torch.as_tensor(dest, dtype=torch.long, device=dev)
-                self.kv.scatter(self.kv.pools, caches, dest_t, idx)
-            next_toks = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
-            return next_toks.cpu().numpy()
+        """One greedy decode step over every slot lane, a replay of the
+        decode graph; idle lanes decode garbage that is never read (flat:
+        their own free slot; paged: the scratch page). Returns the next
+        token of each lane, ``(slots, 1)``."""
+        return self._decode_graph.run(tok_np, idx_np, feeds)
 
     def _retire_locked(self, retired: list) -> None:
         for slot, seq in list(self._active.items()):

@@ -4,8 +4,10 @@ reference's ``repro/serve/kv.py`` (DESIGN.md §7, §13).
 The host-side accounting — free lists, the zero page 0 and scratch page 1,
 page tables, ``tick_inputs``, ``stats`` — carries over line for line. The
 pools are device tensors updated in place (the reference rebuilds them in
-donated jits); ``write`` and the decode tick mutate them and must be
-serialized by the caller, which the engine's tick chain does.
+donated jits), bound once and never re-bound, since the engine's decode
+graph (``serve/graphs.py``) holds their addresses; ``write`` and the decode
+tick mutate them and must be serialized by the caller, which the engine's
+tick chain does.
 
 Cache kinds, by leaf signature:
 
@@ -217,7 +219,7 @@ class SlotKVCache:
         self.max_slots = max_slots
         self.max_len = max_len
         self._slot_shapes = model.cache_shapes(1, max_len)
-        self.buffers = tree_map(
+        self._buffers = tree_map(
             lambda s: torch.zeros((max_slots, *s.shape), dtype=s.dtype, device=model.device),
             self._slot_shapes,
         )
@@ -235,6 +237,13 @@ class SlotKVCache:
         # decode growth intent) — powers the fragmentation stat: a flat
         # slot always reserves max_len, whatever the sequence needs
         self._target_len = [0] * max_slots
+
+    @property
+    def buffers(self) -> dict:
+        """The slot-major cache tree. Bound once, at construction, and
+        updated only in place: the engine's decode graph holds the leaves'
+        addresses, so the attribute is read-only."""
+        return self._buffers
 
     # -- slot lifecycle -------------------------------------------------------
 
@@ -468,7 +477,7 @@ class PagedKVCache:
                 shape = (nphys, *s.shape[: spec.ax], ps, *s.shape[spec.ax + 1 :])
             return torch.zeros(shape, dtype=s.dtype, device=self.device)
 
-        self.pools = tree_map(make_pool, self._spec_tree, self._slot_shapes)
+        self._pools = tree_map(make_pool, self._spec_tree, self._slot_shapes)
 
         self._lock = threading.Lock()
         self._free_slots = list(range(max_slots - 1, -1, -1))
@@ -484,6 +493,13 @@ class PagedKVCache:
         self.page_allocs = 0
         self.page_frees = 0
         self.peak_pages_live = 0
+
+    @property
+    def pools(self) -> dict:
+        """The page and slot pools. Bound once, at construction, and updated
+        only in place: the engine's decode graph holds the leaves'
+        addresses, so the attribute is read-only."""
+        return self._pools
 
     # -- page/slot accounting -------------------------------------------------
 
@@ -656,19 +672,21 @@ class PagedKVCache:
 
         return tree_map(s, self._spec_tree, pools, updated)
 
-    def tick_inputs(self, feed: dict) -> tuple:
-        """Host-side per-tick arrays: ``(page_table, dest_ids)``.
+    def tick_inputs(self, feed: dict, tables: np.ndarray, dest: np.ndarray) -> None:
+        """Fills the caller's host-side per-tick arrays (the decode graph's
+        staging buffers, any integer dtype): ``tables`` ``(max_slots,
+        pages_per_seq)`` with the page table and ``dest`` ``(max_slots,)``
+        with each lane's destination page.
 
-        ``feed`` maps live slot -> write index for this tick. ``dest_ids``
+        ``feed`` maps live slot -> write index for this tick. ``dest``
         routes each lane's written page: the physical page containing the
         write index for live lanes, the scratch page for idle lanes.
         """
         with self._lock:
-            tables = self._table.copy()
-        dest = np.full((self.max_slots,), self.SCRATCH_PAGE, np.int32)
+            tables[...] = self._table
+        dest.fill(self.SCRATCH_PAGE)
         for slot, fi in feed.items():
             dest[slot] = tables[slot, fi // self.page_size]
-        return tables, dest
 
     def read_slot(self, slot: int) -> dict:
         """The batch-1 logical cache currently mapped by ``slot`` (tests)."""

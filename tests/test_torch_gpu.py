@@ -13,7 +13,11 @@ SSD scan's backward the same way (at mamba2's training shape beside a
 control that rounds the bf16 design's split operands once); a train step
 of each small model (tinyllama, mamba2, hymba) on the card against the
 same step on the CPU; and a restarted training run against an
-uninterrupted one, bit for bit."""
+uninterrupted one, bit for bit. The serve engine's CUDA graphs: a captured
+decode tick against eager ``decode_step`` bit for bit (three families, both
+cache layouts, f32 and bf16), an engine whose ticks and bucketed prefills
+all replay graphs, a capture beside another engine's work on other threads,
+and the first-launch guard refusing to run inside a capture."""
 import importlib.util
 from pathlib import Path
 
@@ -586,3 +590,204 @@ def test_restart_resumes_bit_exactly_on_card(tmp_path):
     for tree_a, tree_b in pairs:
         for a, b in zip(tree_leaves(tree_a), tree_leaves(tree_b)):
             assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+# -- the serve engine's CUDA graphs --------------------------------------------------------
+
+
+def _serve_cfg(arch, dtype="float32"):
+    # head_dim 32: the flash kernel is built for head dims 32, 64 and 128
+    return get_reduced(arch).replace(dtype=dtype, head_dim=32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_layout", ["paged", "flat"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-1.3b", "hymba-1.5b"])
+def test_captured_decode_equals_eager_decode_step_bit_for_bit(arch, dtype, kv_layout):
+    """Three replays of the decode graph (captured while no slot is live)
+    against eager ``decode_step`` on a copy of the same logical caches: the
+    same next tokens and the same caches of the live slots, bit for bit."""
+    from repro_torch.serve import PagedKVCache, SlotKVCache
+    from repro_torch.serve.graphs import DecodeGraph
+    from repro_torch.serve.kv import lane_view
+    from repro_torch.tree import tree_leaves, tree_map
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _serve_cfg(arch, dtype)
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    paged = kv_layout == "paged"
+    kv = (PagedKVCache(model, 3, 40, page_size=8) if paged else SlotKVCache(model, 3, 40))
+    graph = DecodeGraph(model, params, kv)  # before any slot is live
+    rng = np.random.default_rng(9)
+    lens = (5, 19)
+    for S in lens:
+        prompt = rng.integers(0, cfg.vocab_size, (1, S))
+        kv.write(kv.alloc(kv.pages_for(S + 3)), model.prefill(params, {"tokens": prompt})[1], S)
+
+    def logical():  # a copy of every slot's logical cache
+        if not paged:
+            return tree_map(torch.clone, kv.buffers)
+        tables = np.zeros((3, kv.pages_per_seq), np.int64)
+        kv.tick_inputs({}, tables, np.zeros(3, np.int64))
+        return tree_map(torch.clone, kv.gather(kv.pools, torch.as_tensor(tables, device=dev)))
+
+    eager = logical()
+    tok = rng.integers(0, cfg.vocab_size, (3, 1))
+    for step in range(3):
+        idx = np.array([lens[0] + step, lens[1] + step, 0])
+        feeds = {0: int(idx[0]), 1: int(idx[1])}
+        got = graph.run(tok, idx, feeds)
+        logits, _ = model.decode_step(params, torch.as_tensor(tok, device=dev), lane_view(eager),
+                                      torch.as_tensor(idx, device=dev))
+        want = torch.argmax(logits[:, -1], dim=-1, keepdim=True).cpu().numpy()
+        # the idle lane 2 decodes garbage, kept in the copy but not in the pages
+        assert np.array_equal(got[:2], want[:2]), (step, got, want)
+        now = logical()
+        for a, b in zip(tree_leaves(now), tree_leaves(eager)):
+            assert torch.equal(a[:2], b[:2]), step
+        tok = got
+    assert graph.stats()["replays"] == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_layout", ["paged", "flat"])
+def test_engine_on_card_replays_its_graphs_and_matches_cpu_decode(kv_layout):
+    """Reduced tinyllama with prompt buckets, served on the card: every tick
+    replays the decode graph (replays == ticks), every prompt replays its
+    bucket's prefill graph with the flash kernel captured once per layer,
+    the wrapper counts the warm-ups' launches only (a replay runs without
+    it), and the tokens equal the same weights' sequential decode on the
+    CPU."""
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _serve_cfg("tinyllama-1.1b")
+    cpu_model = build_model(cfg, device="cpu")
+    params = cpu_model.init(0)
+    model = build_model(cfg, device=dev)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (5, 30, 13, 9)]
+    refs = [_cpu_decode(cpu_model, params, p, 6, 96) for p in prompts]
+    before = tfa.flash_attention_bhsd.launches
+    buckets = (16, 32)
+    with ServeEngine(model, params.to(dev), max_slots=2, max_len=96, page_size=16,
+                     kv_layout=kv_layout, prefill_buckets=buckets) as engine:
+        outs = engine.generate(prompts, 6, timeout=300)
+        stats = engine.stats()
+    graphs = stats["graphs"]
+    assert graphs["decode"]["replays"] == stats["ticks"] > 0
+    assert graphs["decode"]["captured_launches"] == {}
+    assert graphs["prefill_16"]["replays"] == 3 and graphs["prefill_32"]["replays"] == 1
+    for b in buckets:
+        assert graphs[f"prefill_{b}"]["captured_launches"] == {"flash_attention": cfg.num_layers}
+    warmups = 2 * cfg.num_layers * len(buckets)  # _Graph.WARMUP eager runs of each bucket
+    assert tfa.flash_attention_bhsd.launches - before == warmups
+    for ref, out in zip(refs, outs):
+        assert list(map(int, out)) == ref
+
+
+def _cpu_decode(model, params, prompt, budget, width):
+    logits, caches = model.prefill(params, {"tokens": prompt[None]})
+    caches = extend_caches(caches, width - prompt.size, window=model.cfg.window)
+    out = [int(torch.argmax(logits[0, -1]))]
+    for i in range(budget - 1):
+        logits, caches = model.decode_step(params, [[out[-1]]], caches, [prompt.size + i])
+        out.append(int(torch.argmax(logits[0, -1])))
+    return out
+
+
+@pytest.mark.gpu
+def test_capture_while_another_engines_prefill_runs_on_another_thread():
+    """Engines capture their graphs (in ``thread_local`` mode) while another
+    engine's eager SSM prefills and decode-graph replays run on its pool's
+    threads, with their allocations and synchronisations: nothing fails,
+    and every engine's tokens equal the CPU's sequential decode. (With the
+    warm-ups on the capture stream, they ran beside the other engine's
+    replays, whose GEMMs share that stream's cuBLAS workspace, and its
+    tokens went wrong.)"""
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ssm_cfg, dense_cfg = _serve_cfg("mamba2-1.3b"), _serve_cfg("tinyllama-1.1b")
+    rng = np.random.default_rng(6)
+    budget, runs = 16, {}
+    for name, cfg, lens in (("ssm", ssm_cfg, (40, 70, 25, 60, 33, 52)),
+                            ("dense", dense_cfg, (7, 12))):
+        cpu_model = build_model(cfg, device="cpu")
+        params = cpu_model.init(1)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in lens]
+        refs = [_cpu_decode(cpu_model, params, p, budget, 96) for p in prompts]
+        runs[name] = (build_model(cfg, device=dev), params.to(dev), prompts, refs)
+    model, params, prompts, refs = runs["ssm"]
+    with ServeEngine(model, params, max_slots=2, max_len=96, page_size=16) as busy:
+        handles = [busy.submit(p, budget) for p in prompts]
+        handles[0].result(300)  # the other engine is serving now
+        model, params, dense_prompts, dense_refs = runs["dense"]
+        for _ in range(12):  # with warm-ups on the capture stream, 5 runs in 6 failed
+            with ServeEngine(model, params, max_slots=2, max_len=96, page_size=16,
+                             prefill_buckets=(16,)) as engine:
+                outs = engine.generate(dense_prompts, budget, timeout=300)
+            for ref, out in zip(dense_refs, outs):
+                assert list(map(int, out)) == ref
+        busy_outs = [h.result(300) for h in handles]
+    for ref, out in zip(refs, busy_outs):
+        assert list(map(int, out)) == ref
+
+
+@pytest.mark.gpu
+def test_first_launch_guard_raises_inside_a_capture(monkeypatch):
+    """A kernel instantiation whose first-launch check has not run, reached
+    inside a CUDA graph capture, raises (the check synchronises, which a
+    capture forbids) rather than skip its check."""
+    dev = _cuda()
+    q, k, v = (torch.randn(1, 2, 64, 32, device=dev) for _ in range(3))
+    tfa.flash_attention_bhsd(q, k, v)  # checked and warm
+    monkeypatch.setattr(tfa._guard, "checked", set())
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA graph capture"):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            tfa.flash_attention_bhsd(q, k, v)
+    assert tfa._guard.checked == set()
+    tfa.flash_attention_bhsd(q, k, v)  # eagerly, the check runs and passes
+    assert len(tfa._guard.checked) == 1
+
+
+@pytest.mark.gpu
+def test_capture_survives_the_collector_freeing_a_graph():
+    """The collector frees an unreachable graph (a closed engine's sits in a
+    reference cycle) at whichever allocation it runs; doing so inside a
+    capture is a call the capture forbids, and aborts it. Here such a cycle
+    becomes garbage inside the decode graph's capture, with the collector
+    set to run at every allocation: the capture has collected first and
+    holds the collector off, so it completes and the engine serves."""
+    import gc
+
+    dev = _cuda()
+    cfg = _serve_cfg("tinyllama-1.1b")
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    x = torch.zeros(4, device=dev)
+    held = {"graph": torch.cuda.CUDAGraph()}
+    with torch.cuda.graph(held["graph"], stream=torch.cuda.Stream(dev)):
+        x.add_(1)
+    calls, step = [], model.decode_step
+
+    def decode_step(*args, **kw):
+        calls.append(1)
+        if len(calls) == 1 + 2:  # after the two warm-ups: inside the capture
+            cycle = [held.pop("graph")]
+            cycle.append(cycle)
+            del cycle
+        return step(*args, **kw)
+
+    model.decode_step = decode_step
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        engine = ServeEngine(model, params, max_slots=2, max_len=64, page_size=16)
+    finally:
+        gc.set_threshold(*threshold)
+    with engine:
+        out = engine.generate([np.arange(5, dtype=np.int32)], 3, timeout=300)
+    assert len(calls) == 3 and len(out[0]) == 3

@@ -36,6 +36,15 @@ def _prefill(model, params, S, seed):
     return model.prefill(params, {"tokens": tokens})[1]
 
 
+def _tick_inputs(paged, feeds):
+    """The paged pool's per-tick page table and destination pages, filled
+    into fresh arrays."""
+    tables = np.zeros((paged.max_slots, paged.pages_per_seq), np.int64)
+    dest = np.zeros((paged.max_slots,), np.int64)
+    paged.tick_inputs(feeds, tables, dest)
+    return tables, dest
+
+
 def _leaves_equal(a, b) -> bool:
     if isinstance(a, dict):
         return all(_leaves_equal(a[k], b[k]) for k in a)
@@ -276,7 +285,7 @@ def test_paged_decode_tick_matches_flat():
     tok = torch.tensor([[5], [9]])
     idx = torch.tensor(lens)
     logits_f, _ = model.decode_step(params, tok, lane_view(flat.buffers), idx)
-    tables, dest = paged.tick_inputs(feeds)
+    tables, dest = _tick_inputs(paged, feeds)
     gathered = paged.gather(paged.pools, torch.as_tensor(tables, dtype=torch.long))
     logits_p, _ = model.decode_step(params, tok, lane_view(gathered), idx)
     paged.scatter(paged.pools, gathered, torch.as_tensor(dest, dtype=torch.long), idx)
@@ -349,7 +358,7 @@ def test_ssm_decode_tick_writes_through_the_lane_view(arch):
     before = flat.read_slot(1)[grp]["ssm"]["state"].clone()
     tok, idx = torch.tensor([[5], [9]]), torch.tensor(lens)
     logits_f, _ = model.decode_step(params, tok, lane_view(flat.buffers), idx)
-    tables, dest = paged.tick_inputs(feeds)
+    tables, dest = _tick_inputs(paged, feeds)
     gathered = paged.gather(paged.pools, torch.as_tensor(tables, dtype=torch.long))
     logits_p, _ = model.decode_step(params, tok, lane_view(gathered), idx)
     paged.scatter(paged.pools, gathered, torch.as_tensor(dest, dtype=torch.long), idx)
@@ -381,7 +390,8 @@ def test_paged_pool_without_page_leaves():
     got = kv.read_slot(slot)["s0"]["ssm"]
     assert torch.equal(got["state"], cache["s0"]["ssm"]["state"])
     assert torch.equal(got["conv"], cache["s0"]["ssm"]["conv"])
-    gathered = kv.gather(kv.pools, torch.as_tensor(kv.tick_inputs({slot: 6})[0], dtype=torch.long))
+    tables, _dest = _tick_inputs(kv, {slot: 6})
+    gathered = kv.gather(kv.pools, torch.as_tensor(tables, dtype=torch.long))
     assert gathered["s0"]["ssm"]["state"] is state  # slot leaves are the pool itself
     assert kv.grow_to(slot, 16) and kv.pages_live == 4
     assert kv.alloc(2) is None  # one page left
