@@ -20,23 +20,32 @@ call computing the same function: by CUDA events over back-to-back eager
 calls, and as device time by CUDA-graph replay (for SDPA's autograd
 backward, by a profiler trace).
 
-It then serves three full-width models (random weights from seed 0)
+K1 is also held and timed at deepseek-v2's expanded MLA prefill (H = KV =
+128, Dqk = 192, Dv = 128, its own instantiation), beside SDPA where SDPA
+takes Dv != Dqk on the card.
+
+It then serves five full-width models (random weights from seed 0)
 through ``repro_torch.ServeEngine``, one after another: tinyllama-1.1b
-(flash attention prefill), mamba2-1.3b (SSD prefill) and hymba-1.5b (both).
-The engine runs every decode tick, and tinyllama's bucketed prefills, by
-replaying CUDA graphs it captured when it was built. Each model is served
+(flash attention prefill), mamba2-1.3b (SSD prefill), hymba-1.5b (both),
+granite-moe-1b-a400m (MoE, KV heads zero-padded to 16) and deepseek-v2-236b
+(MLA and MoE, its depth cut to 2 layers in f32 and 9 in bf16, printed as
+``reduced``). The engine runs every decode tick, and the bucketed prefills
+of tinyllama, granite-moe and deepseek-v2, by replaying CUDA graphs it
+captured when it was built. Each model is served
 once in float32 against the port's own sequential batch-1 decode and once
 in bfloat16 as its measured main path, with every kernel's launch counter
 set to 0 just before that run and read just after (a graph's replays count
 the launches its capture recorded), and every tick checked to be a graph
 replay; then host times and profiler traces of one S=300 prefill and one
 4-lane decode step, eager beside the captured tick (the host's launches
-per tick, at most 10 by graph). It then trains the same three models at full width and depth
+per tick, at most 10 by graph). It then trains tinyllama, mamba2, hymba and
+granite-moe at full width and depth
 for a few bf16 steps each through ``repro_torch.runtime.Trainer`` (B=4,
-S=2048, remat; checking every kernel's launches a step, the losses, that
-every leaf changed, the AdamW state and the final checkpoint, saved into
-``build/`` and deleted), and holds each model's full-width f32 gradients
-through the kernels against those through the plain versions. Each phase
+S=2048, remat; checking every kernel's launches a step, the losses and
+the MoE aux loss, that every leaf changed, the AdamW state and the final
+checkpoint, saved into ``build/`` and deleted), and holds each model's
+full-width f32 gradients through the kernels against those through the
+plain versions. Each phase
 prints one JSON line; any failure exits non-zero. The last three lines are
 the kernels line, the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": ...}``.
@@ -65,14 +74,23 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 # the served paths, in order: (arch, engine settings, kernels every prefill
-# launches once per layer). tinyllama's prompts are padded to buckets that
-# cover PROMPT_RANGE, so its prefills replay captured graphs; hymba's max_len
-# stays above its window of 1024, so its window layers serve from ring caches
+# launches once per layer, depth by dtype where the full depth does not fit
+# the card). tinyllama's, granite-moe's and deepseek-v2's prompts are padded
+# to buckets that cover PROMPT_RANGE, so their prefills replay captured
+# graphs; hymba's max_len stays above its window of 1024, so its window
+# layers serve from ring caches. deepseek-v2 keeps its full width and is cut
+# in depth: at 2 layers (the dense layer 0, one MoE layer of 160 experts;
+# 5.36 B parameters, 21.4 GB) in f32, at 9 (33.2 B, 66.3 GB) in bf16, which
+# peaks at 67.6 GB with the graphs' pools: each further layer adds 7.9 GB,
+# and 9 is the deepest that keeps 10 GB of the card's 85 GB free
+BUCKETED = dict(max_slots=4, max_len=1024, page_size=64, prefill_buckets=(128, 256, 512))
 PATHS = (
-    ("tinyllama-1.1b", dict(max_slots=4, max_len=1024, page_size=64,
-                            prefill_buckets=(128, 256, 512)), ("flash_attention",)),
-    ("mamba2-1.3b", dict(max_slots=4, max_len=1024, page_size=64), ("ssd",)),
-    ("hymba-1.5b", dict(max_slots=4, max_len=2048, page_size=64), ("flash_attention", "ssd")),
+    ("tinyllama-1.1b", BUCKETED, ("flash_attention",), None),
+    ("mamba2-1.3b", dict(max_slots=4, max_len=1024, page_size=64), ("ssd",), None),
+    ("hymba-1.5b", dict(max_slots=4, max_len=2048, page_size=64), ("flash_attention", "ssd"),
+     None),
+    ("granite-moe-1b-a400m", BUCKETED, ("flash_attention",), None),
+    ("deepseek-v2-236b", BUCKETED, ("flash_attention",), {"float32": 2, "bfloat16": 9}),
 )
 N_REQUESTS, NEW_TOKENS, PROMPT_RANGE = 8, 32, (64, 512)
 TIE_GAP = 1e-3  # a token mismatch at a top-2 logit gap below this is a near-tie
@@ -188,15 +206,16 @@ def _mapped_cudart() -> list:
 # -- kernels --------------------------------------------------------------------
 
 
-def _qkv(B, H, KV, Sq, Sk, Dh, dtype, seed, model_layout):
+def _qkv(B, H, KV, Sq, Sk, Dh, dtype, seed, model_layout, Dv=None):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = torch.device("cuda", 0)
+    Dv = Dh if Dv is None else Dv
     if model_layout:  # (B, S, H, Dh), as the model's prefill hands them over
-        shapes = [(B, Sq, H, Dh), (B, Sk, KV, Dh), (B, Sk, KV, Dh)]
+        shapes = [(B, Sq, H, Dh), (B, Sk, KV, Dh), (B, Sk, KV, Dv)]
     else:
-        shapes = [(B, H, Sq, Dh), (B, KV, Sk, Dh), (B, KV, Sk, Dh)]
+        shapes = [(B, H, Sq, Dh), (B, KV, Sk, Dh), (B, KV, Sk, Dv)]
     return [torch.randn(s, generator=g, device=dev, dtype=torch.float32).to(dtype) for s in shapes]
 
 
@@ -254,22 +273,29 @@ def _times(kernel, plain, library, iters: int) -> dict:
     return out
 
 
-def _attention_bound(B, H, KV, Sq, Sk, Dh, elem_bytes, causal, peak_flops):
+def _attention_bound(B, H, KV, Sq, Sk, Dh, elem_bytes, causal, peak_flops, Dv=None):
     """Least time for the work: each input read once, the output written
-    once; FLOPs over the (q, k) pairs the mask leaves visible."""
+    once; FLOPs over the (q, k) pairs the mask leaves visible, 2 Dh for
+    Q·Kᵀ and 2 Dv for P·V per pair and head."""
+    Dv = Dh if Dv is None else Dv
     if causal:
         pairs = sum(min(q + 1, Sk) for q in range(Sq))
     else:
         pairs = Sq * Sk
-    flops = 4 * B * H * Dh * pairs
-    nbytes = elem_bytes * (2 * B * H * Sq * Dh + 2 * B * KV * Sk * Dh)
+    flops = 2 * B * H * (Dh + Dv) * pairs
+    nbytes = elem_bytes * (B * H * Sq * (Dh + Dv) + B * KV * Sk * (Dh + Dv))
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+# deepseek-v2's expanded MLA prefill at full width: H = KV = 128, Dqk = 128
+# nope + 64 rope, Dv = 128 (the kernels phase's check and timing)
+MLA_K1 = dict(B=1, H=128, KV=128, S=512, Dh=192, Dv=128)
+
+
 def _flash_cases() -> list:
     """K1's sweep, each case in bf16 and f32: (label, B, H, KV, Sq, Sk, Dh,
-    causal, window, k_len, model_layout, dtype)."""
+    causal, window, k_len, model_layout, dtype, Dv)."""
     import torch
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -292,6 +318,20 @@ def _flash_cases() -> list:
             ("hymba window=1024 S=300", 1, 25, 5, 300, 300, 64, True, 1024, None, True, dt),
             ("hymba window=1024 S=1100", 1, 25, 5, 1100, 1100, 64, True, 1024, None, True, dt),
         ]
+    # the MoE paths' prefill shapes (granite-moe: KV heads padded to 16;
+    # deepseek-v2: MLA at Dqk=192, Dv=128, the last entry of each case)
+    m = MLA_K1
+    for dt in (bf16, f32):
+        cases += [
+            ("granite-moe causal S=512 H=32 KV=16", 1, 32, 16, 512, 512, 64, True, None, None,
+             True, dt),
+            ("deepseek MLA causal S=512 Dqk=192 Dv=128", m["B"], m["H"], m["KV"], m["S"],
+             m["S"], m["Dh"], True, None, None, True, dt, m["Dv"]),
+            ("MLA Dqk=192 Dv=128 GQA ragged S=300", 1, 8, 2, 300, 300, 192, True, None, None,
+             True, dt, 128),
+            ("MLA Dqk=192 Dv=128 k_len=100 Sk=128", 2, 4, 4, 128, 128, 192, True, None, 100,
+             False, dt, 128),
+        ]
     return cases
 
 
@@ -307,9 +347,11 @@ def phase_kernels() -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     tol = {bf16: 2e-2, f32: 1e-4}
     worst = 0.0
+    mla_errs = {}
     for i, case in enumerate(_flash_cases()):
-        label, B, H, KV, Sq, Sk, Dh, causal, window, k_len, model_layout, dt = case
-        q, k, v = _qkv(B, H, KV, Sq, Sk, Dh, dt, seed=i, model_layout=model_layout)
+        label, B, H, KV, Sq, Sk, Dh, causal, window, k_len, model_layout, dt = case[:12]
+        Dv = case[12] if len(case) > 12 else Dh
+        q, k, v = _qkv(B, H, KV, Sq, Sk, Dh, dt, seed=i, model_layout=model_layout, Dv=Dv)
         kw = dict(causal=causal, window=window, k_len=k_len)
         if model_layout:
             got = flash_attention(q, k, v, **kw).transpose(1, 2)
@@ -333,9 +375,12 @@ def phase_kernels() -> dict:
                      "kernel_vs_cpu_f64": (got.cpu().double() - cpu).abs().max().item(),
                      "plain_vs_cpu_f64": (want.cpu().double() - cpu).abs().max().item()}
         emit("kernels", kernel="flash_attention", case=label, dtype=str(dt).split(".")[-1],
-             shape=[B, H, KV, Sq, Sk, Dh], max_abs_err=err, tol=tol[dt], ok=ok, **where)
+             shape=[B, H, KV, Sq, Sk, Dh, Dv], max_abs_err=err, tol=tol[dt], ok=ok, **where)
         check(ok, f"flash_attention {label} {dt}: max_abs_err {err} > {tol[dt]}")
         worst = max(worst, err)
+        if Dv != Dh:
+            key = str(dt).split(".")[-1]
+            mla_errs[key] = max(mla_errs.get(key, 0.0), err)
 
     timings = {}
     for label, H, KV, S in (("tinyllama S=512", 32, 4, 512), ("tinyllama S=1024", 32, 4, 1024),
@@ -354,7 +399,45 @@ def phase_kernels() -> dict:
         timings[label].update(bound_ms=bound_ms, bound_by=bound_by)
         emit("kernels", kernel="flash_attention",
              timing=f"{label} bf16 causal B={B} H={H} KV={KV} Dh={Dh}", **timings[label])
-    return {"flash_attention": {"max_abs_err": worst, "timings": timings}}
+    timings["deepseek MLA S=512"] = _mla_timing()
+    return {"flash_attention": {"max_abs_err": worst, "timings": timings,
+                                "mla_max_abs_err": mla_errs}}
+
+
+def _mla_timing() -> dict:
+    """K1 at deepseek-v2's expanded MLA prefill (:data:`MLA_K1`, bf16,
+    causal) beside its plain version and, where it takes Dv != Dqk on the
+    card, SDPA (which the port never calls): the error SDPA raises is kept
+    as ``library_note`` otherwise."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    m = MLA_K1
+    B, H, KV, S, Dh, Dv = m["B"], m["H"], m["KV"], m["S"], m["Dh"], m["Dv"]
+    q, k, v = _qkv(B, H, KV, S, S, Dh, torch.bfloat16, seed=7, model_layout=True, Dv=Dv)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    qc, kc, vc = (t.contiguous() for t in (qt, kt, vt))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True)
+
+    note = None
+    try:
+        got = sdpa()
+        torch.cuda.synchronize()
+        want = flash_attention_ref(qt, kt, vt, causal=True)
+        note = f"SDPA max abs diff from the plain version {(got.float() - want.float()).abs().max().item()}"
+    except RuntimeError as e:  # measured, not used: the port never calls SDPA
+        sdpa, note = None, f"SDPA refused Dqk={Dh} Dv={Dv}: {str(e)[:200]}"
+    out = _times(lambda: flash_attention(q, k, v, causal=True),
+                 lambda: flash_attention_ref(qt, kt, vt, causal=True), sdpa, iters=20)
+    bound_ms, bound_by = _attention_bound(B, H, KV, S, S, Dh, 2, True, PEAK_BF16_FLOPS, Dv=Dv)
+    out.update(bound_ms=bound_ms, bound_by=bound_by, library_note=note)
+    emit("kernels", kernel="flash_attention",
+         timing=f"deepseek MLA bf16 causal B={B} H={H} KV={KV} Dqk={Dh} Dv={Dv} S={S}", **out)
+    return out
 
 
 # K1's backward against its plain version. Both compute in f32 from the same
@@ -522,6 +605,8 @@ def phase_flash_bwd() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     worst = worst_abs = worst_ulp = 0.0
     for i, case in enumerate(_flash_cases()):
+        if len(case) > 12:  # Dqk != Dv: no backward kernel yet
+            continue
         label, B, H, KV, Sq, Sk, Dh, causal, window, k_len, model_layout, dt = case
         q, k, v = _qkv(B, H, KV, Sq, Sk, Dh, dt, seed=500 + i, model_layout=model_layout)
         g = torch.Generator(device="cuda").manual_seed(900 + i)
@@ -1284,7 +1369,18 @@ def _check_graph_replays(arch: str, dtype: str, stats: dict, requests: int,
         check(n == requests, f"{arch} {dtype}: {n} prefill graph replays for {requests} prompts")
 
 
-def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple) -> dict:
+def _reduced(arch: str, depth, dtype: str) -> dict:
+    """What a serve run cut from the full config, for its lines: {} at full
+    depth."""
+    if depth is None:
+        return {}
+    from repro_torch.configs import get_config
+
+    return {"num_layers": {"full": get_config(arch).num_layers, "run": depth[dtype],
+                           "why": "the depth one 80 GB card holds at full width"}}
+
+
+def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple, depth=None) -> dict:
     import torch
 
     from repro_torch.configs import get_config
@@ -1293,12 +1389,17 @@ def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple) -> dict:
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    base = get_config(arch)
-    prompts = _prompts(base.vocab_size)
+    full = get_config(arch)
+
+    def config(dtype):
+        cut = {} if depth is None else {"num_layers": depth[dtype]}
+        return full.replace(dtype=dtype, **cut)
+
+    prompts = _prompts(full.vocab_size)
     emit("serve", arch=arch, **_release_device_memory())
 
     # f32, TF32 off: the engine against sequential batch-1 decode
-    model = build_model(base.replace(dtype="float32"))
+    model = build_model(config("float32"))
     params = model.init(seed=0)
     outs, _marks, wall, stats = _serve(model, params, prompts, serve_kw)
     mismatches = []
@@ -1307,7 +1408,8 @@ def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple) -> dict:
         if out != ref:
             i = next(j for j, (a, b) in enumerate(zip(out, ref)) if a != b)
             mismatches.append({"request": r, "step": i, "top2_gap": gaps[i]})
-    emit("serve", arch=arch, dtype="float32", requests=len(prompts), wall_s=wall,
+    emit("serve", arch=arch, dtype="float32", reduced=_reduced(arch, depth, "float32"),
+         requests=len(prompts), wall_s=wall,
          ticks=stats["ticks"], preemptions=stats["preemptions"], mismatches=mismatches,
          graph_replays={k: g["replays"] for k, g in stats["graphs"].items()},
          phase_s=time.perf_counter() - t_start)
@@ -1323,7 +1425,8 @@ def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple) -> dict:
     # bf16: the measured main path, warmed up by one request first; every
     # kernel's count is set to 0 just before the run and read just after
     t_bf16 = time.perf_counter()
-    model = build_model(base.replace(dtype="bfloat16"))
+    base = config("bfloat16")
+    model = build_model(base)
     params = model.init(seed=0)
     _serve(model, params, prompts[:1], serve_kw)
     torch.cuda.synchronize()
@@ -1345,6 +1448,8 @@ def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple) -> dict:
     res = {
         "arch": arch,
         "dtype": "bfloat16",
+        "reduced": _reduced(arch, depth, "bfloat16"),
+        "params": sum(t.numel() for t in params.parameters()),
         "serve": serve_kw,
         "requests": len(prompts),
         "prompt_lens": [int(p.size) for p in prompts],
@@ -1415,13 +1520,15 @@ def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple) -> dict:
 # S=2048, AdamW, prefetched synthetic batches, through the unchanged Trainer
 # (which saves one final checkpoint, into build/, deleted after the phase):
 # (arch, steps)
-TRAIN_CELLS = (("tinyllama-1.1b", 6), ("mamba2-1.3b", 4), ("hymba-1.5b", 4))
+TRAIN_CELLS = (("tinyllama-1.1b", 6), ("mamba2-1.3b", 4), ("hymba-1.5b", 4),
+               ("granite-moe-1b-a400m", 4))
 TRAIN_KW = dict(seq_len=2048, global_batch=4, lr=3e-4, warmup=2)
 # the parity runs: f32, full width and depth, B=1, S spanning at least 4
 # chunks of the SSD scan where the model has one: (arch, B, S). Each leaf
 # group's largest gradient error against the plain versions', over its
 # largest gradient (f32 sums in another order, through every layer)
-PARITY_CELLS = (("tinyllama-1.1b", 1, 256), ("mamba2-1.3b", 1, 1024), ("hymba-1.5b", 1, 256))
+PARITY_CELLS = (("tinyllama-1.1b", 1, 256), ("mamba2-1.3b", 1, 1024), ("hymba-1.5b", 1, 256),
+                ("granite-moe-1b-a400m", 1, 256))
 PARITY_TOL = 1e-4
 
 
@@ -1438,7 +1545,7 @@ def _launches_per_step(cfg) -> dict:
     forward runs twice (the loss, and its recompute in the backward), its
     backward once; 0 for a kernel the model does not run."""
     L = cfg.num_layers
-    attn = cfg.attention == "gqa"
+    attn = cfg.attention != "none"
     ssm = cfg.family in ("ssm", "hybrid")
     return {"flash_attention": 2 * L * attn, "flash_attention_bwd": L * attn,
             "ssd": 2 * L * ssm, "ssd_bwd": L * ssm}
@@ -1446,23 +1553,39 @@ def _launches_per_step(cfg) -> dict:
 
 def _model_flops(cfg, n_params: int, B: int, S: int) -> tuple:
     """Model FLOPs of one step (no remat recompute): 6 N per token for the
-    parameter products, N without the embedding table unless the head is
-    tied to it (its forward is a gather, not a product), and each attention
-    layer's two products over the (q, k) pairs its mask leaves visible
-    (causal, within the window on a window layer), forward (4 Dh per pair
-    per head) and backward (twice that). The SSD scan's own products are not
-    counted."""
+    parameter products a token runs, N the parameters without the embedding
+    table unless the head is tied to it (its forward is a gather, not a
+    product), without the zero-padded attention heads (``kv_pad_to``: their
+    products are of zeros) and, in each MoE layer, with the
+    ``experts_per_token`` routed experts a token is sent to of the
+    ``num_experts`` (the shared experts and the router all count; the
+    port's ``moe_dense`` runs every expert, which is not counted); and each
+    attention layer's two products over the (q, k) pairs its mask leaves
+    visible (causal, within the window on a window layer), forward (2 Dqk +
+    2 Dv per pair per head) and backward (twice that). The SSD scan's own
+    products are not counted."""
     from repro_torch.models.lm import stack_plan
 
-    n = n_params - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
+    d = cfg.d_model
+    n = n_params - (0 if cfg.tie_embeddings else cfg.vocab_size * d)
+    dqk = dv = cfg.head_dim
+    if cfg.attention == "gqa":  # wq, wo and wk, wv over the padded heads
+        pads = 2 * (cfg.heads_padded - cfg.num_heads) + 2 * (cfg.kv_heads_padded - cfg.num_kv_heads)
+        n -= cfg.num_layers * pads * cfg.head_dim * d
+    elif cfg.attention == "mla":
+        dqk, dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    if cfg.is_moe:
+        idle = (cfg.num_experts - cfg.experts_per_token) * 3 * d * cfg.moe_d_ff
+        n -= sum(g.count for g in stack_plan(cfg) if g.moe) * idle
     attn = 0
-    if cfg.attention == "gqa":
+    if cfg.attention != "none":
         for grp in stack_plan(cfg):
             window = None if grp.is_global else cfg.window
             pairs = sum(q + 1 if window is None else min(q + 1, window) for q in range(S))
-            attn += 12 * grp.count * B * cfg.num_heads * cfg.head_dim * pairs
-    formula = ("6*N*B*S + 12*B*H*Dh*(visible causal pairs) per attention layer, N = "
-               "parameters - the embedding table (untied)")
+            attn += 6 * grp.count * B * cfg.num_heads * (dqk + dv) * pairs
+    formula = ("6*N*B*S + 6*B*H*(Dqk+Dv)*(visible causal pairs) per attention layer, N = "
+               "parameters - the embedding table (untied) - zero-padded heads - the routed "
+               "experts a token is not sent to (MoE: experts_per_token of num_experts active)")
     return 6 * n * B * S + attn, formula, n
 
 
@@ -1517,6 +1640,9 @@ def phase_train(arch: str, steps: int) -> dict:
         check(len(rows) == steps, f"{len(rows)} metric rows for {steps} steps")
         check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows),
               f"a non-finite loss or grad norm: {rows}")
+        # the MoE layers' load-balancing loss rides on the loss: finite, > 0
+        check(all(np.isfinite(r["aux"]) and (r["aux"] > 0) == cfg.is_moe for r in rows),
+              f"{arch}: aux losses {[r['aux'] for r in rows]}")
         init = tr.model.init(tcfg.seed)
         unchanged = [k for k, (a, b) in enumerate(zip(tree_leaves(params.tree()),
                                                       tree_leaves(init.tree())))
@@ -1527,7 +1653,8 @@ def phase_train(arch: str, steps: int) -> dict:
                   for part in ("m", "v", "master")}
         dtypes["count"] = str(opt["count"].dtype)
         dtypes["params"] = sorted({str(t.dtype) for t in params.parameters()})
-        # the SSM leaves a_log, d_skip and dt_bias stay f32 in a bf16 model
+        # the SSM leaves a_log, d_skip and dt_bias and the MoE router stay
+        # f32 in a bf16 model
         want_params = ["torch.bfloat16"] + (["torch.float32"] if cfg.family != "dense" else [])
         check(dtypes == {"m": ["torch.float32"], "v": ["torch.float32"],
                          "master": ["torch.float32"], "count": "torch.int32",
@@ -1548,7 +1675,8 @@ def phase_train(arch: str, steps: int) -> dict:
         res = {
             "arch": arch, "dtype": "bfloat16", "steps": steps, "batch": B,
             "seq_len": S, "remat": cfg.remat, "params": n_params,
-            "loss": [r["loss"] for r in rows], "grad_norm": [r["grad_norm"] for r in rows],
+            "loss": [r["loss"] for r in rows], "aux": [r["aux"] for r in rows],
+            "grad_norm": [r["grad_norm"] for r in rows],
             "lr": [r["lr"] for r in rows],
             "step_s": steps_s, "step_s_median_after_first": step_s,
             "tokens_per_s": B * S / step_s,
@@ -1685,7 +1813,7 @@ def phase_train_parity(arch: str, B: int, S: int) -> dict:
     scaled = {g: d / m if m else d for g, (d, m) in groups.items()}
     worst = max(scaled.values())
     finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
-    chunks = -(-S // cfg.ssm_chunk) if cfg.family != "dense" else None
+    chunks = -(-S // cfg.ssm_chunk) if cfg.family in ("ssm", "hybrid") else None
     emit("train_parity", arch=arch, dtype="float32", batch=B, seq_len=S, ssd_chunks=chunks,
          loss_kernels=loss_k, loss_plain=loss_p, launches=launches, scaled_grad_err=scaled,
          worst=worst, tol=PARITY_TOL, finite=finite, phase_s=time.perf_counter() - t_start)
@@ -1721,6 +1849,7 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
         return sum(by_path.values()), by_path
 
     fa, t_fa = kern["flash_attention"], kern["flash_attention"]["timings"]["tinyllama S=512"]
+    t_mla = fa["timings"]["deepseek MLA S=512"]
     ssd, t_ssd = kern["ssd"], kern["ssd"]["timings"]["mamba2 S=512"]
     fa_n, fa_by = launches("flash_attention")
     ssd_n, ssd_by = launches("ssd")
@@ -1747,6 +1876,16 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                 "library_device_ms": t_fa["library_device_ms"],
                 "design": fa_design(torch.bfloat16, 64),
                 "at": "B=1 H=32 KV=4 Dh=64 Sq=Sk=512 bf16 causal",
+                # deepseek-v2's expanded MLA prefill, its own instantiation
+                "dqk_192_dv_128": {
+                    "at": "B={B} H={H} KV={KV} Dqk={Dh} Dv={Dv} Sq=Sk={S} bf16 causal".format(
+                        **MLA_K1),
+                    "design": fa_design(torch.bfloat16, 192, 128),
+                    "max_abs_err": fa["mla_max_abs_err"],
+                    **{k: t_mla[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "device_ms", "library_device_ms",
+                                             "library_note")},
+                },
             },
             {
                 "name": "ssd",
@@ -1859,7 +1998,7 @@ def main() -> int:
     kern.update(phase_ssd_bwd())
     emit("timing", kernels_phases_s=time.perf_counter() - t0)
     phase_readback()
-    serves = [phase_serve(arch, serve_kw, path_kernels) for arch, serve_kw, path_kernels in PATHS]
+    serves = [phase_serve(*path) for path in PATHS]
     emit("timing", serve_phases_s=time.perf_counter() - t0)
     trains = [phase_train(arch, steps) for arch, steps in TRAIN_CELLS]
     emit("timing", train_phases_s=time.perf_counter() - t0)

@@ -3,7 +3,7 @@
 // Replaces the reference's Pallas TPU kernel
 // `src/repro/kernels/flash_attention.py:_kernel` (launched by
 // `flash_attention_bhsd`). It recomputes the same function:
-// softmax(Q K^T * Dh^-1/2 + mask) V per (batch, q-head), GQA q-head h reading
+// softmax(Q K^T * Dqk^-1/2 + mask) V per (batch, q-head), GQA q-head h reading
 // kv-head h / (H / KV), masks causal (top-left aligned, positions from 0),
 // sliding window (k > q - window) and valid length (k < k_len), finite -1e30
 // for masked scores, the denominator floored at 1e-30, output in the input
@@ -39,6 +39,16 @@
 //    and runs mma.sync.m16n8k16 fed by ldmatrix from rows padded by 16
 //    bytes. Each warp re-reads K and V fragments for only 16 rows, the
 //    shared-memory traffic that wgmma's direct B reads remove.
+//  - Dqk = 192, Dv = 128 (flash_fwd_mma<192, 128>), MLA's expanded prefill
+//    (deepseek-v2: 128 nope + 64 rope dims of q and k, 128 of v): the same
+//    kernel with Q and K tiles 192 wide and V tiles 128 wide, so Q K^T runs
+//    12 k-steps (50 % deeper than at 128) and the output fragment stays 16
+//    n-tiles of 8. V is not padded to 192: that would waste a third of the
+//    P V products and of the output traffic. 64-key tiles, as at 128: the
+//    CTA holds q (64 x 200), two stages of K (64 x 200) and of V (64 x 136),
+//    109 KiB, one CTA an SM; each warp keeps its q fragments (48 registers)
+//    beside its 64 output accumulators. The work per head is
+//    2 Sq Sk/2 (192 + 128) FLOPs against q, k, v and o read or written once.
 // What holds the wgmma form back next: each group waits for its Q K^T
 // before the softmax and for its P V before the next tile (no overlap of
 // the two within a warpgroup), and the loads come from cp.async issued by
@@ -48,8 +58,8 @@
 // f32, the parity path (flash_fwd_f32): FMA tiles on the FP32 pipes; the
 // tensor cores take no f32 operand that holds a 1e-4 tolerance. One CTA per
 // (batch * q-head, 64-row q tile), 256 threads, each thread owning a 4 x 4
-// micro-tile of the 64 x 64 score tile and 4 rows x Dh/16 columns of the
-// output, K/V staged in shared memory as f32.
+// micro-tile of the 64 x 64 score tile and 4 rows x Dv/16 columns of the
+// output, K/V staged in shared memory as f32 (146 KiB at 192/128).
 //
 // Both: tiles wholly above the causal diagonal, left of the window or past
 // the valid length are skipped; ragged Sq and Sk are masked (zero-filled
@@ -112,21 +122,22 @@ constexpr int MMA_WARPS = 8;  // two groups of 4; a group's warp owns 16 q rows
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
 
 // Keys per shared-memory tile, half of them to each warp group: 128 where
-// a warp's score and output fragments fit 128 registers (Dh <= 64, two
-// CTAs an SM), 64 at Dh = 128 (one CTA an SM).
-template <int DH>
+// a warp's score and output fragments fit 128 registers (Dqk <= 64, two
+// CTAs an SM), 64 at Dqk = 128 and 192 (one CTA an SM).
+template <int DQK>
 __host__ __device__ constexpr int mma_bk() {
-  return DH <= 64 ? 128 : 64;
+  return DQK <= 64 ? 128 : 64;
 }
-template <int DH>
+template <int DQK>
 __host__ __device__ constexpr int mma_min_blocks() {
-  return DH <= 64 ? 2 : 1;
+  return DQK <= 64 ? 2 : 1;
 }
 
-template <int DH>
+template <int DQK, int DV>
 constexpr int mma_smem_bytes() {
-  // the q tile, then two stages of k and v; the groups' merge reuses it
-  return (BQ + 4 * mma_bk<DH>()) * (DH + 8) * 2;
+  // the q tile and two stages of k, rows of Dqk + 8; two stages of v, rows
+  // of Dv + 8; the groups' merge reuses it
+  return ((BQ + 2 * mma_bk<DQK>()) * (DQK + 8) + 2 * mma_bk<DQK>() * (DV + 8)) * 2;
 }
 
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -135,20 +146,22 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-template <int DH>
-__global__ void __launch_bounds__(MMA_THREADS, mma_min_blocks<DH>()) flash_fwd_mma(Params p) {
+template <int DQK, int DV>
+__global__ void __launch_bounds__(MMA_THREADS, mma_min_blocks<DQK>()) flash_fwd_mma(Params p) {
   using bf16 = __nv_bfloat16;
-  constexpr int BK = mma_bk<DH>();
-  constexpr int HK = BK / 2;   // keys of a tile for one warp group
-  constexpr int LD = DH + 8;   // padded row, in elements
-  constexpr int KD = DH / 16;  // k-steps of Q K^T
-  constexpr int ND = DH / 8;   // n-tiles of O
-  constexpr int NS = HK / 8;   // n-tiles of a warp's S
-  constexpr int CH = DH / 8;   // 16-byte pieces of a row
+  constexpr int BK = mma_bk<DQK>();
+  constexpr int HK = BK / 2;    // keys of a tile for one warp group
+  constexpr int LD = DQK + 8;   // padded q and k row, in elements
+  constexpr int LDV = DV + 8;   // padded v row
+  constexpr int KD = DQK / 16;  // k-steps of Q K^T
+  constexpr int ND = DV / 8;    // n-tiles of O
+  constexpr int NS = HK / 8;    // n-tiles of a warp's S
+  constexpr int CH = DQK / 8;   // 16-byte pieces of a q or k row
+  constexpr int CHV = DV / 8;   // of a v row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* k_s = q_s + BQ * LD;       // [stage][BK][LD]
-  bf16* v_s = k_s + 2 * BK * LD;   // [stage][BK][LD]
+  bf16* v_s = k_s + 2 * BK * LD;   // [stage][BK][LDV]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int grp = warp >> 2, wr = warp & 3;  // key half, 16-row slot
@@ -173,13 +186,14 @@ __global__ void __launch_bounds__(MMA_THREADS, mma_min_blocks<DH>()) flash_fwd_m
   }
   auto load_kv = [&](int k0, int stage) {
     bf16* ks = k_s + stage * BK * LD;
-    bf16* vs = v_s + stage * BK * LD;
+    bf16* vs = v_s + stage * BK * LDV;
     for (int c = tid; c < BK * CH; c += MMA_THREADS) {
       const int r = c / CH, d = (c % CH) * 8, kj = k0 + r;
-      const bool in = kj < p.Sk;
-      const long long row = min(kj, p.Sk - 1);
-      tc::cp_async16(ks + r * LD + d, kg + row * p.k_ss + d, in);
-      tc::cp_async16(vs + r * LD + d, vg + row * p.v_ss + d, in);
+      tc::cp_async16(ks + r * LD + d, kg + (long long)min(kj, p.Sk - 1) * p.k_ss + d, kj < p.Sk);
+    }
+    for (int c = tid; c < BK * CHV; c += MMA_THREADS) {
+      const int r = c / CHV, d = (c % CHV) * 8, kj = k0 + r;
+      tc::cp_async16(vs + r * LDV + d, vg + (long long)min(kj, p.Sk - 1) * p.v_ss + d, kj < p.Sk);
     }
   };
   if (kr.k_lo < kr.k_hi) load_kv(kr.k_lo, 0);
@@ -208,7 +222,7 @@ __global__ void __launch_bounds__(MMA_THREADS, mma_min_blocks<DH>()) flash_fwd_m
     const int kh = k0 + HK * grp;  // this group's first key
     if (kh < kr.k_hi) {            // else every key of its half is masked
       const bf16* ks = k_s + (stage * BK + HK * grp) * LD;
-      const bf16* vs = v_s + (stage * BK + HK * grp) * LD;
+      const bf16* vs = v_s + (stage * BK + HK * grp) * LDV;
 
       float s[NS][4];
 #pragma unroll
@@ -272,7 +286,7 @@ __global__ void __launch_bounds__(MMA_THREADS, mma_min_blocks<DH>()) flash_fwd_m
 #pragma unroll
         for (int dp = 0; dp < ND / 2; ++dp) {
           uint32_t r[4];
-          tc::ldsm_x4_trans(r, vs + (16 * kk + tc::x_row(lane)) * LD + 16 * dp + tc::x_col(lane));
+          tc::ldsm_x4_trans(r, vs + (16 * kk + tc::x_row(lane)) * LDV + 16 * dp + tc::x_col(lane));
           tc::mma(o[2 * dp], a, r[0], r[1]);
           tc::mma(o[2 * dp + 1], a, r[2], r[3]);
         }
@@ -519,23 +533,23 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_fwd_wgmma(Params p) {
 
 constexpr int F32_THREADS = 256;
 
-template <int DH>
+template <int DQK, int DV>
 constexpr int f32_smem_bytes() {
-  // q and k tiles padded to DH + 1 (conflict-free column walks), v tile,
+  // q and k tiles padded to DQK + 1 (conflict-free column walks), v tile,
   // p tile padded to BK + 4 (the two row groups of a warp hit disjoint banks)
-  return (BQ * (DH + 1) + BK * (DH + 1) + BK * DH + BQ * (BK + 4)) * 4;
+  return (BQ * (DQK + 1) + BK * (DQK + 1) + BK * DV + BQ * (BK + 4)) * 4;
 }
 
-template <int DH>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32(Params p) {
-  constexpr int QS = DH + 1;
+  constexpr int QS = DQK + 1;
   constexpr int PS = BK + 4;
-  constexpr int DC = DH / 16;  // output columns per thread
+  constexpr int DC = DV / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* q_s = smem;
   float* k_s = q_s + BQ * QS;
   float* v_s = k_s + BK * QS;
-  float* p_s = v_s + BK * DH;
+  float* p_s = v_s + BK * DV;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;  // score columns tx + 16 j, output columns tx + 16 j
@@ -551,8 +565,8 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32(Params p) {
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
   float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 
-  for (int i = tid; i < BQ * DH; i += F32_THREADS) {
-    const int r = i / DH, d = i % DH, qi = q0 + r;
+  for (int i = tid; i < BQ * DQK; i += F32_THREADS) {
+    const int r = i / DQK, d = i % DQK, qi = q0 + r;
     q_s[r * QS + d] = qi < p.Sq ? qg[qi * p.q_ss + d] * p.scale : 0.f;
   }
   const KeyRange kr(p, q0, BK);
@@ -568,11 +582,13 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32(Params p) {
 
   for (int k0 = kr.k_lo; k0 < kr.k_hi; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done (and q_s is in)
-    for (int i = tid; i < BK * DH; i += F32_THREADS) {
-      const int r = i / DH, d = i % DH, kj = k0 + r;
-      const bool in = kj < p.Sk;
-      k_s[r * QS + d] = in ? kg[kj * p.k_ss + d] : 0.f;
-      v_s[r * DH + d] = in ? vg[kj * p.v_ss + d] : 0.f;
+    for (int i = tid; i < BK * DQK; i += F32_THREADS) {
+      const int r = i / DQK, d = i % DQK, kj = k0 + r;
+      k_s[r * QS + d] = kj < p.Sk ? kg[kj * p.k_ss + d] : 0.f;
+    }
+    for (int i = tid; i < BK * DV; i += F32_THREADS) {
+      const int r = i / DV, d = i % DV, kj = k0 + r;
+      v_s[r * DV + d] = kj < p.Sk ? vg[kj * p.v_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -582,7 +598,7 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32(Params p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float qv[4], kv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = q_s[(4 * ty + i) * QS + d];
@@ -634,7 +650,7 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32(Params p) {
       for (int i = 0; i < 4; ++i) pv[i] = p_s[(4 * ty + i) * PS + kk];
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
-        const float vv = v_s[kk * DH + tx + 16 * c];
+        const float vv = v_s[kk * DV + tx + 16 * c];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
       }
@@ -664,27 +680,27 @@ cudaError_t opt_in_smem(Kernel kernel, int bytes, int device, std::atomic<bool>*
   return err;
 }
 
-template <int DH>
+template <int DQK, int DV>
 cudaError_t launch(const Params& p, bool bf16, int device, cudaStream_t stream) {
   static std::atomic<bool> set_bf16[MAX_DEVICES], set_f32[MAX_DEVICES];
   const int q_tiles = (p.Sq + BQ - 1) / BQ;
   if (bf16) {
     if (q_tiles > 65535) return cudaErrorInvalidValue;
-    if constexpr (DH == 64) {
+    if constexpr (DQK == 64 && DV == 64) {
       cudaError_t err = opt_in_smem(flash_fwd_wgmma, WG_SMEM, device, set_bf16);
       if (err != cudaSuccess) return err;
       flash_fwd_wgmma<<<dim3(p.B * p.H, q_tiles), MMA_THREADS, WG_SMEM, stream>>>(p);
     } else {
-      constexpr int smem = mma_smem_bytes<DH>();
-      cudaError_t err = opt_in_smem(flash_fwd_mma<DH>, smem, device, set_bf16);
+      constexpr int smem = mma_smem_bytes<DQK, DV>();
+      cudaError_t err = opt_in_smem(flash_fwd_mma<DQK, DV>, smem, device, set_bf16);
       if (err != cudaSuccess) return err;
-      flash_fwd_mma<DH><<<dim3(p.B * p.H, q_tiles), MMA_THREADS, smem, stream>>>(p);
+      flash_fwd_mma<DQK, DV><<<dim3(p.B * p.H, q_tiles), MMA_THREADS, smem, stream>>>(p);
     }
   } else {
-    constexpr int smem = f32_smem_bytes<DH>();
-    cudaError_t err = opt_in_smem(flash_fwd_f32<DH>, smem, device, set_f32);
+    constexpr int smem = f32_smem_bytes<DQK, DV>();
+    cudaError_t err = opt_in_smem(flash_fwd_f32<DQK, DV>, smem, device, set_f32);
     if (err != cudaSuccess) return err;
-    flash_fwd_f32<DH><<<dim3(q_tiles, p.B * p.H), F32_THREADS, smem, stream>>>(p);
+    flash_fwd_f32<DQK, DV><<<dim3(q_tiles, p.B * p.H), F32_THREADS, smem, stream>>>(p);
   }
   return cudaGetLastError();
 }
@@ -706,8 +722,9 @@ struct DeviceScope {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last (Dh)
-// dim must be contiguous, and for bfloat16 the base pointers and the other
+// dtype: 0 = float32, 1 = bfloat16. Dh is the q and k head dim, Dv the v
+// and o head dim; (Dh, Dv) is one of (32, 32), (64, 64), (128, 128) and
+// (192, 128). Strides are in elements; the last (head) dim must be contiguous, and for bfloat16 the base pointers and the other
 // strides must be 16-byte aligned (the wrapper checks). `device` is the
 // ordinal the tensors live on and `stream` one of its streams; the launch
 // makes it the thread's current device of the CUDA runtime this library is
@@ -718,7 +735,7 @@ struct DeviceScope {
 // null. Returns the launch's cudaError_t (0 = success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int device,
-    int B, int H, int KV, int Sq, int Sk, int Dh,
+    int B, int H, int KV, int Sq, int Sk, int Dh, int Dv,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
@@ -734,10 +751,9 @@ extern "C" int flash_attention_fwd(
            causal, window, k_len, scale, lse};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf16 = dtype == 1;
-  switch (Dh) {
-    case 32: return (int)launch<32>(p, bf16, device, st);
-    case 64: return (int)launch<64>(p, bf16, device, st);
-    case 128: return (int)launch<128>(p, bf16, device, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (Dh == 32 && Dv == 32) return (int)launch<32, 32>(p, bf16, device, st);
+  if (Dh == 64 && Dv == 64) return (int)launch<64, 64>(p, bf16, device, st);
+  if (Dh == 128 && Dv == 128) return (int)launch<128, 128>(p, bf16, device, st);
+  if (Dh == 192 && Dv == 128) return (int)launch<192, 128>(p, bf16, device, st);
+  return (int)cudaErrorInvalidValue;
 }

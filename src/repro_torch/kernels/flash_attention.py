@@ -27,7 +27,15 @@ through :class:`FlashAttention`, whose backward launches the backward
 kernels; the raw forward launch refuses to run there, so no caller gets an
 output without a gradient.
 
-The first launch of each kernel instantiation (device, dtype, head_dim,
+The forward takes a query/key head dim ``Dqk`` and a value head dim ``Dv``
+from :data:`HEAD_DIM_PAIRS`: Dqk = Dv at 32, 64 and 128, and Dqk = 192 with
+Dv = 128, MLA's expanded prefill (deepseek-v2: 128 nope + 64 rope dims of
+query and key, 128 of value), on an instantiation of its own. The scale is
+``Dqk**-0.5``. The backward takes Dqk = Dv in :data:`HEAD_DIMS` only: on a
+CUDA tensor, attention at 192/128 under autograd raises
+``NotImplementedError`` before anything is launched.
+
+The first launch of each kernel instantiation (device, dtype, Dqk, Dv,
 and forward or backward) in a process is preceded by a check launch on a
 small input, held against the plain version by
 :class:`~repro_torch.kernels.build.FirstLaunchGuard`; a disagreement raises.
@@ -44,15 +52,23 @@ from . import build
 
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward's head dims (Dqk = Dv)
 HEAD_DIMS = (32, 64, 128)
+# the forward's (Dqk, Dv) pairs, each an instantiation of its own
+HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128), (192, 128))
 
 
-def design(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel design a launch of this dtype and head dim runs, as
-    ``csrc/flash_attention.cu`` names them."""
+def design(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = None) -> str:
+    """The kernel design a launch of this dtype and (query/key, value) head
+    dims runs, as ``csrc/flash_attention.cu`` names them: bf16 on ``wgmma``
+    at 64/64, on ``mma.sync`` at 32/32, 128/128 and 192/128 (MLA: Q·Kᵀ 192
+    deep, the output fragment 128 wide); f32 on FMA tiles."""
+    v_head_dim = head_dim if v_head_dim is None else v_head_dim
+    if (head_dim, v_head_dim) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"head dims {(head_dim, v_head_dim)} not in the kernel's {HEAD_DIM_PAIRS}")
     if dtype == torch.float32:
         return "fma-f32"
-    return "wgmma" if head_dim == 64 else "mma.sync"
+    return "wgmma" if (head_dim, v_head_dim) == (64, 64) else "mma.sync"
 
 
 def design_bwd(dtype: torch.dtype, head_dim: int) -> str:
@@ -69,7 +85,7 @@ def design_bwd(dtype: torch.dtype, head_dim: int) -> str:
 
 _fn_lock = threading.Lock()
 _fns: dict = {}
-# keyed by (device index, dtype, head_dim)
+# keyed by (device index, dtype, Dqk, Dv)
 _guard = build.FirstLaunchGuard(
     "flash_attention", lambda got, want: (got.float() - want.float()).abs().max().item()
 )
@@ -97,7 +113,7 @@ def _kernel_fn(name: str = "flash_attention_fwd"):
             if name == "flash_attention_fwd":
                 fn = build.library("flash_attention").flash_attention_fwd
                 fn.argtypes = (
-                    [ptr] * 4 + [i32] * 8 + [i64] * 12 + [i32] * 3 + [ctypes.c_float, ptr, ptr]
+                    [ptr] * 4 + [i32] * 9 + [i64] * 12 + [i32] * 3 + [ctypes.c_float, ptr, ptr]
                 )
             else:
                 fn = build.library("flash_attention_bwd").flash_attention_bwd
@@ -119,18 +135,18 @@ def _mask(Sq: int, Sk: int, causal: bool, window, k_len, device) -> torch.Tensor
 
 
 def flash_attention_ref(
-    q: torch.Tensor,  # (B, H, Sq, Dh)
-    k: torch.Tensor,  # (B, KV, Sk, Dh)
-    v: torch.Tensor,  # (B, KV, Sk, Dh)
+    q: torch.Tensor,  # (B, H, Sq, Dqk)
+    k: torch.Tensor,  # (B, KV, Sk, Dqk)
+    v: torch.Tensor,  # (B, KV, Sk, Dv)
     *,
     causal: bool = True,
     window: Optional[int] = None,
     k_len: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, to the kernel's semantics: f32
-    scores of the pre-scaled q, finite ``-1e30`` for masked keys, causal
-    aligned top-left (positions from 0), the denominator floored at 1e-30,
-    output cast to the input dtype."""
+    scores of q pre-scaled by ``Dqk**-0.5``, finite ``-1e30`` for masked
+    keys, causal aligned top-left (positions from 0), the denominator
+    floored at 1e-30, output (B, H, Sq, Dv) cast to the input dtype."""
     return flash_attention_lse_ref(q, k, v, causal=causal, window=window, k_len=k_len)[0]
 
 
@@ -148,16 +164,16 @@ def flash_attention_lse_ref(q, k, v, *, causal=True, window=None, k_len=None):
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float()) / denom
     lse = (m + torch.log(denom)).reshape(B, H, Sq)
-    return o.reshape(B, H, Sq, Dh).to(q.dtype), lse
+    return o.reshape(B, H, Sq, v.shape[-1]).to(q.dtype), lse
 
 
 def flash_attention_bwd_ref(
-    q: torch.Tensor,  # (B, H, Sq, Dh)
-    k: torch.Tensor,  # (B, KV, Sk, Dh)
-    v: torch.Tensor,  # (B, KV, Sk, Dh)
-    o: torch.Tensor,  # (B, H, Sq, Dh), the forward's output
+    q: torch.Tensor,  # (B, H, Sq, Dqk)
+    k: torch.Tensor,  # (B, KV, Sk, Dqk)
+    v: torch.Tensor,  # (B, KV, Sk, Dv)
+    o: torch.Tensor,  # (B, H, Sq, Dv), the forward's output
     lse: torch.Tensor,  # (B, H, Sq) f32, the forward's row statistics
-    do: torch.Tensor,  # (B, H, Sq, Dh), the output's gradient
+    do: torch.Tensor,  # (B, H, Sq, Dv), the output's gradient
     *,
     causal: bool = True,
     window: Optional[int] = None,
@@ -174,7 +190,7 @@ def flash_attention_bwd_ref(
     G, scale = H // KV, Dh**-0.5
 
     def grouped(t):
-        return t.reshape(B, KV, G, Sq, Dh).float()
+        return t.reshape(B, KV, G, Sq, t.shape[-1]).float()
 
     qg, og, dog = grouped(q), grouped(o), grouped(do)
     kf, vf = k.float(), v.float()
@@ -191,9 +207,9 @@ def flash_attention_bwd_ref(
 
 
 def attention_ref(
-    q: torch.Tensor,  # (B, H, Sq, Dh)
-    k: torch.Tensor,  # (B, KV, Sk, Dh)
-    v: torch.Tensor,  # (B, KV, Sk, Dh)
+    q: torch.Tensor,  # (B, H, Sq, Dqk)
+    k: torch.Tensor,  # (B, KV, Sk, Dqk)
+    v: torch.Tensor,  # (B, KV, Sk, Dv)
     *,
     causal: bool = True,
     window: Optional[int] = None,
@@ -208,13 +224,13 @@ def attention_ref(
     s = torch.where(_mask(Sq, Sk, causal, window, k_len, q.device), s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", w, v.float())
-    return o.reshape(B, H, Sq, Dh).to(q.dtype)
+    return o.reshape(B, H, Sq, v.shape[-1]).to(q.dtype)
 
 
 def flash_attention_bhsd(
-    q: torch.Tensor,  # (B, H, Sq, Dh)
-    k: torch.Tensor,  # (B, KV, Sk, Dh)
-    v: torch.Tensor,  # (B, KV, Sk, Dh)
+    q: torch.Tensor,  # (B, H, Sq, Dqk)
+    k: torch.Tensor,  # (B, KV, Sk, Dqk)
+    v: torch.Tensor,  # (B, KV, Sk, Dv)
     *,
     causal: bool = True,
     window: Optional[int] = None,
@@ -236,17 +252,17 @@ def flash_attention_bhsd(
 
 
 def flash_attention(
-    q: torch.Tensor,  # (B, Sq, H, Dh) — model layout
-    k: torch.Tensor,  # (B, Sk, KV, Dh)
-    v: torch.Tensor,  # (B, Sk, KV, Dh)
+    q: torch.Tensor,  # (B, Sq, H, Dqk) — model layout
+    k: torch.Tensor,  # (B, Sk, KV, Dqk)
+    v: torch.Tensor,  # (B, Sk, KV, Dv)
     *,
     causal: bool = True,
     window: Optional[int] = None,
     k_len: Optional[int] = None,
 ) -> torch.Tensor:
     """:func:`flash_attention_bhsd` in the model's layout: the kernel reads
-    (B, S, H, Dh) through its strides, and the output comes back as (B, Sq,
-    H, Dh)."""
+    (B, S, H, D) through its strides, and the output comes back as (B, Sq,
+    H, Dv)."""
     return _attention(q, k, v, causal, window, k_len, bshd=True)
 
 
@@ -256,6 +272,8 @@ def _to_bhsd(bshd, *tensors):
 
 def _attention(q, k, v, causal, window, k_len, *, bshd):
     if build.needs_grad(q, k, v):
+        if q.device.type != "cpu":
+            _require_bwd_dims(q, v)  # before the forward runs, not in the backward
         return FlashAttention.apply(q, k, v, causal, window, k_len, bshd)
     return _forward(q, k, v, causal, window, k_len, bshd, lse=False)
 
@@ -280,7 +298,7 @@ def _forward(q, k, v, causal, window, k_len, bshd, *, lse):
         o = o.transpose(1, 2) if bshd else o
         return (o, stats) if lse else o
     k_len = check_inputs(q, k, v, k_len, bshd=bshd)
-    _check_first_launch(q.device, q.dtype, q.shape[-1])
+    _check_first_launch(q.device, q.dtype, q.shape[-1], v.shape[-1])
     out = _launch(q, k, v, causal=causal, window=window, k_len=k_len, bshd=bshd, lse=lse)
     build.count_launch(flash_attention_bhsd, "flash_attention")
     return out
@@ -300,6 +318,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None, k_len=
                                         k_len=k_len)
         return _to_bhsd(bshd, *grads)
     k_len = check_inputs(q, k, v, k_len, bshd=bshd)
+    _require_bwd_dims(q, v)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} {do.dtype} "
                          f"must match q {tuple(q.shape)} {q.dtype}")
@@ -335,21 +354,22 @@ class FlashAttention(torch.autograd.Function):
 
 def check_inputs(q, k, v, k_len=None, *, bshd=False) -> int:
     """What the kernel takes, checked on any device (the meta device
-    included) before anything is launched: (B, H, Sq, Dh) q and (B, KV, Sk,
-    Dh) k and v (or (B, S, heads, Dh) with ``bshd``) with H a multiple of
-    KV, Dh one of :data:`HEAD_DIMS`, one dtype of float32 or bfloat16, a
-    contiguous last dim and, for bfloat16, 16-byte aligned base addresses
-    and strides. Returns ``k_len`` (Sk if None); raises ``ValueError`` on
-    anything else."""
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+    included) before anything is launched: (B, H, Sq, Dqk) q, (B, KV, Sk,
+    Dqk) k and (B, KV, Sk, Dv) v (or (B, S, heads, D) with ``bshd``) with H
+    a multiple of KV, (Dqk, Dv) one of :data:`HEAD_DIM_PAIRS`, one dtype of
+    float32 or bfloat16, a contiguous last dim and, for bfloat16, 16-byte
+    aligned base addresses and strides. Returns ``k_len`` (Sk if None);
+    raises ``ValueError`` on anything else."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or k.shape[:3] != v.shape[:3]:
         raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
     hd, sd = (2, 1) if bshd else (1, 2)
     B, H, Dh = q.shape[0], q.shape[hd], q.shape[3]
     KV, Sk = k.shape[hd], k.shape[sd]
     if k.shape[0] != B or k.shape[3] != Dh or KV < 1 or H % KV:
         raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)}")
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"head_dim {Dh} not in the kernel's {HEAD_DIMS}")
+    if (Dh, v.shape[3]) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"head dims (Dqk, Dv) = {(Dh, v.shape[3])} not in the kernel's "
+                         f"{HEAD_DIM_PAIRS}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one of float32, bfloat16")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
@@ -362,6 +382,18 @@ def check_inputs(q, k, v, k_len=None, *, bshd=False) -> int:
     return k_len
 
 
+def _require_bwd_dims(q, v) -> None:
+    """The backward kernels take Dqk = Dv in :data:`HEAD_DIMS`; MLA's
+    192/128 has a forward instantiation and no backward yet."""
+    dims = (q.shape[-1], v.shape[-1])
+    if dims[0] != dims[1] or dims[0] not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash attention's backward kernel takes Dqk = Dv in {HEAD_DIMS}; (Dqk, Dv) = "
+            f"{dims} (MLA's expanded form) has a forward kernel only, and training through "
+            "it on the card waits for that backward (ROADMAP queue 2 item 1)"
+        )
+
+
 def _launch(q, k, v, *, causal, window, k_len, bshd=False, lse=False):
     """One forward launch; with ``lse`` also returns the rows' statistics.
     Raises under autograd: its output carries no gradient."""
@@ -372,12 +404,14 @@ def _launch(q, k, v, *, causal, window, k_len, bshd=False, lse=False):
         )
     hd, sd = (2, 1) if bshd else (1, 2)
     B, H, Sq, Dh = q.shape[0], q.shape[hd], q.shape[sd], q.shape[3]
-    KV, Sk = k.shape[hd], k.shape[sd]
-    o = torch.empty_like(q)
+    KV, Sk, Dv = k.shape[hd], k.shape[sd], v.shape[3]
+    # q's memory order where the head dims agree; else contiguous in q's
+    # (B, H, Sq) or (B, S, heads) order
+    o = torch.empty_like(q) if Dv == Dh else q.new_empty((*q.shape[:3], Dv))
     stats = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if lse else None
     err = _kernel_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPE_CODES[q.dtype],
-        q.device.index, B, H, KV, Sq, Sk, Dh, *_bhs_strides(hd, sd, q, k, v, o),
+        q.device.index, B, H, KV, Sq, Sk, Dh, Dv, *_bhs_strides(hd, sd, q, k, v, o),
         int(causal), 0 if window is None else int(window), k_len, Dh**-0.5,
         None if stats is None else stats.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -419,21 +453,24 @@ def _launch_bwd(q, k, v, o, lse, do, *, causal, window, k_len, bshd=False):
     return dq, dk, dv
 
 
-def _guard_inputs(device, dtype, Dh):
+def _guard_inputs(device, dtype, Dh, Dv=None):
     """The first-launch checks' small input: causal GQA, two key tiles, the
     second ragged."""
     g = torch.Generator(device=device).manual_seed(0)
-    shapes = [(1, 2, 100, Dh), (1, 1, 100, Dh), (1, 1, 100, Dh)]
+    shapes = [(1, 2, 100, Dh), (1, 1, 100, Dh), (1, 1, 100, Dh if Dv is None else Dv)]
     return [torch.randn(s, generator=g, device=device).to(dtype) for s in shapes]
 
 
-def _check_first_launch(device: torch.device, dtype: torch.dtype, Dh: int) -> None:
-    """Before the first launch of an instantiation in this process, launch it
-    on a small causal GQA input and hold the result (max abs error) against
-    the plain version; raise if they disagree."""
+def _check_first_launch(device: torch.device, dtype: torch.dtype, Dh: int,
+                        Dv: Optional[int] = None) -> None:
+    """Before the first launch of an instantiation (Dqk = ``Dh``, Dv, Dh if
+    None) in this process, launch it on a small causal GQA input and hold
+    the result (max abs error) against the plain version; raise if they
+    disagree."""
+    Dv = Dh if Dv is None else Dv
 
     def case():
-        q, k, v = _guard_inputs(device, dtype, Dh)
+        q, k, v = _guard_inputs(device, dtype, Dh, Dv)
 
         def launch():
             with torch.no_grad():
@@ -441,7 +478,7 @@ def _check_first_launch(device: torch.device, dtype: torch.dtype, Dh: int) -> No
 
         return launch, flash_attention_ref(q, k, v, causal=True)
 
-    _guard.check((device.index, dtype, Dh), case)
+    _guard.check((device.index, dtype, Dh, Dv), case)
 
 
 def _check_first_bwd_launch(device: torch.device, dtype: torch.dtype, Dh: int) -> None:

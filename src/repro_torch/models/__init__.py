@@ -1,4 +1,4 @@
-"""repro_torch.models — the decoder LM (dense, SSM, hybrid), ported from
+"""repro_torch.models — the decoder LM (dense, MoE, SSM, hybrid), ported from
 ``repro.models``."""
 from .common import init_params
 from .lm import Model, build_model, stack_plan

@@ -1,8 +1,11 @@
-"""Grouped-query attention (RoPE, optional window/bias), ported from the
-reference's ``repro/models/attention.py``. MLA waits for a later slice.
+"""Attention variants, ported from the reference's
+``repro/models/attention.py``: grouped-query attention (RoPE, optional
+window/bias) and MLA (DeepSeek-V2 multi-head latent attention with a
+compressed KV cache).
 
 Layouts follow the reference at every public function: activations are
-``(B, S, H, Dh)``, caches ``{"k": (B, S, KV, Dh), "v": ...}``. The one
+``(B, S, H, Dh)``, caches ``{"k": (B, S, KV, Dh), "v": ...}`` (GQA) or
+``{"ckv": (B, S, kv_lora), "krope": (B, S, rope)}`` (MLA). The one
 difference is the batch of decode lanes: the reference decodes one
 sequence per call and the engine ``vmap``s it, so here ``cache_index`` is
 a ``(B,)`` tensor and every lane has its own RoPE position, cache write
@@ -11,8 +14,10 @@ offset and valid length.
 Prefill and the training forward (``Sq > 1``) on a CUDA tensor always run
 the hand-written flash kernel (``repro_torch.kernels.flash_attention``),
 under autograd through its ``FlashAttention`` function, whose backward is
-the hand-written backward kernel; decode (``Sq == 1``) and every CPU call
-take the dense einsum path, as the reference does.
+the hand-written backward kernel; MLA's expanded form runs it with query
+and key head dim ``nope + rope`` (192) and value head dim ``v_head_dim``
+(128). Decode (``Sq == 1``) and every CPU call take the dense einsum path,
+as the reference does.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
-from .common import NEG_INF, apply_rope, causal_mask_bias
+from .common import NEG_INF, apply_rope, causal_mask_bias, rms_norm
 
 ATTN_CHUNK = 2048  # q-block size for the chunked dense path
 
@@ -81,7 +86,7 @@ def _attend_dense(q, k, v, bias):
     B, Sq, H, Dh = q.shape
     KV = k.shape[2]
     G = H // KV
-    scale = Dh**-0.5
+    scale = Dh**-0.5  # the query/key head dim: MLA's (nope + rope)^-1/2
     qg = q.reshape(B, Sq, KV, G, Dh)
     # f32 scores from the input-dtype operands (bf16 products are exact in
     # f32), as the reference's preferred_element_type=f32
@@ -227,4 +232,114 @@ def gqa_attention(
                 new_cache = {"k": k, "v": v}
 
     y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): compressed latent KV cache
+# ---------------------------------------------------------------------------
+
+
+def mla_params(cfg, a) -> dict:
+    d, H = cfg.d_model, cfg.num_heads
+    nope, rope_d, v_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    lq, lkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    p = {}
+    if lq:
+        p["wq_a"] = a.param((d, lq))
+        p["q_norm"] = a.param((lq,), "zeros")
+        p["wq_b"] = a.param((lq, H, nope + rope_d))
+    else:
+        p["wq"] = a.param((d, H, nope + rope_d))
+    p["wkv_a"] = a.param((d, lkv + rope_d))
+    p["kv_norm"] = a.param((lkv,), "zeros")
+    p["wk_b"] = a.param((lkv, H, nope))
+    p["wv_b"] = a.param((lkv, H, v_d))
+    p["wo"] = a.param((H, v_d, d))
+    return p
+
+
+def mla_cache_shape(cfg, batch: int, seq: int, dtype) -> dict:
+    """Meta tensors with the shapes of the compressed cache: the latent
+    ``ckv`` and the rotated key part ``krope`` shared by the heads."""
+    meta = torch.device("meta")
+    return {
+        "ckv": torch.empty((batch, seq, cfg.kv_lora_rank), dtype=dtype, device=meta),
+        "krope": torch.empty((batch, seq, cfg.qk_rope_head_dim), dtype=dtype, device=meta),
+    }
+
+
+def _mla_qkv(cfg, p, x, positions):
+    nope = cfg.qk_nope_head_dim
+    if cfg.q_lora_rank:
+        cq = rms_norm(torch.einsum("bsd,dl->bsl", x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
+        q = torch.einsum("bsl,lhk->bshk", cq, p["wq_b"])
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv_a = torch.einsum("bsd,dl->bsl", x, p["wkv_a"])
+    ckv = rms_norm(kv_a[..., : cfg.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = kv_a[..., cfg.kv_lora_rank :]  # (B, S, rope_d) shared across heads
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_attention(
+    cfg,
+    p,
+    x: torch.Tensor,  # (B, S, d)
+    positions: torch.Tensor,  # (S,) prefill, or (B, 1) per-lane decode
+    *,
+    cache: Optional[dict] = None,
+    cache_index: Optional[torch.Tensor] = None,  # (B,) write offsets
+    return_cache: bool = False,
+    **_unused,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Prefill and training take the expanded form: keys and values
+    projected out of the latent per head, then :func:`attend`. Decode takes
+    the absorbed form: scores and values straight against the compressed
+    cache, into which each lane's latent and rotated key are written in
+    place at its ``cache_index``."""
+    B, S, d = x.shape
+    H = cfg.num_heads
+    nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    scale = (nope + rope_d) ** -0.5
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(cfg, p, x, positions)
+
+    new_cache = None
+    if cache is not None:
+        # decode: absorbed form; per-token cache traffic is kv_lora + rope
+        # (576) values instead of 2 * H * Dh
+        if S != 1:
+            raise ValueError(f"decode takes one token per lane, got S={S}")
+        lanes = torch.arange(B, device=x.device)
+        idx = cache_index.long()
+        ckv_c, krope_c = cache["ckv"], cache["krope"]
+        ckv_c[lanes, idx] = ckv[:, 0].to(ckv_c.dtype)
+        krope_c[lanes, idx] = k_rope[:, 0].to(krope_c.dtype)
+        Sk = ckv_c.shape[1]
+        q_eff = torch.einsum("bqhn,lhn->bqhl", q_nope, p["wk_b"])  # absorb W_UK
+        # f32 scores from the input-dtype operands, as the reference's
+        # preferred_element_type=f32
+        scores = (
+            torch.einsum("bqhl,bsl->bhqs", q_eff.float(), ckv_c.float())
+            + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), krope_c.float())
+        ) * scale
+        bias = causal_mask_bias(positions, torch.arange(Sk, device=x.device), valid_len=idx + S)
+        scores = scores + bias[:, None, :, :]
+        w = F.softmax(scores, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhqs,bsl->bqhl", w, ckv_c)
+        out = torch.einsum("bqhl,lhv->bqhv", ctx, p["wv_b"])  # absorb W_UV
+    else:
+        # prefill/train: expanded form (better matmul shapes at long Sq)
+        k_nope = torch.einsum("bsl,lhn->bshn", ckv, p["wk_b"])
+        v = torch.einsum("bsl,lhv->bshv", ckv, p["wv_b"])
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope_d)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = attend(q, k, v, PrefillMask(causal=True))
+        if return_cache:
+            new_cache = {"ckv": ckv, "krope": k_rope}
+
+    y = torch.einsum("bshv,hvd->bsd", out.to(x.dtype), p["wo"])
     return y, new_cache

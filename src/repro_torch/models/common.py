@@ -86,6 +86,8 @@ class Init:
     the SSM's per-head ``a_log``, ``d_skip`` and ``dt_bias`` in float32.
     """
 
+    CHUNK = 1 << 28  # elements of a normal leaf's f32 draw at once
+
     def __init__(self, generator: torch.Generator, device, dtype: torch.dtype) -> None:
         self.generator = generator
         self.device = torch.device(device)
@@ -119,8 +121,21 @@ class Init:
             scale = scale or 1.0
         else:
             raise ValueError(f"unknown init {init!r}")
-        x = torch.randn(shape, generator=self.generator, device=self.device, dtype=torch.float32)
-        return (x * scale).to(dtype)
+        n = math.prod(shape)
+        if n <= self.CHUNK:
+            x = torch.randn(shape, generator=self.generator, device=self.device,
+                            dtype=torch.float32)
+            return (x * scale).to(dtype)
+        # a leaf this large (stacked MoE experts) is drawn in pieces, so the
+        # f32 draw never holds the whole leaf (deepseek-v2's experts take
+        # 5 GB of f32 a layer at full width)
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        flat = out.view(-1)
+        for i in range(0, n, self.CHUNK):
+            m = min(self.CHUNK, n - i)
+            x = torch.randn(m, generator=self.generator, device=self.device, dtype=torch.float32)
+            flat[i : i + m] = x.mul_(scale)
+        return out
 
 
 class StackedInit:

@@ -1,12 +1,13 @@
 """The decoder-only LM: the training loss, prefill and per-lane decode,
-ported from the reference's ``repro/models/lm.py`` for the dense, SSM and
-hybrid families.
+ported from the reference's ``repro/models/lm.py`` for the dense, MoE, SSM
+and hybrid families.
 
 The reference scans over layer-stacked params; here each layer group is a
 list of per-layer parameter modules and the scan is a Python loop. Caches
 keep the reference's stacked layout — ``{"s0": {"attn": {"k": (L, B, S, KV,
-Dh), "v": ...}, "ssm": {"conv": (L, B, K-1, C), "state": (L, B, H, P, N)}}}``
-— and decode writes each lane's new row, conv window and state into them
+Dh), "v": ...}, "ssm": {"conv": (L, B, K-1, C), "state": (L, B, H, P, N)}}}``,
+MLA's ``{"ckv": (L, B, S, kv_lora), "krope": (L, B, S, rope)}`` — and
+decode writes each lane's new row, conv window and state into them
 in place.
 """
 from __future__ import annotations
@@ -79,12 +80,12 @@ def param_tree(cfg, a) -> dict:
     layers: dict = {}
     for grp in stack_plan(cfg):
         if grp.kind == "scan":
-            stacked = block_params(cfg, StackedInit(a, grp.count))
+            stacked = block_params(cfg, StackedInit(a, grp.count), moe_layer=grp.moe)
             layers[grp.name] = [
                 tree_map(lambda t, i=i: t[i], stacked) for i in range(grp.count)
             ]
         else:
-            layers[grp.name] = block_params(cfg, a)
+            layers[grp.name] = block_params(cfg, a, moe_layer=grp.moe)
     p["layers"] = layers
     p["final_norm"] = _norm_params(cfg, a)
     if not cfg.tie_embeddings:
@@ -108,7 +109,7 @@ def cross_entropy(
 
 
 class Model:
-    """Decoder LM (dense, SSM or hybrid) over a parameter tree (``ParamTree``).
+    """Decoder LM (dense, MoE, SSM or hybrid) over a parameter tree (``ParamTree``).
 
     ``device`` defaults to ``cuda:0`` and raises without a GPU; tests pass
     ``device="cpu"``. ``loss`` builds the autograd graph (the layers under
@@ -153,21 +154,25 @@ class Model:
         """The layer loop. Prefill (no ``caches``) returns the new caches,
         stacked per scan group; decode hands each layer views of its slice
         of ``caches``, writes into them in place and returns None. The
-        training ``forward`` builds no cache and, when ``cfg.remat`` is not
+        training ``forward`` builds no cache, returns the sum of the layers'
+        MoE aux losses in place of the caches and, when ``cfg.remat`` is not
         "none" and grad is on, runs each layer under
         ``torch.utils.checkpoint`` (its activations recomputed in the
         backward, as the reference's ``jax.checkpoint``)."""
         if forward:
             remat = self.cfg.remat != "none" and torch.is_grad_enabled()
+            total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for grp in self.plan:
                 window = None if grp.is_global else self.cfg.window
                 gp = p["layers"][grp.name]
                 for lp in gp if grp.kind == "scan" else [gp]:
                     run = lambda xx, lp=lp, w=window: block_apply(  # noqa: E731
                         self.cfg, lp, xx, positions, window=w
-                    )[0]
-                    x = checkpoint(run, x, use_reentrant=False) if remat else run(x)
-            return x, None
+                    )[::2]
+                    x, aux = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+                    if aux is not None:
+                        total_aux = total_aux + aux
+            return x, total_aux
         prefill = caches is None
         caches_out: dict = {}
         for grp in self.plan:
@@ -181,7 +186,7 @@ class Model:
                     cache = caches[grp.name]
                     if grp.kind == "scan":
                         cache = tree_map(lambda c, i=i: c[i], cache)
-                x, nc = block_apply(
+                x, nc, _aux = block_apply(
                     self.cfg, lp, x, positions, cache=cache, cache_index=cache_index,
                     return_cache=prefill, window=window,
                 )
@@ -197,16 +202,17 @@ class Model:
     def loss(self, p, batch: dict) -> Tuple[torch.Tensor, dict]:
         """Token-mean cross-entropy of ``batch["targets"]`` (optionally
         weighted by ``batch["loss_mask"]``) given ``batch["tokens"]``, both
-        (B, S), with autograd: ``loss.backward()`` or ``torch.autograd.grad``
-        gives every parameter's gradient. Returns (loss, {"ce", "aux",
-        "tokens"}); the dense, SSM and hybrid families have no auxiliary
-        loss, so ``aux`` is 0."""
+        (B, S), plus the MoE layers' load-balancing aux loss, with autograd:
+        ``loss.backward()`` or ``torch.autograd.grad`` gives every
+        parameter's gradient. Returns (loss, {"ce", "aux", "tokens"}); the
+        dense, SSM and hybrid families have no auxiliary loss, so their
+        ``aux`` is 0."""
         cfg = self.cfg
         tokens = self._as_index(batch["tokens"])
         x = self._embed_tokens(p, tokens)
         S = x.shape[1]
         positions = torch.arange(S, device=self.device)
-        x, _ = self._layers(p, x, positions, forward=True)
+        x, aux = self._layers(p, x, positions, forward=True)
         x = _norm(cfg, p["final_norm"], x)
         targets = self._as_index(batch["targets"])
         mask = batch.get("loss_mask")
@@ -216,7 +222,6 @@ class Model:
             ce, n = self._chunked_ce(p, x, targets, mask, cfg.loss_chunk)
         else:
             ce, n = cross_entropy(self._head(p, x), targets, mask)
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return ce + aux, {"ce": ce, "aux": aux, "tokens": n}
 
     def _chunked_ce(self, p, x, targets, mask, chunk: int):

@@ -166,7 +166,7 @@ def _is_ssm(node: Any) -> bool:
 
 
 # the batch axis of a model cache leaf, counted from its end
-_BATCH_AX_FROM_END = {"k": 4, "v": 4, "pos": 2, "conv": 3, "state": 4}
+_BATCH_AX_FROM_END = {"k": 4, "v": 4, "pos": 2, "ckv": 3, "krope": 3, "conv": 3, "state": 4}
 
 
 def lane_view(caches: dict) -> dict:
@@ -174,14 +174,14 @@ def lane_view(caches: dict) -> dict:
 
     A slot-major leaf ``(slots, ..., 1, *rest)`` becomes ``(..., slots,
     *rest)``: the slot axis takes the place of the batch-1 axis. That
-    covers GQA K/V ``(S, KV, Dh)`` and ring positions ``(W,)``, and the SSM's
-    conv window ``(K-1, C)`` and state ``(H, P, N)``, with or without a
-    leading layers axis. Writes through the views land in the slot-major
-    tensors.
+    covers GQA K/V ``(S, KV, Dh)`` and ring positions ``(W,)``, MLA's
+    latents ``(S, kv_lora)`` and ``(S, rope)``, and the SSM's conv window
+    ``(K-1, C)`` and state ``(H, P, N)``, with or without a leading layers
+    axis. Writes through the views land in the slot-major tensors.
     """
 
     def walk(node):
-        if _is_gqa(node) or _is_ssm(node):
+        if _is_gqa(node) or _is_mla(node) or _is_ssm(node):
             out = {}
             for key, leaf in node.items():
                 b_ax = leaf.ndim - _BATCH_AX_FROM_END[key]
@@ -189,7 +189,7 @@ def lane_view(caches: dict) -> dict:
             return out
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
-        raise NotImplementedError("lane_view handles GQA and SSM caches only in this slice")
+        raise NotImplementedError(f"lane_view: no cache kind holds a bare leaf {type(node)}")
 
     return walk(caches)
 

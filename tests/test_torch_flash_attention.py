@@ -114,7 +114,10 @@ def test_first_launch_check_raises_on_a_wrong_result(monkeypatch, dtype):
     monkeypatch.setattr(tfa, "_launch", lambda q, k, v, **kw: tfa.flash_attention_ref(
         q, k, v, causal=kw["causal"], window=kw["window"], k_len=kw["k_len"]))
     tfa._check_first_launch(cpu, dtype, 64)
-    assert tfa._guard.checked == {(None, dtype, 64)}
+    # keyed by (device, dtype, Dqk, Dv): MLA's 192/128 is an instantiation of its own
+    assert tfa._guard.checked == {(None, dtype, 64, 64)}
+    tfa._check_first_launch(cpu, dtype, 192, 128)
+    assert tfa._guard.checked == {(None, dtype, 64, 64), (None, dtype, 192, 128)}
 
 
 def _views(device, dtype, offset=0, seq_pad=0):

@@ -17,7 +17,11 @@ uninterrupted one, bit for bit. The serve engine's CUDA graphs: a captured
 decode tick against eager ``decode_step`` bit for bit (three families, both
 cache layouts, f32 and bf16), an engine whose ticks and bucketed prefills
 all replay graphs, a capture beside another engine's work on other threads,
-and the first-launch guard refusing to run inside a capture."""
+and the first-launch guard refusing to run inside a capture. MLA's flash
+attention at Dqk=192, Dv=128 against its plain version, its refusal under
+autograd (no backward kernel yet), and reduced granite-moe and deepseek-v2
+(2 layers, MLA at 192/128) served through the graphs against the same
+weights decoded on the CPU."""
 import importlib.util
 from pathlib import Path
 
@@ -68,16 +72,18 @@ FLASH_TOL = {"float32": (torch.float32, 1e-4), "bfloat16": (torch.bfloat16, 2e-2
 
 def _flash_error(dev, rng, dt, case) -> float:
     """One launch in the model's layout against the plain version: max abs
-    error; the launch is counted and its instantiation was first checked."""
-    B, H, KV, Sq, Sk, Dh, causal, window, k_len = case
-    shapes = [(B, Sq, H, Dh), (B, Sk, KV, Dh), (B, Sk, KV, Dh)]
+    error; the launch is counted and its instantiation was first checked.
+    A case's optional tenth entry is Dv (Dh if absent)."""
+    B, H, KV, Sq, Sk, Dh, causal, window, k_len = case[:9]
+    Dv = case[9] if len(case) > 9 else Dh
+    shapes = [(B, Sq, H, Dh), (B, Sk, KV, Dh), (B, Sk, KV, Dv)]
     q, k, v = (torch.from_numpy(rng.standard_normal(s)).to(dev, dt) for s in shapes)
     mask = dict(causal=causal, window=window, k_len=k_len)
     before = tfa.flash_attention_bhsd.launches
     got = tfa.flash_attention(q, k, v, **mask)
     torch.cuda.synchronize()
     assert tfa.flash_attention_bhsd.launches == before + 1
-    assert (0, dt, Dh) in tfa._guard.checked  # its first launch was checked
+    assert (0, dt, Dh, Dv) in tfa._guard.checked  # its first launch was checked
     want = tfa.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                    **mask).transpose(1, 2)
     assert torch.isfinite(got.float()).all()
@@ -105,6 +111,42 @@ def test_flash_kernel_tile_edges_on_card(name, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     err = _flash_error(dev, np.random.default_rng(5), dt, FLASH_EDGES[name])
     assert err <= tol, (name, dtype, err)
+
+
+# MLA's expanded prefill: Dqk = 192 (128 nope + 64 rope), Dv = 128, on the
+# kernel's own instantiation; (B, H, KV, Sq, Sk, Dqk, causal, window,
+# k_len, Dv)
+FLASH_MLA = {
+    "deepseek H=KV=128 causal S=512": (1, 128, 128, 512, 512, 192, True, None, None, 128),
+    "GQA ragged causal S=300": (1, 8, 2, 300, 300, 192, True, None, None, 128),
+    "causal k_len=100 Sk=128": (2, 4, 4, 128, 128, 192, True, None, 100, 128),
+    "non-causal Sq=64 Sk=192 k_len=150": (1, 4, 2, 64, 192, 192, False, None, 150, 128),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(FLASH_MLA))
+def test_flash_kernel_at_dqk_192_dv_128_on_card(name, dtype):
+    dev = _cuda()
+    dt, tol = FLASH_TOL[dtype]
+    err = _flash_error(dev, np.random.default_rng(21), dt, FLASH_MLA[name])
+    assert err <= tol, (name, dtype, err)
+
+
+@pytest.mark.gpu
+def test_flash_attention_at_192_128_refuses_autograd_on_card():
+    """K1 at 192/128 has a forward kernel and no backward: under autograd on
+    the card the call raises before any launch, and falls back to nothing."""
+    dev = _cuda()
+    q, k = (torch.zeros((1, 16, 4, 192), device=dev, requires_grad=True) for _ in range(2))
+    v = torch.zeros((1, 16, 4, 128), device=dev, requires_grad=True)
+    before = tfa.flash_attention_bhsd.launches
+    with pytest.raises(NotImplementedError, match=r"\(192, 128\)"):
+        tfa.flash_attention(q, k, v, causal=True)
+    assert tfa.flash_attention_bhsd.launches == before
+    with torch.no_grad():
+        assert tfa.flash_attention(q, k, v, causal=True).shape == (1, 16, 4, 128)
 
 
 # (B, S, H, P, N, chunk, laws); x, B and C are handed over as the model's
@@ -684,6 +726,45 @@ def test_engine_on_card_replays_its_graphs_and_matches_cpu_decode(kv_layout):
         assert graphs[f"prefill_{b}"]["captured_launches"] == {"flash_attention": cfg.num_layers}
     warmups = 2 * cfg.num_layers * len(buckets)  # _Graph.WARMUP eager runs of each bucket
     assert tfa.flash_attention_bhsd.launches - before == warmups
+    for ref, out in zip(refs, outs):
+        assert list(map(int, out)) == ref
+
+
+def _moe_serve_cfg(arch):
+    """Reduced granite-moe at head dim 32, and deepseek-v2 at 2 layers (the
+    dense layer 0, then one MoE layer) with MLA's full head dims, so its
+    prefill runs the 192/128 instantiation."""
+    cfg = get_reduced(arch).replace(dtype="float32")
+    if arch == "deepseek-v2-236b":
+        return cfg.replace(num_layers=2, qk_nope_head_dim=128, qk_rope_head_dim=64,
+                           v_head_dim=128)
+    return cfg.replace(head_dim=32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-v2-236b"])
+def test_moe_engine_on_card_replays_its_graphs_and_matches_cpu_decode(arch):
+    """The MoE families served on the card through the decode graph and the
+    bucketed prefill graphs (routing, top-k and the one-hot captured; the
+    flash kernel captured once per layer), token for token equal to the same
+    weights' sequential decode on the CPU."""
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_serve_cfg(arch)
+    cpu_model = build_model(cfg, device="cpu")
+    params = cpu_model.init(0)
+    model = build_model(cfg, device=dev)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (5, 30, 13, 9)]
+    refs = [_cpu_decode(cpu_model, params, p, 6, 96) for p in prompts]
+    with ServeEngine(model, params.to(dev), max_slots=2, max_len=96, page_size=16,
+                     prefill_buckets=(16, 32)) as engine:
+        outs = engine.generate(prompts, 6, timeout=300)
+        stats = engine.stats()
+    graphs = stats["graphs"]
+    assert graphs["decode"]["replays"] == stats["ticks"] > 0
+    for b in (16, 32):
+        assert graphs[f"prefill_{b}"]["captured_launches"] == {"flash_attention": cfg.num_layers}
     for ref, out in zip(refs, outs):
         assert list(map(int, out)) == ref
 

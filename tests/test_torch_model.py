@@ -3,7 +3,11 @@
 ``Model.init(PRNGKey(0))`` parameters cross over through numpy
 (``repro_torch.bridge.params_from_jax``), the same prompts go through both,
 and prefill logits and caches, greedy decode tokens and the per-lane
-batched decode step are compared (atol = rtol = 1e-4)."""
+batched decode step are compared (atol = rtol = 1e-4). Prefill and greedy
+decode also run on the other dense configs' reduced forms: phi4-mini (a
+tied head, KV heads zero-padded 2 -> 16), qwen1.5 (QKV biases, here drawn
+at random so that they count) and deepseek-coder (KV heads padded 2 -> 16,
+RoPE theta 1e5)."""
 import dataclasses
 
 import jax
@@ -27,12 +31,31 @@ torch.set_num_threads(1)
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
-def _pair(**overrides):
-    jcfg = jax_get_reduced("tinyllama-1.1b").replace(dtype="float32", **overrides)
-    cfg = get_reduced("tinyllama-1.1b").replace(dtype="float32", **overrides)
+DENSE_ARCHS = ["tinyllama-1.1b", "phi4-mini-3.8b", "qwen1.5-4b", "deepseek-coder-33b"]
+
+
+def _random_biases(tree):
+    """The reference draws QKV biases as zeros: give them random values, so
+    that a parity test sees them."""
+    rng = np.random.default_rng(5)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: (jnp.asarray(0.1 * rng.standard_normal(v.shape), v.dtype)
+                        if k in ("bq", "bk", "bv") else walk(v)) for k, v in node.items()}
+        return node
+
+    return walk(tree)
+
+
+def _pair(arch="tinyllama-1.1b", **overrides):
+    jcfg = jax_get_reduced(arch).replace(dtype="float32", **overrides)
+    cfg = get_reduced(arch).replace(dtype="float32", **overrides)
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
     jm = jax_build_model(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
+    if cfg.qkv_bias:
+        jp = _random_biases(jp)
     tm = build_model(cfg, device="cpu")
     tp = params_from_jax(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, tm, tp
@@ -41,6 +64,11 @@ def _pair(**overrides):
 @pytest.fixture(scope="module")
 def models():
     return _pair()
+
+
+@pytest.fixture(scope="module", params=DENSE_ARCHS)
+def dense_models(request, models):
+    return models if request.param == "tinyllama-1.1b" else _pair(request.param)
 
 
 def _prompt(seed, n, vocab):
@@ -67,8 +95,8 @@ def test_init_params_have_the_reference_shapes(models):
     assert not layers[0]["attn_norm"]["w"].any()  # norm weights start at zero
 
 
-def test_prefill_matches_reference(models):
-    jm, jp, tm, tp = models
+def test_prefill_matches_reference(dense_models):
+    jm, jp, tm, tp = dense_models
     toks = _prompt(0, 12, tm.cfg.vocab_size)[None]
     jl, jc = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(toks)})
     tl, tc = tm.prefill(tp, {"tokens": toks})
@@ -87,8 +115,8 @@ def test_prefill_last_pos_matches_reference(models):
     _close(tl, jl)
 
 
-def test_greedy_decode_matches_reference(models):
-    jm, jp, tm, tp = models
+def test_greedy_decode_matches_reference(dense_models):
+    jm, jp, tm, tp = dense_models
     prompt, width, steps = _prompt(2, 7, tm.cfg.vocab_size), 20, 8
     jl, jc = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(prompt[None])})
     jc = jax_extend_caches(jc, width - prompt.size)
@@ -186,10 +214,32 @@ def test_bridge_defaults_to_the_gpu(models):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("arch", ["paligemma-3b", "granite-moe-1b-a400m", "whisper-medium"])
+@pytest.mark.parametrize("arch", ["paligemma-3b", "whisper-medium"])
 def test_other_families_wait_for_later_slices(arch):
     with pytest.raises(NotImplementedError):
         Model(get_reduced(arch), device="cpu")
+
+
+def test_deepseek_training_on_the_card_waits_for_k1_bwd_at_192_128():
+    """deepseek-v2's expanded MLA runs flash attention at Dqk=192, Dv=128,
+    which has a forward kernel and no backward yet: off the CPU, a call
+    under autograd raises before anything is launched (meta tensors stand
+    in for the card's), and does not fall back to the plain version. Under
+    no_grad the same call passes the input check."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    cfg = get_reduced("deepseek-v2-236b").replace(
+        qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128)
+    B, S, H = 1, 8, cfg.num_heads
+    dqk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    q, k = (torch.empty((B, S, H, dqk), device="meta", dtype=torch.bfloat16,
+                        requires_grad=True) for _ in range(2))
+    v = torch.empty((B, S, H, cfg.v_head_dim), device="meta", dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(NotImplementedError, match=r"\(192, 128\)"):
+        tfa.flash_attention(q, k, v, causal=True)
+    with torch.no_grad():
+        assert tfa.check_inputs(q, k, v, bshd=True) == S
 
 
 @pytest.mark.parametrize(
