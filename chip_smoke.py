@@ -22,30 +22,45 @@ backward, by a profiler trace).
 
 K1 is also held and timed at deepseek-v2's expanded MLA prefill (H = KV =
 128, Dqk = 192, Dv = 128, its own instantiation), beside SDPA where SDPA
-takes Dv != Dqk on the card.
+takes Dv != Dqk on the card, and at the enc-dec and VLM prefills' shapes
+(B=4): paligemma's (H=8 on one kv-head, Dqk = Dv = 256, its own
+instantiation, S=320 under a prefix-LM span over the first 256 positions;
+the build fails if that instantiation spills), whisper's encoder (H=KV=16,
+Dh=64, S=1500, non-causal), decoder self-attention (causal, S=32, one ragged
+tile) and cross-attention (Sq=32 over Sk=1500), beside SDPA (with the
+boolean causal or prefix-LM mask where the case has one).
 
-It then serves five full-width models (random weights from seed 0)
-through ``repro_torch.ServeEngine``, one after another: tinyllama-1.1b
-(flash attention prefill), mamba2-1.3b (SSD prefill), hymba-1.5b (both),
+It then serves five full-width models (random weights from seed 0) through
+``repro_torch.ServeEngine``, one after another: tinyllama-1.1b (flash
+attention prefill), mamba2-1.3b (SSD prefill), hymba-1.5b (both),
 granite-moe-1b-a400m (MoE, KV heads zero-padded to 16) and deepseek-v2-236b
 (MLA and MoE, its depth cut to 2 layers in f32 and 9 in bf16, printed as
 ``reduced``). The engine runs every decode tick, and the bucketed prefills
 of tinyllama, granite-moe and deepseek-v2, by replaying CUDA graphs it
-captured when it was built. Each model is served
-once in float32 against the port's own sequential batch-1 decode and once
-in bfloat16 as its measured main path, with every kernel's launch counter
-set to 0 just before that run and read just after (a graph's replays count
-the launches its capture recorded), and every tick checked to be a graph
-replay; then host times and profiler traces of one S=300 prefill and one
-4-lane decode step, eager beside the captured tick (the host's launches
-per tick, at most 10 by graph). It then trains tinyllama, mamba2, hymba and
-granite-moe at full width and depth
-for a few bf16 steps each through ``repro_torch.runtime.Trainer`` (B=4,
-S=2048, remat; checking every kernel's launches a step, the losses and
-the MoE aux loss, that every leaf changed, the AdamW state and the final
-checkpoint, saved into ``build/`` and deleted), and holds each model's
-full-width f32 gradients through the kernels against those through the
-plain versions. Each phase
+captured when it was built. Each model is served once in float32 against
+the port's own sequential batch-1 decode and once in bfloat16 as its
+measured main path, with every kernel's launch counter set to 0 just before
+that run and read just after (a graph's replays count the launches its
+capture recorded), and every tick checked to be a graph replay; then host
+times and profiler traces of one S=300 prefill and one 4-lane decode step,
+eager beside the captured tick (the host's launches per tick, at most 10 by
+graph). Then it serves whisper-medium (24 encoder and 24 decoder layers)
+and paligemma-3b (18 layers, vocabulary 257216), whose families the engine
+does not serve, through ``Model.prefill``, ``extend_caches`` and greedy
+``decode_step`` at full width and depth: 4 requests, frames (4, 1500, 1024)
+or patches (4, 256, 1152) from a seeded generator, a 32- or 64-token prompt
+and 32 new tokens, in f32 through the kernels against the same run with the
+model's attention patched to the plain versions (logits and caches within
+1e-4 scaled, tokens equal but at near-ties), then in bf16 as the measured
+path (the run's prefill ms, decode ms a step and tokens/s, traced
+device-busy ms with whisper's encoder split out, peak memory, every
+kernel's launches, K1's 72 or 18 a prefill). It then trains tinyllama, mamba2, hymba and granite-moe at full
+width and depth for a few bf16 steps each through
+``repro_torch.runtime.Trainer`` (B=4, S=2048, remat; checking every
+kernel's launches a step, the losses and the MoE aux loss, that every leaf
+changed, the AdamW state and the final checkpoint, saved into ``build/``
+and deleted), and holds each model's full-width f32 gradients through the
+kernels against those through the plain versions. Each phase
 prints one JSON line; any failure exits non-zero. The last three lines are
 the kernels line, the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": ...}``.
@@ -149,6 +164,13 @@ def phase_build() -> None:
         log = build.build_log[name]
         emit("build", source=f"src/repro_torch/csrc/{name}.cu", nvcc_s=log["seconds"],
              cached=log["cached"], ptxas=log["ptxas"], resources=ptxas_resources(log["ptxas"]))
+    # K1 at gemma's 256/256 holds a 16-row output fragment of 128 f32
+    # registers a thread: it must not spill
+    dh256 = {k: v for k, v in ptxas_resources(build.build_log["flash_attention"]["ptxas"]).items()
+             if k.endswith("<256,256>")}
+    check(len(dh256) == 2 and all(v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0
+                                  for v in dh256.values()),
+          f"K1's 256/256 instantiations spill or are missing: {dh256}")
     version = subprocess.run([build.nvcc(), "--version"], capture_output=True, text=True,
                              timeout=60, check=True).stdout.strip().splitlines()[-1]
     cudart = _mapped_cudart()
@@ -234,6 +256,20 @@ def _time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _host_ms(fn, n: int) -> float:
+    """Host-clock ms of one of ``n`` back-to-back calls, to the end of their
+    device work, after one call outside the clock."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
 def _graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
     """Device time of one call: ``calls`` calls captured in one CUDA graph,
     replayed ``replays`` times between CUDA events, so the host's enqueue
@@ -273,15 +309,29 @@ def _times(kernel, plain, library, iters: int) -> dict:
     return out
 
 
-def _attention_bound(B, H, KV, Sq, Sk, Dh, elem_bytes, causal, peak_flops, Dv=None):
+def _visible_pairs(Sq, Sk, causal, window=None, prefix_len=None) -> int:
+    """The (q, k) pairs a prefill mask leaves visible, queries and keys
+    from position 0: all Sq·Sk without ``causal`` (whisper's encoder and
+    cross-attention, Sq != Sk there); with it, key k is seen by query q
+    when k <= q or k < ``prefix_len``, and k > q - ``window``."""
+    if not causal:
+        return Sq * Sk
+    pairs = 0
+    for q in range(Sq):
+        hi = min(Sk, max(q + 1, prefix_len or 0))
+        lo = 0 if window is None else max(0, q - window + 1)
+        pairs += max(0, hi - lo)
+    return pairs
+
+
+def _attention_bound(B, H, KV, Sq, Sk, Dh, elem_bytes, causal, peak_flops, Dv=None,
+                     prefix_len=None, window=None):
     """Least time for the work: each input read once, the output written
-    once; FLOPs over the (q, k) pairs the mask leaves visible, 2 Dh for
-    Q·Kᵀ and 2 Dv for P·V per pair and head."""
+    once; FLOPs over the (q, k) pairs the mask leaves visible
+    (:func:`_visible_pairs`), 2 Dh for Q·Kᵀ and 2 Dv for P·V per pair and
+    head."""
     Dv = Dh if Dv is None else Dv
-    if causal:
-        pairs = sum(min(q + 1, Sk) for q in range(Sq))
-    else:
-        pairs = Sq * Sk
+    pairs = _visible_pairs(Sq, Sk, causal, window, prefix_len)
     flops = 2 * B * H * (Dh + Dv) * pairs
     nbytes = elem_bytes * (B * H * Sq * (Dh + Dv) + B * KV * Sk * (Dh + Dv))
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
@@ -291,11 +341,25 @@ def _attention_bound(B, H, KV, Sq, Sk, Dh, elem_bytes, causal, peak_flops, Dv=No
 # deepseek-v2's expanded MLA prefill at full width: H = KV = 128, Dqk = 128
 # nope + 64 rope, Dv = 128 (the kernels phase's check and timing)
 MLA_K1 = dict(B=1, H=128, KV=128, S=512, Dh=192, Dv=128)
+# the enc-dec and VLM prefills' K1 shapes at full width, B=4 (the kernels
+# phase's checks and timings): paligemma's gemma backbone (MQA, Dh=256,
+# the 256 image tokens a prefix-LM span before a 64-token prompt), and
+# whisper's encoder over its 1500 frames, its decoder's causal 32-token
+# prompt (one ragged tile) and the decoder's cross-attention from that
+# prompt over the frames (Dh=64): (label, B, H, KV, Sq, Sk, Dh, causal,
+# prefix_len)
+ENCDEC_VLM_K1 = (
+    ("paligemma prefill S=320 prefix 256", 4, 8, 1, 320, 320, 256, True, 256),
+    ("whisper encoder S=1500", 4, 16, 16, 1500, 1500, 64, False, None),
+    ("whisper decoder causal S=32", 4, 16, 16, 32, 32, 64, True, None),
+    ("whisper cross Sq=32 Sk=1500", 4, 16, 16, 32, 1500, 64, False, None),
+)
 
 
 def _flash_cases() -> list:
     """K1's sweep, each case in bf16 and f32: (label, B, H, KV, Sq, Sk, Dh,
-    causal, window, k_len, model_layout, dtype, Dv)."""
+    causal, window, k_len, model_layout, dtype[, Dv[, prefix_len]]); a case
+    with a Dv entry has no backward kernel (phase_flash_bwd skips it)."""
     import torch
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -332,6 +396,19 @@ def _flash_cases() -> list:
             ("MLA Dqk=192 Dv=128 k_len=100 Sk=128", 2, 4, 4, 128, 128, 192, True, None, 100,
              False, dt, 128),
         ]
+    # the enc-dec and VLM paths: paligemma's Dh=256 with its prefix span
+    # (and the span's tile edges), whisper's non-causal forms at Dh=64
+    for dt in (bf16, f32):
+        for label, B, H, KV, Sq, Sk, Dh, causal, prefix in ENCDEC_VLM_K1:
+            cases.append((label, B, H, KV, Sq, Sk, Dh, causal, None, None, True, dt, Dh, prefix))
+        cases += [
+            ("Dh=256 MQA ragged S=130 prefix 65", 1, 8, 1, 130, 130, 256, True, None, None, True,
+             dt, 256, 65),
+            ("Dh=256 MQA S=320 prefix 64", 2, 8, 1, 320, 320, 256, True, None, None, True, dt,
+             256, 64),
+            ("Dh=256 causal S=200 no prefix", 1, 4, 2, 200, 200, 256, True, None, None, False,
+             dt, 256, None),
+        ]
     return cases
 
 
@@ -347,12 +424,13 @@ def phase_kernels() -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     tol = {bf16: 2e-2, f32: 1e-4}
     worst = 0.0
-    mla_errs = {}
+    mla_errs, dh256_errs = {}, {}
     for i, case in enumerate(_flash_cases()):
         label, B, H, KV, Sq, Sk, Dh, causal, window, k_len, model_layout, dt = case[:12]
         Dv = case[12] if len(case) > 12 else Dh
+        prefix = case[13] if len(case) > 13 else None
         q, k, v = _qkv(B, H, KV, Sq, Sk, Dh, dt, seed=i, model_layout=model_layout, Dv=Dv)
-        kw = dict(causal=causal, window=window, k_len=k_len)
+        kw = dict(causal=causal, window=window, k_len=k_len, prefix_len=prefix)
         if model_layout:
             got = flash_attention(q, k, v, **kw).transpose(1, 2)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -375,12 +453,15 @@ def phase_kernels() -> dict:
                      "kernel_vs_cpu_f64": (got.cpu().double() - cpu).abs().max().item(),
                      "plain_vs_cpu_f64": (want.cpu().double() - cpu).abs().max().item()}
         emit("kernels", kernel="flash_attention", case=label, dtype=str(dt).split(".")[-1],
-             shape=[B, H, KV, Sq, Sk, Dh, Dv], max_abs_err=err, tol=tol[dt], ok=ok, **where)
+             shape=[B, H, KV, Sq, Sk, Dh, Dv], prefix_len=prefix, max_abs_err=err, tol=tol[dt],
+             ok=ok, **where)
         check(ok, f"flash_attention {label} {dt}: max_abs_err {err} > {tol[dt]}")
         worst = max(worst, err)
+        key = str(dt).split(".")[-1]
         if Dv != Dh:
-            key = str(dt).split(".")[-1]
             mla_errs[key] = max(mla_errs.get(key, 0.0), err)
+        if Dh == 256:
+            dh256_errs[key] = max(dh256_errs.get(key, 0.0), err)
 
     timings = {}
     for label, H, KV, S in (("tinyllama S=512", 32, 4, 512), ("tinyllama S=1024", 32, 4, 1024),
@@ -400,8 +481,50 @@ def phase_kernels() -> dict:
         emit("kernels", kernel="flash_attention",
              timing=f"{label} bf16 causal B={B} H={H} KV={KV} Dh={Dh}", **timings[label])
     timings["deepseek MLA S=512"] = _mla_timing()
+    timings.update(_encdec_vlm_timings())
     return {"flash_attention": {"max_abs_err": worst, "timings": timings,
-                                "mla_max_abs_err": mla_errs}}
+                                "mla_max_abs_err": mla_errs, "dh256_max_abs_err": dh256_errs}}
+
+
+def _encdec_vlm_timings() -> dict:
+    """K1 at the enc-dec and VLM prefills' shapes (:data:`ENCDEC_VLM_K1`,
+    bf16) beside its plain version and SDPA on the same inputs (a causal
+    case with its boolean mask, prefix-LM for paligemma), each with its
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import _mask, flash_attention, flash_attention_ref
+
+    out = {}
+    for i, (label, B, H, KV, Sq, Sk, Dh, causal, prefix) in enumerate(ENCDEC_VLM_K1):
+        q, k, v = _qkv(B, H, KV, Sq, Sk, Dh, torch.bfloat16, seed=200 + i, model_layout=True)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        qc, kc, vc = (t.contiguous() for t in (qt, kt, vt))
+        kw = dict(causal=causal, prefix_len=prefix)
+        mask = _mask(Sq, Sk, causal, None, None, q.device, prefix) if causal else None
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask, enable_gqa=KV != H)
+
+        try:  # measured, not used: the port never calls SDPA
+            got = sdpa().transpose(1, 2)
+            torch.cuda.synchronize()
+            note = ("SDPA max abs diff from the kernel "
+                    f"{(got.float() - flash_attention(q, k, v, **kw).float()).abs().max().item()}")
+        except RuntimeError as e:
+            sdpa, note = None, f"SDPA refused: {str(e)[:200]}"
+        out[label] = _times(lambda: flash_attention(q, k, v, **kw),
+                            lambda: flash_attention_ref(qt, kt, vt, **kw), sdpa, iters=20)
+        bound_ms, bound_by = _attention_bound(B, H, KV, Sq, Sk, Dh, 2, causal, PEAK_BF16_FLOPS,
+                                              prefix_len=prefix)
+        out[label].update(bound_ms=bound_ms, bound_by=bound_by, library_note=note,
+                          library="F.scaled_dot_product_attention"
+                          + (" with the boolean prefix-LM mask" if prefix
+                             else " with the boolean causal mask" if causal else ""))
+        emit("kernels", kernel="flash_attention",
+             timing=f"{label} bf16 B={B} H={H} KV={KV} Dh={Dh}", **out[label])
+    return out
 
 
 def _mla_timing() -> dict:
@@ -1221,15 +1344,6 @@ def _layer_times(model, params, serve_kw) -> dict:
     tok = torch.zeros((lanes, 1), dtype=torch.long, device=model.device)
     idx = torch.tensor([100, 300, 500, 700], device=model.device)[:lanes]
 
-    def host_ms(fn, n):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0) / n
-
     def prefill():
         model.prefill(params, {"tokens": tokens})
 
@@ -1248,10 +1362,10 @@ def _layer_times(model, params, serve_kw) -> dict:
         with torch.inference_mode():
             graph.body()["next"].cpu()
 
-    out = {"arch": cfg.name, "prefill_ms_S300": host_ms(prefill, 5),
-           "decode_step_ms_4lanes": host_ms(decode, 10),
-           "tick_eager_ms_4lanes": host_ms(tick_eager, 10),
-           "tick_graph_ms_4lanes": host_ms(tick_graph, 10),
+    out = {"arch": cfg.name, "prefill_ms_S300": _host_ms(prefill, 5),
+           "decode_step_ms_4lanes": _host_ms(decode, 10),
+           "tick_eager_ms_4lanes": _host_ms(tick_eager, 10),
+           "tick_graph_ms_4lanes": _host_ms(tick_graph, 10),
            "tick_graph_capture_s": graph.stats()["capture_s"]}
     out.update({f"prefill_{k}": v for k, v in _traced(prefill).items()})
     out.update({f"decode_{k}": v for k, v in _traced(decode).items()})
@@ -1269,7 +1383,7 @@ def _layer_times(model, params, serve_kw) -> dict:
         # a bucket's cache, of the shape the replay clones out of its static one
         static = model.prefill(params, {"tokens": padded})[1]
         out.update({
-            "prefill_graph_ms_S300": host_ms(prefill_graph, 5),
+            "prefill_graph_ms_S300": _host_ms(prefill_graph, 5),
             "prefill_graph_bucket": bucket,
             "prefill_clone_ms": _time_ms(lambda: tree_map(torch.clone, static), 20, 2),
             "prefill_clone_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(static)),
@@ -1516,6 +1630,199 @@ def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple, depth=None) -> d
     return res
 
 
+# the enc-dec and VLM paths, served at full width and depth through the
+# model's own entry points (both engines reject these families): B=4
+# requests, each with its frames or patches from a seeded generator, a
+# prompt of PROMPT tokens, then ENCDEC_VLM_NEW greedy tokens by
+# ``decode_step``: (arch, prompt tokens)
+ENCDEC_VLM_PATHS = (("whisper-medium", 32), ("paligemma-3b", 64))
+ENCDEC_VLM_B, ENCDEC_VLM_NEW = 4, 32
+ENCDEC_VLM_TOL = 1e-4  # f32 logits through the kernels vs the plain versions, scaled
+
+
+def _encdec_vlm_batch(cfg, prompt: int, dtype) -> dict:
+    """Tokens (numpy, seed 0) and the family's frames (B, encoder_seq,
+    d_model) or patches (B, num_image_tokens, vision_dim), drawn on the
+    card from a ``torch.Generator`` seeded 0."""
+    import torch
+
+    B = ENCDEC_VLM_B
+    batch = {"tokens": np.random.default_rng(0).integers(0, cfg.vocab_size, (B, prompt))}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shape = ((B, cfg.encoder_seq, cfg.d_model) if cfg.is_encdec
+             else (B, cfg.num_image_tokens, cfg.vision_dim))
+    batch["frames" if cfg.is_encdec else "patches"] = torch.randn(
+        shape, generator=g, device="cuda").to(dtype)
+    return batch
+
+
+def _greedy(model, params, batch, steps: int, force=None) -> dict:
+    """``Model.prefill``, ``extend_caches`` by ``steps``, then greedy
+    ``decode_step``s: the tokens (B, steps), each step's f32 logits and
+    top-2 gaps, the prefill's caches, and the host seconds of the prefill
+    and of the decode steps, each to the end of its device work. With
+    ``force`` (B, steps), decode feeds those tokens in place of its own
+    argmax (teacher forcing), so two runs' logits compare step for step."""
+    import torch
+
+    from repro_torch.models.lm import extend_caches
+
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prefill_caches = caches
+    S = next(iter(caches.values()))["attn"]["k"].shape[2]
+    caches = extend_caches(caches, steps)
+    toks, steps_logits, gaps = [], [], []
+    for i in range(steps):
+        last = logits[:, -1].float()
+        steps_logits.append(last)
+        top = torch.topk(last, 2, dim=-1).values
+        gaps.append(top[:, 0] - top[:, 1])
+        toks.append(torch.argmax(last, dim=-1))
+        if i + 1 < steps:
+            feed = toks[-1] if force is None else force[:, i]
+            logits, caches = model.decode_step(params, feed[:, None], caches,
+                                               torch.full_like(feed, S + i))
+    tokens = torch.stack(toks, 1)
+    torch.cuda.synchronize()
+    return {"tokens": tokens, "logits": torch.stack(steps_logits, 1),
+            "gaps": torch.stack(gaps, 1), "caches": prefill_caches, "S": S,
+            "prefill_s": t1 - t0, "decode_s": time.perf_counter() - t1}
+
+
+def phase_encdec_vlm(arch: str, prompt: int) -> dict:
+    """Serve full-width ``arch`` (whisper-medium or paligemma-3b, random
+    weights from seed 0) through ``Model.prefill``, ``extend_caches`` and
+    greedy ``decode_step``: in f32 through the kernels and again with the
+    model's attention patched to the plain versions (logits and caches
+    within :data:`ENCDEC_VLM_TOL` scaled, tokens equal but at a top-2 gap
+    below :data:`TIE_GAP`), then in bf16 as the measured path, every
+    kernel's launch count set to 0 just before it and read just after (K1
+    runs in every prefill layer: whisper's encoder once and decoder twice a
+    layer, paligemma's layers once; decode runs none)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import extend_caches
+    from repro_torch.tree import tree_flatten_with_keys
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("encdec_vlm", arch=arch, **_release_device_memory())
+    full = get_config(arch)
+    per_prefill = (full.encoder_layers + 2 * full.num_layers if full.is_encdec
+                   else full.num_layers)
+
+    # f32: the kernels against the plain versions, on the same weights and inputs
+    model = build_model(full.replace(dtype="float32"))
+    params = model.init(seed=0)
+    batch = _encdec_vlm_batch(model.cfg, prompt, torch.float32)
+    flash_attention_bhsd.launches = 0
+    ker = _greedy(model, params, batch, ENCDEC_VLM_NEW)
+    f32_launches = flash_attention_bhsd.launches
+    kernel_fn = attention_mod.flash_attention
+    attention_mod.flash_attention = _plain_attention()
+    try:
+        plain = _greedy(model, params, batch, ENCDEC_VLM_NEW, force=ker["tokens"])
+    finally:
+        attention_mod.flash_attention = kernel_fn
+    scale = max(1.0, plain["logits"].abs().max().item())
+    logit_err = (ker["logits"] - plain["logits"]).abs().max().item() / scale
+    cache_err = {}
+    for (key, a), (_, b) in zip(tree_flatten_with_keys(ker["caches"]),
+                                tree_flatten_with_keys(plain["caches"])):
+        cache_err[key] = (a.float() - b.float()).abs().max().item() / max(
+            1.0, b.float().abs().max().item())
+    differ = (ker["tokens"] != plain["tokens"]).nonzero().tolist()
+    near_ties = [plain["gaps"][b, i].item() for b, i in differ]
+    emit("encdec_vlm", arch=arch, dtype="float32", batch=ENCDEC_VLM_B, prompt=prompt,
+         seq=ker["S"], new_tokens=ENCDEC_VLM_NEW, k1_launches=f32_launches,
+         logits_scaled_err=logit_err, caches_worst_scaled_err=max(cache_err.values()),
+         token_mismatches=len(differ), mismatch_top2_gaps=near_ties, tol=ENCDEC_VLM_TOL,
+         phase_s=time.perf_counter() - t_start)
+    check(bool(torch.isfinite(ker["logits"]).all()), f"{arch} f32: non-finite logits")
+    check(f32_launches == per_prefill,
+          f"{arch} f32: K1 launched {f32_launches} times for one prefill of {per_prefill}")
+    check(logit_err <= ENCDEC_VLM_TOL,
+          f"{arch} f32 logits through the kernels: scaled error {logit_err}")
+    check(max(cache_err.values()) <= ENCDEC_VLM_TOL, f"{arch} f32 caches: {cache_err}")
+    check(all(g < TIE_GAP for g in near_ties),
+          f"{arch} f32 tokens through the kernels differ at top-2 gaps {near_ties}")
+    del model, params, batch, ker, plain
+    _release_device_memory()
+
+    # bf16: the measured path, warmed up by one run first
+    model = build_model(full.replace(dtype="bfloat16"))
+    params = model.init(seed=0)
+    batch = _encdec_vlm_batch(model.cfg, prompt, torch.bfloat16)
+    _greedy(model, params, batch, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out = _greedy(model, params, batch, ENCDEC_VLM_NEW)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    tok = out["tokens"][:, -1:]
+    dcaches = extend_caches(out["caches"], 8)
+    idx = torch.full((ENCDEC_VLM_B,), out["S"], device="cuda")
+
+    def prefill():
+        model.prefill(params, batch)
+
+    def decode():
+        model.decode_step(params, tok, dcaches, idx)
+
+    res = {
+        "arch": arch, "dtype": "bfloat16", "batch": ENCDEC_VLM_B, "prompt": prompt,
+        "seq": out["S"], "new_tokens": ENCDEC_VLM_NEW,
+        "params": sum(t.numel() for t in params.parameters()),
+        # the measured run: one prefill, then ENCDEC_VLM_NEW - 1 decode steps
+        "prefill_ms": 1e3 * out["prefill_s"],
+        "decode_ms_per_step": 1e3 * out["decode_s"] / (ENCDEC_VLM_NEW - 1),
+        "tokens_per_s": ENCDEC_VLM_B * ENCDEC_VLM_NEW / (out["prefill_s"] + out["decode_s"]),
+        "peak_mem_bytes": peak,
+        "launches": launches,
+    }
+    # traced after the run, one prefill and one decode step each
+    res.update({f"prefill_{k}": v for k, v in _traced(prefill).items()})
+    res.update({f"decode_{k}": v for k, v in _traced(decode).items()})
+    if model.cfg.is_encdec:  # the prefill's split: the encoder alone, the rest the decoder's
+
+        def encode():
+            with torch.inference_mode():
+                model._encode(params, batch["frames"])
+
+        res["encoder_host_ms"] = _host_ms(encode, 3)
+        res["decoder_host_ms"] = res["prefill_ms"] - res["encoder_host_ms"]
+        traced = _traced(encode)
+        res["encoder_device_busy_ms"] = traced["device_busy_ms"]
+        res["encoder_k1_device_ms"] = traced["k1_device_ms"]
+        res["decoder_device_busy_ms"] = res["prefill_device_busy_ms"] - traced["device_busy_ms"]
+        res["decoder_k1_device_ms"] = res["prefill_k1_device_ms"] - traced["k1_device_ms"]
+    emit("encdec_vlm", **res)
+    check(bool(torch.isfinite(out["logits"]).all()), f"{arch} bf16: non-finite logits")
+    check(out["tokens"].shape == (ENCDEC_VLM_B, ENCDEC_VLM_NEW)
+          and bool(((out["tokens"] >= 0) & (out["tokens"] < full.vocab_size)).all()),
+          f"{arch} bf16: tokens of shape {tuple(out['tokens'].shape)} or out of the vocabulary")
+    check(launches["flash_attention"] == per_prefill,
+          f"{arch} bf16: K1 launched {launches['flash_attention']} times in the run, want "
+          f"{per_prefill} (one prefill; decode runs none)")
+    del model, params, batch, out, dcaches
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("encdec_vlm", arch=arch, phase_s=time.perf_counter() - t_start)
+    return res
+
+
 # the train cells, each at full width and depth: bf16, remat "full", B=4,
 # S=2048, AdamW, prefetched synthetic batches, through the unchanged Trainer
 # (which saves one final checkpoint, into build/, deleted after the phase):
@@ -1706,7 +2013,7 @@ def phase_train(arch: str, steps: int) -> dict:
 
 
 def _plain_attention():
-    """The model's attention call, for the parity run only: the plain
+    """The model's attention call, for the parity runs only: the plain
     versions forward (``flash_attention_lse_ref``) and backward
     (``flash_attention_bwd_ref``), in the model's layout."""
     import torch
@@ -1715,12 +2022,12 @@ def _plain_attention():
 
     class Plain(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, q, k, v, causal, window, k_len):
+        def forward(ctx, q, k, v, causal, window, k_len, prefix_len):
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             o, lse = fa.flash_attention_lse_ref(qt, kt, vt, causal=causal, window=window,
-                                                k_len=k_len)
+                                                k_len=k_len, prefix_len=prefix_len)
             ctx.save_for_backward(qt, kt, vt, o, lse)
-            ctx.mask = dict(causal=causal, window=window, k_len=k_len)
+            ctx.mask = dict(causal=causal, window=window, k_len=k_len, prefix_len=prefix_len)
             return o.transpose(1, 2)
 
         @staticmethod
@@ -1728,10 +2035,10 @@ def _plain_attention():
             qt, kt, vt, o, lse = ctx.saved_tensors
             grads = fa.flash_attention_bwd_ref(qt, kt, vt, o, lse, do.transpose(1, 2),
                                                **ctx.mask)
-            return (*(g.transpose(1, 2) for g in grads), None, None, None)
+            return (*(g.transpose(1, 2) for g in grads), None, None, None, None)
 
-    def attention(q, k, v, *, causal=True, window=None, k_len=None):
-        return Plain.apply(q, k, v, causal, window, k_len)
+    def attention(q, k, v, *, causal=True, window=None, k_len=None, prefix_len=None):
+        return Plain.apply(q, k, v, causal, window, k_len, prefix_len)
 
     return attention
 
@@ -1850,6 +2157,8 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
 
     fa, t_fa = kern["flash_attention"], kern["flash_attention"]["timings"]["tinyllama S=512"]
     t_mla = fa["timings"]["deepseek MLA S=512"]
+    timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+                   "library_device_ms", "library_note")
     ssd, t_ssd = kern["ssd"], kern["ssd"]["timings"]["mamba2 S=512"]
     fa_n, fa_by = launches("flash_attention")
     ssd_n, ssd_by = launches("ssd")
@@ -1882,9 +2191,24 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                         **MLA_K1),
                     "design": fa_design(torch.bfloat16, 192, 128),
                     "max_abs_err": fa["mla_max_abs_err"],
-                    **{k: t_mla[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                             "library_ms", "device_ms", "library_device_ms",
-                                             "library_note")},
+                    **{k: t_mla[k] for k in timing_keys},
+                },
+                # paligemma's prefill (its own instantiation, the prefix-LM
+                # span) and whisper's two non-causal forms at Dh=64
+                "dqk_256_dv_256": {
+                    "at": "B=4 H=8 KV=1 Dqk=Dv=256 Sq=Sk=320 prefix 256 bf16",
+                    "design": fa_design(torch.bfloat16, 256, 256),
+                    "max_abs_err": fa["dh256_max_abs_err"],
+                    "ptxas": {k: v for k, v in ptxas_resources(
+                        build.build_log["flash_attention"]["ptxas"]).items()
+                        if k.endswith("<256,256>")},
+                    **{k: fa["timings"][ENCDEC_VLM_K1[0][0]][k] for k in timing_keys},
+                },
+                "whisper": {
+                    label: {"at": f"B={B} H={H} KV={KV} Dh={Dh} Sq={Sq} Sk={Sk} bf16 "
+                                  + ("causal" if causal else "non-causal"),
+                            **{k: fa["timings"][label][k] for k in timing_keys}}
+                    for label, B, H, KV, Sq, Sk, Dh, causal, _prefix in ENCDEC_VLM_K1[1:]
                 },
             },
             {
@@ -2000,6 +2324,8 @@ def main() -> int:
     phase_readback()
     serves = [phase_serve(*path) for path in PATHS]
     emit("timing", serve_phases_s=time.perf_counter() - t0)
+    serves += [phase_encdec_vlm(*path) for path in ENCDEC_VLM_PATHS]
+    emit("timing", encdec_vlm_phases_s=time.perf_counter() - t0)
     trains = [phase_train(arch, steps) for arch, steps in TRAIN_CELLS]
     emit("timing", train_phases_s=time.perf_counter() - t0)
     for arch, B, S in PARITY_CELLS:

@@ -4,8 +4,10 @@
 // `src/repro/kernels/flash_attention.py:_kernel` (launched by
 // `flash_attention_bhsd`). It recomputes the same function:
 // softmax(Q K^T * Dqk^-1/2 + mask) V per (batch, q-head), GQA q-head h reading
-// kv-head h / (H / KV), masks causal (top-left aligned, positions from 0),
-// sliding window (k > q - window) and valid length (k < k_len), finite -1e30
+// kv-head h / (H / KV), masks causal (top-left aligned, positions from 0)
+// with an optional prefix-LM span (keys below prefix_len visible to every
+// query, as the reference's causal_mask_bias), sliding window
+// (k > q - window) and valid length (k < k_len), finite -1e30
 // for masked scores, the denominator floored at 1e-30, output in the input
 // dtype. With a non-null `lse` it also writes each row's log-sum-exp, which
 // the backward (csrc/flash_attention_bwd.cu) recomputes P from.
@@ -49,6 +51,13 @@
 //    109 KiB, one CTA an SM; each warp keeps its q fragments (48 registers)
 //    beside its 64 output accumulators. The work per head is
 //    2 Sq Sk/2 (192 + 128) FLOPs against q, k, v and o read or written once.
+//  - Dqk = Dv = 256 (flash_fwd_mma<256, 256>), gemma's head dim (paligemma:
+//    MQA, 8 q-heads on one kv-head, a prefix-LM mask over its 256 image
+//    tokens): Q, K and V tiles 256 wide, 64-key tiles. A warp's 16-row
+//    output is 32 n-tiles, 128 f32 registers a thread, so it does not keep
+//    its q fragments (64 more registers, which would spill): each of the 16
+//    k-steps of Q K^T reads them from the q tile by ldmatrix. The CTA holds
+//    q and two stages of K and V, rows of 264, 165 KiB, one CTA an SM.
 // What holds the wgmma form back next: each group waits for its Q K^T
 // before the softmax and for its P V before the next tile (no overlap of
 // the two within a warpgroup), and the loads come from cp.async issued by
@@ -59,10 +68,11 @@
 // tensor cores take no f32 operand that holds a 1e-4 tolerance. One CTA per
 // (batch * q-head, 64-row q tile), 256 threads, each thread owning a 4 x 4
 // micro-tile of the 64 x 64 score tile and 4 rows x Dv/16 columns of the
-// output, K/V staged in shared memory as f32 (146 KiB at 192/128).
+// output, K/V staged in shared memory as f32 (146 KiB at 192/128, 209.5 KiB
+// at 256/256, under the 227 KiB a CTA may opt in to).
 //
-// Both: tiles wholly above the causal diagonal, left of the window or past
-// the valid length are skipped; ragged Sq and Sk are masked (zero-filled
+// Both: tiles wholly above the causal diagonal (and past the prefix span),
+// left of the window or past the valid length are skipped; ragged Sq and Sk are masked (zero-filled
 // loads), never asserted away; inputs are addressed through strides, so
 // (B, S, H, Dh) activations need no transpose copy.
 
@@ -93,25 +103,27 @@ struct Params {
   int causal;
   int window;  // <= 0: no window
   int k_len;   // keys at positions >= k_len are masked
+  int prefix_len;  // causal: keys at positions < prefix_len are visible to every query
   float scale;
   float* lse;  // optional (B, H, Sq) f32 row statistics m + log(l); null: not written
 };
 
 // the key range [k_lo, k_hi) a q tile starting at q0 can see, k_lo on a
-// boundary of bk-key tiles
+// boundary of bk-key tiles; a causal tile's keys run to its diagonal or to
+// the end of the prefix-LM span, whichever is further
 struct KeyRange {
   int k_valid, q_last, k_lo, k_hi;
   __device__ KeyRange(const Params& p, int q0, int bk) {
     k_valid = min(p.k_len, p.Sk);
     q_last = min(q0 + BQ, p.Sq) - 1;
-    k_hi = p.causal ? min(k_valid, q_last + 1) : k_valid;
+    k_hi = p.causal ? min(k_valid, max(q_last + 1, p.prefix_len)) : k_valid;
     k_lo = p.window > 0 ? max(0, q0 - p.window + 1) / bk * bk : 0;
   }
 };
 
 __device__ __forceinline__ bool visible(const Params& p, int k_valid, int qi, int kj) {
   bool ok = kj < k_valid;
-  if (p.causal) ok = ok && kj <= qi;
+  if (p.causal) ok = ok && (kj <= qi || kj < p.prefix_len);
   if (p.window > 0) ok = ok && kj > qi - p.window;
   return ok;
 }
@@ -158,6 +170,11 @@ __global__ void __launch_bounds__(MMA_THREADS, mma_min_blocks<DQK>()) flash_fwd_
   constexpr int NS = HK / 8;    // n-tiles of a warp's S
   constexpr int CH = DQK / 8;   // 16-byte pieces of a q or k row
   constexpr int CHV = DV / 8;   // of a v row
+  // a warp keeps its q fragments in registers up to Dqk = 192 (48
+  // registers there); at 256 they would take 64 beside the 128 output
+  // accumulators and spill, so each k-step of Q K^T reads them again from
+  // the q tile in shared memory (ldmatrix)
+  constexpr bool Q_REGS = DQK <= 192;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* k_s = q_s + BQ * LD;       // [stage][BK][LD]
@@ -202,7 +219,7 @@ __global__ void __launch_bounds__(MMA_THREADS, mma_min_blocks<DQK>()) flash_fwd_
   // log2 domain: p = 2^(s * scale * log2(e) - m)
   const float sl2 = p.scale * 1.4426950408889634f;
   const int row0 = q0 + 16 * wr + g;  // this lane's rows: row0 and row0 + 8
-  uint32_t qf[KD][4];
+  uint32_t qf[Q_REGS ? KD : 1][4];
   float o[ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -214,10 +231,12 @@ __global__ void __launch_bounds__(MMA_THREADS, mma_min_blocks<DQK>()) flash_fwd_
     tc::cp_async_commit();
     tc::cp_async_wait<1>();  // this tile (and, the first time, q) has landed
     __syncthreads();
-    if (k0 == kr.k_lo) {
+    if constexpr (Q_REGS) {
+      if (k0 == kr.k_lo) {
 #pragma unroll
-      for (int kd = 0; kd < KD; ++kd)
-        tc::ldsm_x4(qf[kd], q_s + (16 * wr + tc::x_row(lane)) * LD + 16 * kd + tc::x_col(lane));
+        for (int kd = 0; kd < KD; ++kd)
+          tc::ldsm_x4(qf[kd], q_s + (16 * wr + tc::x_row(lane)) * LD + 16 * kd + tc::x_col(lane));
+      }
     }
     const int kh = k0 + HK * grp;  // this group's first key
     if (kh < kr.k_hi) {            // else every key of its half is masked
@@ -229,18 +248,25 @@ __global__ void __launch_bounds__(MMA_THREADS, mma_min_blocks<DQK>()) flash_fwd_
       for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
       for (int kd = 0; kd < KD; ++kd) {
+        uint32_t a[4];
+        if constexpr (Q_REGS) {
+          a[0] = qf[kd][0], a[1] = qf[kd][1], a[2] = qf[kd][2], a[3] = qf[kd][3];
+        } else {
+          tc::ldsm_x4(a, q_s + (16 * wr + tc::x_row(lane)) * LD + 16 * kd + tc::x_col(lane));
+        }
 #pragma unroll
         for (int np = 0; np < NS / 2; ++np) {
           uint32_t r[4];
           tc::ldsm_x4(r, ks + (16 * np + tc::y_row(lane)) * LD + 16 * kd + tc::y_col(lane));
-          tc::mma(s[2 * np], qf[kd], r[0], r[1]);
-          tc::mma(s[2 * np + 1], qf[kd], r[2], r[3]);
+          tc::mma(s[2 * np], a, r[0], r[1]);
+          tc::mma(s[2 * np + 1], a, r[2], r[3]);
         }
       }
 
       // online softmax on the fragments; only key halves at the diagonal,
       // the window's edge or the valid length evaluate the mask
-      const bool edge = kh + HK > kr.k_valid || (p.causal && kh + HK - 1 > q0) ||
+      const bool edge = kh + HK > kr.k_valid ||
+                        (p.causal && kh + HK - 1 > q0 && kh + HK > p.prefix_len) ||
                         (p.window > 0 && kh <= kr.q_last - p.window);
       float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
@@ -430,7 +456,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_fwd_wgmma(Params p) {
       tc::wgmma_commit();
       tc::wgmma_wait0();
 
-      const bool edge = kh + HK > kr.k_valid || (p.causal && kh + HK - 1 > q0) ||
+      const bool edge = kh + HK > kr.k_valid ||
+                        (p.causal && kh + HK - 1 > q0 && kh + HK > p.prefix_len) ||
                         (p.window > 0 && kh <= kr.q_last - p.window);
       float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
@@ -723,9 +750,12 @@ struct DeviceScope {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Dh is the q and k head dim, Dv the v
-// and o head dim; (Dh, Dv) is one of (32, 32), (64, 64), (128, 128) and
-// (192, 128). Strides are in elements; the last (head) dim must be contiguous, and for bfloat16 the base pointers and the other
-// strides must be 16-byte aligned (the wrapper checks). `device` is the
+// and o head dim; (Dh, Dv) is one of (32, 32), (64, 64), (128, 128),
+// (192, 128) and (256, 256). Strides are in elements; the last (head) dim
+// must be contiguous, and for bfloat16 the base pointers and the other
+// strides must be 16-byte aligned (the wrapper checks). With `causal`, keys
+// at positions below `prefix_len` (0: none) are visible to every query, the
+// prefix-LM mask; the window and `k_len` still apply. `device` is the
 // ordinal the tensors live on and `stream` one of its streams; the launch
 // makes it the thread's current device of the CUDA runtime this library is
 // linked against (with -cudart shared, PyTorch's) and then restores the
@@ -740,7 +770,7 @@ extern "C" int flash_attention_fwd(
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
-    int causal, int window, int k_len, float scale, float* lse, void* stream) {
+    int causal, int window, int k_len, int prefix_len, float scale, float* lse, void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Sk < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (device < 0 || device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
@@ -748,12 +778,13 @@ extern "C" int flash_attention_fwd(
   if (scope.err != cudaSuccess) return (int)scope.err;
   Params p{q, k, v, o, B, H, KV, Sq, Sk,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-           causal, window, k_len, scale, lse};
+           causal, window, k_len, prefix_len, scale, lse};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf16 = dtype == 1;
   if (Dh == 32 && Dv == 32) return (int)launch<32, 32>(p, bf16, device, st);
   if (Dh == 64 && Dv == 64) return (int)launch<64, 64>(p, bf16, device, st);
   if (Dh == 128 && Dv == 128) return (int)launch<128, 128>(p, bf16, device, st);
   if (Dh == 192 && Dv == 128) return (int)launch<192, 128>(p, bf16, device, st);
+  if (Dh == 256 && Dv == 256) return (int)launch<256, 256>(p, bf16, device, st);
   return (int)cudaErrorInvalidValue;
 }

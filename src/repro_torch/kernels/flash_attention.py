@@ -28,11 +28,16 @@ kernels; the raw forward launch refuses to run there, so no caller gets an
 output without a gradient.
 
 The forward takes a query/key head dim ``Dqk`` and a value head dim ``Dv``
-from :data:`HEAD_DIM_PAIRS`: Dqk = Dv at 32, 64 and 128, and Dqk = 192 with
-Dv = 128, MLA's expanded prefill (deepseek-v2: 128 nope + 64 rope dims of
-query and key, 128 of value), on an instantiation of its own. The scale is
-``Dqk**-0.5``. The backward takes Dqk = Dv in :data:`HEAD_DIMS` only: on a
-CUDA tensor, attention at 192/128 under autograd raises
+from :data:`HEAD_DIM_PAIRS`: Dqk = Dv at 32, 64, 128 and 256 (gemma's, in
+paligemma), and Dqk = 192 with Dv = 128, MLA's expanded prefill
+(deepseek-v2: 128 nope + 64 rope dims of query and key, 128 of value), each
+on an instantiation of its own. The scale is ``Dqk**-0.5``. Besides the
+causal, window and valid-length (``k_len``) masks, the forward takes a
+prefix-LM span: with ``causal`` and ``prefix_len``, keys at positions below
+``prefix_len`` are visible to every query (paligemma's image tokens), as
+the reference's ``causal_mask_bias`` builds it. The backward takes Dqk = Dv
+in :data:`HEAD_DIMS` and no prefix span: on a CUDA tensor, attention at
+192/128 or 256/256, or with a prefix span, under autograd raises
 ``NotImplementedError`` before anything is launched.
 
 The first launch of each kernel instantiation (device, dtype, Dqk, Dv,
@@ -55,14 +60,15 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the backward's head dims (Dqk = Dv)
 HEAD_DIMS = (32, 64, 128)
 # the forward's (Dqk, Dv) pairs, each an instantiation of its own
-HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128), (192, 128))
+HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128), (192, 128), (256, 256))
 
 
 def design(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = None) -> str:
     """The kernel design a launch of this dtype and (query/key, value) head
     dims runs, as ``csrc/flash_attention.cu`` names them: bf16 on ``wgmma``
-    at 64/64, on ``mma.sync`` at 32/32, 128/128 and 192/128 (MLA: Q·Kᵀ 192
-    deep, the output fragment 128 wide); f32 on FMA tiles."""
+    at 64/64, on ``mma.sync`` at 32/32, 128/128, 192/128 (MLA: Q·Kᵀ 192
+    deep, the output fragment 128 wide) and 256/256 (q fragments read from
+    shared memory at each k-step); f32 on FMA tiles."""
     v_head_dim = head_dim if v_head_dim is None else v_head_dim
     if (head_dim, v_head_dim) not in HEAD_DIM_PAIRS:
         raise ValueError(f"head dims {(head_dim, v_head_dim)} not in the kernel's {HEAD_DIM_PAIRS}")
@@ -113,7 +119,7 @@ def _kernel_fn(name: str = "flash_attention_fwd"):
             if name == "flash_attention_fwd":
                 fn = build.library("flash_attention").flash_attention_fwd
                 fn.argtypes = (
-                    [ptr] * 4 + [i32] * 9 + [i64] * 12 + [i32] * 3 + [ctypes.c_float, ptr, ptr]
+                    [ptr] * 4 + [i32] * 9 + [i64] * 12 + [i32] * 4 + [ctypes.c_float, ptr, ptr]
                 )
             else:
                 fn = build.library("flash_attention_bwd").flash_attention_bwd
@@ -123,12 +129,16 @@ def _kernel_fn(name: str = "flash_attention_fwd"):
         return fn
 
 
-def _mask(Sq: int, Sk: int, causal: bool, window, k_len, device) -> torch.Tensor:
+def _mask(Sq: int, Sk: int, causal: bool, window, k_len, device,
+          prefix_len: Optional[int] = None) -> torch.Tensor:
     q_pos = torch.arange(Sq, device=device)[:, None]
     k_pos = torch.arange(Sk, device=device)[None, :]
     mask = k_pos < (Sk if k_len is None else k_len)
     if causal:
-        mask = mask & (k_pos <= q_pos)
+        seen = k_pos <= q_pos
+        if prefix_len:
+            seen = seen | (k_pos < prefix_len)
+        mask = mask & seen
     if window is not None:
         mask = mask & (k_pos > q_pos - window)
     return mask
@@ -142,15 +152,18 @@ def flash_attention_ref(
     causal: bool = True,
     window: Optional[int] = None,
     k_len: Optional[int] = None,
+    prefix_len: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, to the kernel's semantics: f32
     scores of q pre-scaled by ``Dqk**-0.5``, finite ``-1e30`` for masked
-    keys, causal aligned top-left (positions from 0), the denominator
-    floored at 1e-30, output (B, H, Sq, Dv) cast to the input dtype."""
-    return flash_attention_lse_ref(q, k, v, causal=causal, window=window, k_len=k_len)[0]
+    keys, causal aligned top-left (positions from 0), with ``prefix_len``
+    keys below it visible to every query, the denominator floored at 1e-30,
+    output (B, H, Sq, Dv) cast to the input dtype."""
+    return flash_attention_lse_ref(q, k, v, causal=causal, window=window, k_len=k_len,
+                                   prefix_len=prefix_len)[0]
 
 
-def flash_attention_lse_ref(q, k, v, *, causal=True, window=None, k_len=None):
+def flash_attention_lse_ref(q, k, v, *, causal=True, window=None, k_len=None, prefix_len=None):
     """:func:`flash_attention_ref` and the rows' f32 statistics ``lse = m +
     log(max(l, 1e-30))`` (B, H, Sq), natural log, as the kernel writes them
     for the backward."""
@@ -158,7 +171,7 @@ def flash_attention_lse_ref(q, k, v, *, causal=True, window=None, k_len=None):
     KV, Sk = k.shape[1], k.shape[2]
     qg = q.reshape(B, KV, H // KV, Sq, Dh).float() * Dh**-0.5
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float())
-    s = torch.where(_mask(Sq, Sk, causal, window, k_len, q.device), s, NEG_INF)
+    s = torch.where(_mask(Sq, Sk, causal, window, k_len, q.device, prefix_len), s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -178,6 +191,7 @@ def flash_attention_bwd_ref(
     causal: bool = True,
     window: Optional[int] = None,
     k_len: Optional[int] = None,
+    prefix_len: Optional[int] = None,
 ):
     """Plain PyTorch version of the backward kernels, by their formulas, in
     f32: ``P = exp(S·scale − lse)`` (0 where masked), ``D = rowsum(dO∘O)``,
@@ -196,7 +210,7 @@ def flash_attention_bwd_ref(
     kf, vf = k.float(), v.float()
     s = torch.einsum("bkgqd,bksd->bkgqs", qg * scale, kf)
     lse_g = lse.reshape(B, KV, G, Sq, 1).float()
-    mask = _mask(Sq, Sk, causal, window, k_len, q.device)
+    mask = _mask(Sq, Sk, causal, window, k_len, q.device, prefix_len)
     p = torch.where(mask, torch.exp(s - lse_g), 0.0)
     delta = (dog * og).sum(dim=-1, keepdim=True)
     dv = torch.einsum("bkgqs,bkgqd->bksd", p, dog)
@@ -214,14 +228,15 @@ def attention_ref(
     causal: bool = True,
     window: Optional[int] = None,
     k_len: Optional[int] = None,
+    prefix_len: Optional[int] = None,
 ) -> torch.Tensor:
     """Dense f32 softmax attention with GQA head grouping (the reference's
-    ``kernels/ref.py::attention_ref``)."""
+    ``kernels/ref.py::attention_ref``), with the kernel's masks."""
     B, H, Sq, Dh = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     qg = q.reshape(B, KV, H // KV, Sq, Dh).float() * Dh**-0.5
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float())
-    s = torch.where(_mask(Sq, Sk, causal, window, k_len, q.device), s, NEG_INF)
+    s = torch.where(_mask(Sq, Sk, causal, window, k_len, q.device, prefix_len), s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", w, v.float())
     return o.reshape(B, H, Sq, v.shape[-1]).to(q.dtype)
@@ -235,8 +250,10 @@ def flash_attention_bhsd(
     causal: bool = True,
     window: Optional[int] = None,
     k_len: Optional[int] = None,
+    prefix_len: Optional[int] = None,
 ) -> torch.Tensor:
-    """Flash attention in layout (batch, heads, seq, head_dim).
+    """Flash attention in layout (batch, heads, seq, head_dim); with
+    ``causal``, keys below ``prefix_len`` are visible to every query.
 
     CUDA tensors launch the kernel: any stride is taken as long as the last
     dim is contiguous (and, in bfloat16, every other stride and the base
@@ -248,7 +265,7 @@ def flash_attention_bhsd(
     not counted, nor a launch into a CUDA graph being captured:
     :func:`~repro_torch.kernels.build.count_launch`).
     """
-    return _attention(q, k, v, causal, window, k_len, bshd=False)
+    return _attention(q, k, v, causal, window, k_len, prefix_len, bshd=False)
 
 
 def flash_attention(
@@ -259,66 +276,70 @@ def flash_attention(
     causal: bool = True,
     window: Optional[int] = None,
     k_len: Optional[int] = None,
+    prefix_len: Optional[int] = None,
 ) -> torch.Tensor:
     """:func:`flash_attention_bhsd` in the model's layout: the kernel reads
     (B, S, H, D) through its strides, and the output comes back as (B, Sq,
     H, Dv)."""
-    return _attention(q, k, v, causal, window, k_len, bshd=True)
+    return _attention(q, k, v, causal, window, k_len, prefix_len, bshd=True)
 
 
 def _to_bhsd(bshd, *tensors):
     return tuple(t.transpose(1, 2) for t in tensors) if bshd else tensors
 
 
-def _attention(q, k, v, causal, window, k_len, *, bshd):
+def _attention(q, k, v, causal, window, k_len, prefix_len, *, bshd):
     if build.needs_grad(q, k, v):
         if q.device.type != "cpu":
-            _require_bwd_dims(q, v)  # before the forward runs, not in the backward
-        return FlashAttention.apply(q, k, v, causal, window, k_len, bshd)
-    return _forward(q, k, v, causal, window, k_len, bshd, lse=False)
+            _require_bwd_dims(q, v, prefix_len)  # before the forward runs, not in the backward
+        return FlashAttention.apply(q, k, v, causal, window, k_len, bshd, prefix_len)
+    return _forward(q, k, v, causal, window, k_len, bshd, lse=False, prefix_len=prefix_len)
 
 
-def flash_attention_lse(q, k, v, *, causal=True, window=None, k_len=None, bshd=False):
+def flash_attention_lse(q, k, v, *, causal=True, window=None, k_len=None, bshd=False,
+                        prefix_len=None):
     """The forward and its rows' f32 statistics ``lse`` (B, H, Sq), which
     the backward takes. CUDA tensors launch the kernel (counted in
     ``flash_attention_bhsd.launches``), CPU tensors take
     :func:`flash_attention_lse_ref`. No gradient flows through it: under
     autograd it raises (use :func:`flash_attention` or
     :class:`FlashAttention`)."""
-    return _forward(q, k, v, causal, window, k_len, bshd, lse=True)
+    return _forward(q, k, v, causal, window, k_len, bshd, lse=True, prefix_len=prefix_len)
 
 
-def _forward(q, k, v, causal, window, k_len, bshd, *, lse):
+def _forward(q, k, v, causal, window, k_len, bshd, *, lse, prefix_len=None):
     """One counted forward launch, or the plain version on the CPU; ``lse``:
     also the rows' statistics (serving asks for none, and the kernel then
     writes none)."""
     if build.device_type(q, k, v) == "cpu":
         qt, kt, vt = _to_bhsd(bshd, q, k, v)
-        o, stats = flash_attention_lse_ref(qt, kt, vt, causal=causal, window=window, k_len=k_len)
+        o, stats = flash_attention_lse_ref(qt, kt, vt, causal=causal, window=window, k_len=k_len,
+                                           prefix_len=prefix_len)
         o = o.transpose(1, 2) if bshd else o
         return (o, stats) if lse else o
-    k_len = check_inputs(q, k, v, k_len, bshd=bshd)
+    k_len = check_inputs(q, k, v, k_len, bshd=bshd, prefix_len=prefix_len)
     _check_first_launch(q.device, q.dtype, q.shape[-1], v.shape[-1])
-    out = _launch(q, k, v, causal=causal, window=window, k_len=k_len, bshd=bshd, lse=lse)
+    out = _launch(q, k, v, causal=causal, window=window, k_len=k_len, bshd=bshd, lse=lse,
+                  prefix_len=prefix_len)
     build.count_launch(flash_attention_bhsd, "flash_attention")
     return out
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None, k_len=None,
-                        bshd=False):
+                        bshd=False, prefix_len=None):
     """The gradients (dq, dk, dv) of the attention output ``o`` for its
     gradient ``do``, from the forward's ``lse``; layouts as the forward's
     (``bshd``: the model's (B, S, heads, Dh)), each gradient in its input's
     dtype and shape. CUDA tensors launch the three backward kernels
     (``flash_attention_bwd.launches`` counts each set of three), CPU tensors
-    take :func:`flash_attention_bwd_ref`."""
+    take :func:`flash_attention_bwd_ref` (which alone takes a prefix span)."""
     if build.device_type(q, k, v, o, lse, do) == "cpu":
         qt, kt, vt, ot, dot = _to_bhsd(bshd, q, k, v, o, do)
         grads = flash_attention_bwd_ref(qt, kt, vt, ot, lse, dot, causal=causal, window=window,
-                                        k_len=k_len)
+                                        k_len=k_len, prefix_len=prefix_len)
         return _to_bhsd(bshd, *grads)
-    k_len = check_inputs(q, k, v, k_len, bshd=bshd)
-    _require_bwd_dims(q, v)
+    k_len = check_inputs(q, k, v, k_len, bshd=bshd, prefix_len=prefix_len)
+    _require_bwd_dims(q, v, prefix_len)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} {do.dtype} "
                          f"must match q {tuple(q.shape)} {q.dtype}")
@@ -335,31 +356,33 @@ class FlashAttention(torch.autograd.Function):
     """Flash attention with a gradient: the forward kernel writes the rows'
     ``lse`` beside the output, and the backward launches the backward
     kernels from q, k, v, o and lse (the plain versions on the CPU).
-    ``apply(q, k, v, causal, window, k_len, bshd)``."""
+    ``apply(q, k, v, causal, window, k_len, bshd, prefix_len=None)``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, k_len, bshd):
+    def forward(ctx, q, k, v, causal, window, k_len, bshd, prefix_len=None):
         o, lse = flash_attention_lse(q, k, v, causal=causal, window=window, k_len=k_len,
-                                     bshd=bshd)
+                                     bshd=bshd, prefix_len=prefix_len)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.mask = dict(causal=causal, window=window, k_len=k_len, bshd=bshd)
+        ctx.mask = dict(causal=causal, window=window, k_len=k_len, bshd=bshd,
+                        prefix_len=prefix_len)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.mask)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
-def check_inputs(q, k, v, k_len=None, *, bshd=False) -> int:
+def check_inputs(q, k, v, k_len=None, *, bshd=False, prefix_len=None) -> int:
     """What the kernel takes, checked on any device (the meta device
     included) before anything is launched: (B, H, Sq, Dqk) q, (B, KV, Sk,
     Dqk) k and (B, KV, Sk, Dv) v (or (B, S, heads, D) with ``bshd``) with H
     a multiple of KV, (Dqk, Dv) one of :data:`HEAD_DIM_PAIRS`, one dtype of
     float32 or bfloat16, a contiguous last dim and, for bfloat16, 16-byte
-    aligned base addresses and strides. Returns ``k_len`` (Sk if None);
-    raises ``ValueError`` on anything else."""
+    aligned base addresses and strides, and ``prefix_len`` None or >= 0.
+    Returns ``k_len`` (Sk if None); raises ``ValueError`` on anything
+    else."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or k.shape[:3] != v.shape[:3]:
         raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
     hd, sd = (2, 1) if bshd else (1, 2)
@@ -379,22 +402,30 @@ def check_inputs(q, k, v, k_len=None, *, bshd=False) -> int:
     k_len = Sk if k_len is None else int(k_len)
     if k_len < 0:
         raise ValueError(f"k_len must be >= 0, got {k_len}")
+    if prefix_len is not None and int(prefix_len) < 0:
+        raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
     return k_len
 
 
-def _require_bwd_dims(q, v) -> None:
-    """The backward kernels take Dqk = Dv in :data:`HEAD_DIMS`; MLA's
-    192/128 has a forward instantiation and no backward yet."""
+def _require_bwd_dims(q, v, prefix_len=None) -> None:
+    """The backward kernels take Dqk = Dv in :data:`HEAD_DIMS` and no
+    prefix span; MLA's 192/128 and gemma's 256/256 have forward
+    instantiations and no backward yet."""
     dims = (q.shape[-1], v.shape[-1])
     if dims[0] != dims[1] or dims[0] not in HEAD_DIMS:
         raise NotImplementedError(
             f"flash attention's backward kernel takes Dqk = Dv in {HEAD_DIMS}; (Dqk, Dv) = "
-            f"{dims} (MLA's expanded form) has a forward kernel only, and training through "
-            "it on the card waits for that backward (ROADMAP queue 2 item 1)"
+            f"{dims} has a forward kernel only, and training through it on the card waits "
+            "for that backward (ROADMAP queue 2 item 1)"
+        )
+    if prefix_len:
+        raise NotImplementedError(
+            "flash attention's backward kernel takes no prefix-LM span; training through "
+            "a prefix mask on the card waits for it (ROADMAP queue 2 item 1)"
         )
 
 
-def _launch(q, k, v, *, causal, window, k_len, bshd=False, lse=False):
+def _launch(q, k, v, *, causal, window, k_len, bshd=False, lse=False, prefix_len=None):
     """One forward launch; with ``lse`` also returns the rows' statistics.
     Raises under autograd: its output carries no gradient."""
     if build.needs_grad(q, k, v):
@@ -412,7 +443,8 @@ def _launch(q, k, v, *, causal, window, k_len, bshd=False, lse=False):
     err = _kernel_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPE_CODES[q.dtype],
         q.device.index, B, H, KV, Sq, Sk, Dh, Dv, *_bhs_strides(hd, sd, q, k, v, o),
-        int(causal), 0 if window is None else int(window), k_len, Dh**-0.5,
+        int(causal), 0 if window is None else int(window), k_len,
+        0 if prefix_len is None else int(prefix_len), Dh**-0.5,
         None if stats is None else stats.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -16,8 +16,11 @@ the hand-written flash kernel (``repro_torch.kernels.flash_attention``),
 under autograd through its ``FlashAttention`` function, whose backward is
 the hand-written backward kernel; MLA's expanded form runs it with query
 and key head dim ``nope + rope`` (192) and value head dim ``v_head_dim``
-(128). Decode (``Sq == 1``) and every CPU call take the dense einsum path,
-as the reference does.
+(128). Every prefill mask takes the kernel: causal, a sliding window, a
+prefix-LM span (paligemma's image tokens), bidirectional (whisper's
+encoder) and the cross-attention's queries over all encoder frames
+(``Sq != Sk``). Decode (``Sq == 1``) and every CPU call take the dense
+einsum path, as the reference does.
 """
 from __future__ import annotations
 
@@ -36,9 +39,10 @@ ATTN_CHUNK = 2048  # q-block size for the chunked dense path
 @dataclass(frozen=True)
 class PrefillMask:
     """The mask of a prefill call, whose queries and keys sit at positions
-    0..S-1: causal (top-left aligned), or bidirectional; a sliding window;
-    a prefix-LM span. The flash kernel expresses all but the prefix span;
-    the dense path builds the bias itself (:meth:`bias`)."""
+    from 0: causal (top-left aligned), or bidirectional (every key, also
+    with ``Sq != Sk``); a sliding window; a prefix-LM span (keys below
+    ``prefix_len`` seen by every query). The flash kernel takes each of
+    them; the dense path builds the bias itself (:meth:`bias`)."""
 
     causal: bool = True
     window: Optional[int] = None
@@ -63,13 +67,15 @@ def attend(
     ``(B or 1, Sq, Sk)`` (decode builds one from each lane's cache)."""
     B, Sq, H, Dh = q.shape
     if q.is_cuda and Sq > 1:
-        if not isinstance(mask, PrefillMask) or mask.prefix_len is not None:
+        if not isinstance(mask, PrefillMask):
             raise NotImplementedError(
-                "this attention mask (prefix-LM, or queries not starting at "
-                "position 0) has no flash-kernel form yet"
+                "an additive bias over more than one query (queries not starting "
+                "at position 0) has no flash-kernel form"
             )
-        window = mask.window if mask.causal else None
-        return flash_attention(q, k, v, causal=mask.causal, window=window)
+        if not mask.causal:
+            return flash_attention(q, k, v, causal=False)
+        return flash_attention(q, k, v, causal=True, window=mask.window,
+                               prefix_len=mask.prefix_len)
     bias = mask.bias(Sq, k.shape[1], q.device) if isinstance(mask, PrefillMask) else mask
     if Sq > ATTN_CHUNK and Sq % ATTN_CHUNK == 0:
         # q-chunked dense path: never materialises the (Sq, Sk) scores for

@@ -7,8 +7,13 @@ Families carried so far:
   ssm             pre-norm Mamba2 SSD block (no separate MLP)
   hybrid (hymba)  parallel attention + SSD heads on separately normed
                   inputs, ``x + 0.5 * (attn + ssm)``, then the MLP
-The other families (enc-dec, VLM) come with later slices; their blocks
-raise ``NotImplementedError`` here.
+  vlm             the dense block (paligemma's gemma backbone), whose
+                  prefill attends under a prefix-LM mask
+  encdec          whisper-style LayerNorm blocks without RoPE: the encoder
+                  block attends bidirectionally, the decoder block
+                  (``xdecoder``) adds cross-attention over the encoder's
+                  output, whose keys and values are the static ``cross``
+                  cache in decode
 """
 from __future__ import annotations
 
@@ -17,6 +22,8 @@ from typing import Optional, Tuple
 import torch
 
 from .attention import (
+    PrefillMask,
+    attend,
     gqa_attention,
     gqa_cache_shape,
     gqa_params,
@@ -24,40 +31,48 @@ from .attention import (
     mla_cache_shape,
     mla_params,
 )
-from .common import rms_norm
+from .common import layer_norm, rms_norm
 from .mlp import mlp_apply, mlp_params
 from .moe import moe_apply, moe_params
 from .ssm import ssm_apply, ssm_cache_shape, ssm_params
 
 
 def check_supported(cfg) -> None:
-    """Raise for a config whose blocks this slice does not carry."""
+    """Raise for a config whose blocks the port does not carry."""
     rope_gqa = cfg.attention == "gqa" and cfg.use_rope
-    ok = cfg.norm == "rms" and not cfg.is_encdec and (
-        (cfg.family in ("dense", "hybrid") and rope_gqa and not cfg.is_moe)
+    decoder = cfg.norm == "rms" and not cfg.is_encdec and (
+        (cfg.family in ("dense", "hybrid", "vlm") and rope_gqa and not cfg.is_moe)
         or (cfg.family == "moe" and cfg.is_moe and (rope_gqa or cfg.attention == "mla"))
         or (cfg.family == "ssm" and cfg.attention == "none" and not cfg.is_moe)
     )
-    if not ok:
+    encdec = (cfg.family == "encdec" and cfg.is_encdec and cfg.norm == "ln"
+              and cfg.attention == "gqa" and not cfg.use_rope and not cfg.is_moe)
+    if not (decoder or encdec):
         raise NotImplementedError(
-            "the port carries the dense and hybrid GQA RMSNorm RoPE decoders, the MoE "
-            "decoders with GQA or MLA attention and the attention-free SSM decoder; "
-            f"{cfg.name} (family={cfg.family!r}, "
-            f"attention={cfg.attention!r}, norm={cfg.norm!r}) waits for a later slice"
+            "the port carries the dense, hybrid and VLM GQA RMSNorm RoPE decoders, the MoE "
+            "decoders with GQA or MLA attention, the attention-free SSM decoder and the "
+            f"LayerNorm encoder-decoder; {cfg.name} (family={cfg.family!r}, "
+            f"attention={cfg.attention!r}, norm={cfg.norm!r}) is none of them"
         )
 
 
 def _norm_params(cfg, a) -> dict:
+    if cfg.norm == "ln":
+        return {"w": a.param((cfg.d_model,), "ones"), "b": a.param((cfg.d_model,), "zeros")}
     return {"w": a.param((cfg.d_model,), "zeros")}
 
 
 def _norm(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "ln":
+        return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
     return rms_norm(x, p["w"], cfg.norm_eps)
 
 
-def block_params(cfg, a, *, moe_layer: bool = True) -> dict:
-    """One layer's parameters; an MoE config's layer carries the MoE layer
-    unless ``moe_layer`` is False (deepseek-v2's leading dense layers)."""
+def block_params(cfg, a, *, kind: str = "decoder", moe_layer: bool = True) -> dict:
+    """One layer's parameters; ``kind`` is decoder, encoder or xdecoder (a
+    decoder with cross-attention). An MoE config's layer carries the MoE
+    layer unless ``moe_layer`` is False (deepseek-v2's leading dense
+    layers)."""
     check_supported(cfg)
     p: dict = {}
     if cfg.attention == "mla":
@@ -69,6 +84,9 @@ def block_params(cfg, a, *, moe_layer: bool = True) -> dict:
     if cfg.family in ("ssm", "hybrid"):
         p["ssm"] = ssm_params(cfg, a)
         p["ssm_norm"] = _norm_params(cfg, a)
+    if kind == "xdecoder":
+        p["cross"] = gqa_params(cfg, a)
+        p["cross_norm"] = _norm_params(cfg, a)
     if cfg.d_ff > 0 or (cfg.is_moe and moe_layer):
         p["mlp_norm"] = _norm_params(cfg, a)
         if cfg.is_moe and moe_layer:
@@ -89,12 +107,14 @@ def block_apply(
     cache: Optional[dict] = None,
     cache_index: Optional[torch.Tensor] = None,
     return_cache: bool = False,
+    enc_out: Optional[torch.Tensor] = None,  # the encoder's states, for cross-attention
     window: Optional[int] = None,  # None = full attention (global layers)
 ) -> Tuple[torch.Tensor, Optional[dict], Optional[torch.Tensor]]:
     """Returns (x_out, new_cache, moe_aux_loss); the aux loss is an f32
     scalar, and None for a layer without the MoE layer (where the reference
     returns a zero: a layer of the other families launches nothing for
-    it). Decode writes the cache in place."""
+    it). Decode writes the cache in place; a decoder layer's ``cross``
+    cache is read, never written."""
     new_cache: dict = {}
     s_out = None
     if cfg.family in ("ssm", "hybrid"):
@@ -124,6 +144,14 @@ def block_apply(
         x = x + (a_out if s_out is None else 0.5 * (a_out + s_out))
     else:
         x = x + s_out
+    if "cross" in p:
+        c_out, c_cache = _cross_attention(
+            cfg, p["cross"], _norm(cfg, p["cross_norm"], x), enc_out,
+            cache=cache.get("cross") if cache else None, return_cache=return_cache,
+        )
+        x = x + c_out
+        if c_cache is not None:
+            new_cache["cross"] = c_cache
     aux = None
     if "moe" in p:
         m_out, aux = moe_apply(cfg, p["moe"], _norm(cfg, p["mlp_norm"], x))
@@ -133,8 +161,28 @@ def block_apply(
     return x, (new_cache or None), aux
 
 
-def block_cache_shape(cfg, batch: int, seq: int, dtype, *, is_global: bool = True) -> dict:
-    """Cache shapes for ONE layer (meta tensors). seq = the KV length kept."""
+def _cross_attention(cfg, p, x: torch.Tensor, enc_out: Optional[torch.Tensor], *,
+                     cache: Optional[dict] = None, return_cache: bool = False):
+    """Cross-attention: queries from the decoder, keys and values from the
+    encoder, every frame visible (the flash kernel, non-causal with Sq !=
+    Sk, in prefill). Prefill projects the encoder's states and, with
+    ``return_cache``, returns them as the static cache that decode reads."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cache is not None:
+        k, v = cache["k"], cache["v"]
+    else:
+        k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
+        v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+    out = attend(q, k, v, PrefillMask(causal=False))
+    y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+    return y, ({"k": k, "v": v} if return_cache else None)
+
+
+def block_cache_shape(cfg, batch: int, seq: int, dtype, *, is_global: bool = True,
+                      xdec_enc_seq: Optional[int] = None) -> dict:
+    """Cache shapes for ONE layer (meta tensors). seq = the KV length kept;
+    ``xdec_enc_seq``: a decoder layer's cross cache over that many encoder
+    frames."""
     c: dict = {}
     if cfg.attention == "mla":
         c["attn"] = mla_cache_shape(cfg, batch, seq, dtype)
@@ -144,4 +192,6 @@ def block_cache_shape(cfg, batch: int, seq: int, dtype, *, is_global: bool = Tru
         c["attn"] = gqa_cache_shape(cfg, batch, kv_len, dtype, ring=ring)
     if cfg.family in ("ssm", "hybrid"):
         c["ssm"] = ssm_cache_shape(cfg, batch, dtype)
+    if xdec_enc_seq is not None:
+        c["cross"] = gqa_cache_shape(cfg, batch, xdec_enc_seq, dtype)
     return c

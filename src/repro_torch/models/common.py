@@ -173,6 +173,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
     return (y * (1.0 + weight.float())).to(x.dtype)
 
 
+def layer_norm(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    """LayerNorm over the last dim in f32 (whisper's norm): the mean and the
+    biased variance, then ``weight`` and ``bias``, cast back to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
 def act_fn(name: str):
     return {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
 

@@ -1,6 +1,11 @@
-"""The decoder-only LM: the training loss, prefill and per-lane decode,
-ported from the reference's ``repro/models/lm.py`` for the dense, MoE, SSM
-and hybrid families.
+"""The language models: the training loss, prefill and per-lane decode,
+ported from the reference's ``repro/models/lm.py`` for the decoder-only
+dense, MoE, SSM, hybrid and VLM families and the whisper-style
+encoder-decoder. The VLM's prompt is its projected image patches followed
+by its text, under a prefix-LM mask over the patches, and its loss is taken
+over the text; the encoder-decoder encodes precomputed audio frames
+(bidirectional, sinusoidal positions) and its decoder cross-attends to
+them, from a static ``cross`` cache in decode.
 
 The reference scans over layer-stacked params; here each layer group is a
 list of per-layer parameter modules and the scan is a Python loop. Caches
@@ -70,27 +75,54 @@ def stack_plan(
     return groups
 
 
-def param_tree(cfg, a) -> dict:
-    """The parameter tree, with the reference's names and shapes. A scan
-    group's leaves are drawn stacked (as the reference draws them) and
-    split into one entry per layer."""
-    check_supported(cfg)
-    d, V = cfg.d_model, cfg.vocab_size
-    p: dict = {"embed": a.param((V, d), "embed", scale=d**-0.5)}
+def encoder_plan(cfg) -> Optional[list[StackGroup]]:
+    """The encoder's layer plan, or None for a decoder-only config."""
+    return stack_plan(cfg, cfg.encoder_layers, block_kind="encoder") if cfg.is_encdec else None
+
+
+def _stack_params(cfg, a, plan: list[StackGroup], kind: str) -> dict:
+    """One entry per layer group: a scan group's leaves are drawn stacked
+    (as the reference draws them) and split into one entry per layer."""
     layers: dict = {}
-    for grp in stack_plan(cfg):
+    for grp in plan:
         if grp.kind == "scan":
-            stacked = block_params(cfg, StackedInit(a, grp.count), moe_layer=grp.moe)
+            stacked = block_params(cfg, StackedInit(a, grp.count), kind=kind, moe_layer=grp.moe)
             layers[grp.name] = [
                 tree_map(lambda t, i=i: t[i], stacked) for i in range(grp.count)
             ]
         else:
-            layers[grp.name] = block_params(cfg, a, moe_layer=grp.moe)
-    p["layers"] = layers
+            layers[grp.name] = block_params(cfg, a, kind=kind, moe_layer=grp.moe)
+    return layers
+
+
+def param_tree(cfg, a) -> dict:
+    """The parameter tree, with the reference's names and shapes, drawn in
+    the reference's order."""
+    check_supported(cfg)
+    d, V = cfg.d_model, cfg.vocab_size
+    p: dict = {"embed": a.param((V, d), "embed", scale=d**-0.5)}
+    p["layers"] = _stack_params(cfg, a, stack_plan(cfg),
+                                "xdecoder" if cfg.is_encdec else "decoder")
     p["final_norm"] = _norm_params(cfg, a)
     if not cfg.tie_embeddings:
         p["lm_head"] = a.param((d, V))
+    if cfg.is_encdec:
+        p["enc_layers"] = _stack_params(cfg, a, encoder_plan(cfg), "encoder")
+        p["enc_norm"] = _norm_params(cfg, a)
+    if cfg.family == "vlm":
+        p["vision_proj"] = a.param((cfg.vision_dim, d))
     return p
+
+
+def sinusoidal_emb(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """f32 sinusoidal position embeddings ``(..., d)``: sines then cosines
+    of ``positions`` (any shape) over ``d / 2`` geometric frequencies."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float32, device=positions.device)
+                      / max(half - 1, 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def cross_entropy(
@@ -109,7 +141,10 @@ def cross_entropy(
 
 
 class Model:
-    """Decoder LM (dense, MoE, SSM or hybrid) over a parameter tree (``ParamTree``).
+    """A decoder LM (dense, MoE, SSM, hybrid or VLM) or the encoder-decoder,
+    over a parameter tree (``ParamTree``). A VLM's batch carries
+    ``"patches"`` (B, num_image_tokens, vision_dim) beside ``"tokens"``, an
+    encoder-decoder's ``"frames"`` (B, encoder_seq, d_model).
 
     ``device`` defaults to ``cuda:0`` and raises without a GPU; tests pass
     ``device="cpu"``. ``loss`` builds the autograd graph (the layers under
@@ -124,6 +159,7 @@ class Model:
         self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
         self.plan = stack_plan(cfg)
+        self.enc_plan = encoder_plan(cfg)
 
     def init(self, seed: int = 0) -> ParamTree:
         """Random parameters from ``seed`` (the reference's init laws)."""
@@ -138,6 +174,12 @@ class Model:
             return a.to(self.device, torch.long)
         return torch.as_tensor(np.asarray(a), dtype=torch.long, device=self.device)
 
+    def _as_input(self, a) -> torch.Tensor:
+        """A float input (frames, patches) on the model's device and dtype."""
+        if not isinstance(a, torch.Tensor):
+            a = torch.as_tensor(np.asarray(a))
+        return a.to(self.device, self.dtype)
+
     def _embed_tokens(self, p, tokens: torch.Tensor) -> torch.Tensor:
         # F.embedding: its backward sums rows without atomics on the card
         x = F.embedding(tokens, p["embed"]).to(self.dtype)
@@ -150,7 +192,35 @@ class Model:
             return torch.einsum("bsd,vd->bsv", x, p["embed"])
         return torch.einsum("bsd,dv->bsv", x, p["lm_head"])
 
-    def _layers(self, p, x, positions, *, caches=None, cache_index=None, forward=False):
+    def _input_states(self, p, batch: dict) -> Tuple[torch.Tensor, Optional[int]]:
+        """The token embeddings, after a VLM's projected patches, with
+        sinusoidal positions where the config has no RoPE. Returns (x,
+        prefix_len): the VLM's prefix-LM span, else None."""
+        cfg = self.cfg
+        x = self._embed_tokens(p, self._as_index(batch["tokens"]))
+        prefix_len = None
+        if cfg.family == "vlm" and "patches" in batch:
+            pv = torch.einsum("bnv,vd->bnd", self._as_input(batch["patches"]), p["vision_proj"])
+            x = torch.cat([pv, x], dim=1)
+            prefix_len = cfg.num_image_tokens
+        if not cfg.use_rope:
+            S = x.shape[1]
+            x = x + sinusoidal_emb(torch.arange(S, device=self.device),
+                                   cfg.d_model).to(self.dtype)[None]
+        return x, prefix_len
+
+    def _encode(self, p, frames) -> torch.Tensor:
+        """The encoder: frames plus sinusoidal positions through the
+        bidirectional encoder layers, then its final norm."""
+        x = self._as_input(frames)
+        S = x.shape[1]
+        positions = torch.arange(S, device=self.device)
+        x = x + sinusoidal_emb(positions, self.cfg.d_model).to(self.dtype)[None]
+        x, _ = self._layers(p, x, positions, forward=True, encoder=True)
+        return _norm(self.cfg, p["enc_norm"], x)
+
+    def _layers(self, p, x, positions, *, caches=None, cache_index=None, forward=False,
+                encoder=False, prefix_len=None, enc_out=None):
         """The layer loop. Prefill (no ``caches``) returns the new caches,
         stacked per scan group; decode hands each layer views of its slice
         of ``caches``, writes into them in place and returns None. The
@@ -158,16 +228,20 @@ class Model:
         MoE aux losses in place of the caches and, when ``cfg.remat`` is not
         "none" and grad is on, runs each layer under
         ``torch.utils.checkpoint`` (its activations recomputed in the
-        backward, as the reference's ``jax.checkpoint``)."""
+        backward, as the reference's ``jax.checkpoint``). ``encoder`` runs
+        the encoder's layers (bidirectional, forward only); ``prefix_len``
+        and ``enc_out`` reach every decoder layer."""
+        plan, layers = (self.enc_plan, p["enc_layers"]) if encoder else (self.plan, p["layers"])
+        kw = dict(bidirectional=encoder, prefix_len=prefix_len, enc_out=enc_out)
         if forward:
             remat = self.cfg.remat != "none" and torch.is_grad_enabled()
             total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
-            for grp in self.plan:
+            for grp in plan:
                 window = None if grp.is_global else self.cfg.window
-                gp = p["layers"][grp.name]
+                gp = layers[grp.name]
                 for lp in gp if grp.kind == "scan" else [gp]:
                     run = lambda xx, lp=lp, w=window: block_apply(  # noqa: E731
-                        self.cfg, lp, xx, positions, window=w
+                        self.cfg, lp, xx, positions, window=w, **kw
                     )[::2]
                     x, aux = checkpoint(run, x, use_reentrant=False) if remat else run(x)
                     if aux is not None:
@@ -175,9 +249,9 @@ class Model:
             return x, total_aux
         prefill = caches is None
         caches_out: dict = {}
-        for grp in self.plan:
+        for grp in plan:
             window = None if grp.is_global else self.cfg.window
-            gp = p["layers"][grp.name]
+            gp = layers[grp.name]
             layer_params = gp if grp.kind == "scan" else [gp]
             new = []
             for i, lp in enumerate(layer_params):
@@ -188,7 +262,7 @@ class Model:
                         cache = tree_map(lambda c, i=i: c[i], cache)
                 x, nc, _aux = block_apply(
                     self.cfg, lp, x, positions, cache=cache, cache_index=cache_index,
-                    return_cache=prefill, window=window,
+                    return_cache=prefill, window=window, **kw,
                 )
                 new.append(nc)
             if prefill:
@@ -205,15 +279,19 @@ class Model:
         (B, S), plus the MoE layers' load-balancing aux loss, with autograd:
         ``loss.backward()`` or ``torch.autograd.grad`` gives every
         parameter's gradient. Returns (loss, {"ce", "aux", "tokens"}); the
-        dense, SSM and hybrid families have no auxiliary loss, so their
-        ``aux`` is 0."""
+        families other than MoE have no auxiliary loss, so their ``aux`` is
+        0. A VLM's loss is taken over its text only, after the patches; an
+        encoder-decoder's decoder attends to ``batch["frames"]`` encoded."""
         cfg = self.cfg
-        tokens = self._as_index(batch["tokens"])
-        x = self._embed_tokens(p, tokens)
+        enc_out = self._encode(p, batch["frames"]) if cfg.is_encdec else None
+        x, prefix_len = self._input_states(p, batch)
         S = x.shape[1]
         positions = torch.arange(S, device=self.device)
-        x, aux = self._layers(p, x, positions, forward=True)
+        x, aux = self._layers(p, x, positions, forward=True, prefix_len=prefix_len,
+                              enc_out=enc_out)
         x = _norm(cfg, p["final_norm"], x)
+        if prefix_len:  # loss only over the text suffix
+            x = x[:, prefix_len:]
         targets = self._as_index(batch["targets"])
         mask = batch.get("loss_mask")
         if mask is not None:
@@ -264,13 +342,15 @@ class Model:
         before they are ever attended. It is an int, or a one-element index
         tensor on the model's device, read on the device (``index_select``):
         a CUDA graph of one bucket's prefill then serves every prompt length
-        in the bucket. Both forms give the same logits.
+        in the bucket. Both forms give the same logits. A VLM's prompt is
+        its patches then its tokens, an encoder-decoder's caches carry each
+        decoder layer's ``cross`` keys and values over the encoded frames.
         """
-        tokens = self._as_index(batch["tokens"])
-        x = self._embed_tokens(p, tokens)
+        enc_out = self._encode(p, batch["frames"]) if self.cfg.is_encdec else None
+        x, prefix_len = self._input_states(p, batch)
         S = x.shape[1]
         positions = torch.arange(S, device=self.device)
-        x, caches = self._layers(p, x, positions)
+        x, caches = self._layers(p, x, positions, prefix_len=prefix_len, enc_out=enc_out)
         x = _norm(self.cfg, p["final_norm"], x)
         if isinstance(last_pos, torch.Tensor):
             last = x.index_select(1, last_pos.reshape(1))
@@ -283,10 +363,13 @@ class Model:
     def decode_step(self, p, tokens, caches: dict, index) -> Tuple[torch.Tensor, dict]:
         """One new token per lane. tokens: (B, 1); index: (B,) — each lane's
         position, which is also its cache write offset and valid length
-        minus one. ``caches`` is updated in place and returned."""
+        minus one. ``caches`` is updated in place and returned. Without
+        RoPE, each lane adds the sinusoidal embedding of its own position."""
         tokens = self._as_index(tokens)
         index = self._as_index(index).reshape(-1)
         x = self._embed_tokens(p, tokens)
+        if not self.cfg.use_rope:
+            x = x + sinusoidal_emb(index, self.cfg.d_model).to(self.dtype)[:, None, :]
         x, _ = self._layers(p, x, index[:, None], caches=caches, cache_index=index)
         x = _norm(self.cfg, p["final_norm"], x)
         return self._head(p, x), caches
@@ -294,8 +377,10 @@ class Model:
     def cache_shapes(self, batch: int, seq: int) -> dict:
         """Meta tensors with the shape and dtype of every cache leaf."""
         out = {}
+        enc_seq = self.cfg.encoder_seq if self.cfg.is_encdec else None
         for grp in self.plan:
-            one = block_cache_shape(self.cfg, batch, seq, self.dtype, is_global=grp.is_global)
+            one = block_cache_shape(self.cfg, batch, seq, self.dtype, is_global=grp.is_global,
+                                    xdec_enc_seq=enc_seq)
             if grp.kind == "scan":
                 one = tree_map(
                     lambda m, n=grp.count: torch.empty((n, *m.shape), dtype=m.dtype, device="meta"),

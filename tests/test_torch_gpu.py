@@ -21,7 +21,12 @@ and the first-launch guard refusing to run inside a capture. MLA's flash
 attention at Dqk=192, Dv=128 against its plain version, its refusal under
 autograd (no backward kernel yet), and reduced granite-moe and deepseek-v2
 (2 layers, MLA at 192/128) served through the graphs against the same
-weights decoded on the CPU."""
+weights decoded on the CPU. Flash attention at gemma's Dqk=Dv=256 with and
+without a prefix-LM span swept across the tile edges, whisper's non-causal
+forms up to Sk=1500, the refusals under autograd at 256/256 and with a
+prefix span, and small whisper and paligemma prefills and greedy decodes on
+the card against the CPU."""
+import copy
 import importlib.util
 from pathlib import Path
 
@@ -73,12 +78,14 @@ FLASH_TOL = {"float32": (torch.float32, 1e-4), "bfloat16": (torch.bfloat16, 2e-2
 def _flash_error(dev, rng, dt, case) -> float:
     """One launch in the model's layout against the plain version: max abs
     error; the launch is counted and its instantiation was first checked.
-    A case's optional tenth entry is Dv (Dh if absent)."""
+    A case's optional tenth entry is Dv (Dh if absent), its eleventh the
+    prefix-LM span."""
     B, H, KV, Sq, Sk, Dh, causal, window, k_len = case[:9]
     Dv = case[9] if len(case) > 9 else Dh
+    prefix_len = case[10] if len(case) > 10 else None
     shapes = [(B, Sq, H, Dh), (B, Sk, KV, Dh), (B, Sk, KV, Dv)]
     q, k, v = (torch.from_numpy(rng.standard_normal(s)).to(dev, dt) for s in shapes)
-    mask = dict(causal=causal, window=window, k_len=k_len)
+    mask = dict(causal=causal, window=window, k_len=k_len, prefix_len=prefix_len)
     before = tfa.flash_attention_bhsd.launches
     got = tfa.flash_attention(q, k, v, **mask)
     torch.cuda.synchronize()
@@ -113,24 +120,35 @@ def test_flash_kernel_tile_edges_on_card(name, dtype):
     assert err <= tol, (name, dtype, err)
 
 
-# MLA's expanded prefill: Dqk = 192 (128 nope + 64 rope), Dv = 128, on the
-# kernel's own instantiation; (B, H, KV, Sq, Sk, Dqk, causal, window,
-# k_len, Dv)
-FLASH_MLA = {
+# cases with no backward kernel, forward only; (B, H, KV, Sq, Sk, Dqk,
+# causal, window, k_len[, Dv[, prefix_len]]). MLA's expanded prefill: Dqk =
+# 192 (128 nope + 64 rope), Dv = 128, on the kernel's own instantiation;
+# whisper's forms at Dh=64 (non-causal with Sq != Sk up to its 1500 encoder
+# frames, and the decoder's causal 32-token prompt on one ragged tile); the
+# prefix-LM span on every design, and cross-attention at 256/256
+FLASH_FWD_ONLY = {
     "deepseek H=KV=128 causal S=512": (1, 128, 128, 512, 512, 192, True, None, None, 128),
     "GQA ragged causal S=300": (1, 8, 2, 300, 300, 192, True, None, None, 128),
     "causal k_len=100 Sk=128": (2, 4, 4, 128, 128, 192, True, None, 100, 128),
     "non-causal Sq=64 Sk=192 k_len=150": (1, 4, 2, 64, 192, 192, False, None, 150, 128),
+    "whisper cross Sq=32 Sk=1500 Dh=64": (4, 16, 16, 32, 1500, 64, False, None, None),
+    "whisper encoder Sq=Sk=1500 Dh=64": (1, 16, 16, 1500, 1500, 64, False, None, None),
+    "whisper decoder causal S=32 Dh=64": (4, 16, 16, 32, 32, 64, True, None, None),
+    "cross Sq=70 Sk=1500 Dh=256 MQA": (1, 8, 1, 70, 1500, 256, False, None, None, 256),
+    "prefix 100 S=300 Dh=64 GQA": (1, 4, 2, 300, 300, 64, True, None, None, 64, 100),
+    "prefix 100 window 50 S=200 Dh=256": (1, 4, 1, 200, 200, 256, True, 50, None, 256, 100),
+    "prefix 40 S=150 Dh=128": (1, 4, 2, 150, 150, 128, True, None, None, 128, 40),
 }
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", list(FLASH_MLA))
-def test_flash_kernel_at_dqk_192_dv_128_on_card(name, dtype):
+@pytest.mark.parametrize("name", list(FLASH_FWD_ONLY))
+def test_flash_kernel_forward_only_cases_on_card(name, dtype):
     dev = _cuda()
     dt, tol = FLASH_TOL[dtype]
-    err = _flash_error(dev, np.random.default_rng(21), dt, FLASH_MLA[name])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    err = _flash_error(dev, np.random.default_rng(21), dt, FLASH_FWD_ONLY[name])
     assert err <= tol, (name, dtype, err)
 
 
@@ -147,6 +165,92 @@ def test_flash_attention_at_192_128_refuses_autograd_on_card():
     assert tfa.flash_attention_bhsd.launches == before
     with torch.no_grad():
         assert tfa.flash_attention(q, k, v, causal=True).shape == (1, 16, 4, 128)
+
+
+# gemma's head dim (paligemma: H=8 on one kv-head): S ragged and whole
+# tiles, the prefix-LM span at 0, 1, 63, 64, 65 and S; (B, H, KV, Sq, Sk,
+# Dh, causal, window, k_len, Dv, prefix_len)
+FLASH_256_PREFIXES = (0, 1, 63, 64, 65, None)  # None: the span covers all of S
+FLASH_256_SEQS = (130, 320)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", FLASH_256_SEQS)
+def test_flash_kernel_at_256_with_prefix_span_on_card(S, dtype):
+    dev = _cuda()
+    dt, tol = FLASH_TOL[dtype]
+    rng = np.random.default_rng(22)
+    for prefix in FLASH_256_PREFIXES:
+        prefix = S if prefix is None else prefix
+        err = _flash_error(dev, rng, dt, (1, 8, 1, S, S, 256, True, None, None, 256, prefix))
+        assert err <= tol, (S, prefix, dtype, err)
+
+
+@pytest.mark.gpu
+def test_flash_attention_at_256_or_with_a_prefix_refuses_autograd_on_card():
+    """K1 at 256/256, and K1 with a prefix span at any head dim, has no
+    backward kernel: under autograd on the card the call raises before any
+    launch."""
+    dev = _cuda()
+    before = tfa.flash_attention_bhsd.launches
+    for dh, prefix, match in ((256, None, r"\(256, 256\)"), (64, 4, "prefix")):
+        q, k, v = (torch.zeros((1, 16, 4, dh), device=dev, requires_grad=True)
+                   for _ in range(3))
+        with pytest.raises(NotImplementedError, match=match):
+            tfa.flash_attention(q, k, v, causal=True, prefix_len=prefix)
+    assert tfa.flash_attention_bhsd.launches == before
+
+
+def _encdec_vlm_inputs(cfg, rng, B, n):
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, size=(B, n)).astype(np.int32)}
+    if cfg.is_encdec:
+        batch["frames"] = rng.standard_normal((B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (B, cfg.num_image_tokens, cfg.vision_dim)).astype(np.float32)
+    return batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,overrides,launches_per_layer", [
+    # whisper at the kernel's Dh=64 over 100 ragged encoder frames: each
+    # prefill runs K1 in every encoder layer and twice (self, cross) in
+    # every decoder layer
+    ("whisper-medium", dict(head_dim=64, encoder_seq=100), None),
+    # paligemma at Dh=256, 70 image tokens: the prefix span ends mid-tile
+    ("paligemma-3b", dict(head_dim=256, num_image_tokens=70), 1),
+])
+def test_small_encdec_and_vlm_on_card_match_cpu(arch, overrides, launches_per_layer):
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced(arch).replace(dtype="float32", **overrides)
+    cpu_model = build_model(cfg, device="cpu")
+    params = cpu_model.init(0)
+    model = build_model(cfg, device=dev)
+    card_params = copy.deepcopy(params).to(dev)  # Module.to moves in place
+    batch = _encdec_vlm_inputs(cfg, np.random.default_rng(4), 2, 9)
+    runs = []
+    for m, p in ((cpu_model, params), (model, card_params)):
+        before = tfa.flash_attention_bhsd.launches
+        logits, caches = m.prefill(p, batch)
+        launched = tfa.flash_attention_bhsd.launches - before
+        S = caches["s0"]["attn"]["k"].shape[2]
+        caches = extend_caches(caches, 8)
+        toks, steps = [], [logits[:, -1].cpu()]
+        for i in range(6):
+            toks.append(torch.argmax(logits[:, -1], dim=-1).cpu())
+            logits, caches = m.decode_step(p, toks[-1][:, None], caches, [S + i] * 2)
+            steps.append(logits[:, -1].cpu())
+        runs.append((launched, torch.stack(toks), torch.stack(steps)))
+    (cpu_n, cpu_toks, cpu_logits), (n, toks, logits) = runs
+    assert cpu_n == 0
+    per_prefill = (cfg.encoder_layers + 2 * cfg.num_layers if launches_per_layer is None
+                   else launches_per_layer * cfg.num_layers)
+    assert n == per_prefill
+    assert torch.equal(toks, cpu_toks)
+    scale = max(1.0, cpu_logits.abs().max().item())
+    assert (logits - cpu_logits).abs().max().item() <= 1e-4 * scale
 
 
 # (B, S, H, P, N, chunk, laws); x, B and C are handed over as the model's

@@ -234,10 +234,10 @@ def test_input_check_takes_the_four_head_dim_pairs(dtype, bshd):
         ts = [torch.empty(s, device="meta", dtype=dtype) for s in shapes]
         return ts if bshd else [t.transpose(1, 2) for t in ts]
 
-    assert tfa.HEAD_DIM_PAIRS == ((32, 32), (64, 64), (128, 128), (192, 128))
+    assert tfa.HEAD_DIM_PAIRS == ((32, 32), (64, 64), (128, 128), (192, 128), (256, 256))
     for pair in tfa.HEAD_DIM_PAIRS:
         assert tfa.check_inputs(*qkv(*pair), bshd=bshd) == 8
-    for pair in ((192, 192), (128, 192), (64, 128), (24, 16), (96, 96), (256, 256)):
+    for pair in ((192, 192), (128, 192), (64, 128), (24, 16), (96, 96), (256, 128)):
         with pytest.raises(ValueError, match="head dims"):
             tfa.check_inputs(*qkv(*pair), bshd=bshd)
 

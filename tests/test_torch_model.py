@@ -214,12 +214,6 @@ def test_bridge_defaults_to_the_gpu(models):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("arch", ["paligemma-3b", "whisper-medium"])
-def test_other_families_wait_for_later_slices(arch):
-    with pytest.raises(NotImplementedError):
-        Model(get_reduced(arch), device="cpu")
-
-
 def test_deepseek_training_on_the_card_waits_for_k1_bwd_at_192_128():
     """deepseek-v2's expanded MLA runs flash attention at Dqk=192, Dv=128,
     which has a forward kernel and no backward yet: off the CPU, a call
