@@ -9,9 +9,12 @@ It builds every hand-written kernel from ``src/repro_torch/csrc`` with nvcc
 (flash attention and its backward, the SSD scan and its backward, one nvcc
 each, started together) and holds each against its plain PyTorch version on
 the card in bf16 (the served and trained designs) and f32 (the parity
-designs): flash attention's backward also at tinyllama's and hymba's
-training shapes (in bf16 also in ulps, beside a lower-precision control and
-SDPA's own backward), the SSD scan's backward over the scan's sweep and at
+designs): flash attention's backward also at the training shapes of
+tinyllama, hymba, whisper (encoder S=1500, cross-attention Sq=448 over
+Sk=1500, decoder causal S=448) and paligemma (Dqk=Dv=256 under the prefix
+span, its own instantiations; the build fails if they spill), in bf16 also
+in ulps, beside a lower-precision control and SDPA's own backward, the SSD
+scan's backward over the scan's sweep and at
 mamba2's and hymba's training shapes (two launches bit for bit; in bf16 also
 in ulps, beside the tensor-core design with its split operands rounded
 once). It times
@@ -54,13 +57,17 @@ model's attention patched to the plain versions (logits and caches within
 1e-4 scaled, tokens equal but at near-ties), then in bf16 as the measured
 path (the run's prefill ms, decode ms a step and tokens/s, traced
 device-busy ms with whisper's encoder split out, peak memory, every
-kernel's launches, K1's 72 or 18 a prefill). It then trains tinyllama, mamba2, hymba and granite-moe at full
-width and depth for a few bf16 steps each through
-``repro_torch.runtime.Trainer`` (B=4, S=2048, remat; checking every
-kernel's launches a step, the losses and the MoE aux loss, that every leaf
-changed, the AdamW state and the final checkpoint, saved into ``build/``
-and deleted), and holds each model's full-width f32 gradients through the
-kernels against those through the plain versions. Each phase
+kernel's launches, K1's 72 or 18 a prefill). It then trains tinyllama,
+mamba2, hymba, granite-moe, whisper-medium and paligemma-3b at full width
+and depth for a few bf16 steps each through ``repro_torch.runtime.Trainer``
+(B=4, S=2048, remat; whisper 448 text tokens over 1500 frames and
+paligemma 256 patches and 256 text tokens from the cells' data source
+``EncDecVLMTokens``; checking every kernel's launches a step, the losses
+and the MoE aux loss, that every leaf took a gradient, its master moved
+and every bf16 leaf is its master rounded, the AdamW state and the final
+checkpoint, saved into ``build/`` and deleted), and holds each model's
+full-width f32 gradients through the kernels against those through the
+plain versions. Each phase
 prints one JSON line; any failure exits non-zero. The last three lines are
 the kernels line, the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": ...}``.
@@ -165,18 +172,30 @@ def phase_build() -> None:
         emit("build", source=f"src/repro_torch/csrc/{name}.cu", nvcc_s=log["seconds"],
              cached=log["cached"], ptxas=log["ptxas"], resources=ptxas_resources(log["ptxas"]))
     # K1 at gemma's 256/256 holds a 16-row output fragment of 128 f32
-    # registers a thread: it must not spill
-    dh256 = {k: v for k, v in ptxas_resources(build.build_log["flash_attention"]["ptxas"]).items()
-             if k.endswith("<256,256>")}
-    check(len(dh256) == 2 and all(v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0
-                                  for v in dh256.values()),
-          f"K1's 256/256 instantiations spill or are missing: {dh256}")
+    # registers a thread, and K1-bwd there 128 dK, dV or dQ registers: none
+    # of their instantiations may spill
+    dh256 = _dh256_resources(build)
+    check(len(dh256["flash_attention"]) == 2 and len(dh256["flash_attention_bwd"]) == 6
+          and all(v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0
+                  for res in dh256.values() for v in res.values()),
+          f"K1's or K1-bwd's 256 instantiations spill or are missing: {dh256}")
     version = subprocess.run([build.nvcc(), "--version"], capture_output=True, text=True,
                              timeout=60, check=True).stdout.strip().splitlines()[-1]
     cudart = _mapped_cudart()
     emit("build", total_s=time.perf_counter() - t0, nvcc=version, cudart=cudart)
     check(len(cudart) == 1,
           f"the kernel libraries and PyTorch must share one CUDA runtime; mapped: {cudart}")
+
+
+def _dh256_resources(build) -> dict:
+    """ptxas registers and spills of K1's instantiations at 256/256 and
+    K1-bwd's at head dim 256 (bf16: preprocess, the dV and dK passes' one
+    kernel, dQ; f32: preprocess, dK/dV, dQ), per library."""
+    fwd = ptxas_resources(build.build_log["flash_attention"]["ptxas"])
+    bwd = ptxas_resources(build.build_log["flash_attention_bwd"]["ptxas"])
+    return {"flash_attention": {k: v for k, v in fwd.items() if k.endswith("<256,256>")},
+            "flash_attention_bwd": {k: v for k, v in bwd.items()
+                                    if re.search(r"<(?:\w+,)?256(?:,|>)", k)}}
 
 
 def _kernel_label(mangled: str) -> str:
@@ -602,7 +621,7 @@ def _ulps(got, want) -> float:
     return ((got.float() - w).abs() / ulp).max().item()
 
 
-def _bwd_bf16_control(q, k, v, o, lse, do, *, causal, window, k_len):
+def _bwd_bf16_control(q, k, v, o, lse, do, *, causal, window, k_len, prefix_len=None):
     """A lower-precision backward, for reading what the bf16 tolerance
     rejects: the plain formulas with S, P and dS rounded to bf16 before
     their products, f32 accumulation. (B, H, S, Dh) layout."""
@@ -619,7 +638,7 @@ def _bwd_bf16_control(q, k, v, o, lse, do, *, causal, window, k_len):
 
     qg, og, dog, kb, vb = grouped(q), grouped(o), grouped(do), k.to(bf16), v.to(bf16)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, kb).float() * scale
-    mask = fa._mask(Sq, Sk, causal, window, k_len, q.device)
+    mask = fa._mask(Sq, Sk, causal, window, k_len, q.device, prefix_len)
     p = torch.where(mask, torch.exp(s - lse.reshape(B, KV, G, Sq, 1).float()), 0.0).to(bf16)
     delta = (dog.float() * og.float()).sum(dim=-1, keepdim=True)
     dv = torch.einsum("bkgqs,bkgqd->bksd", p, dog)
@@ -701,65 +720,143 @@ def _profiled_ms(fn, calls: int = 10) -> dict:
     return out
 
 
-def _attention_bwd_bound(B, H, KV, S, Dh, elem_bytes, peak_flops):
-    """Least time for the causal backward: q, k, v, o, dO and the f32 lse
-    read once, dq, dk, dv written once; FLOPs of its five products (S and dP
-    recomputed, dV, dK, dQ), 2.5x the forward's, over the visible pairs."""
-    pairs = S * (S + 1) // 2
+def _attention_bwd_bound(B, H, KV, Sq, Sk, Dh, elem_bytes, peak_flops, causal=True,
+                         prefix_len=None, window=None):
+    """Least time for the backward (Dqk = Dv = Dh): q, k, v, o, dO and the
+    f32 lse read once, dq, dk, dv written once; FLOPs of its five products
+    (S and dP recomputed, dV, dK, dQ), 2.5x the forward's, over the pairs
+    the mask leaves visible (:func:`_visible_pairs`)."""
+    pairs = _visible_pairs(Sq, Sk, causal, window, prefix_len)
     flops = 10 * B * H * Dh * pairs
-    nbytes = elem_bytes * (3 * B * H * S * Dh + 2 * B * KV * S * Dh) + 4 * B * H * S \
-        + elem_bytes * (B * H * S * Dh + 2 * B * KV * S * Dh)
+    nbytes = elem_bytes * (3 * B * H * Sq * Dh + 2 * B * KV * Sk * Dh) + 4 * B * H * Sq \
+        + elem_bytes * (B * H * Sq * Dh + 2 * B * KV * Sk * Dh)
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_flash_bwd() -> dict:
-    """K1's backward against its plain version over the forward's sweep, in
-    both dtypes, with the forward's output and lse checked too, then the
-    same at tinyllama's training shapes in bf16 (the train path's own
-    inputs), where it is timed beside the plain version and the autograd
-    backward of PyTorch's SDPA."""
+# the enc-dec and VLM train cells' K1-bwd shapes at full width, B=4, bf16
+# (the train phases' own shapes): paligemma's gemma backbone over 256 image
+# patches and 256 text tokens under the prefix-LM span, whisper's encoder
+# over its 1500 frames, the decoder's cross-attention from its 448 text
+# tokens over the frames, and its causal self-attention: (label, B, H, KV,
+# Sq, Sk, Dh, causal, prefix_len)
+ENCDEC_VLM_BWD = (
+    ("paligemma train S=512 prefix 256", 4, 8, 1, 512, 512, 256, True, 256),
+    ("whisper train encoder S=1500", 4, 16, 16, 1500, 1500, 64, False, None),
+    ("whisper train cross Sq=448 Sk=1500", 4, 16, 16, 448, 1500, 64, False, None),
+    ("whisper train decoder causal S=448", 4, 16, 16, 448, 448, 64, True, None),
+)
+
+
+def _sdpa_bwd(q, k, v, do, *, causal, window=None, prefix_len=None):
+    """SDPA's forward once, in (B, H, S, D) copies of the model-layout
+    inputs, and ``grads()``: its autograd backward alone (measured, never
+    used by the port); a boolean mask where the case has a window or a
+    prefix span, else ``is_causal``. Returns (grads, note); grads is None
+    where SDPA refuses the case."""
     import torch
     import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    Sq, Sk, H, KV = q.shape[1], k.shape[1], q.shape[2], k.shape[2]
+    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    do_c = do.transpose(1, 2).contiguous()
+    masked = causal and (window is not None or prefix_len)
+    mask = fa._mask(Sq, Sk, True, window, None, q.device, prefix_len) if masked else None
+    try:
+        out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                             is_causal=causal and not masked,
+                                             enable_gqa=KV != H)
+    except RuntimeError as e:
+        return None, f"SDPA refused: {str(e)[:200]}"
+
+    def grads():
+        return torch.autograd.grad(out, (qs, ks, vs), do_c, retain_graph=True)
+
+    return grads, ("F.scaled_dot_product_attention's autograd backward"
+                   + (" with the boolean mask" if masked else ""))
+
+
+def _bwd_timing(q, k, v, o, lse, do, kw, B, H, KV, Sq, Sk, Dh) -> dict:
+    """K1-bwd at one shape (model layout, bf16): eager ms, device ms by
+    graph replay and by profiler, the plain version's ms, SDPA's autograd
+    backward (``library_ms``, ``library_device_ms`` from a profiler trace)
+    and the bound."""
+    from repro_torch.kernels import flash_attention as fa
+
+    def kernel():
+        fa.flash_attention_bwd(q, k, v, o, lse, do, bshd=True, **kw)
+
+    qt, kt, vt, ot, dot = (t.transpose(1, 2) for t in (q, k, v, o, do))
+    t = {"ms": _time_ms(kernel, 10),
+         "plain_ms": _time_ms(lambda: fa.flash_attention_bwd_ref(qt, kt, vt, ot, lse, dot, **kw),
+                              3, 1)}
+    t["device_ms"] = _graph_ms(kernel, calls=5, replays=3)
+    t["kernel_profiled_ms"] = sum(_profiled_ms(kernel, calls=3).values())
+    library, t["library_note"] = _sdpa_bwd(q, k, v, do, causal=kw["causal"],
+                                           window=kw.get("window"),
+                                           prefix_len=kw.get("prefix_len"))
+    t["library_ms"] = None if library is None else _time_ms(library, 10)
+    t["library_device_ms"] = None if library is None else sum(_profiled_ms(library).values())
+    t["bound_ms"], t["bound_by"] = _attention_bwd_bound(
+        B, H, KV, Sq, Sk, Dh, 2, PEAK_BF16_FLOPS, causal=kw["causal"],
+        prefix_len=kw.get("prefix_len"), window=kw.get("window"))
+    return t
+
+
+def phase_flash_bwd() -> dict:
+    """K1's backward against its plain version over the forward's sweep
+    (every case with Dqk = Dv: gemma's 256/256 with the prefix span and
+    whisper's non-causal forms included), in both dtypes, with the forward's
+    output and lse checked too, then the same in bf16 at the train paths'
+    own shapes, each timed beside the plain version, the autograd backward
+    of PyTorch's SDPA and its bound: tinyllama's, hymba's two masks, and
+    the enc-dec and VLM cells' four (:data:`ENCDEC_VLM_BWD`)."""
+    import torch
 
     from repro_torch.kernels import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst = worst_abs = worst_ulp = 0.0
-    for i, case in enumerate(_flash_cases()):
-        if len(case) > 12:  # Dqk != Dv: no backward kernel yet
-            continue
-        label, B, H, KV, Sq, Sk, Dh, causal, window, k_len, model_layout, dt = case
-        q, k, v = _qkv(B, H, KV, Sq, Sk, Dh, dt, seed=500 + i, model_layout=model_layout)
-        g = torch.Generator(device="cuda").manual_seed(900 + i)
-        do = torch.randn(q.shape, generator=g, device=q.device).to(dt)
-        kw = dict(causal=causal, window=window, k_len=k_len)
-        _, _, r = _bwd_case(q, k, v, do, kw, model_layout)
-        name = str(dt).split(".")[-1]
-        emit("kernels", kernel="flash_attention_bwd", case=label, dtype=name,
-             shape=[B, H, KV, Sq, Sk, Dh], **r)
-        check(r["ok"], f"flash_attention_bwd {label} {name}: {r}")
+    dh256 = {}
+
+    def record(r, key=None):
+        nonlocal worst, worst_abs, worst_ulp
         worst = max(worst, *r["scaled_err"].values())
         worst_abs = max(worst_abs, r["max_abs_err"])
         worst_ulp = max(worst_ulp, *r.get("ulp_err", {"": 0.0}).values())
+        if key is not None:
+            dh256[key] = max(dh256.get(key, 0.0), *r["scaled_err"].values())
+
+    for i, case in enumerate(_flash_cases()):
+        label, B, H, KV, Sq, Sk, Dh, causal, window, k_len, model_layout, dt = case[:12]
+        prefix = case[13] if len(case) > 13 else None
+        if len(case) > 12 and case[12] != Dh:  # Dqk != Dv: no backward kernel yet
+            continue
+        q, k, v = _qkv(B, H, KV, Sq, Sk, Dh, dt, seed=500 + i, model_layout=model_layout)
+        g = torch.Generator(device="cuda").manual_seed(900 + i)
+        do = torch.randn(q.shape, generator=g, device=q.device).to(dt)
+        kw = dict(causal=causal, window=window, k_len=k_len, prefix_len=prefix)
+        _, _, r = _bwd_case(q, k, v, do, kw, model_layout)
+        name = str(dt).split(".")[-1]
+        emit("kernels", kernel="flash_attention_bwd", case=label, dtype=name,
+             shape=[B, H, KV, Sq, Sk, Dh], prefix_len=prefix, **r)
+        check(r["ok"], f"flash_attention_bwd {label} {name}: {r}")
+        record(r, name if Dh == 256 else None)
+        del q, k, v, do
 
     B, H, KV, S, Dh = TRAIN_ATTN
     bf16 = torch.bfloat16
     q, k, v = _qkv(B, H, KV, S, S, Dh, bf16, seed=1000, model_layout=True)
     do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1001),
                      device=q.device).to(bf16)
-
-    def sdpa_grads():
-        """SDPA's own forward and autograd backward on the same inputs, in
-        the model's layout: what a library backward reads on this gate."""
-        qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
-        grads = torch.autograd.grad(out, (qs, ks, vs), do.transpose(1, 2).contiguous())
-        return [g.transpose(1, 2) for g in grads]
-
-    o, lse, r_train = _bwd_case(q, k, v, do, dict(causal=True, window=None, k_len=None), True,
-                                library=sdpa_grads)
+    kw = dict(causal=True, window=None, k_len=None)
+    sdpa_grads, _ = _sdpa_bwd(q, k, v, do, causal=True)
+    o, lse, r_train = _bwd_case(q, k, v, do, kw, True,
+                                library=lambda: [g.transpose(1, 2) for g in sdpa_grads()])
+    del sdpa_grads
     label = f"train bf16 causal B={B} H={H} KV={KV} Dh={Dh} S={S}"
     emit("kernels", kernel="flash_attention_bwd", case=label, dtype="bfloat16",
          shape=[B, H, KV, S, S, Dh], **r_train)
@@ -767,30 +864,10 @@ def phase_flash_bwd() -> dict:
     # the ulp gate rejects a lower-precision backward at the path's shapes
     check(max(r_train["control_ulp_err"].values()) > BWD_ULP_TOL,
           f"the bf16 control passes the ulp tolerance at {label}: {r_train['control_ulp_err']}")
-    worst = max(worst, *r_train["scaled_err"].values())
-    worst_abs = max(worst_abs, r_train["max_abs_err"])
-    worst_ulp = max(worst_ulp, *r_train["ulp_err"].values())
+    record(r_train)
     torch.cuda.empty_cache()
 
-    qt, kt, vt, ot, dot = (t.transpose(1, 2) for t in (q, k, v, o, do))
-    # the library's backward: SDPA's autograd backward alone, its forward run once
-    qs, ks, vs = (t.contiguous().requires_grad_() for t in (qt, kt, vt))
-    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
-    do_c = dot.contiguous()
-
-    def library():
-        torch.autograd.grad(out, (qs, ks, vs), do_c, retain_graph=True)
-
-    def kernel():
-        fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True, bshd=True)
-
-    t = {"ms": _time_ms(kernel, 10), "plain_ms": _time_ms(
-        lambda: fa.flash_attention_bwd_ref(qt, kt, vt, ot, lse, dot, causal=True), 3, 1),
-        "library_ms": _time_ms(library, 10)}
-    t["device_ms"] = _graph_ms(kernel, calls=5, replays=3)
-    t["library_device_ms"] = sum(_profiled_ms(library).values())
-    t["kernel_profiled_ms"] = sum(_profiled_ms(kernel, calls=3).values())
-    t["bound_ms"], t["bound_by"] = _attention_bwd_bound(B, H, KV, S, Dh, 2, PEAK_BF16_FLOPS)
+    t = _bwd_timing(q, k, v, o, lse, do, kw, B, H, KV, S, S, Dh)
     fwd_bound, _ = _attention_bound(B, H, KV, S, S, Dh, 2, True, PEAK_BF16_FLOPS)
     t["forward"] = {"ms": _time_ms(lambda: fa.flash_attention_lse(q, k, v, causal=True,
                                                                    bshd=True), 10),
@@ -798,35 +875,43 @@ def phase_flash_bwd() -> dict:
                                            calls=5, replays=3),
                     "bound_ms": fwd_bound}
     emit("kernels", kernel="flash_attention_bwd", timing=label, **t)
-    del out, qs, ks, vs, q, k, v, o, lse, do
+    del q, k, v, o, lse, do
     torch.cuda.empty_cache()
 
-    # hymba's training attention: a GQA group of 5, the window on 29 of its
-    # 32 layers and the global mask on 3
+    # hymba's training attention (a GQA group of 5, the window on 29 of its
+    # 32 layers and the global mask on 3), then the enc-dec and VLM cells'
+    # shapes: each held, then timed
     B, H, KV, S, Dh = HYMBA_TRAIN_ATTN
-    hymba = {}
-    for i, (mask, window) in enumerate((("window 1024", 1024), ("global", None))):
-        q, k, v = _qkv(B, H, KV, S, S, Dh, bf16, seed=1100 + i, model_layout=True)
+    shapes = [(f"hymba train {mask}", B, H, KV, S, S, Dh, True, window, None)
+              for mask, window in (("window 1024", 1024), ("global", None))]
+    shapes += [(label, B_, H_, KV_, Sq, Sk, Dh_, causal, None, prefix)
+               for label, B_, H_, KV_, Sq, Sk, Dh_, causal, prefix in ENCDEC_VLM_BWD]
+    at_shapes = {}
+    for i, (label, B, H, KV, Sq, Sk, Dh, causal, window, prefix) in enumerate(shapes):
+        q, k, v = _qkv(B, H, KV, Sq, Sk, Dh, bf16, seed=1100 + i, model_layout=True)
         do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1110 + i),
                          device=q.device).to(bf16)
-        kw = dict(causal=True, window=window, k_len=None)
+        kw = dict(causal=causal, window=window, k_len=None, prefix_len=prefix)
         o, lse, r = _bwd_case(q, k, v, do, kw, True)
-        label = f"hymba train bf16 {mask} B={B} H={H} KV={KV} Dh={Dh} S={S}"
-        r["device_ms"] = _graph_ms(
-            lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, bshd=True, **kw),
-            calls=5, replays=3)
-        emit("kernels", kernel="flash_attention_bwd", case=label, dtype="bfloat16",
-             shape=[B, H, KV, S, S, Dh], **r)
-        check(r["ok"], f"flash_attention_bwd {label}: {r}")
-        worst = max(worst, *r["scaled_err"].values())
-        worst_abs = max(worst_abs, r["max_abs_err"])
-        worst_ulp = max(worst_ulp, *r["ulp_err"].values())
-        hymba[mask] = r
+        full = f"{label} bf16 B={B} H={H} KV={KV} Dh={Dh} Sq={Sq} Sk={Sk}"
+        emit("kernels", kernel="flash_attention_bwd", case=full, dtype="bfloat16",
+             shape=[B, H, KV, Sq, Sk, Dh], prefix_len=prefix, **r)
+        check(r["ok"], f"flash_attention_bwd {full}: {r}")
+        check(max(r["control_ulp_err"].values()) > BWD_ULP_TOL,
+              f"the bf16 control passes the ulp tolerance at {full}: {r['control_ulp_err']}")
+        record(r, "bfloat16" if Dh == 256 else None)
+        r.update(_bwd_timing(q, k, v, o, lse, do, kw, B, H, KV, Sq, Sk, Dh))
+        emit("kernels", kernel="flash_attention_bwd", timing=full,
+             **{k_: r[k_] for k_ in ("ms", "plain_ms", "device_ms", "kernel_profiled_ms",
+                                     "library_ms", "library_device_ms", "library_note",
+                                     "bound_ms", "bound_by")})
+        at_shapes[label] = r
         del q, k, v, o, lse, do
         torch.cuda.empty_cache()
     return {"flash_attention_bwd": {"max_scaled_err": worst, "max_abs_err": worst_abs,
-                                    "max_ulp_err": worst_ulp, "timing": t,
-                                    "train_shape": r_train, "hymba_train_shape": hymba}}
+                                    "max_ulp_err": worst_ulp, "dh256_max_scaled_err": dh256,
+                                    "timing": t, "train_shape": r_train,
+                                    "train_shapes": at_shapes}}
 
 
 def _ssd_inputs(B, S, H, P, N, dtype, seed, laws="wide"):
@@ -1824,19 +1909,56 @@ def phase_encdec_vlm(arch: str, prompt: int) -> dict:
 
 
 # the train cells, each at full width and depth: bf16, remat "full", B=4,
-# S=2048, AdamW, prefetched synthetic batches, through the unchanged Trainer
-# (which saves one final checkpoint, into build/, deleted after the phase):
-# (arch, steps)
+# S=2048 (the enc-dec and VLM cells: TRAIN_TEXT), AdamW, prefetched
+# synthetic batches, through the unchanged Trainer (which saves one final
+# checkpoint, into build/, deleted after the phase): (arch, steps)
 TRAIN_CELLS = (("tinyllama-1.1b", 6), ("mamba2-1.3b", 4), ("hymba-1.5b", 4),
-               ("granite-moe-1b-a400m", 4))
+               ("granite-moe-1b-a400m", 4), ("whisper-medium", 4), ("paligemma-3b", 4))
 TRAIN_KW = dict(seq_len=2048, global_batch=4, lr=3e-4, warmup=2)
+# the enc-dec and VLM cells' text tokens a sample: whisper's decoder over its
+# published n_text_ctx of 448 (beside its 1500 encoder frames), paligemma's
+# 256 after its 256 image patches (S=512): one loss_chunk of 256, so its
+# chunked cross-entropy drops no target
+TRAIN_TEXT = {"whisper-medium": 448, "paligemma-3b": 256}
 # the parity runs: f32, full width and depth, B=1, S spanning at least 4
-# chunks of the SSD scan where the model has one: (arch, B, S). Each leaf
-# group's largest gradient error against the plain versions', over its
-# largest gradient (f32 sums in another order, through every layer)
+# chunks of the SSD scan where the model has one (the enc-dec and VLM
+# cells: their train shapes): (arch, B, S). Each leaf group's largest
+# gradient error against the plain versions', over its largest gradient
+# (f32 sums in another order, through every layer)
 PARITY_CELLS = (("tinyllama-1.1b", 1, 256), ("mamba2-1.3b", 1, 1024), ("hymba-1.5b", 1, 256),
-                ("granite-moe-1b-a400m", 1, 256))
+                ("granite-moe-1b-a400m", 1, 256), ("whisper-medium", 1, 448),
+                ("paligemma-3b", 1, 256))
 PARITY_TOL = 1e-4
+
+
+class EncDecVLMTokens:
+    """The enc-dec and VLM train cells' data source, the caller's as in the
+    reference (``Trainer(data_source=)``): :class:`SyntheticTokens`' tokens
+    and targets of ``text_len`` positions, plus an encoder-decoder's frames
+    (B, encoder_seq, d_model) or a VLM's patches (B, num_image_tokens,
+    vision_dim), standard normal f32 drawn from
+    ``np.random.default_rng((seed, step))``: each step's batch is a function
+    of the step, so a resumed run reads the same data."""
+
+    def __init__(self, cfg, text_len: int, global_batch: int, *, seed: int = 0) -> None:
+        from repro_torch.data import SyntheticTokens
+
+        if not (cfg.is_encdec or cfg.family == "vlm"):
+            raise ValueError(f"{cfg.name} takes no frames or patches")
+        self.cfg, self.seed, self.global_batch = cfg, seed, global_batch
+        self.tokens = SyntheticTokens(cfg.vocab_size, text_len, global_batch, seed=seed)
+
+    def batch(self, step: int) -> dict:
+        cfg, B = self.cfg, self.global_batch
+        out = self.tokens.batch(step)
+        rng = np.random.default_rng((self.seed, step))
+        if cfg.is_encdec:
+            out["frames"] = rng.standard_normal((B, cfg.encoder_seq, cfg.d_model), np.float32)
+        else:
+            out["patches"] = rng.standard_normal((B, cfg.num_image_tokens, cfg.vision_dim),
+                                                 np.float32)
+        return out
+
 
 
 def _train_counters() -> dict:
@@ -1850,50 +1972,109 @@ def _train_counters() -> dict:
 def _launches_per_step(cfg) -> dict:
     """Each kernel's launches in one step with remat "full": every layer's
     forward runs twice (the loss, and its recompute in the backward), its
-    backward once; 0 for a kernel the model does not run."""
+    backward once, an encoder-decoder's encoder layers and its decoder
+    layers' cross-attention as well (each a K1 call of its own); 0 for a
+    kernel the model does not run."""
     L = cfg.num_layers
-    attn = cfg.attention != "none"
-    ssm = cfg.family in ("ssm", "hybrid")
-    return {"flash_attention": 2 * L * attn, "flash_attention_bwd": L * attn,
-            "ssd": 2 * L * ssm, "ssd_bwd": L * ssm}
+    attn = (cfg.attention != "none") * (L + (cfg.encoder_layers + L) * cfg.is_encdec)
+    ssm = L * (cfg.family in ("ssm", "hybrid"))
+    return {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
+            "ssd": 2 * ssm, "ssd_bwd": ssm}
 
 
-def _model_flops(cfg, n_params: int, B: int, S: int) -> tuple:
-    """Model FLOPs of one step (no remat recompute): 6 N per token for the
-    parameter products a token runs, N the parameters without the embedding
-    table unless the head is tied to it (its forward is a gather, not a
-    product), without the zero-padded attention heads (``kv_pad_to``: their
-    products are of zeros) and, in each MoE layer, with the
-    ``experts_per_token`` routed experts a token is sent to of the
-    ``num_experts`` (the shared experts and the router all count; the
-    port's ``moe_dense`` runs every expert, which is not counted); and each
-    attention layer's two products over the (q, k) pairs its mask leaves
-    visible (causal, within the window on a window layer), forward (2 Dqk +
-    2 Dv per pair per head) and backward (twice that). The SSD scan's own
-    products are not counted."""
-    from repro_torch.models.lm import stack_plan
+def _model_flops(cfg, params, B: int, S: int) -> tuple:
+    """Model FLOPs of one step (no remat recompute), ``S`` the text tokens a
+    sample: 6 per parameter and position for the parameter products each
+    position runs. A decoder-side parameter runs over the decoder's
+    positions (a VLM's image patches and text, S otherwise), an
+    encoder-decoder's encoder parameters and its decoder layers'
+    cross-attention K and V projections over the encoder's frames, a VLM's
+    vision projection over its patches, and the head over the text only;
+    the embedding table counts only where the head is tied to it (its
+    forward is a gather, not a product). Without the zero-padded attention
+    heads (``kv_pad_to``: their products are of zeros) and, in each MoE
+    layer, with the ``experts_per_token`` routed experts a token is sent to
+    of the ``num_experts`` (the shared experts and the router all count;
+    the port's ``moe_dense`` runs every expert, which is not counted). Each
+    attention call's two products over the (q, k) pairs its mask leaves
+    visible (causal, within the window on a window layer, the VLM's prefix
+    span; all pairs in the encoder and the cross-attention), forward (2 Dqk
+    + 2 Dv per pair per head) and backward (twice that). The SSD scan's own
+    products are not counted. Returns (FLOPs, formula, the parameters
+    counted, each at its positions, summed over the positions of one
+    sample)."""
+    from repro_torch.models.lm import encoder_plan, stack_plan
+    from repro_torch.tree import tree_flatten_with_keys
 
     d = cfg.d_model
-    n = n_params - (0 if cfg.tie_embeddings else cfg.vocab_size * d)
+    F = cfg.encoder_seq if cfg.is_encdec else 0
+    P = cfg.num_image_tokens if cfg.family == "vlm" else 0
+    S_dec = P + S
+    by_pos: dict = {}  # positions a sample -> parameters run over them
+    for key, leaf in tree_flatten_with_keys(params.tree()):
+        parts = key.split(".")
+        if parts[0].startswith("enc_") or ("cross" in parts and parts[-1] in ("wk", "wv")):
+            pos = F
+        elif parts[0] == "vision_proj":
+            pos = P
+        elif parts[0] == "embed":
+            pos = S if cfg.tie_embeddings else 0
+        elif parts[0] == "lm_head":
+            pos = S
+        else:
+            pos = S_dec
+        by_pos[pos] = by_pos.get(pos, 0) + leaf.numel()
+    idle = 0
     dqk = dv = cfg.head_dim
     if cfg.attention == "gqa":  # wq, wo and wk, wv over the padded heads
         pads = 2 * (cfg.heads_padded - cfg.num_heads) + 2 * (cfg.kv_heads_padded - cfg.num_kv_heads)
-        n -= cfg.num_layers * pads * cfg.head_dim * d
+        idle += cfg.num_layers * pads * cfg.head_dim * d
     elif cfg.attention == "mla":
         dqk, dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
     if cfg.is_moe:
-        idle = (cfg.num_experts - cfg.experts_per_token) * 3 * d * cfg.moe_d_ff
-        n -= sum(g.count for g in stack_plan(cfg) if g.moe) * idle
+        idle += (sum(g.count for g in stack_plan(cfg) if g.moe)
+                 * (cfg.num_experts - cfg.experts_per_token) * 3 * d * cfg.moe_d_ff)
+    by_pos[S_dec] -= idle
     attn = 0
     if cfg.attention != "none":
-        for grp in stack_plan(cfg):
-            window = None if grp.is_global else cfg.window
-            pairs = sum(q + 1 if window is None else min(q + 1, window) for q in range(S))
-            attn += 6 * grp.count * B * cfg.num_heads * (dqk + dv) * pairs
-    formula = ("6*N*B*S + 6*B*H*(Dqk+Dv)*(visible causal pairs) per attention layer, N = "
-               "parameters - the embedding table (untied) - zero-padded heads - the routed "
+        calls = [(g.count, S_dec, S_dec, True, None if g.is_global else cfg.window)
+                 for g in stack_plan(cfg)]
+        if cfg.is_encdec:  # the encoder's layers, and each decoder layer's cross-attention
+            calls += [(g.count, F, F, False, None) for g in encoder_plan(cfg)]
+            calls.append((cfg.num_layers, S_dec, F, False, None))
+        for count, Sq, Sk, causal, window in calls:
+            pairs = _visible_pairs(Sq, Sk, causal, window, P or None)
+            attn += 6 * count * B * cfg.num_heads * (dqk + dv) * pairs
+    formula = ("6*B*sum(N_p*p) + 6*B*H*(Dqk+Dv)*(visible pairs) per attention call; N_p the "
+               "parameters run over p positions a sample (encoder and cross K/V: the frames; "
+               "vision projection: the patches; tied head: the text; the rest: the decoder's "
+               "positions), less the embedding table (untied), zero-padded heads and the routed "
                "experts a token is not sent to (MoE: experts_per_token of num_experts active)")
-    return 6 * n * B * S + attn, formula, n
+    n_pos = sum(n * pos for pos, n in by_pos.items())
+    return 6 * B * n_pos + attn, formula, n_pos
+
+
+def _stale_leaves(params, opt, init) -> dict:
+    """Indices of the leaves (in ``tree_leaves`` order) that training left
+    behind. ``no_grad``: the first moment is all zero, so no step gave the
+    leaf a non-zero gradient element (weight decay alone moves the master,
+    never the moment); ``unchanged``: the f32 master equals its init;
+    ``off_master``: the parameter is not its master rounded. ``at_init``
+    (reported, not a fault): the parameter equals its init, as a bf16 leaf
+    may where every update stayed under half its ulp (whisper's LayerNorm
+    gains at 1.0, where a step of lr 3e-4 does not move bf16(1.0))."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    leaves = list(zip(tree_leaves(params.tree()), tree_leaves(opt["master"]),
+                      tree_leaves(init.tree()), tree_leaves(opt["m"]), strict=True))
+    return {"no_grad": [k for k, (*_, m1) in enumerate(leaves) if not bool(m1.ne(0).any())],
+            "unchanged": [k for k, (_, m, i, _) in enumerate(leaves)
+                          if torch.equal(m, i.float())],
+            "off_master": [k for k, (p, m, _, _) in enumerate(leaves)
+                           if not torch.equal(p, m.to(p.dtype))],
+            "at_init": [k for k, (p, _, i, _) in enumerate(leaves) if torch.equal(p, i)]}
 
 
 def phase_train(arch: str, steps: int) -> dict:
@@ -1922,7 +2103,11 @@ def phase_train(arch: str, steps: int) -> dict:
     free = shutil.disk_usage(ckpt_dir).free
     emit("train", arch=arch, **allocated, disk_free_bytes=free)
     tcfg = TrainerConfig(num_steps=steps, checkpoint_every=10 * steps, log_every=1, **TRAIN_KW)
-    tr = Trainer(cfg, tcfg, str(ckpt_dir), device="cuda:0")
+    B = TRAIN_KW["global_batch"]
+    # the enc-dec and VLM cells' source; else the Trainer's own SyntheticTokens
+    data = (EncDecVLMTokens(cfg, TRAIN_TEXT[arch], B, seed=tcfg.seed) if arch in TRAIN_TEXT
+            else None)
+    tr = Trainer(cfg, tcfg, str(ckpt_dir), device="cuda:0", data_source=data)
     try:
         counters = _train_counters()
         torch.cuda.synchronize()
@@ -1950,19 +2135,19 @@ def phase_train(arch: str, steps: int) -> dict:
         # the MoE layers' load-balancing loss rides on the loss: finite, > 0
         check(all(np.isfinite(r["aux"]) and (r["aux"] > 0) == cfg.is_moe for r in rows),
               f"{arch}: aux losses {[r['aux'] for r in rows]}")
-        init = tr.model.init(tcfg.seed)
-        unchanged = [k for k, (a, b) in enumerate(zip(tree_leaves(params.tree()),
-                                                      tree_leaves(init.tree())))
-                     if torch.equal(a, b)]
-        check(not unchanged, f"{len(unchanged)} parameter leaves unchanged after training")
-        del init
+        stale = _stale_leaves(params, opt, tr.model.init(tcfg.seed))
+        check(not stale["no_grad"],
+              f"{len(stale['no_grad'])} leaves took no gradient in {steps} steps: {stale}")
+        check(not stale["unchanged"], f"master leaves unchanged after training: {stale}")
+        check(not stale["off_master"], f"parameter leaves differ from their master: {stale}")
         dtypes = {part: sorted({str(t.dtype) for t in tree_leaves(opt[part])})
                   for part in ("m", "v", "master")}
         dtypes["count"] = str(opt["count"].dtype)
         dtypes["params"] = sorted({str(t.dtype) for t in params.parameters()})
         # the SSM leaves a_log, d_skip and dt_bias and the MoE router stay
-        # f32 in a bf16 model
-        want_params = ["torch.bfloat16"] + (["torch.float32"] if cfg.family != "dense" else [])
+        # f32 in a bf16 model; every other leaf is bf16
+        f32_leaves = cfg.family in ("ssm", "hybrid") or cfg.is_moe
+        want_params = ["torch.bfloat16"] + (["torch.float32"] if f32_leaves else [])
         check(dtypes == {"m": ["torch.float32"], "v": ["torch.float32"],
                          "master": ["torch.float32"], "count": "torch.int32",
                          "params": want_params}, f"state dtypes {dtypes}")
@@ -1976,29 +2161,37 @@ def phase_train(arch: str, steps: int) -> dict:
         state = {"params": params, "opt": opt}
         batch = to_device(tr.data.batch(steps), tr.device)
         trace = _traced(lambda: tr.train_step(state, batch, steps), top=6)
-        B, S = TRAIN_KW["global_batch"], TRAIN_KW["seq_len"]
+        S = TRAIN_TEXT.get(arch, TRAIN_KW["seq_len"])
+        # the positions a sample runs through the decoder-side layers, and
+        # the encoder's
+        positions = S + (cfg.num_image_tokens if cfg.family == "vlm" else 0)
+        frames = cfg.encoder_seq if cfg.is_encdec else 0
         step_s = float(np.median(steps_s[1:]))
-        flops, formula, n_matmul = _model_flops(cfg, n_params, B, S)
+        flops, formula, n_pos = _model_flops(cfg, params, B, S)
         res = {
             "arch": arch, "dtype": "bfloat16", "steps": steps, "batch": B,
-            "seq_len": S, "remat": cfg.remat, "params": n_params,
+            "seq_len": S, "decoder_positions": positions, "encoder_frames": frames,
+            "remat": cfg.remat, "params": n_params,
             "loss": [r["loss"] for r in rows], "aux": [r["aux"] for r in rows],
             "grad_norm": [r["grad_norm"] for r in rows],
             "lr": [r["lr"] for r in rows],
             "step_s": steps_s, "step_s_median_after_first": step_s,
             "tokens_per_s": B * S / step_s,
+            "positions_per_s": B * (positions + frames) / step_s,
             "peak_mem_bytes": peak,
             "launches": launches,
             "launches_per_step": {k: v / steps for k, v in launches.items()},
             "model_flops_per_step": flops, "model_flops_formula": formula,
-            "model_flops_n": n_matmul,
+            "model_flops_param_positions": n_pos,
             "model_flop_share_of_989_tflops": flops / step_s / PEAK_BF16_FLOPS,
             "ckpt": {"disk_free_bytes_before": free, "bytes": save["bytes"],
                      "bytes_on_disk": on_disk, "seconds": save["seconds"],
                      "snapshot_s": save["snapshot_s"]},
             "state_dtypes": dtypes,
+            "bf16_leaves_at_init": len(stale["at_init"]),
         }
         res.update({f"step_{k}": v for k, v in trace.items()})
+        res["step_k1_bwd_share_of_busy"] = trace["k1_bwd_device_ms"] / trace["device_busy_ms"]
         res["step_k2_bwd_share_of_busy"] = trace["k2_bwd_device_ms"] / trace["device_busy_ms"]
         emit("train", **res)
     finally:
@@ -2092,7 +2285,9 @@ def phase_train_parity(arch: str, B: int, S: int) -> dict:
     cfg = get_config(arch).replace(dtype="float32")
     model = build_model(cfg, device="cuda:0")
     params = model.init(seed=0)
-    batch = SyntheticTokens(cfg.vocab_size, S, B, seed=0).batch(0)
+    src = (EncDecVLMTokens(cfg, S, B) if arch in TRAIN_TEXT
+           else SyntheticTokens(cfg.vocab_size, S, B, seed=0))
+    batch = src.batch(0)
     keyed = tree_flatten_with_keys(params.tree())
 
     def loss_and_grads():
@@ -2262,10 +2457,13 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                 "train_shape_library_ulp_err": bwd["train_shape"]["library_ulp_err"],
                 "at": "B=4 H=32 KV=4 Dh=64 Sq=Sk=2048 bf16 causal; library: the autograd "
                       "backward of F.scaled_dot_product_attention",
-                "hymba_train_shape_device_ms": {
-                    k: v["device_ms"] for k, v in bwd["hymba_train_shape"].items()},
-                "hymba_train_shape_ulp_err": {
-                    k: v["ulp_err"] for k, v in bwd["hymba_train_shape"].items()},
+                "dh256_max_scaled_err": bwd["dh256_max_scaled_err"],
+                # hymba's two masks and the enc-dec and VLM cells' shapes
+                "train_shapes": {
+                    label: {k: r[k] for k in ("ms", "plain_ms", "device_ms", "kernel_profiled_ms",
+                                              "library_ms", "library_device_ms", "library_note",
+                                              "bound_ms", "bound_by", "ulp_err")}
+                    for label, r in bwd["train_shapes"].items()},
             },
             {
                 "name": "ssd_bwd",

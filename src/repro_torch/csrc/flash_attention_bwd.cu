@@ -13,7 +13,8 @@
 //   dP = dO V^T,  dS = P o (dP - D)
 //   dK = dS^T Q * scale            summed over the G q-heads
 //   dQ = dS K * scale
-// with the forward's masks (causal top-left aligned from position 0,
+// with the forward's masks (causal top-left aligned from position 0, with
+// keys below prefix_len visible to every query, the prefix-LM span;
 // sliding window k > q - window, valid length k < k_len), GQA q-head h
 // reading kv-head h / (H / KV), ragged Sq and Sk, inputs and outputs
 // addressed through strides, so the model's (B, S, H, Dh) views need no
@@ -22,7 +23,7 @@
 // Three launches, no float atomics, so the result is the same bit for bit
 // from run to run:
 //  - bwd_preprocess: D, one warp per row.
-//  - bwd_dkdv: one CTA per (batch * kv-head, 64-key tile), heaviest causal
+//  - bwd_dkdv: one CTA per (batch * kv-head, key tile), heaviest causal
 //    tiles (the first) dispatched first. It keeps its K and V tile in
 //    shared memory and dK, dV in registers, walks the G q-heads of its
 //    group and, for each, the q tiles the mask lets see its keys,
@@ -66,6 +67,21 @@
 //  - At Dh = 128 the streamed tiles hold 32 rows (q rows in bwd_dkdv, keys
 //    in bwd_dq), so a warp's dK and dV (or dQ) accumulators, 128 (64) f32
 //    registers, fit beside the score fragments.
+//  - At Dh = 256 (gemma's, in paligemma: MQA, a prefix-LM span) a warp's
+//    dK and dV for its 16 keys would be 2 x 32 n-tiles x 4 = 256 f32
+//    registers a thread, over the 255 cap before any score fragment. So
+//    the dK/dV work runs as two passes side by side in one launch
+//    (bwd_dkdv_mma_passes, the grid's z picking the pass): one CTA set
+//    computes dV (S^T and P^T only: it needs no V, no dP and no D), the
+//    other dK (S^T and dP^T, so S^T is computed twice), each holding 128
+//    accumulator registers. Of the alternatives, two warpgroups splitting
+//    dK and dV's columns would share one S^T and dP^T through shared
+//    memory, with a barrier between the score and the gradient products of
+//    every tile; two CTAs splitting the columns would each recompute both
+//    256-deep score products (8 products a tile pair against these passes'
+//    7). The
+//    streamed tiles hold 32 rows, as at 128; bwd_dq_mma keeps its one pass
+//    (128 dQ registers beside 32 of S and dP).
 // What holds the bf16 form back next (about 1.1 ms at the training shape
 // on an H100 SXM at 700 W, twice PyTorch's SDPA backward): the split's
 // doubled products, and each warpgroup waiting for its products before
@@ -75,7 +91,11 @@
 // the forward's f32 form: the tensor cores take no f32 operand that holds a
 // 1e-4 tolerance. Each thread owns a 4 x 4 micro-tile of the 64 x 64 score
 // tile and 4 rows x Dh/16 columns of its gradient tile, operands in padded
-// f32 shared-memory tiles.
+// f32 shared-memory tiles. At Dh = 256 the key tiles hold 32 keys (a 4 x 2
+// micro-tile, 2 keys x 16 columns of dK and dV a thread): 64-key K and V
+// tiles beside the 64-row Q and dO tiles would take 298 496 bytes of
+// shared memory, over the 232 448 a CTA may opt in to, and 128 dK and dV
+// registers a thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,7 +110,6 @@ namespace {
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int THREADS = 256;
-constexpr int PS = BK + 4;  // score-tile row: the warp's two row groups hit disjoint banks
 constexpr int MAX_DEVICES = 64;
 
 struct Strides {
@@ -113,6 +132,7 @@ struct Params {
   int causal;
   int window;  // <= 0: no window
   int k_len;   // keys at positions >= k_len are masked
+  int prefix_len;  // causal: keys at positions < prefix_len are visible to every query
   float scale;
 };
 
@@ -129,7 +149,7 @@ __device__ __forceinline__ float ld<__nv_bfloat16>(const __nv_bfloat16* p) {
 
 __device__ __forceinline__ bool visible(const Params& p, int k_valid, int qi, int kj) {
   bool ok = kj < k_valid;
-  if (p.causal) ok = ok && kj <= qi;
+  if (p.causal) ok = ok && (kj <= qi || kj < p.prefix_len);
   if (p.window > 0) ok = ok && kj > qi - p.window;
   return ok;
 }
@@ -154,18 +174,29 @@ __global__ void __launch_bounds__(THREADS) bwd_preprocess(Params p) {
 
 // -- f32: FMA tiles ----------------------------------------------------------------
 
+// keys of a key tile: 64, and 32 at head dim 256
 template <int DH>
-constexpr int smem_bytes() {
-  // q, dO, k, v tiles padded to DH + 1 (conflict-free column walks), the P
-  // and dS tiles, and a q tile's lse and D
-  return (4 * BQ * (DH + 1) + 2 * BQ * PS + 2 * BQ) * 4;
+__host__ __device__ constexpr int f32_keys() {
+  return DH == 256 ? 32 : BK;
+}
+// a score-tile row (the tile's keys + 4): the warp's two row groups hit disjoint banks
+template <int DH>
+__host__ __device__ constexpr int f32_ps() {
+  return f32_keys<DH>() + 4;
 }
 
-// rows [r0, r0 + 64) of a (seq, Dh) slice into a padded f32 tile, zeros past n
 template <int DH>
+constexpr int smem_bytes() {
+  // q and dO tiles (64 rows), k and v tiles (f32_keys rows), padded to DH + 1
+  // (conflict-free column walks), the P and dS tiles, and a q tile's lse and D
+  return (2 * (BQ + f32_keys<DH>()) * (DH + 1) + 2 * BQ * f32_ps<DH>() + 2 * BQ) * 4;
+}
+
+// rows [r0, r0 + ROWS) of a (seq, Dh) slice into a padded f32 tile, zeros past n
+template <int DH, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, long long ss, int r0,
                                           int n) {
-  for (int i = threadIdx.x; i < BQ * DH; i += THREADS) {
+  for (int i = threadIdx.x; i < ROWS * DH; i += THREADS) {
     const int r = i / DH, d = i % DH;
     dst[r * (DH + 1) + d] = r0 + r < n ? src[(long long)(r0 + r) * ss + d] : 0.f;
   }
@@ -178,30 +209,33 @@ __device__ __forceinline__ void scores(const Params& p, int k_valid, int q0, int
                                        const float* q_s, const float* do_s, const float* k_s,
                                        const float* v_s, const float* lse_s, const float* dl_s,
                                        float* p_s, float* ds_s) {
-  constexpr int QS = DH + 1;
+  constexpr int QS = DH + 1, KJ = f32_keys<DH>() / 16, PS = f32_ps<DH>();
+  // at 256 the caller's 64 dQ (or dK and dV) registers stay live: a
+  // shallower unroll keeps the loads in flight within 128 registers
+  constexpr int UNROLL = DH == 256 ? 2 : 4;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[4][4], dp[4][4];
+  float s[4][KJ], dp[4][KJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
+    for (int j = 0; j < KJ; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll UNROLL
   for (int d = 0; d < DH; ++d) {
-    float qv[4], gv[4], kv[4], vv[4];
+    float qv[4], gv[4], kv[KJ], vv[KJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       qv[i] = q_s[(4 * ty + i) * QS + d];
       gv[i] = do_s[(4 * ty + i) * QS + d];
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < KJ; ++j) {
       kv[j] = k_s[(tx + 16 * j) * QS + d];
       vv[j] = v_s[(tx + 16 * j) * QS + d];
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KJ; ++j) {
         s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
         dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
       }
@@ -210,7 +244,7 @@ __device__ __forceinline__ void scores(const Params& p, int k_valid, int q0, int
   for (int i = 0; i < 4; ++i) {
     const int r = 4 * ty + i, qi = q0 + r;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < KJ; ++j) {
       const int c = tx + 16 * j;
       float pr = 0.f;
       if (qi < p.Sq && visible(p, k_valid, qi, k0 + c)) pr = __expf(s[i][j] * p.scale - lse_s[r]);
@@ -226,35 +260,39 @@ template <int DH>
 __global__ void __launch_bounds__(THREADS) bwd_dkdv(Params p) {
   constexpr int QS = DH + 1;
   constexpr int DC = DH / 16;  // gradient columns per thread
+  constexpr int KR = f32_keys<DH>(), KI = KR / 16, PS = f32_ps<DH>();  // KI keys per thread
   extern __shared__ float smem[];
   float* q_s = smem;
   float* do_s = q_s + BQ * QS;
   float* k_s = do_s + BQ * QS;
-  float* v_s = k_s + BK * QS;
-  float* p_s = v_s + BK * QS;
+  float* v_s = k_s + KR * QS;
+  float* p_s = v_s + KR * QS;
   float* ds_s = p_s + BQ * PS;
   float* lse_s = ds_s + BQ * PS;
   float* dl_s = lse_s + BQ;
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bkv = blockIdx.x, b = bkv / p.KV, kvh = bkv % p.KV;
-  const int k0 = blockIdx.y * BK;  // the first key tiles see the most q rows under causality
+  const int k0 = blockIdx.y * KR;  // the first key tiles see the most q rows under causality
   const int G = p.H / p.KV;
   const int k_valid = min(p.k_len, p.Sk);
 
-  load_tile<DH>(k_s, static_cast<const float*>(p.k) + b * p.sk.b + kvh * p.sk.h, p.sk.s, k0, p.Sk);
-  load_tile<DH>(v_s, static_cast<const float*>(p.v) + b * p.sv.b + kvh * p.sv.h, p.sv.s, k0, p.Sk);
+  load_tile<DH, KR>(k_s, static_cast<const float*>(p.k) + b * p.sk.b + kvh * p.sk.h, p.sk.s, k0,
+                    p.Sk);
+  load_tile<DH, KR>(v_s, static_cast<const float*>(p.v) + b * p.sv.b + kvh * p.sv.h, p.sv.s, k0,
+                    p.Sk);
 
-  // the q rows that can see a key of this tile: causal q >= k0; window
-  // q < k_last + window; none when the tile lies past the valid length
-  int q_lo = p.causal ? k0 / BQ * BQ : 0;
+  // the q rows that can see a key of this tile: causal q >= k0, every q
+  // from 0 when the tile starts inside the prefix span; window q < k_last +
+  // window; none when the tile lies past the valid length
+  int q_lo = p.causal && k0 >= p.prefix_len ? k0 / BQ * BQ : 0;
   int q_hi = p.Sq;
-  if (p.window > 0) q_hi = min(q_hi, k0 + BK - 1 + p.window);
+  if (p.window > 0) q_hi = min(q_hi, k0 + KR - 1 + p.window);
   if (k0 >= k_valid) q_hi = 0;
 
-  float dk[4][DC], dv[4][DC];
+  float dk[KI][DC], dv[KI][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < KI; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
 
@@ -264,8 +302,8 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv(Params p) {
     const float* dog = static_cast<const float*>(p.dO) + b * p.sdo.b + h * p.sdo.h;
     for (int q0 = q_lo; q0 < q_hi; q0 += BQ) {
       __syncthreads();  // the previous tile's readers are done
-      load_tile<DH>(q_s, qg, p.sq.s, q0, p.Sq);
-      load_tile<DH>(do_s, dog, p.sdo.s, q0, p.Sq);
+      load_tile<DH, BQ>(q_s, qg, p.sq.s, q0, p.Sq);
+      load_tile<DH, BQ>(do_s, dog, p.sdo.s, q0, p.Sq);
       for (int r = tid; r < BQ; r += THREADS) {
         const bool in = q0 + r < p.Sq;
         lse_s[r] = in ? p.lse[(long long)bh * p.Sq + q0 + r] : 0.f;
@@ -275,14 +313,14 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv(Params p) {
       scores<DH>(p, k_valid, q0, k0, q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s);
       __syncthreads();
       // dV[key, d] += sum_q P[q, key] dO[q, d];  dK[key, d] += sum_q dS[q, key] Q[q, d]
-      // thread (ty, tx) owns keys 4 ty + i and columns tx + 16 c
+      // thread (ty, tx) owns keys KI ty + i and columns tx + 16 c
 #pragma unroll 4
       for (int r = 0; r < BQ; ++r) {
-        float pv[4], sv[4], gv[DC], qv[DC];
+        float pv[KI], sv[KI], gv[DC], qv[DC];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = p_s[r * PS + 4 * ty + i];
-          sv[i] = ds_s[r * PS + 4 * ty + i];
+        for (int i = 0; i < KI; ++i) {
+          pv[i] = p_s[r * PS + KI * ty + i];
+          sv[i] = ds_s[r * PS + KI * ty + i];
         }
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
@@ -290,7 +328,7 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv(Params p) {
           qv[c] = q_s[r * QS + tx + 16 * c];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < KI; ++i)
 #pragma unroll
           for (int c = 0; c < DC; ++c) {
             dv[i][c] = fmaf(pv[i], gv[c], dv[i][c]);
@@ -303,8 +341,8 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv(Params p) {
   float* dkg = static_cast<float*>(p.dk) + b * p.sdk.b + kvh * p.sdk.h;
   float* dvg = static_cast<float*>(p.dv) + b * p.sdv.b + kvh * p.sdv.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kj = k0 + 4 * ty + i;
+  for (int i = 0; i < KI; ++i) {
+    const int kj = k0 + KI * ty + i;
     if (kj >= p.Sk) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
@@ -320,12 +358,14 @@ template <int DH>
 __global__ void __launch_bounds__(THREADS) bwd_dq(Params p) {
   constexpr int QS = DH + 1;
   constexpr int DC = DH / 16;
+  constexpr int KR = f32_keys<DH>(), PS = f32_ps<DH>();
+  constexpr int UNROLL = DH == 256 ? 2 : 4;  // at 256, within 128 registers beside dQ
   extern __shared__ float smem[];
   float* q_s = smem;
   float* do_s = q_s + BQ * QS;
   float* k_s = do_s + BQ * QS;
-  float* v_s = k_s + BK * QS;
-  float* p_s = v_s + BK * QS;
+  float* v_s = k_s + KR * QS;
+  float* p_s = v_s + KR * QS;
   float* ds_s = p_s + BQ * PS;
   float* lse_s = ds_s + BQ * PS;
   float* dl_s = lse_s + BQ;
@@ -336,18 +376,20 @@ __global__ void __launch_bounds__(THREADS) bwd_dq(Params p) {
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last (heaviest causal) tiles first
   const int k_valid = min(p.k_len, p.Sk);
 
-  load_tile<DH>(q_s, static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.s, q0, p.Sq);
-  load_tile<DH>(do_s, static_cast<const float*>(p.dO) + b * p.sdo.b + h * p.sdo.h, p.sdo.s, q0,
-                   p.Sq);
+  load_tile<DH, BQ>(q_s, static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.s, q0,
+                    p.Sq);
+  load_tile<DH, BQ>(do_s, static_cast<const float*>(p.dO) + b * p.sdo.b + h * p.sdo.h, p.sdo.s,
+                    q0, p.Sq);
   for (int r = tid; r < BQ; r += THREADS) {
     const bool in = q0 + r < p.Sq;
     lse_s[r] = in ? p.lse[(long long)bh * p.Sq + q0 + r] : 0.f;
     dl_s[r] = in ? p.delta[(long long)bh * p.Sq + q0 + r] : 0.f;
   }
-  // the keys these rows see, as the forward walks them
+  // the keys these rows see, as the forward walks them: a causal tile's
+  // run to its diagonal or to the end of the prefix span
   const int q_last = min(q0 + BQ, p.Sq) - 1;
-  const int k_hi = p.causal ? min(k_valid, q_last + 1) : k_valid;
-  const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) / BK * BK : 0;
+  const int k_hi = p.causal ? min(k_valid, max(q_last + 1, p.prefix_len)) : k_valid;
+  const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) / KR * KR : 0;
   const float* kg = static_cast<const float*>(p.k) + b * p.sk.b + kvh * p.sk.h;
   const float* vg = static_cast<const float*>(p.v) + b * p.sv.b + kvh * p.sv.h;
 
@@ -357,16 +399,16 @@ __global__ void __launch_bounds__(THREADS) bwd_dq(Params p) {
 #pragma unroll
     for (int c = 0; c < DC; ++c) dq[i][c] = 0.f;
 
-  for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
+  for (int k0 = k_lo; k0 < k_hi; k0 += KR) {
     __syncthreads();  // the previous tile's readers are done (and q, dO are in)
-    load_tile<DH>(k_s, kg, p.sk.s, k0, p.Sk);
-    load_tile<DH>(v_s, vg, p.sv.s, k0, p.Sk);
+    load_tile<DH, KR>(k_s, kg, p.sk.s, k0, p.Sk);
+    load_tile<DH, KR>(v_s, vg, p.sv.s, k0, p.Sk);
     __syncthreads();
     scores<DH>(p, k_valid, q0, k0, q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s);
     __syncthreads();
     // dQ[q, d] += sum_key dS[q, key] K[key, d]; thread owns rows 4 ty + i
-#pragma unroll 4
-    for (int c0 = 0; c0 < BK; ++c0) {
+#pragma unroll UNROLL
+    for (int c0 = 0; c0 < KR; ++c0) {
       float sv[4], kv[DC];
 #pragma unroll
       for (int i = 0; i < 4; ++i) sv[i] = ds_s[(4 * ty + i) * PS + c0];
@@ -539,9 +581,15 @@ __device__ __forceinline__ void wgmma_split_ab(float (&acc)[8][4], const float (
   tc::wgmma_wait0();
 }
 
-template <int DH, bool WG>
-__global__ void __launch_bounds__(MMA_THREADS) bwd_dkdv_mma(Params p) {
+// what a dK/dV CTA computes: dV and dK together, or (at head dim 256) one
+// of them
+constexpr int DKDV_DV = 1, DKDV_DK = 2, DKDV_BOTH = 3;
+
+template <int DH, bool WG, int PART>
+__device__ __forceinline__ void dkdv_mma_body(const Params& p) {
   using bf16 = __nv_bfloat16;
+  constexpr bool DV = PART & DKDV_DV, DK = PART & DKDV_DK;
+  static_assert(!WG || PART == DKDV_BOTH, "the wgmma form computes dV and dK together");
   constexpr int QN = stream_rows<DH>();  // q rows of a streamed tile
   constexpr int NQ = QN / 8;             // n-tiles of S^T (q columns)
   constexpr int ND = DH / 8;             // n-tiles of dK and dV
@@ -562,13 +610,15 @@ __global__ void __launch_bounds__(MMA_THREADS) bwd_dkdv_mma(Params p) {
 
   cp_rows<DH, WG>(k_s, static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h, p.sk.s, k0,
                   BK, p.Sk);
-  cp_rows<DH, WG>(v_s, static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h, p.sv.s, k0,
-                  BK, p.Sk);
+  if constexpr (DK)  // dV's pass reads no V
+    cp_rows<DH, WG>(v_s, static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h, p.sv.s, k0,
+                    BK, p.Sk);
 
-  // the q rows that can see a key of this tile: causal q >= k0; window
-  // q < k_last + window; none when the tile lies past the valid length.
+  // the q rows that can see a key of this tile: causal q >= k0, every q
+  // from 0 when the tile starts inside the prefix span; window q < k_last +
+  // window; none when the tile lies past the valid length.
   // The CTA walks n_q q tiles for each of the G q-heads, one stream.
-  const int q_lo = p.causal ? k0 / QN * QN : 0;
+  const int q_lo = p.causal && k0 >= p.prefix_len ? k0 / QN * QN : 0;
   int q_hi = p.Sq;
   if (p.window > 0) q_hi = min(q_hi, k0 + BK - 1 + p.window);
   if (k0 >= k_valid) q_hi = 0;
@@ -587,7 +637,7 @@ __global__ void __launch_bounds__(MMA_THREADS) bwd_dkdv_mma(Params p) {
       const int qi = q0 + r;
       const long long at_ = row + min(qi, p.Sq - 1);
       tc::cp_async4(lse_s + stage * QN + r, p.lse + at_, qi < p.Sq);
-      tc::cp_async4(dl_s + stage * QN + r, p.delta + at_, qi < p.Sq);
+      if constexpr (DK) tc::cp_async4(dl_s + stage * QN + r, p.delta + at_, qi < p.Sq);
     }
   };
   if (n_it > 0) load_q(0, 0);
@@ -595,11 +645,16 @@ __global__ void __launch_bounds__(MMA_THREADS) bwd_dkdv_mma(Params p) {
 
   const float sl2 = p.scale * LOG2E;  // P = 2^(S * scale * log2(e) - lse * log2(e))
   const int kr = k0 + 16 * warp + (lane >> 2);  // this lane's keys: kr and kr + 8
-  float dk[ND][4], dv[ND][4];
+  // a pass's unused accumulator shrinks to one n-tile, zeroed and never read
+  float dk[DK ? ND : 1][4], dv[DV ? ND : 1][4];
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+  for (int n = 0; n < (DK ? ND : 1); ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < (DV ? ND : 1); ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[n][e] = 0.f;
 
   for (int it = 0; it < n_it; ++it) {
     const int stage = it & 1;
@@ -621,12 +676,13 @@ __global__ void __launch_bounds__(MMA_THREADS) bwd_dkdv_mma(Params p) {
                  tc::sw128_desc(ds));
     } else {
       mma_abt<DH, QN>(s, k_s, 16 * warp, qs, lane);
-      mma_abt<DH, QN>(dp, v_s, 16 * warp, ds, lane);
+      if constexpr (DK) mma_abt<DH, QN>(dp, v_s, 16 * warp, ds, lane);
     }
 
-    // P^T and dS^T in place, f32; only tiles at the diagonal, the window's
-    // edge, the valid length or the ragged q end evaluate the mask
-    const bool edge = (p.causal && q0 < k0 + BK - 1) ||
+    // P^T and dS^T in place, f32; only tiles at the diagonal (past the
+    // prefix span), the window's edge, the valid length or the ragged q end
+    // evaluate the mask
+    const bool edge = (p.causal && q0 < k0 + BK - 1 && k0 + BK > p.prefix_len) ||
                       (p.window > 0 && k0 <= q0 + QN - 1 - p.window) || k0 + BK > k_valid ||
                       q0 + QN > p.Sq;
 #pragma unroll
@@ -639,7 +695,7 @@ __global__ void __launch_bounds__(MMA_THREADS) bwd_dkdv_mma(Params p) {
         float pr = exp2_ftz(s[n][e] * sl2 - ((e & 1) ? l.y : l.x) * LOG2E);
         if (edge && !(qi < p.Sq && visible(p, k_valid, qi, kj))) pr = 0.f;
         s[n][e] = pr;
-        dp[n][e] = pr * (dp[n][e] - ((e & 1) ? d.y : d.x));
+        if constexpr (DK) dp[n][e] = pr * (dp[n][e] - ((e & 1) ? d.y : d.x));
       }
     }
 
@@ -648,8 +704,8 @@ __global__ void __launch_bounds__(MMA_THREADS) bwd_dkdv_mma(Params p) {
       wgmma_split_ab(dv, s, tc::sw128_desc(ds));
       wgmma_split_ab(dk, dp, tc::sw128_desc(qs));
     } else {
-      mma_split_ab<DH, QN>(dv, s, ds, lane);
-      mma_split_ab<DH, QN>(dk, dp, qs, lane);
+      if constexpr (DV) mma_split_ab<DH, QN>(dv, s, ds, lane);
+      if constexpr (DK) mma_split_ab<DH, QN>(dk, dp, qs, lane);
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
@@ -661,14 +717,34 @@ __global__ void __launch_bounds__(MMA_THREADS) bwd_dkdv_mma(Params p) {
   for (int i = 0; i < 2; ++i) {
     const int kj = kr + 8 * i;
     if (kj >= p.Sk) continue;
+    if constexpr (DK) {
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<uint32_t*>(dkg + kj * p.sdk.s + 8 * n + 2 * t) =
-          tc::pack_bf16(dk[n][2 * i] * p.scale, dk[n][2 * i + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(dvg + kj * p.sdv.s + 8 * n + 2 * t) =
-          tc::pack_bf16(dv[n][2 * i], dv[n][2 * i + 1]);
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<uint32_t*>(dkg + kj * p.sdk.s + 8 * n + 2 * t) =
+            tc::pack_bf16(dk[n][2 * i] * p.scale, dk[n][2 * i + 1] * p.scale);
+    }
+    if constexpr (DV) {
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<uint32_t*>(dvg + kj * p.sdv.s + 8 * n + 2 * t) =
+            tc::pack_bf16(dv[n][2 * i], dv[n][2 * i + 1]);
     }
   }
+}
+
+template <int DH, bool WG>
+__global__ void __launch_bounds__(MMA_THREADS) bwd_dkdv_mma(Params p) {
+  dkdv_mma_body<DH, WG, DKDV_BOTH>(p);
+}
+
+// head dim 256: the grid's z picks the pass, 0 dV and 1 dK; registers are
+// the larger pass's
+template <int DH>
+__global__ void __launch_bounds__(MMA_THREADS) bwd_dkdv_mma_passes(Params p) {
+  if (blockIdx.z == 0)
+    dkdv_mma_body<DH, false, DKDV_DV>(p);
+  else
+    dkdv_mma_body<DH, false, DKDV_DK>(p);
 }
 
 template <int DH, bool WG>
@@ -694,9 +770,10 @@ __global__ void __launch_bounds__(MMA_THREADS) bwd_dq_mma(Params p) {
                   p.Sq);
   cp_rows<DH, WG>(do_s, static_cast<const bf16*>(p.dO) + b * p.sdo.b + h * p.sdo.h, p.sdo.s, q0,
                   BQ, p.Sq);
-  // the keys these rows see, as the forward walks them
+  // the keys these rows see, as the forward walks them: a causal tile's
+  // run to its diagonal or to the end of the prefix span
   const int q_last = min(q0 + BQ, p.Sq) - 1;
-  const int k_hi = p.causal ? min(k_valid, q_last + 1) : k_valid;
+  const int k_hi = p.causal ? min(k_valid, max(q_last + 1, p.prefix_len)) : k_valid;
   const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) / KN * KN : 0;
   const bf16* kg = static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h;
   const bf16* vg = static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h;
@@ -744,8 +821,9 @@ __global__ void __launch_bounds__(MMA_THREADS) bwd_dq_mma(Params p) {
       mma_abt<DH, KN>(dp, do_s, 16 * warp, vs, lane);
     }
 
-    const bool edge = (p.causal && kt + KN - 1 > q0) || (p.window > 0 && kt <= q_last - p.window) ||
-                      kt + KN > k_valid || q0 + BQ > p.Sq;
+    const bool edge = (p.causal && kt + KN - 1 > q0 && kt + KN > p.prefix_len) ||
+                      (p.window > 0 && kt <= q_last - p.window) || kt + KN > k_valid ||
+                      q0 + BQ > p.Sq;
 #pragma unroll
     for (int n = 0; n < NK; ++n)
 #pragma unroll
@@ -790,33 +868,45 @@ cudaError_t opt_in_smem(Kernel kernel, int bytes, int device, std::atomic<bool>*
   return err;
 }
 
+// one kernel launch with `smem` bytes of dynamic shared memory, opted in first
+template <typename Kernel>
+cudaError_t launch_one(Kernel kernel, dim3 grid, int threads, int smem, int device,
+                       std::atomic<bool>* done, cudaStream_t stream, const Params& p) {
+  cudaError_t err = opt_in_smem(kernel, smem, device, done);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <typename T, int DH>
 cudaError_t launch(const Params& p, int device, cudaStream_t stream) {
   static std::atomic<bool> set_dkdv[MAX_DEVICES], set_dq[MAX_DEVICES];
-  const int q_tiles = (p.Sq + BQ - 1) / BQ, k_tiles = (p.Sk + BK - 1) / BK;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int key_tile = F32 ? f32_keys<DH>() : BK;
+  const int q_tiles = (p.Sq + BQ - 1) / BQ, k_tiles = (p.Sk + key_tile - 1) / key_tile;
   if (q_tiles > 65535 || k_tiles > 65535) return cudaErrorInvalidValue;
   bwd_preprocess<T, DH><<<dim3((p.Sq + 7) / 8, p.B * p.H), THREADS, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 dkdv_grid(p.B * p.KV, k_tiles), dq_grid(p.B * p.H, q_tiles);
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (F32) {
     constexpr int smem = smem_bytes<DH>();
-    if ((err = opt_in_smem(bwd_dkdv<DH>, smem, device, set_dkdv)) != cudaSuccess) return err;
-    bwd_dkdv<DH><<<dkdv_grid, THREADS, smem, stream>>>(p);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if ((err = opt_in_smem(bwd_dq<DH>, smem, device, set_dq)) != cudaSuccess) return err;
-    bwd_dq<DH><<<dq_grid, THREADS, smem, stream>>>(p);
+    err = launch_one(bwd_dkdv<DH>, dkdv_grid, THREADS, smem, device, set_dkdv, stream, p);
+    if (err != cudaSuccess) return err;
+    return launch_one(bwd_dq<DH>, dq_grid, THREADS, smem, device, set_dq, stream, p);
   } else {
-    constexpr bool WG = DH == 64;  // wgmma at head dim 64, mma.sync at 32 and 128
+    constexpr bool WG = DH == 64;  // wgmma at head dim 64, mma.sync at 32, 128 and 256
     constexpr int smem_kv = tc_smem_bytes<DH, WG>(true), smem_q = tc_smem_bytes<DH, WG>(false);
-    if ((err = opt_in_smem(bwd_dkdv_mma<DH, WG>, smem_kv, device, set_dkdv)) != cudaSuccess)
-      return err;
-    bwd_dkdv_mma<DH, WG><<<dkdv_grid, MMA_THREADS, smem_kv, stream>>>(p);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if ((err = opt_in_smem(bwd_dq_mma<DH, WG>, smem_q, device, set_dq)) != cudaSuccess) return err;
-    bwd_dq_mma<DH, WG><<<dq_grid, MMA_THREADS, smem_q, stream>>>(p);
+    if constexpr (DH == 256) {  // the dV and the dK pass, side by side in one grid
+      err = launch_one(bwd_dkdv_mma_passes<DH>, dim3(p.B * p.KV, k_tiles, 2), MMA_THREADS,
+                       smem_kv, device, set_dkdv, stream, p);
+    } else {
+      err = launch_one(bwd_dkdv_mma<DH, WG>, dkdv_grid, MMA_THREADS, smem_kv, device, set_dkdv,
+                       stream, p);
+    }
+    if (err != cudaSuccess) return err;
+    return launch_one(bwd_dq_mma<DH, WG>, dq_grid, MMA_THREADS, smem_q, device, set_dq, stream, p);
   }
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -825,6 +915,7 @@ cudaError_t launch_dh(const Params& p, int Dh, int device, cudaStream_t stream) 
     case 32: return launch<T, 32>(p, device, stream);
     case 64: return launch<T, 64>(p, device, stream);
     case 128: return launch<T, 128>(p, device, stream);
+    case 256: return launch<T, 256>(p, device, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -847,18 +938,22 @@ struct DeviceScope {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, the same for q, k, v, o, dO and the
-// gradients. `strides` holds, in elements, (batch, head, seq) strides of q,
-// k, v, o, dO, dq, dk, dv in that order (24 values); the last (Dh) dim of
-// each must be contiguous. lse is the forward's (B, H, Sq) f32 output and
-// delta a (B, H, Sq) f32 scratch. Launches the three kernels on `stream`
-// of `device` (made the thread's current device for the call, then
-// restored). Returns the first launch's error that is not cudaSuccess.
+// gradients. Dh: 32, 64, 128 or 256. `strides` holds, in elements, (batch,
+// head, seq) strides of q, k, v, o, dO, dq, dk, dv in that order (24
+// values); the last (Dh) dim of each must be contiguous. lse is the
+// forward's (B, H, Sq) f32 output and delta a (B, H, Sq) f32 scratch. With
+// `causal`, keys at positions below `prefix_len` (0: none) are visible to
+// every query, as in the forward. Launches the three kernels on `stream`
+// of `device` (made the thread's current device
+// for the call, then restored). Returns the first launch's error that is
+// not cudaSuccess.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dO,
     const float* lse, float* delta, void* dq, void* dk, void* dv, int dtype, int device,
     int B, int H, int KV, int Sq, int Sk, int Dh, const long long* strides,
-    int causal, int window, int k_len, float scale, void* stream) {
-  if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Sk < 1 || (dtype != 0 && dtype != 1))
+    int causal, int window, int k_len, int prefix_len, float scale, void* stream) {
+  if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Sk < 1 || prefix_len < 0 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (device < 0 || device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   DeviceScope scope(device);
@@ -884,6 +979,7 @@ extern "C" int flash_attention_bwd(
   p.causal = causal;
   p.window = window;
   p.k_len = k_len;
+  p.prefix_len = prefix_len;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(dtype == 1 ? launch_dh<__nv_bfloat16>(p, Dh, device, st)

@@ -36,8 +36,8 @@ causal, window and valid-length (``k_len``) masks, the forward takes a
 prefix-LM span: with ``causal`` and ``prefix_len``, keys at positions below
 ``prefix_len`` are visible to every query (paligemma's image tokens), as
 the reference's ``causal_mask_bias`` builds it. The backward takes Dqk = Dv
-in :data:`HEAD_DIMS` and no prefix span: on a CUDA tensor, attention at
-192/128 or 256/256, or with a prefix span, under autograd raises
+in :data:`HEAD_DIMS` (256 included) and the same masks, the prefix span
+too: on a CUDA tensor, attention at MLA's 192/128 under autograd raises
 ``NotImplementedError`` before anything is launched.
 
 The first launch of each kernel instantiation (device, dtype, Dqk, Dv,
@@ -58,7 +58,7 @@ from . import build
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the backward's head dims (Dqk = Dv)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 # the forward's (Dqk, Dv) pairs, each an instantiation of its own
 HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128), (192, 128), (256, 256))
 
@@ -81,11 +81,15 @@ def design_bwd(dtype: torch.dtype, head_dim: int) -> str:
     """The backward's design for this dtype and head dim, as
     ``csrc/flash_attention_bwd.cu`` names them: bf16 on the tensor cores
     with P and dS split into hi + lo bf16 parts, on ``wgmma`` at head dim 64
-    and ``mma.sync`` at 32 and 128; f32 on FMA tiles."""
+    and ``mma.sync`` at 32 and 128, and at 256 on ``mma.sync`` with dV and
+    dK in two passes side by side in one launch (a warp's dK and dV
+    together would not fit its registers); f32 on FMA tiles."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"head_dim {head_dim} not in the kernel's {HEAD_DIMS}")
     if dtype == torch.float32:
         return "fma-f32"
+    if head_dim == 256:
+        return "mma.sync-split-dv-dk-passes"
     return ("wgmma" if head_dim == 64 else "mma.sync") + "-split"
 
 
@@ -123,7 +127,7 @@ def _kernel_fn(name: str = "flash_attention_fwd"):
                 )
             else:
                 fn = build.library("flash_attention_bwd").flash_attention_bwd
-                fn.argtypes = [ptr] * 10 + [i32] * 8 + [ptr] + [i32] * 3 + [ctypes.c_float, ptr]
+                fn.argtypes = [ptr] * 10 + [i32] * 8 + [ptr] + [i32] * 4 + [ctypes.c_float, ptr]
             fn.restype = i32
             _fns[name] = fn
         return fn
@@ -291,7 +295,7 @@ def _to_bhsd(bshd, *tensors):
 def _attention(q, k, v, causal, window, k_len, prefix_len, *, bshd):
     if build.needs_grad(q, k, v):
         if q.device.type != "cpu":
-            _require_bwd_dims(q, v, prefix_len)  # before the forward runs, not in the backward
+            _require_bwd_dims(q, v)  # before the forward runs, not in the backward
         return FlashAttention.apply(q, k, v, causal, window, k_len, bshd, prefix_len)
     return _forward(q, k, v, causal, window, k_len, bshd, lse=False, prefix_len=prefix_len)
 
@@ -330,16 +334,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None, k_len=
     """The gradients (dq, dk, dv) of the attention output ``o`` for its
     gradient ``do``, from the forward's ``lse``; layouts as the forward's
     (``bshd``: the model's (B, S, heads, Dh)), each gradient in its input's
-    dtype and shape. CUDA tensors launch the three backward kernels
-    (``flash_attention_bwd.launches`` counts each set of three), CPU tensors
-    take :func:`flash_attention_bwd_ref` (which alone takes a prefix span)."""
+    dtype and shape; with ``causal``, keys below ``prefix_len`` are visible
+    to every query. CUDA tensors launch the backward kernels
+    (``flash_attention_bwd.launches`` counts each set of three kernels),
+    CPU tensors take
+    :func:`flash_attention_bwd_ref`."""
     if build.device_type(q, k, v, o, lse, do) == "cpu":
         qt, kt, vt, ot, dot = _to_bhsd(bshd, q, k, v, o, do)
         grads = flash_attention_bwd_ref(qt, kt, vt, ot, lse, dot, causal=causal, window=window,
                                         k_len=k_len, prefix_len=prefix_len)
         return _to_bhsd(bshd, *grads)
     k_len = check_inputs(q, k, v, k_len, bshd=bshd, prefix_len=prefix_len)
-    _require_bwd_dims(q, v, prefix_len)
+    _require_bwd_dims(q, v)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} {do.dtype} "
                          f"must match q {tuple(q.shape)} {q.dtype}")
@@ -347,7 +353,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None, k_len=
         do = do.contiguous()  # the bf16 kernels copy dO's rows in 16-byte pieces
     _check_first_bwd_launch(q.device, q.dtype, q.shape[-1])
     grads = _launch_bwd(q, k, v, o, lse, do, causal=causal, window=window, k_len=k_len,
-                        bshd=bshd)
+                        bshd=bshd, prefix_len=prefix_len)
     build.count_launch(flash_attention_bwd, "flash_attention_bwd")
     return grads
 
@@ -407,21 +413,16 @@ def check_inputs(q, k, v, k_len=None, *, bshd=False, prefix_len=None) -> int:
     return k_len
 
 
-def _require_bwd_dims(q, v, prefix_len=None) -> None:
-    """The backward kernels take Dqk = Dv in :data:`HEAD_DIMS` and no
-    prefix span; MLA's 192/128 and gemma's 256/256 have forward
-    instantiations and no backward yet."""
+def _require_bwd_dims(q, v) -> None:
+    """The backward kernels take Dqk = Dv in :data:`HEAD_DIMS`, with any of
+    the forward's masks; MLA's 192/128 has a forward instantiation and no
+    backward yet."""
     dims = (q.shape[-1], v.shape[-1])
     if dims[0] != dims[1] or dims[0] not in HEAD_DIMS:
         raise NotImplementedError(
             f"flash attention's backward kernel takes Dqk = Dv in {HEAD_DIMS}; (Dqk, Dv) = "
             f"{dims} has a forward kernel only, and training through it on the card waits "
             "for that backward (ROADMAP queue 2 item 1)"
-        )
-    if prefix_len:
-        raise NotImplementedError(
-            "flash attention's backward kernel takes no prefix-LM span; training through "
-            "a prefix mask on the card waits for it (ROADMAP queue 2 item 1)"
         )
 
 
@@ -462,8 +463,9 @@ def _bhs_strides(hd, sd, *tensors) -> list:
     return out
 
 
-def _launch_bwd(q, k, v, o, lse, do, *, causal, window, k_len, bshd=False):
-    """One set of the three backward launches (preprocess, dK/dV, dQ)."""
+def _launch_bwd(q, k, v, o, lse, do, *, causal, window, k_len, bshd=False, prefix_len=None):
+    """One set of the backward launches (preprocess, dK/dV, dQ; in bf16 at
+    Dh = 256, dV and dK apart)."""
     hd, sd = (2, 1) if bshd else (1, 2)
     B, H, Sq, Dh = q.shape[0], q.shape[hd], q.shape[sd], q.shape[3]
     KV, Sk = k.shape[hd], k.shape[sd]
@@ -477,7 +479,8 @@ def _launch_bwd(q, k, v, o, lse, do, *, causal, window, k_len, bshd=False):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _DTYPE_CODES[q.dtype], q.device.index, B, H, KV, Sq, Sk, Dh, strides,
-        int(causal), 0 if window is None else int(window), k_len, Dh**-0.5,
+        int(causal), 0 if window is None else int(window), k_len,
+        0 if prefix_len is None else int(prefix_len), Dh**-0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:

@@ -12,9 +12,11 @@ reference's decode vmapped over lanes, 8 greedy tokens, the loss (over the
 VLM's text only) and every gradient against ``jax.grad``; K1's plain
 versions with a prefix span and at Sq != Sk against the reference's
 ``_attend_dense``; and, on meta tensors standing in for the card's,
-attention at Dh=256 or with a prefix span refusing autograd before any
-launch. The CUDA kernel at 256/256 and the models on the card are held by
-``tests/test_torch_gpu.py`` and ``chip_smoke.py``."""
+attention at 192/128 refusing autograd before any launch while 256/256 and
+the prefix span take the backward kernel. Training these two models is
+``tests/test_torch_encdec_vlm_train.py``; the CUDA kernels at 256/256 and
+the models on the card are held by ``tests/test_torch_gpu.py`` and
+``chip_smoke.py``."""
 import dataclasses
 
 import jax
@@ -399,8 +401,8 @@ def test_plain_versions_match_reference_dense_attention(name):
 
 
 def test_plain_backward_with_a_prefix_span_matches_reference_vjp():
-    """On the CPU the autograd function's backward is the plain one, which
-    takes the prefix span (the card's backward kernel does not)."""
+    """On the CPU the autograd function's backward is the plain one, with
+    the prefix span."""
     B, H, KV, S, Dh, prefix = 1, 4, 1, 10, 16, 4
     rng = np.random.default_rng(8)
     q, k, v, do = (rng.standard_normal(s).astype(np.float32)
@@ -425,21 +427,41 @@ def test_prefix_len_must_not_be_negative():
         tfa.check_inputs(q, k, k, bshd=True, prefix_len=-1)
 
 
-@pytest.mark.parametrize("dh,prefix,match", [(256, None, r"\(256, 256\)"), (256, 256, r"\(256, 256\)"),
-                                             (64, 4, "prefix")])
-def test_training_on_the_card_waits_for_k1_bwd_at_256_and_a_prefix(dh, prefix, match):
-    """paligemma's attention runs K1 at Dqk = Dv = 256 with a prefix span,
-    which has a forward kernel and no backward yet: off the CPU, a call
-    under autograd raises before anything is launched (meta tensors stand
-    in for the card's), and does not fall back to the plain version. Under
-    no_grad the same call passes the input check."""
-    q = torch.empty((1, 320, 8, dh), device="meta", dtype=torch.bfloat16, requires_grad=True)
-    k, v = (torch.empty((1, 320, 1, dh), device="meta", dtype=torch.bfloat16,
-                        requires_grad=True) for _ in range(2))
-    before = tfa.flash_attention_bhsd.launches
-    with pytest.raises(NotImplementedError, match=match):
-        tfa.flash_attention(q, k, v, causal=True, prefix_len=prefix)
-    assert tfa.flash_attention_bhsd.launches == before
+# (Dqk, Dv, prefix_len, what autograd on the card does): MLA's 192/128 has a
+# forward kernel and no backward, with or without a span; gemma's 256/256
+# and the prefix span at every head dim take the backward kernel
+BWD_ON_CARD = {
+    "192/128 raises": (192, 128, None, "raises"),
+    "192/128 with a span raises": (192, 128, 256, "raises"),
+    "256/256 with a span trains": (256, 256, 256, "trains"),
+    "256/256 trains": (256, 256, None, "trains"),
+    "64/64 with a span trains": (64, 64, 4, "trains"),
+}
+
+
+@pytest.mark.parametrize("name", list(BWD_ON_CARD))
+def test_training_on_the_card_takes_256_and_a_prefix_and_refuses_192_128(name, monkeypatch):
+    """Off the CPU (meta tensors stand in for the card's), a call under
+    autograd at 192/128 raises before anything is launched and does not
+    fall back to the plain version; at 256/256, or with a prefix span, it
+    goes to the autograd function (stubbed here: the kernels need the card)
+    with the span in its mask. Under no_grad every case passes the input
+    check."""
+    dqk, dv, prefix, does = BWD_ON_CARD[name]
+    q = torch.empty((1, 320, 8, dqk), device="meta", dtype=torch.bfloat16, requires_grad=True)
+    k = torch.empty((1, 320, 1, dqk), device="meta", dtype=torch.bfloat16, requires_grad=True)
+    v = torch.empty((1, 320, 1, dv), device="meta", dtype=torch.bfloat16, requires_grad=True)
+    applied = []
+    monkeypatch.setattr(tfa.FlashAttention, "apply", lambda *a: applied.append(a) or "applied")
+    before = tfa.flash_attention_bhsd.launches, tfa.flash_attention_bwd.launches
+    if does == "raises":
+        with pytest.raises(NotImplementedError, match=r"\(192, 128\)"):
+            tfa.flash_attention(q, k, v, causal=True, prefix_len=prefix)
+        assert not applied
+    else:
+        assert tfa.flash_attention(q, k, v, causal=True, prefix_len=prefix) == "applied"
+        assert applied[0][-1] == prefix
+    assert (tfa.flash_attention_bhsd.launches, tfa.flash_attention_bwd.launches) == before
     with torch.no_grad():
         assert tfa.check_inputs(q, k, v, bshd=True, prefix_len=prefix) == 320
 
@@ -447,5 +469,8 @@ def test_training_on_the_card_waits_for_k1_bwd_at_256_and_a_prefix(dh, prefix, m
 def test_design_names_the_256_instantiation():
     assert tfa.design(torch.bfloat16, 256, 256) == "mma.sync"
     assert tfa.design(torch.float32, 256) == "fma-f32"
+    assert 256 in tfa.HEAD_DIMS
+    assert tfa.design_bwd(torch.bfloat16, 256) == "mma.sync-split-dv-dk-passes"
+    assert tfa.design_bwd(torch.float32, 256) == "fma-f32"
     with pytest.raises(ValueError, match="head_dim"):
-        tfa.design_bwd(torch.bfloat16, 256)
+        tfa.design_bwd(torch.bfloat16, 192)

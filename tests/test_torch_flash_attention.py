@@ -181,13 +181,16 @@ def test_input_check_refuses_what_the_kernel_does_not_take():
 
 BWD_ULP_TOL = 2.0
 
-# (B, H, KV, S, Dh, causal, window, k_len)
+# (B, H, KV, S, Dh, causal, window, k_len[, prefix_len])
 BWD_PRECISION_CASES = {
     "causal gqa dh64": (1, 8, 2, 256, 64, True, None, None),
     "mqa dh128 ragged": (1, 4, 1, 200, 128, True, None, None),
     "window dh32": (2, 4, 4, 192, 32, True, 48, None),
     "k_len bidirectional dh64": (1, 4, 2, 160, 64, False, None, 120),
     "mha dh32": (1, 2, 2, 256, 32, True, None, None),
+    # gemma's head dim in paligemma: MQA under a prefix-LM span
+    "mqa dh256 prefix 64": (1, 8, 1, 192, 256, True, None, None, 64),
+    "gqa dh256 prefix 100 ragged": (1, 4, 2, 150, 256, True, None, None, 100),
 }
 
 
@@ -206,7 +209,7 @@ def _split(x):
     return hi, (x - hi.float()).to(torch.bfloat16)
 
 
-def _bwd_emulation(q, k, v, o, lse, do, *, causal, window, k_len, split):
+def _bwd_emulation(q, k, v, o, lse, do, *, causal, window, k_len, split, prefix_len=None):
     """The bf16 backward's arithmetic in PyTorch: products of bf16 operands
     summed in f32, P and dS split into hi + lo parts (``split``) or rounded
     to one bf16 each. (B, H, S, Dh) layout, bf16 in and out."""
@@ -225,7 +228,7 @@ def _bwd_emulation(q, k, v, o, lse, do, *, causal, window, k_len, split):
 
     qg, og, dog, kf, vf = grouped(q), grouped(o), grouped(do), k.float(), v.float()
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, kf)
-    mask = tfa._mask(Sq, Sk, causal, window, k_len, q.device)
+    mask = tfa._mask(Sq, Sk, causal, window, k_len, q.device, prefix_len)
     p = torch.where(mask, torch.exp(s * scale - lse.reshape(B, KV, G, Sq, 1)), 0.0)
     delta = (dog * og).sum(dim=-1, keepdim=True)
     ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dog, vf) - delta)
@@ -237,12 +240,13 @@ def _bwd_emulation(q, k, v, o, lse, do, *, causal, window, k_len, split):
 
 
 def _bwd_precision_inputs(name):
-    B, H, KV, S, Dh, causal, window, k_len = BWD_PRECISION_CASES[name]
+    B, H, KV, S, Dh, causal, window, k_len = BWD_PRECISION_CASES[name][:8]
+    prefix = BWD_PRECISION_CASES[name][8] if len(BWD_PRECISION_CASES[name]) > 8 else None
     rng = np.random.default_rng(len(name))
     shapes = [(B, H, S, Dh), (B, KV, S, Dh), (B, KV, S, Dh), (B, H, S, Dh)]
     q, k, v, do = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(torch.bfloat16)
                    for s in shapes)
-    mask = dict(causal=causal, window=window, k_len=k_len)
+    mask = dict(causal=causal, window=window, k_len=k_len, prefix_len=prefix)
     o, lse = tfa.flash_attention_lse_ref(q, k, v, **mask)
     want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, **mask)
     return (q, k, v, o, lse, do), mask, want
@@ -282,6 +286,7 @@ def test_backward_design_names():
     assert tfa.design_bwd(torch.bfloat16, 64) == "wgmma-split"
     for dh in (32, 128):
         assert tfa.design_bwd(torch.bfloat16, dh) == "mma.sync-split"
+    assert tfa.design_bwd(torch.bfloat16, 256) == "mma.sync-split-dv-dk-passes"
     with pytest.raises(ValueError, match="head_dim"):
         tfa.design_bwd(torch.bfloat16, 96)
 

@@ -23,9 +23,13 @@ autograd (no backward kernel yet), and reduced granite-moe and deepseek-v2
 (2 layers, MLA at 192/128) served through the graphs against the same
 weights decoded on the CPU. Flash attention at gemma's Dqk=Dv=256 with and
 without a prefix-LM span swept across the tile edges, whisper's non-causal
-forms up to Sk=1500, the refusals under autograd at 256/256 and with a
-prefix span, and small whisper and paligemma prefills and greedy decodes on
-the card against the CPU."""
+forms up to Sk=1500, and small whisper and paligemma prefills and greedy
+decodes on the card against the CPU. Flash attention's backward at 256/256
+with the prefix span over the same edges, the span at the other head dims,
+whisper's encoder and cross-attention (Sq=448 over Sk=1500), two launches
+at 256 bit for bit, autograd at 256 and with a span through the kernels,
+the refusal at 192/128 with a span, and a train step of small whisper and
+paligemma at head dim 256 on the card against the CPU."""
 import copy
 import importlib.util
 from pathlib import Path
@@ -188,18 +192,41 @@ def test_flash_kernel_at_256_with_prefix_span_on_card(S, dtype):
 
 
 @pytest.mark.gpu
-def test_flash_attention_at_256_or_with_a_prefix_refuses_autograd_on_card():
-    """K1 at 256/256, and K1 with a prefix span at any head dim, has no
-    backward kernel: under autograd on the card the call raises before any
-    launch."""
+def test_flash_attention_at_192_128_with_a_prefix_refuses_autograd_on_card():
+    """K1 at 192/128 has no backward kernel with a prefix span either:
+    under autograd on the card the call raises before any launch."""
     dev = _cuda()
-    before = tfa.flash_attention_bhsd.launches
-    for dh, prefix, match in ((256, None, r"\(256, 256\)"), (64, 4, "prefix")):
-        q, k, v = (torch.zeros((1, 16, 4, dh), device=dev, requires_grad=True)
-                   for _ in range(3))
-        with pytest.raises(NotImplementedError, match=match):
-            tfa.flash_attention(q, k, v, causal=True, prefix_len=prefix)
-    assert tfa.flash_attention_bhsd.launches == before
+    before = tfa.flash_attention_bhsd.launches, tfa.flash_attention_bwd.launches
+    q, k = (torch.zeros((1, 16, 4, 192), device=dev, requires_grad=True) for _ in range(2))
+    v = torch.zeros((1, 16, 4, 128), device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match=r"\(192, 128\)"):
+        tfa.flash_attention(q, k, v, causal=True, prefix_len=4)
+    assert (tfa.flash_attention_bhsd.launches, tfa.flash_attention_bwd.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,prefix", [(256, 70), (256, None), (64, 40)])
+def test_autograd_at_256_or_with_a_prefix_goes_through_the_kernels_on_card(dh, prefix):
+    """Under autograd at 256/256 or with a prefix span, the forward and the
+    backward kernels run once each and the gradients match the plain
+    versions'."""
+    dev = _cuda()
+    rng = np.random.default_rng(23)
+    shapes = [(1, 150, 8, dh), (1, 150, 1, dh), (1, 150, 1, dh), (1, 150, 8, dh)]
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s)).to(dev, torch.float32)
+                   for s in shapes)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    fwd0, bwd0 = tfa.flash_attention_bhsd.launches, tfa.flash_attention_bwd.launches
+    tfa.flash_attention(q, k, v, causal=True, prefix_len=prefix).backward(do)
+    assert tfa.flash_attention_bhsd.launches == fwd0 + 1
+    assert tfa.flash_attention_bwd.launches == bwd0 + 1
+    mask = dict(causal=True, prefix_len=prefix)
+    qt, kt, vt = (t.detach().transpose(1, 2) for t in (q, k, v))
+    o, lse = tfa.flash_attention_lse_ref(qt, kt, vt, **mask)
+    want = tfa.flash_attention_bwd_ref(qt, kt, vt, o, lse, do.transpose(1, 2), **mask)
+    for t, w in zip((q, k, v), want):
+        w = w.transpose(1, 2)
+        assert (t.grad - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item())
 
 
 def _encdec_vlm_inputs(cfg, rng, B, n):
@@ -513,15 +540,14 @@ def test_ssd_bwd_bf16_design_holds_the_ulp_gate_on_card():
 def _bwd_error(dev, rng, dt, case) -> float:
     """One set of backward launches in the model's layout against the plain
     version: the largest error of dq, dk and dv, each over max(1, its
-    largest value); the set is counted and its instantiation was checked."""
-    B, H, KV, Sq, Sk, Dh, causal, window, k_len = case
-    shapes = [(B, Sq, H, Dh), (B, Sk, KV, Dh), (B, Sk, KV, Dh), (B, Sq, H, Dh)]
-    q, k, v, do = (torch.from_numpy(rng.standard_normal(s)).to(dev, dt) for s in shapes)
-    mask = dict(causal=causal, window=window, k_len=k_len)
-    with torch.no_grad():
-        o, lse = tfa.flash_attention_lse(q, k, v, bshd=True, **mask)
+    largest value); the set is counted and its instantiation was checked.
+    A case's optional eleventh entry is the prefix-LM span (its tenth, Dv,
+    is Dh)."""
+    args, mask = _bwd_inputs(dev, rng, dt, case)
+    q, k, v, o, lse, do = args
+    Dh = q.shape[-1]
     before = tfa.flash_attention_bwd.launches
-    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, bshd=True, **mask)
+    got = tfa.flash_attention_bwd(*args, bshd=True, **mask)
     torch.cuda.synchronize()
     assert tfa.flash_attention_bwd.launches == before + 1
     assert (0, dt, Dh) in tfa._bwd_guard.checked  # its first launch was checked
@@ -571,10 +597,12 @@ def _bf16_ulps(got, want) -> float:
 
 
 def _bwd_inputs(dev, rng, dt, case):
-    B, H, KV, Sq, Sk, Dh, causal, window, k_len = case
+    B, H, KV, Sq, Sk, Dh, causal, window, k_len = case[:9]
+    assert len(case) < 10 or case[9] == Dh  # the backward takes Dqk = Dv
+    prefix_len = case[10] if len(case) > 10 else None
     shapes = [(B, Sq, H, Dh), (B, Sk, KV, Dh), (B, Sk, KV, Dh), (B, Sq, H, Dh)]
     q, k, v, do = (torch.from_numpy(rng.standard_normal(s)).to(dev, dt) for s in shapes)
-    mask = dict(causal=causal, window=window, k_len=k_len)
+    mask = dict(causal=causal, window=window, k_len=k_len, prefix_len=prefix_len)
     with torch.no_grad():
         o, lse = tfa.flash_attention_lse(q, k, v, bshd=True, **mask)
     return (q, k, v, o, lse, do), mask
@@ -629,6 +657,81 @@ def test_flash_bwd_kernel_tile_edges_on_card(name, dtype):
     assert err <= tol, (name, dtype, err)
 
 
+# the enc-dec and VLM train paths' backward: the prefix-LM span at Dh=64
+# across a tile edge and in a window, and whisper's cross-attention (its
+# 448 text tokens over the 1500 frames, the last key tile ragged);
+# (B, H, KV, Sq, Sk, Dh, causal, window, k_len, Dv, prefix_len)
+BWD_ENCDEC_VLM = {
+    "prefix 65 Dh=64 GQA S=200": (1, 4, 2, 200, 200, 64, True, None, None, 64, 65),
+    "prefix 100 window 50 Dh=64 S=300": (1, 4, 2, 300, 300, 64, True, 50, None, 64, 100),
+    "prefix 40 Dh=128 S=150": (1, 4, 2, 150, 150, 128, True, None, None, 128, 40),
+    "prefix 30 Dh=32 MQA S=97": (1, 4, 1, 97, 97, 32, True, None, None, 32, 30),
+    "whisper cross Sq=448 Sk=1500 Dh=64": (2, 16, 16, 448, 1500, 64, False, None, None),
+    "whisper encoder S=1500 Dh=64": (1, 16, 16, 1500, 1500, 64, False, None, None),
+    "cross Sq=70 Sk=1500 Dh=256 MQA": (1, 8, 1, 70, 1500, 256, False, None, None, 256),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", FLASH_256_SEQS)
+def test_flash_bwd_kernel_at_256_with_prefix_span_on_card(S, dtype):
+    """K1-bwd at gemma's 256/256 (paligemma: 8 q-heads on one kv-head)
+    with the prefix span at 0, 1, 63, 64, 65 and S, against its plain
+    version; in bf16 also within 2 ulps."""
+    dev = _cuda()
+    dt, tol = FLASH_TOL[dtype]
+    rng = np.random.default_rng(24)
+    for prefix in FLASH_256_PREFIXES:
+        prefix = S if prefix is None else prefix
+        case = (1, 8, 1, S, S, 256, True, None, None, 256, prefix)
+        err = _bwd_error(dev, rng, dt, case)
+        assert err <= tol, (S, prefix, dtype, err)
+        if dt == torch.bfloat16:
+            assert _bwd_ulps(dev, rng, case) <= BWD_ULP_TOL, (S, prefix)
+
+
+def _bwd_ulps(dev, rng, case) -> float:
+    """The bf16 backward's largest error in ulps over dq, dk and dv."""
+    args, mask = _bwd_inputs(dev, rng, torch.bfloat16, case)
+    got = tfa.flash_attention_bwd(*args, bshd=True, **mask)
+    q, k, v, o, lse, do = args
+    want = tfa.flash_attention_bwd_ref(*(t.transpose(1, 2) for t in (q, k, v, o)), lse,
+                                       do.transpose(1, 2), **mask)
+    return max(_bf16_ulps(g, w.transpose(1, 2)) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(BWD_ENCDEC_VLM))
+def test_flash_bwd_kernel_encdec_vlm_shapes_on_card(name, dtype):
+    dev = _cuda()
+    dt, tol = FLASH_TOL[dtype]
+    case = BWD_ENCDEC_VLM[name]
+    err = _bwd_error(dev, np.random.default_rng(25), dt, case)
+    assert err <= tol, (name, dtype, err)
+    if dt == torch.bfloat16:
+        assert _bwd_ulps(dev, np.random.default_rng(26), case) <= BWD_ULP_TOL, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_at_256_is_bitwise_repeatable_on_card(dtype):
+    """The 256/256 instantiations (bf16: the dV and the dK pass side by side
+    in one launch) use no float atomics either: two launches give the same
+    gradients bit for bit, with and without the prefix span."""
+    dev = _cuda()
+    dt, _tol = FLASH_TOL[dtype]
+    rng = np.random.default_rng(27)
+    for prefix in (None, 70):
+        args, mask = _bwd_inputs(dev, rng, dt, (2, 8, 1, 200, 200, 256, True, None, None, 256,
+                                                prefix))
+        first = tfa.flash_attention_bwd(*args, bshd=True, **mask)
+        second = tfa.flash_attention_bwd(*args, bshd=True, **mask)
+        for label, a, b in zip(("dq", "dk", "dv"), first, second):
+            assert torch.equal(a, b), (prefix, dtype, label)
+
+
 @pytest.mark.gpu
 def test_autograd_goes_through_the_kernels_and_raw_launches_refuse():
     """Under autograd the model's flash call is the autograd Function, whose
@@ -673,17 +776,23 @@ def test_autograd_goes_through_the_kernels_and_raw_launches_refuse():
     assert all(torch.isfinite(p.grad).all() for p in params.parameters())
 
 
-def _train_cfg(arch="tinyllama-1.1b"):
-    # head_dim 32: the flash kernels are built for head dims 32, 64 and 128
-    return get_reduced(arch).replace(dtype="float32", head_dim=32)
+def _train_cfg(arch="tinyllama-1.1b", head_dim=32):
+    # the flash kernels are built for head dims 32, 64, 128 and 256
+    return get_reduced(arch).replace(dtype="float32", head_dim=head_dim)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-1.3b", "hymba-1.5b"])
-def test_train_step_on_card_matches_cpu(arch):
+@pytest.mark.parametrize("arch,head_dim", [
+    ("tinyllama-1.1b", 32), ("mamba2-1.3b", 32), ("hymba-1.5b", 32),
+    # the enc-dec and VLM paths at gemma's 256: whisper's encoder, decoder
+    # and cross-attention, paligemma under its prefix span
+    ("whisper-medium", 256), ("paligemma-3b", 256),
+])
+def test_train_step_on_card_matches_cpu(arch, head_dim):
     """One step of a reduced model (loss, autograd through K1 and its
     backward, K2 and its backward, AdamW) on the card against the same step
-    on the CPU, where the kernels' plain versions stand in."""
+    on the CPU, where the kernels' plain versions stand in; frames or
+    patches beside the tokens for the enc-dec and VLM families."""
     from repro_torch.data import SyntheticTokens
     from repro_torch.models.common import ParamTree
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
@@ -691,8 +800,10 @@ def test_train_step_on_card_matches_cpu(arch):
 
     dev = _cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = _train_cfg(arch)
+    cfg = _train_cfg(arch, head_dim)
     batch = SyntheticTokens(cfg.vocab_size, 40, 2, seed=0).batch(0)
+    batch.update({k: v for k, v in _encdec_vlm_inputs(cfg, np.random.default_rng(3), 2, 40).items()
+                  if k != "tokens"})
     ocfg = AdamWConfig(lr=1e-3, grad_clip=0.5)
     cpu_params = build_model(cfg, device="cpu").init(0)
     card_params = ParamTree(tree_map(lambda t: t.detach().to(dev), cpu_params.tree()))
@@ -702,6 +813,7 @@ def test_train_step_on_card_matches_cpu(arch):
         tree = params.tree()
         state = adamw_init(ocfg, tree)
         ssd0, ssd_bwd0 = tssd.ssd_bshp.launches, tssd.ssd_bwd.launches
+        bwd0 = tfa.flash_attention_bwd.launches
         loss, _ = model.loss(params, batch)
         grads = tree_unflatten(tree, torch.autograd.grad(loss, tree_leaves(tree)))
         _, state, met = adamw_update(ocfg, 1e-3, tree, grads, state)
@@ -710,6 +822,9 @@ def test_train_step_on_card_matches_cpu(arch):
         if device == dev and cfg.family in ("ssm", "hybrid"):  # remat: the forward twice
             assert tssd.ssd_bshp.launches - ssd0 == 2 * cfg.num_layers
             assert tssd.ssd_bwd.launches - ssd_bwd0 == cfg.num_layers
+        if device == dev and cfg.family != "ssm":  # each attention call's backward once
+            calls = cfg.num_layers + (cfg.encoder_layers + cfg.num_layers) * cfg.is_encdec
+            assert tfa.flash_attention_bwd.launches - bwd0 == calls
     (l0, n0, p0), (l1, n1, p1) = out.values()
     assert l1 == pytest.approx(l0, rel=1e-4) and n1 == pytest.approx(n0, rel=1e-4)
     for a, b in zip(p0, p1):
