@@ -67,7 +67,15 @@ and the MoE aux loss, that every leaf took a gradient, its master moved
 and every bf16 leaf is its master rounded, the AdamW state and the final
 checkpoint, saved into ``build/`` and deleted), and holds each model's
 full-width f32 gradients through the kernels against those through the
-plain versions. Each phase
+plain versions. Last, the parallelism layer (``repro_torch.parallel``) on
+an NCCL process group of one rank and its (data=1, model=1) mesh: the
+sharded f32 train step of tinyllama (B=1, S=256) against the single-device
+Trainer step (1e-5 scaled), granite-moe's expert-parallel step at capacity
+E/K against ``moe_dense``'s (1e-4), tinyllama trained in bf16 at the train
+cell's shape through ``Trainer(mesh=)`` (K1 44 and K1-bwd 22 launches a
+step, as on one device; a traced sharded step beside a traced
+single-device one) and 16 greedy tokens through the sharded prefill and
+decode step, equal to ``Model.prefill``/``decode_step``'s. Each phase
 prints one JSON line; any failure exits non-zero. The last three lines are
 the kernels line, the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": ...}``.
@@ -2331,6 +2339,269 @@ def phase_train_parity(arch: str, B: int, S: int) -> dict:
     return {"arch": arch, "worst": worst, "scaled": scaled}
 
 
+# the parallel phase: the one card as a (data=1, model=1) mesh over an
+# NCCL world of one rank. Its sharded train step is held against the
+# single-device Trainer step (f32, the PARITY_CELLS shape, 1e-5 scaled:
+# bitwise is expected at world 1) and granite-moe's expert-parallel step at
+# a capacity where nothing drops (E/K) against moe_dense's (PARITY_TOL); it
+# trains tinyllama in bf16 at the train cell's shape through Trainer(mesh=)
+# and decodes greedily through the sharded prefill and decode step
+PARALLEL_TOL = 1e-5
+PARALLEL_STEPS = 4
+PARALLEL_PROMPT, PARALLEL_NEW, PARALLEL_B = 64, 16, 4
+
+
+def _parallel_parity(arch: str, S: int, tol: float, **overrides) -> dict:
+    """One f32 step of ``build_train_step`` on the mesh against one
+    single-device ``Trainer`` step from the same parameters and batch: the
+    loss and every updated leaf, scaled (``_scaled``), and each run's
+    kernel launches."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens, to_device
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.steps import build_train_step, make_ctx, shard_params
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.tree import tree_flatten_with_keys
+
+    _release_device_memory()
+    cfg = get_config(arch).replace(dtype="float32", **overrides)
+    ckpt_dir = ROOT / "build" / "chip_smoke_parallel"
+    tcfg = TrainerConfig(num_steps=1, seq_len=S, global_batch=1, lr=3e-4, warmup=0)
+    tr = Trainer(cfg, tcfg, str(ckpt_dir), device="cuda:0")
+    try:
+        single = tr.model.init(tcfg.seed)
+        sharded = shard_params(tr.model, single, _MESH[0])
+        batch = to_device(SyntheticTokens(cfg.vocab_size, S, 1, seed=0).batch(0), tr.device)
+        counters = _train_counters()
+        runs = {}
+        for name in ("single", "mesh"):
+            for fn in counters.values():
+                fn.launches = 0
+            if name == "single":
+                m = tr.train_step({"params": single, "opt": adamw_init(tr.ocfg, single.tree())},
+                                  batch, 0)
+            else:
+                spec = {"seq_len": S, "global_batch": 1, "kind": "train"}
+                step, _, _ = build_train_step(tr.model, _MESH[0], tr.ocfg, tr.lr_fn,
+                                              tr.model.input_specs("train", spec))
+                opt = adamw_init(tr.ocfg, sharded.tree(), ctx=make_ctx(_MESH[0]))
+                m = step(sharded, opt, batch, 0)[2]
+            runs[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                          "launches": {k: fn.launches for k, fn in counters.items()}}
+        worst, worst_leaf = 0.0, None
+        for (key, a), (_, b) in zip(tree_flatten_with_keys(sharded.tree()),
+                                    tree_flatten_with_keys(single.tree())):
+            err = _scaled(a.detach(), b.detach())
+            if err >= worst:
+                worst, worst_leaf = err, key
+        loss_err = abs(runs["mesh"]["loss"] - runs["single"]["loss"]) / max(
+            1.0, abs(runs["single"]["loss"]))
+        out = {"arch": arch, "dtype": "float32", "batch": 1, "seq_len": S, **overrides,
+               "runs": runs, "loss_scaled_err": loss_err, "worst_leaf_scaled_err": worst,
+               "worst_leaf": worst_leaf, "bitwise": worst == 0.0 and loss_err == 0.0, "tol": tol}
+    finally:
+        tr.close()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(loss_err <= tol, f"parallel {arch}: loss {runs['mesh']['loss']} against "
+                           f"{runs['single']['loss']}")
+    check(worst <= tol, f"parallel {arch}: updated leaf {worst_leaf} off by {worst} scaled")
+    gn_mesh, gn_single = runs["mesh"]["grad_norm"], runs["single"]["grad_norm"]
+    check(abs(gn_mesh - gn_single) <= tol * max(1.0, abs(gn_single)),
+          f"parallel {arch}: the clip's global norm {gn_mesh} against {gn_single}")
+    check(runs["mesh"]["launches"] == runs["single"]["launches"] == _launches_per_step(cfg),
+          f"parallel {arch}: launches {runs}")
+    del tr, single, sharded
+    return out
+
+
+def _parallel_train(single_cell: dict) -> dict:
+    """tinyllama in bf16 at the train cell's shape through Trainer(mesh=):
+    step times, K1 and K1-bwd launches a step (gated: exactly the
+    single-device path's), one traced sharded step beside one traced
+    single-device step on the same state (the host ms the sharded path
+    adds), and the final checkpoint gathered and saved."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import to_device
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    allocated = _release_device_memory()
+    arch, steps = "tinyllama-1.1b", PARALLEL_STEPS
+    cfg = get_config(arch).replace(dtype="bfloat16")
+    ckpt_dir = ROOT / "build" / "chip_smoke_parallel"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tcfg = TrainerConfig(num_steps=steps, checkpoint_every=10 * steps, log_every=1, **TRAIN_KW)
+    tr = Trainer(cfg, tcfg, str(ckpt_dir), mesh=_MESH[0], device="cuda:0")
+    plain = Trainer(cfg, tcfg, str(ckpt_dir / "single"), device="cuda:0")
+    try:
+        counters = _train_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        out = tr.run(resume=False)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        rows = out["metrics"]
+        steps_s = [r["step_s"] for r in rows]
+        peak = torch.cuda.max_memory_allocated()
+        check(len(rows) == steps and all(np.isfinite(r["loss"]) for r in rows),
+              f"parallel train rows {rows}")
+        per_step = _launches_per_step(cfg)
+        for name, n in per_step.items():
+            check(launches[name] == n * steps,
+                  f"parallel {arch}: {name} launched {launches[name]} times in {steps} steps, "
+                  f"want {n} a step")
+        check(len(tr.ckpt.saves) == 1, f"parallel saves {tr.ckpt.saves}")
+        save = tr.ckpt.saves[0]
+        state = {"params": out["params"], "opt": out["opt"]}
+        batch = to_device(tr.data.batch(steps), tr.device)
+        traced = {}
+        for name, trainer in (("mesh", tr), ("single", plain)):
+            trainer.train_step(state, batch, steps)  # warm
+            traced[name] = _traced(lambda t=trainer: t.train_step(state, batch, steps), top=4)
+        step_s = float(np.median(steps_s[1:]))
+        res = {
+            "arch": arch, "dtype": "bfloat16", "mesh": "(data=1, model=1)", "steps": steps,
+            "batch": TRAIN_KW["global_batch"], "seq_len": TRAIN_KW["seq_len"],
+            "loss": [r["loss"] for r in rows], "step_s": steps_s,
+            "step_s_median_after_first": step_s,
+            "single_device_train_cell_step_s_median_after_first":
+                single_cell["step_s_median_after_first"],
+            "tokens_per_s": TRAIN_KW["global_batch"] * TRAIN_KW["seq_len"] / step_s,
+            "peak_mem_bytes": peak, "launches": launches,
+            "launches_per_step": {k: v / steps for k, v in launches.items()},
+            "ckpt": {"bytes": save["bytes"], "seconds": save["seconds"],
+                     "snapshot_s": save["snapshot_s"]},
+            # both steps traced on the same state in this call: the traced
+            # ms the sharded path adds (the profiler slows each host op, so
+            # this bounds the host cost from above) and its extra launches
+            "host_ms_added": traced["mesh"]["traced_ms"] - traced["single"]["traced_ms"],
+            "host_launches_added": (traced["mesh"]["host_launches"]
+                                    - traced["single"]["host_launches"]),
+            **allocated,
+        }
+        for name in ("mesh", "single"):
+            res.update({f"step_{name}_{k}": traced[name][k] for k in
+                        ("traced_ms", "device_busy_ms", "device_idle_share", "kernel_launches",
+                         "host_launches", "k1_device_ms", "k1_bwd_device_ms")})
+    finally:
+        tr.close()
+        plain.close()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del tr, plain, out, state
+    return res
+
+
+def _parallel_greedy() -> dict:
+    """tinyllama in f32: B=4 prompts of PARALLEL_PROMPT tokens and
+    PARALLEL_NEW greedy tokens through build_prefill and build_decode_step
+    on the mesh against Model.prefill and decode_step; the tokens must be
+    equal."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import extend_caches
+    from repro_torch.parallel.steps import build_decode_step, build_prefill, shard_params
+
+    _release_device_memory()
+    cfg = get_config("tinyllama-1.1b").replace(dtype="float32")
+    model = build_model(cfg, device="cuda:0")
+    params = model.init(0)
+    mesh = _MESH[0]
+    sharded = shard_params(model, params, mesh)
+    B, S, new = PARALLEL_B, PARALLEL_PROMPT, PARALLEL_NEW
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, S)).astype(np.int64)
+    counters = _train_counters()
+    out = {}
+    for name in ("single", "mesh"):
+        for fn in counters.values():
+            fn.launches = 0
+        if name == "single":
+            logits, caches = model.prefill(params, {"tokens": toks})
+            step = lambda t, c, i: model.decode_step(params, t, c, i)  # noqa: E731
+        else:
+            prefill, _ = build_prefill(model, mesh, model.input_specs(
+                "prefill", {"seq_len": S, "global_batch": B, "kind": "prefill"}))
+            logits, caches = prefill(sharded, {"tokens": toks})
+        caches = extend_caches(caches, new)
+        if name == "mesh":
+            meta = torch.device("meta")
+            decode, _ = build_decode_step(model, mesh, {
+                "tokens": torch.empty((B, 1), device=meta), "caches": caches,
+                "index": torch.empty((B,), device=meta)})
+            step = lambda t, c, i: decode(sharded, t, c, i)  # noqa: E731
+        got = []
+        tok = logits[:, -1].argmax(-1)
+        for i in range(new):
+            got.append(tok)
+            logits, caches = step(tok[:, None], caches, torch.full((B,), S + i, device="cuda:0"))
+            tok = logits[:, -1].argmax(-1)
+        out[name] = {"tokens": torch.stack(got, 1).cpu().tolist(),
+                     "launches": {k: fn.launches for k, fn in counters.items()}}
+    check(out["mesh"]["tokens"] == out["single"]["tokens"],
+          f"parallel greedy tokens differ: {out}")
+    check(out["mesh"]["launches"] == out["single"]["launches"], f"parallel greedy {out}")
+    del model, params, sharded, caches
+    return {"batch": B, "prompt": S, "new_tokens": new, **out}
+
+
+_MESH: list = []  # the phase's mesh, for its helpers
+
+
+def phase_parallel(single_cell: dict) -> dict:
+    """The parallelism layer on the card: an NCCL process group of one rank
+    on ``cuda:0`` and its (data=1, model=1) mesh from
+    ``make_host_mesh(1, device_type="cuda")``. Four runs, each freeing its
+    state before the next: tinyllama's f32 sharded train step against the
+    single-device Trainer step, granite-moe's expert-parallel f32 step at
+    capacity E/K against moe_dense's, tinyllama's bf16 training through
+    ``Trainer(mesh=)`` at the train cell's shape, and greedy decoding
+    through the sharded prefill and decode step. One ``parallel`` line."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", rank=0, world_size=1, store=dist.HashStore(),
+                            timeout=datetime.timedelta(seconds=300),
+                            device_id=torch.device("cuda:0"))
+    try:
+        _MESH[:] = [make_host_mesh(1, device_type="cuda")]
+        granite = get_config("granite-moe-1b-a400m")
+        res = {
+            "world": dist.get_world_size(), "backend": dist.get_backend(),
+            "mesh": dict(zip(_MESH[0].mesh_dim_names, _MESH[0].shape)),
+            "tinyllama_f32": _parallel_parity("tinyllama-1.1b", 256, PARALLEL_TOL),
+            "granite_moe_ep_f32": _parallel_parity(
+                "granite-moe-1b-a400m", 256, PARITY_TOL,
+                capacity_factor=float(granite.num_experts // granite.experts_per_token)),
+            "tinyllama_bf16_trainer": _parallel_train(single_cell),
+            "greedy": _parallel_greedy(),
+        }
+    finally:
+        _MESH.clear()
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_start
+    emit("parallel", **res)
+    return res
+
+
 def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
     """The kernels JSON line: launches summed over the measured runs of the
     paths (listed per path: each train run and each served model), the rest
@@ -2528,6 +2799,10 @@ def main() -> int:
     emit("timing", train_phases_s=time.perf_counter() - t0)
     for arch, B, S in PARITY_CELLS:
         phase_train_parity(arch, B, S)
+    par = phase_parallel(trains[0])
+    # the sharded bf16 training run's launches count on the kernels line
+    trains.append({"arch": "tinyllama-1.1b on the (1, 1) mesh",
+                   "launches": par["tinyllama_bf16_trainer"]["launches"]})
     emit("timing", total_s=time.perf_counter() - t0)
     print(json.dumps(_kernel_line(kern, serves, trains)))
     print(dev["nvidia_smi"])

@@ -15,20 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.common import DTYPES, ParamTree, resolve_device
+from .models.common import DTYPES, Abstract, ParamTree, resolve_device
 from .models.lm import check_supported, encoder_plan, param_tree, stack_plan
 from .tree import tree_map
-
-
-class _Declared:
-    """A parameter allocator that draws nothing: each leaf is an empty meta
-    tensor with the shape and dtype the port's plan declares."""
-
-    def __init__(self, dtype: torch.dtype) -> None:
-        self.dtype = dtype
-
-    def param(self, shape, init="normal", scale=None, dtype=None) -> torch.Tensor:
-        return torch.empty(tuple(shape), dtype=dtype or self.dtype, device="meta")
 
 
 def params_from_jax(cfg, tree: dict, device=None) -> ParamTree:
@@ -37,7 +26,7 @@ def params_from_jax(cfg, tree: dict, device=None) -> ParamTree:
     which raises without a GPU, as every entry point of the port does)."""
     device = resolve_device(device)
     check_supported(cfg)
-    declared = param_tree(cfg, _Declared(DTYPES[cfg.dtype]))
+    declared = param_tree(cfg, Abstract(DTYPES[cfg.dtype]))
 
     def conv(a, decl: torch.Tensor, stacked: int = 0) -> torch.Tensor:
         a = np.asarray(a)

@@ -18,6 +18,15 @@ are torch tensors (any device) or numpy arrays; restore gives torch
 tensors on an explicit ``device`` (``cuda:0`` unless the caller passes
 another).
 
+Sharded leaves are DTensors: the save gathers each whole (a collective, in
+the synchronous snapshot on the caller's thread, so it never meets the
+step's collectives on another thread) and the directory holds whole arrays,
+as the reference's does. Under a mesh every rank saves and one writes
+(``writer``): the others join each leaf's gather and keep no host copy.
+``restore(like, shardings=)`` lays each leaf out by its
+:class:`~repro_torch.parallel.sharding.NamedSharding` on whatever mesh the
+caller gives (elastic restore), as a DTensor of this rank's block.
+
 Async saves run as a *dataflow* task graph on the work-stealing pool,
 submitted through the :class:`~repro_torch.core.Executor` facade. The
 per-leaf shard writers are a **dynamic subflow** (DESIGN.md §10): a single
@@ -51,9 +60,12 @@ _SEP = "."
 
 def _host(leaf: Any) -> tuple[np.ndarray, str]:
     """A leaf as host bytes and its manifest dtype string. bfloat16 has no
-    numpy dtype: its bits go out as int16, named "bfloat16"."""
+    numpy dtype: its bits go out as int16, named "bfloat16". A DTensor is
+    gathered whole first."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if hasattr(t, "full_tensor"):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).cpu().numpy(), "bfloat16"
         arr = t.cpu().numpy()
@@ -64,6 +76,15 @@ def _host(leaf: Any) -> tuple[np.ndarray, str]:
 
 def _flatten(tree: Any) -> dict[str, tuple[np.ndarray, str]]:
     return {k: _host(leaf) for k, leaf in tree_flatten_with_keys(tree, _SEP)}
+
+
+def _join_gathers(tree: Any) -> None:
+    """This rank's part in gathering every DTensor leaf of ``tree`` for the
+    writer, one leaf at a time, keeping nothing (a rank that does not
+    write)."""
+    for _, leaf in tree_flatten_with_keys(tree, _SEP):
+        if hasattr(leaf, "full_tensor"):
+            leaf.detach().full_tensor()
 
 
 def _le_bytes(arr: np.ndarray) -> bytes:
@@ -101,15 +122,33 @@ def _read_leaf(directory: pathlib.Path, info: dict, device) -> torch.Tensor:
     return torch.from_numpy(arr.astype(arr.dtype.newbyteorder("="), copy=False)).to(device)
 
 
-def load_pytree(directory: str | pathlib.Path, like: Any, *, device=None) -> Any:
+def load_pytree(directory: str | pathlib.Path, like: Any, *, device=None,
+                shardings: Any = None) -> Any:
     """Restore into the structure of ``like`` (its leaves name the keys to
     read; their values are not used), every leaf a tensor on ``device``:
-    the caller's, else ``cuda:0``, raising without a GPU."""
+    the caller's, else ``cuda:0``, raising without a GPU. ``shardings``
+    (a tree like ``like`` of ``NamedSharding`` or None) re-shards a leaf
+    onto its mesh: a DTensor holding this rank's block."""
     device = resolve_device(device)
     directory = pathlib.Path(directory)
     manifest = json.loads((directory / "manifest.json").read_text())
     keys = [k for k, _ in tree_flatten_with_keys(like, _SEP)]
-    return tree_unflatten(like, [_read_leaf(directory, manifest["leaves"][k], device) for k in keys])
+    if shardings is None:
+        flat = [None] * len(keys)
+    else:
+        from torch.distributed.tensor import distribute_tensor
+
+        flat = [sh for _, sh in tree_flatten_with_keys(shardings, _SEP)]
+        if len(flat) != len(keys):
+            raise ValueError(f"{len(flat)} shardings for {len(keys)} leaves")
+    leaves = []
+    for k, sh in zip(keys, flat):
+        t = _read_leaf(directory, manifest["leaves"][k], device)
+        # every rank read the whole array: each keeps its block, no scatter,
+        # one leaf whole at a time
+        leaves.append(t if sh is None else distribute_tensor(t, sh.mesh, sh.placements(),
+                                                             src_data_rank=None))
+    return tree_unflatten(like, leaves)
 
 
 class CheckpointManager:
@@ -141,6 +180,7 @@ class CheckpointManager:
         backend: Optional[str] = None,
         keep: int = 3,
         write_retries: int = 2,
+        writer: bool = True,
     ) -> None:
         self.root = pathlib.Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
@@ -156,6 +196,8 @@ class CheckpointManager:
             self.pool = self._exec.pool
             self._own_pool = True
         self.keep = keep
+        # False on every rank of a mesh but one: it gathers, writes nothing
+        self.writer = writer
         # §14: shard writes are idempotent (same bytes, same file), so
         # transient IO failures retry with a short backoff before the save
         # graph surfaces the error
@@ -178,6 +220,9 @@ class CheckpointManager:
         """Snapshot NOW (device->host, blocking only for the copy), then
         serialize + write + commit + gc in the background as a task graph."""
         t0 = time.perf_counter()
+        if not self.writer:
+            _join_gathers(tree)
+            return
         flat = _flatten(tree)
         # unique tmp per save: concurrent saves of the same step (or a crashed
         # writer's leftovers) can never corrupt each other; commit is a rename
@@ -330,17 +375,18 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def restore(
-        self, like: Any, *, step: Optional[int] = None, device=None
+        self, like: Any, *, step: Optional[int] = None, device=None, shardings: Any = None
     ) -> tuple[Any, dict]:
         """The tree saved at ``step`` (default: the latest) in the structure
-        of ``like``, on ``device`` (``cuda:0`` unless given), and its meta."""
+        of ``like``, on ``device`` (``cuda:0`` unless given), and its meta;
+        ``shardings`` lays leaves out on a mesh (:func:`load_pytree`)."""
         device = resolve_device(device)
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
         directory = self.root / f"step_{step:08d}"
         manifest = json.loads((directory / "manifest.json").read_text())
-        tree = load_pytree(directory, like, device=device)
+        tree = load_pytree(directory, like, device=device, shardings=shardings)
         return tree, manifest["meta"]
 
     # -- internals ----------------------------------------------------------------

@@ -108,11 +108,12 @@ def _attend_dense(q, k, v, bias):
 # ---------------------------------------------------------------------------
 
 
-def _pad_param(a, real_shape, padded_shape, pad_axis: int):
-    """A param stored at ``padded_shape`` whose pad region is exactly zero."""
-    real = a.param(real_shape)
-    if real_shape == padded_shape:
-        return real
+def _pad_param(a, real_shape, padded_shape, pad_axis: int, axes):
+    """A param stored at ``padded_shape`` whose pad region is exactly zero
+    (an allocator that draws nothing declares the padded shape)."""
+    if a.mode != "init" or real_shape == padded_shape:
+        return a.param(padded_shape, axes=axes)
+    real = a.param(real_shape, axes=axes)
     axis = pad_axis + real.ndim - len(real_shape)  # stacked layers prefix
     shape = list(real.shape)
     shape[axis] = padded_shape[pad_axis] - real_shape[pad_axis]
@@ -124,15 +125,15 @@ def gqa_params(cfg, a) -> dict:
     H, KV = cfg.num_heads, cfg.num_kv_heads
     Hp, KVp = cfg.heads_padded, cfg.kv_heads_padded
     p = {
-        "wq": _pad_param(a, (d, H, Dh), (d, Hp, Dh), 1),
-        "wk": _pad_param(a, (d, KV, Dh), (d, KVp, Dh), 1),
-        "wv": _pad_param(a, (d, KV, Dh), (d, KVp, Dh), 1),
-        "wo": _pad_param(a, (H, Dh, d), (Hp, Dh, d), 0),
+        "wq": _pad_param(a, (d, H, Dh), (d, Hp, Dh), 1, ("embed", "heads", None)),
+        "wk": _pad_param(a, (d, KV, Dh), (d, KVp, Dh), 1, ("embed", "kv", None)),
+        "wv": _pad_param(a, (d, KV, Dh), (d, KVp, Dh), 1, ("embed", "kv", None)),
+        "wo": _pad_param(a, (H, Dh, d), (Hp, Dh, d), 0, ("heads", None, "embed")),
     }
     if cfg.qkv_bias:
-        p["bq"] = a.param((Hp, Dh), "zeros")
-        p["bk"] = a.param((KVp, Dh), "zeros")
-        p["bv"] = a.param((KVp, Dh), "zeros")
+        p["bq"] = a.param((Hp, Dh), "zeros", axes=("heads", None))
+        p["bk"] = a.param((KVp, Dh), "zeros", axes=("kv", None))
+        p["bv"] = a.param((KVp, Dh), "zeros", axes=("kv", None))
     return p
 
 
@@ -163,6 +164,7 @@ def gqa_attention(
     cache: Optional[dict] = None,
     cache_index: Optional[torch.Tensor] = None,  # (B,) write offsets
     return_cache: bool = False,
+    ctx=None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Full-sequence (prefill) or single-token (decode) attention.
 
@@ -175,7 +177,12 @@ def gqa_attention(
     then attended over the whole masked cache. A cache carrying ``pos`` is
     a sliding-window ring: writes go to slot ``cache_index % W`` and masking
     uses the stored absolute positions.
+
+    Under a mesh (``ctx``) this rank's share runs: :func:`_gqa_sharded`.
     """
+    if ctx is not None:
+        return _gqa_sharded(cfg, p, x, positions, cache=cache, cache_index=cache_index,
+                            return_cache=return_cache, ctx=ctx)
     B, S, d = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
@@ -241,6 +248,99 @@ def gqa_attention(
     return y, new_cache
 
 
+def _kv_of_local_heads(k: torch.Tensor, first: int, Hl: int, G: int) -> torch.Tensor:
+    """The kv heads (dim 2 of ``k``) that query heads ``first .. first+Hl``
+    read (head h reads h // G): a contiguous run when every local kv head
+    serves the same number of them, else one kv head per query head."""
+    lo, hi = first // G, (first + Hl - 1) // G + 1
+    if Hl % G == 0 or G % Hl == 0:
+        return k[:, :, lo:hi]
+    idx = torch.arange(first, first + Hl, device=k.device) // G
+    return k.index_select(2, idx)
+
+
+def kv_cache_split(kv_heads: int, head_dim: int, n_model: int) -> Optional[str]:
+    """The dim of a k/v cache split over the model axis (its layout in
+    ``parallel.steps.cache_specs``): ``"kv_heads"`` where they divide it,
+    else ``"head_dim"`` where that divides it, else None (whole)."""
+    if kv_heads % n_model == 0 and kv_heads >= n_model:
+        return "kv_heads"
+    if head_dim % n_model == 0 and head_dim >= n_model:
+        return "head_dim"
+    return None
+
+
+def _gqa_sharded(cfg, p, x, positions, *, cache, cache_index, return_cache, ctx):
+    """This rank's share of GQA under a mesh (tensor parallel over heads).
+
+    Where the spec shards the heads over the model axis, the rank projects
+    its own query heads from the whole sequence (the residual stream
+    all-gathered where it is split), with its own kv heads where the spec
+    shards those too, else with the kv heads its query heads read, projected
+    whole. The output projection's partial sums over the heads are then
+    reduce-scattered back over the sequence (all-reduced in decode). Where
+    the heads do not divide, every weight is gathered whole and the rank
+    runs every head, keeping its block of the sequence. The flash kernel
+    runs on the local heads. The k/v caches keep ``cache_specs``'s layout:
+    the local kv heads, or with kv heads that do not divide the head dim's
+    block (the decode gathers it back whole, layer by layer), or whole.
+    """
+    Hp, KVp, Dh = cfg.heads_padded, cfg.kv_heads_padded, cfg.head_dim
+    n = ctx.n_model
+    heads = ctx.model_dim(p["wq"]) == 1
+    kv_local = heads and ctx.model_dim(p["wk"]) == 1
+    hd, kd = (1 if heads else None), (1 if kv_local else None)
+    h = ctx.seq_gather(x) if cache is None else x  # every position of the sequence
+    q = torch.einsum("bsd,dhk->bshk", h, ctx.take(p["wq"], hd))
+    k = torch.einsum("bsd,dhk->bshk", h, ctx.take(p["wk"], kd))
+    v = torch.einsum("bsd,dhk->bshk", h, ctx.take(p["wv"], kd))
+    if cfg.qkv_bias:
+        q = q + ctx.take(p["bq"], None if hd is None else 0)
+        k = k + ctx.take(p["bk"], None if kd is None else 0)
+        v = v + ctx.take(p["bv"], None if kd is None else 0)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    dh_split = not kv_local and kv_cache_split(KVp, Dh, n) == "head_dim"
+    if cache is None:
+        k_all, v_all = k, v
+        if return_cache:
+            new_cache = ({"k": ctx.chunk(k, 3), "v": ctx.chunk(v, 3)} if dh_split
+                         else {"k": k, "v": v})
+        else:
+            new_cache = None
+    else:
+        B = x.shape[0]
+        lanes = torch.arange(B, device=x.device)
+        idx = cache_index.long()
+        k_cache, v_cache = cache["k"], cache["v"]
+        kw, vw = (ctx.chunk(k, 3), ctx.chunk(v, 3)) if dh_split else (k, v)
+        k_cache[lanes, idx] = kw[:, 0].to(k_cache.dtype)
+        v_cache[lanes, idx] = vw[:, 0].to(v_cache.dtype)
+        if dh_split:
+            k_cache, v_cache = ctx.model_gather(k_cache, 3), ctx.model_gather(v_cache, 3)
+        k_all, v_all = k_cache, v_cache
+        new_cache = None
+    if heads and not kv_local:
+        Hl = Hp // n
+        G = Hp // KVp
+        k_all = _kv_of_local_heads(k_all, ctx.model_rank * Hl, Hl, G)
+        v_all = _kv_of_local_heads(v_all, ctx.model_rank * Hl, Hl, G)
+    if cache is None:
+        out = attend(q, k_all, v_all, PrefillMask(causal=True))
+    else:
+        Sk = k_all.shape[1]
+        bias = causal_mask_bias(positions, torch.arange(Sk, device=x.device),
+                                valid_len=cache_index.long() + 1)
+        out = attend(q, k_all, v_all, bias)
+    y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), ctx.take(p["wo"], 0 if heads else None))
+    if heads:  # partial sums over the heads
+        y = ctx.seq_reduce(y) if cache is None else ctx.model_sum(y)
+    elif cache is None:
+        y = ctx.constrain_activations(y)
+    return y, new_cache
+
+
 # ---------------------------------------------------------------------------
 # MLA (DeepSeek-V2): compressed latent KV cache
 # ---------------------------------------------------------------------------
@@ -252,16 +352,16 @@ def mla_params(cfg, a) -> dict:
     lq, lkv = cfg.q_lora_rank, cfg.kv_lora_rank
     p = {}
     if lq:
-        p["wq_a"] = a.param((d, lq))
-        p["q_norm"] = a.param((lq,), "zeros")
-        p["wq_b"] = a.param((lq, H, nope + rope_d))
+        p["wq_a"] = a.param((d, lq), axes=("embed", "lora"))
+        p["q_norm"] = a.param((lq,), "zeros", axes=("lora",))
+        p["wq_b"] = a.param((lq, H, nope + rope_d), axes=("lora", "heads", None))
     else:
-        p["wq"] = a.param((d, H, nope + rope_d))
-    p["wkv_a"] = a.param((d, lkv + rope_d))
-    p["kv_norm"] = a.param((lkv,), "zeros")
-    p["wk_b"] = a.param((lkv, H, nope))
-    p["wv_b"] = a.param((lkv, H, v_d))
-    p["wo"] = a.param((H, v_d, d))
+        p["wq"] = a.param((d, H, nope + rope_d), axes=("embed", "heads", None))
+    p["wkv_a"] = a.param((d, lkv + rope_d), axes=("embed", "lora"))
+    p["kv_norm"] = a.param((lkv,), "zeros", axes=("lora",))
+    p["wk_b"] = a.param((lkv, H, nope), axes=("lora", "heads", None))
+    p["wv_b"] = a.param((lkv, H, v_d), axes=("lora", "heads", None))
+    p["wo"] = a.param((H, v_d, d), axes=("heads", None, "embed"))
     return p
 
 

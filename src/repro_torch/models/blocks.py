@@ -56,13 +56,33 @@ def check_supported(cfg) -> None:
         )
 
 
+def check_parallel_supported(cfg) -> None:
+    """Raise for a config the port does not yet run under a mesh: the
+    dense and GQA-MoE decoders run; MLA, SSM, hybrid, enc-dec and VLM, and
+    deepseek-v2's expert hidden dim on the data axis, wait for a later
+    slice."""
+    rules = dict(cfg.sharding_rules or ())
+    ok = (cfg.family in ("dense", "moe") and cfg.attention == "gqa" and cfg.use_rope
+          and cfg.window is None and not cfg.is_encdec and rules.get("expert_mlp") is None)
+    if not ok:
+        raise NotImplementedError(
+            f"{cfg.name} (family={cfg.family!r}, attention={cfg.attention!r}) under a mesh "
+            "waits for a later slice of the port (ROADMAP queue 1: MLA, SSM/hybrid, enc-dec "
+            "and VLM under a mesh, and the expert hidden dim sharded over data); the dense "
+            "and GQA-MoE decoders run sharded"
+        )
+
+
 def _norm_params(cfg, a) -> dict:
     if cfg.norm == "ln":
-        return {"w": a.param((cfg.d_model,), "ones"), "b": a.param((cfg.d_model,), "zeros")}
-    return {"w": a.param((cfg.d_model,), "zeros")}
+        return {"w": a.param((cfg.d_model,), "ones", axes=("embed",)),
+                "b": a.param((cfg.d_model,), "zeros", axes=("embed",))}
+    return {"w": a.param((cfg.d_model,), "zeros", axes=("embed",))}
 
 
-def _norm(cfg, p, x: torch.Tensor) -> torch.Tensor:
+def _norm(cfg, p, x: torch.Tensor, ctx=None) -> torch.Tensor:
+    if ctx is not None:  # the norm's weights whole over the model axis
+        p = {k: ctx.gather(w) for k, w in p.tree().items()}
     if cfg.norm == "ln":
         return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
     return rms_norm(x, p["w"], cfg.norm_eps)
@@ -109,12 +129,15 @@ def block_apply(
     return_cache: bool = False,
     enc_out: Optional[torch.Tensor] = None,  # the encoder's states, for cross-attention
     window: Optional[int] = None,  # None = full attention (global layers)
+    ctx=None,
 ) -> Tuple[torch.Tensor, Optional[dict], Optional[torch.Tensor]]:
     """Returns (x_out, new_cache, moe_aux_loss); the aux loss is an f32
     scalar, and None for a layer without the MoE layer (where the reference
     returns a zero: a layer of the other families launches nothing for
     it). Decode writes the cache in place; a decoder layer's ``cross``
-    cache is read, never written."""
+    cache is read, never written. Under a mesh (``ctx``, the dense and GQA
+    MoE decoders: :func:`check_parallel_supported`) ``x`` is this rank's
+    block of the residual stream and the result is too."""
     new_cache: dict = {}
     s_out = None
     if cfg.family in ("ssm", "hybrid"):
@@ -129,7 +152,7 @@ def block_apply(
         a_out, a_cache = attn_fn(
             cfg,
             p["attn"],
-            _norm(cfg, p["attn_norm"], x),
+            _norm(cfg, p["attn_norm"], x, ctx),
             positions,
             window=window,
             prefix_len=prefix_len,
@@ -137,6 +160,7 @@ def block_apply(
             cache=cache.get("attn") if cache else None,
             cache_index=cache_index,
             return_cache=return_cache,
+            **({} if ctx is None else {"ctx": ctx}),
         )
         if a_cache is not None:
             new_cache["attn"] = a_cache
@@ -154,10 +178,10 @@ def block_apply(
             new_cache["cross"] = c_cache
     aux = None
     if "moe" in p:
-        m_out, aux = moe_apply(cfg, p["moe"], _norm(cfg, p["mlp_norm"], x))
+        m_out, aux = moe_apply(cfg, p["moe"], _norm(cfg, p["mlp_norm"], x, ctx), ctx)
         x = x + m_out
     elif "mlp" in p:
-        x = x + mlp_apply(cfg, p["mlp"], _norm(cfg, p["mlp_norm"], x))
+        x = x + mlp_apply(cfg, p["mlp"], _norm(cfg, p["mlp_norm"], x, ctx), ctx)
     return x, (new_cache or None), aux
 
 

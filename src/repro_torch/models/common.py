@@ -84,8 +84,11 @@ class Init:
     one ``torch.Generator`` in call order, so one seed gives one model.
     ``dtype`` overrides the model dtype for one leaf, as the reference keeps
     the SSM's per-head ``a_log``, ``d_skip`` and ``dt_bias`` in float32.
+    ``axes`` names each dim's logical axis (the sharding rules' input,
+    ``repro_torch.parallel.sharding``); :class:`Axes` returns them.
     """
 
+    mode = "init"
     CHUNK = 1 << 28  # elements of a normal leaf's f32 draw at once
 
     def __init__(self, generator: torch.Generator, device, dtype: torch.dtype) -> None:
@@ -99,8 +102,11 @@ class Init:
         init: str = "normal",
         scale: Optional[float] = None,
         dtype: Optional[torch.dtype] = None,
+        *,
+        axes: Sequence[Optional[str]],
     ) -> torch.Tensor:
         shape = tuple(shape)
+        _check_axes(shape, axes)
         dtype = dtype or self.dtype
         if init == "zeros":
             return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -138,21 +144,47 @@ class Init:
         return out
 
 
+def _check_axes(shape: tuple, axes) -> None:
+    if len(shape) != len(axes):
+        raise ValueError(f"a parameter of shape {shape} with logical axes {tuple(axes)}")
+
+
+class Abstract:
+    """A parameter allocator that draws nothing: each leaf is an empty meta
+    tensor with the shape and dtype the plan declares (the reference's
+    ``Alloc("abstract")``)."""
+
+    mode = "abstract"
+
+    def __init__(self, dtype: torch.dtype) -> None:
+        self.dtype = dtype
+
+    def param(self, shape, init="normal", scale=None, dtype=None, *, axes) -> torch.Tensor:
+        _check_axes(tuple(shape), axes)
+        return torch.empty(tuple(shape), dtype=dtype or self.dtype, device="meta")
+
+
+class Axes:
+    """A parameter allocator whose leaves are the logical-axes tuples (the
+    reference's ``Alloc("axes")``)."""
+
+    mode = "axes"
+
+    def param(self, shape, init="normal", scale=None, dtype=None, *, axes) -> tuple:
+        _check_axes(tuple(shape), axes)
+        return tuple(axes)
+
+
 class StackedInit:
     """Prepends a ``layers`` dim to every param, as the reference's
     ``StackedAlloc`` does, so the fan-in law sees the same shape."""
 
-    def __init__(self, init: Init, num_layers: int) -> None:
+    def __init__(self, init, num_layers: int) -> None:
         self._init, self._L = init, num_layers
+        self.mode = init.mode
 
-    def param(
-        self,
-        shape: Sequence[int],
-        init: str = "normal",
-        scale: Optional[float] = None,
-        dtype: Optional[torch.dtype] = None,
-    ):
-        return self._init.param((self._L, *shape), init, scale, dtype)
+    def param(self, shape, init="normal", scale=None, dtype=None, *, axes):
+        return self._init.param((self._L, *shape), init, scale, dtype, axes=("layers", *axes))
 
 
 def init_params(cfg, generator: torch.Generator, device, dtype: torch.dtype) -> ParamTree:

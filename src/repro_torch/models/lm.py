@@ -35,7 +35,7 @@ from .blocks import (
     block_params,
     check_supported,
 )
-from .common import DTYPES, ParamTree, StackedInit, init_params, resolve_device
+from .common import DTYPES, Abstract, Axes, ParamTree, StackedInit, init_params, resolve_device
 
 
 @dataclass(frozen=True)
@@ -82,13 +82,15 @@ def encoder_plan(cfg) -> Optional[list[StackGroup]]:
 
 def _stack_params(cfg, a, plan: list[StackGroup], kind: str) -> dict:
     """One entry per layer group: a scan group's leaves are drawn stacked
-    (as the reference draws them) and split into one entry per layer."""
+    (as the reference draws them) and split into one entry per layer (a
+    layer's logical axes are the stacked leaf's without ``layers``)."""
     layers: dict = {}
     for grp in plan:
         if grp.kind == "scan":
             stacked = block_params(cfg, StackedInit(a, grp.count), kind=kind, moe_layer=grp.moe)
             layers[grp.name] = [
-                tree_map(lambda t, i=i: t[i], stacked) for i in range(grp.count)
+                tree_map((lambda t: t[1:]) if a.mode == "axes" else (lambda t, i=i: t[i]), stacked)
+                for i in range(grp.count)
             ]
         else:
             layers[grp.name] = block_params(cfg, a, kind=kind, moe_layer=grp.moe)
@@ -100,17 +102,17 @@ def param_tree(cfg, a) -> dict:
     the reference's order."""
     check_supported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
-    p: dict = {"embed": a.param((V, d), "embed", scale=d**-0.5)}
+    p: dict = {"embed": a.param((V, d), "embed", scale=d**-0.5, axes=("vocab", "embed"))}
     p["layers"] = _stack_params(cfg, a, stack_plan(cfg),
                                 "xdecoder" if cfg.is_encdec else "decoder")
     p["final_norm"] = _norm_params(cfg, a)
     if not cfg.tie_embeddings:
-        p["lm_head"] = a.param((d, V))
+        p["lm_head"] = a.param((d, V), axes=("embed", "vocab"))
     if cfg.is_encdec:
         p["enc_layers"] = _stack_params(cfg, a, encoder_plan(cfg), "encoder")
         p["enc_norm"] = _norm_params(cfg, a)
     if cfg.family == "vlm":
-        p["vision_proj"] = a.param((cfg.vision_dim, d))
+        p["vision_proj"] = a.param((cfg.vision_dim, d), axes=(None, "embed"))
     return p
 
 
@@ -167,6 +169,17 @@ class Model:
         g.manual_seed(seed)
         return init_params(self.cfg, g, self.device, self.dtype)
 
+    def abstract_params(self) -> dict:
+        """The parameter tree as meta tensors (shapes and dtypes, nothing
+        drawn), in the layout of ``init``'s ``ParamTree.tree()``."""
+        return param_tree(self.cfg, Abstract(self.dtype))
+
+    def logical_axes(self) -> dict:
+        """Each parameter's logical-axes tuple (``embed``, ``heads``, ...),
+        in the layout of :meth:`abstract_params`: a layer group's entries
+        carry the reference's stacked axes without its ``layers``."""
+        return param_tree(self.cfg, Axes())
+
     # -- helpers ------------------------------------------------------------------
 
     def _as_index(self, a) -> torch.Tensor:
@@ -180,9 +193,25 @@ class Model:
             a = torch.as_tensor(np.asarray(a))
         return a.to(self.device, self.dtype)
 
-    def _embed_tokens(self, p, tokens: torch.Tensor) -> torch.Tensor:
-        # F.embedding: its backward sums rows without atomics on the card
-        x = F.embedding(tokens, p["embed"]).to(self.dtype)
+    def _embed_tokens(self, p, tokens: torch.Tensor, ctx=None) -> torch.Tensor:
+        """Token embeddings. Under a mesh (``ctx``) ``tokens`` are this
+        rank's rows, whole along the sequence, and the result is this rank's
+        block of the residual stream: with the vocabulary split over the
+        model axis each rank looks up its own rows and the partial sums are
+        reduce-scattered over the sequence (all-reduced where it is whole);
+        otherwise the table is gathered whole."""
+        w = p["embed"]
+        if ctx is not None and ctx.n_model > 1 and ctx.model_dim(w) == 0:
+            Vl = w.shape[0]
+            t = tokens - ctx.model_rank * Vl
+            mine = ((t >= 0) & (t < Vl)).to(w.dtype)
+            x = ctx.seq_reduce(F.embedding(t.clamp(0, Vl - 1), w) * mine[..., None])
+            x = x.to(self.dtype)
+        elif ctx is not None:
+            x = ctx.constrain_activations(F.embedding(tokens, ctx.gather(w))).to(self.dtype)
+        else:
+            # F.embedding: its backward sums rows without atomics on the card
+            x = F.embedding(tokens, w).to(self.dtype)
         if self.cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=self.dtype)
         return x
@@ -220,7 +249,7 @@ class Model:
         return _norm(self.cfg, p["enc_norm"], x)
 
     def _layers(self, p, x, positions, *, caches=None, cache_index=None, forward=False,
-                encoder=False, prefix_len=None, enc_out=None):
+                encoder=False, prefix_len=None, enc_out=None, ctx=None):
         """The layer loop. Prefill (no ``caches``) returns the new caches,
         stacked per scan group; decode hands each layer views of its slice
         of ``caches``, writes into them in place and returns None. The
@@ -230,9 +259,12 @@ class Model:
         ``torch.utils.checkpoint`` (its activations recomputed in the
         backward, as the reference's ``jax.checkpoint``). ``encoder`` runs
         the encoder's layers (bidirectional, forward only); ``prefix_len``
-        and ``enc_out`` reach every decoder layer."""
+        and ``enc_out`` reach every decoder layer. ``ctx`` (a mesh) reaches
+        every layer, with ``x`` this rank's block of the residual stream."""
         plan, layers = (self.enc_plan, p["enc_layers"]) if encoder else (self.plan, p["layers"])
         kw = dict(bidirectional=encoder, prefix_len=prefix_len, enc_out=enc_out)
+        if ctx is not None:
+            kw["ctx"] = ctx
         if forward:
             remat = self.cfg.remat != "none" and torch.is_grad_enabled()
             total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -273,7 +305,7 @@ class Model:
 
     # -- train -------------------------------------------------------------------
 
-    def loss(self, p, batch: dict) -> Tuple[torch.Tensor, dict]:
+    def loss(self, p, batch: dict, ctx=None) -> Tuple[torch.Tensor, dict]:
         """Token-mean cross-entropy of ``batch["targets"]`` (optionally
         weighted by ``batch["loss_mask"]``) given ``batch["tokens"]``, both
         (B, S), plus the MoE layers' load-balancing aux loss, with autograd:
@@ -281,7 +313,12 @@ class Model:
         parameter's gradient. Returns (loss, {"ce", "aux", "tokens"}); the
         families other than MoE have no auxiliary loss, so their ``aux`` is
         0. A VLM's loss is taken over its text only, after the patches; an
-        encoder-decoder's decoder attends to ``batch["frames"]`` encoded."""
+        encoder-decoder's decoder attends to ``batch["frames"]`` encoded.
+
+        Under a mesh (``ctx``) ``batch`` is the global batch and ``p`` this
+        rank's shards: :meth:`_loss_sharded`."""
+        if ctx is not None:
+            return self._loss_sharded(p, batch, ctx)
         cfg = self.cfg
         enc_out = self._encode(p, batch["frames"]) if cfg.is_encdec else None
         x, prefix_len = self._input_states(p, batch)
@@ -329,10 +366,88 @@ class Model:
         n = torch.clamp(torch.stack(ns).sum(), min=1.0)
         return torch.stack(sums).sum() / n, n
 
+    def _head_weight(self, p, ctx):
+        """The head's weight and its vocabulary dim, and whether this rank
+        holds a block of the vocabulary (else the weight is gathered whole)."""
+        w, vdim = (p["embed"], 0) if self.cfg.tie_embeddings else (p["lm_head"], 1)
+        if ctx.n_model > 1 and ctx.model_dim(w) == vdim:
+            return w, True
+        return ctx.gather(w), False
+
+    def _logits(self, x, w):
+        if self.cfg.tie_embeddings:
+            return torch.einsum("bsd,vd->bsv", x, w)
+        return torch.einsum("bsd,dv->bsv", x, w)
+
+    def _loss_sharded(self, p, batch: dict, ctx) -> Tuple[torch.Tensor, dict]:
+        """This rank's share of the loss, with autograd: the shares of every
+        rank sum to the loss, so differentiating each rank's share and
+        summing each gradient over the mesh axes its parameter's spec does
+        not shard gives the gradient of the loss (``parallel.steps``). The
+        metrics are the global values. This rank takes its rows of the batch
+        and its block of the sequence; the head runs over a vocabulary split
+        over the model axis where its spec splits it (the log-sum-exp and
+        the target's logit reduced over the group) and over the rank's own
+        positions otherwise. With ``loss_chunk`` the CE runs in chunks of
+        positions, recomputed in the backward, and the positions past the
+        last whole chunk are left out, as in the single-device loss."""
+        from .blocks import check_parallel_supported
+
+        cfg = self.cfg
+        check_parallel_supported(cfg)
+        tokens = self._as_index(batch["tokens"])
+        B, S = tokens.shape
+        ctx = ctx.at(B, S)
+        tokens = ctx.local_batch(tokens)
+        positions = torch.arange(S, device=self.device)
+        x = self._embed_tokens(p, tokens, ctx)
+        x, aux = self._layers(p, x, positions, forward=True, ctx=ctx)
+        x = _norm(cfg, p["final_norm"], x, ctx)
+        targets = ctx.local_batch(self._as_index(batch["targets"]))
+        mask = batch.get("loss_mask")
+        m = (torch.ones(targets.shape, dtype=torch.float32, device=self.device) if mask is None
+             else ctx.local_batch(torch.as_tensor(mask, device=self.device)).float())
+        chunked = bool(cfg.loss_chunk) and S > cfg.loss_chunk
+        if chunked:  # positions past the last whole chunk are dropped
+            m = m * (positions < S // cfg.loss_chunk * cfg.loss_chunk)
+        w, vocab_split = self._head_weight(p, ctx)
+        if vocab_split:
+            x = ctx.seq_gather(x)
+        elif ctx.seq_sharded:
+            targets, m = ctx.chunk(targets, 1), ctx.chunk(m, 1)
+        copies = ctx.copies(x.shape[1] != S)
+        n = torch.clamp(ctx.world_sum(m.sum().detach()) / copies, min=1.0)
+
+        def one(xx, tt, mm):
+            lf = self._logits(xx, w).float()
+            if not vocab_split:
+                lse = torch.logsumexp(lf, dim=-1)
+                ll = torch.gather(lf, -1, tt[..., None].long())[..., 0]
+                return ((lse - ll) * mm).sum()
+            Vl = lf.shape[-1]
+            mx = ctx.model_max(lf.amax(dim=-1))
+            lse = torch.log(ctx.model_sum(torch.exp(lf - mx[..., None]).sum(dim=-1))) + mx
+            t = tt.long() - ctx.model_rank * Vl
+            mine = (t >= 0) & (t < Vl)
+            ll = torch.gather(lf, -1, t.clamp(0, Vl - 1)[..., None])[..., 0] * mine
+            return ((lse - ctx.model_sum(ll)) * mm).sum()
+
+        step = cfg.loss_chunk if chunked else x.shape[1]
+        parts = []
+        for c in range(0, x.shape[1], step):
+            sl = slice(c, c + step)
+            args = (x[:, sl], targets[:, sl], m[:, sl])
+            parts.append(checkpoint(one, *args, use_reentrant=False)
+                         if chunked and torch.is_grad_enabled() else one(*args))
+        ce_share = torch.stack(parts).sum() / n / copies
+        share = ce_share + aux / ctx.world
+        ce = ctx.world_sum(ce_share.detach())
+        return share, {"ce": ce, "aux": aux.detach(), "tokens": n}
+
     # -- serving ------------------------------------------------------------------
 
     @torch.inference_mode()
-    def prefill(self, p, batch: dict, *, last_pos=None) -> Tuple[torch.Tensor, dict]:
+    def prefill(self, p, batch: dict, ctx=None, *, last_pos=None) -> Tuple[torch.Tensor, dict]:
         """Fill the KV cache for a prompt; logits for the next-token position.
 
         ``last_pos`` (optional) selects which position's logits to return;
@@ -345,7 +460,14 @@ class Model:
         in the bucket. Both forms give the same logits. A VLM's prompt is
         its patches then its tokens, an encoder-decoder's caches carry each
         decoder layer's ``cross`` keys and values over the encoded frames.
+
+        Under a mesh (``ctx``) ``batch`` is the global batch and ``p`` this
+        rank's shards; the logits are this rank's rows, and its block of the
+        vocabulary where the head's spec splits it, and the caches its shards
+        in ``parallel.steps.cache_specs``'s layout.
         """
+        if ctx is not None:
+            return self._prefill_sharded(p, batch, ctx, last_pos)
         enc_out = self._encode(p, batch["frames"]) if self.cfg.is_encdec else None
         x, prefix_len = self._input_states(p, batch)
         S = x.shape[1]
@@ -359,14 +481,44 @@ class Model:
             last = x[:, t : t + 1]
         return self._head(p, last), caches
 
+    def _prefill_sharded(self, p, batch: dict, ctx, last_pos):
+        from .blocks import check_parallel_supported
+
+        check_parallel_supported(self.cfg)
+        tokens = self._as_index(batch["tokens"])
+        B, S = tokens.shape
+        ctx = ctx.at(B, S)
+        positions = torch.arange(S, device=self.device)
+        x = self._embed_tokens(p, ctx.local_batch(tokens), ctx)
+        x, caches = self._layers(p, x, positions, ctx=ctx)
+        x = ctx.seq_gather(_norm(self.cfg, p["final_norm"], x, ctx))
+        if isinstance(last_pos, torch.Tensor):
+            last = x.index_select(1, last_pos.reshape(1))
+        else:
+            t = S - 1 if last_pos is None else int(last_pos)
+            last = x[:, t : t + 1]
+        return self._logits(last, self._head_weight(p, ctx)[0]), caches
+
     @torch.inference_mode()
-    def decode_step(self, p, tokens, caches: dict, index) -> Tuple[torch.Tensor, dict]:
+    def decode_step(self, p, tokens, caches: dict, index, ctx=None) -> Tuple[torch.Tensor, dict]:
         """One new token per lane. tokens: (B, 1); index: (B,) — each lane's
         position, which is also its cache write offset and valid length
         minus one. ``caches`` is updated in place and returned. Without
-        RoPE, each lane adds the sinusoidal embedding of its own position."""
+        RoPE, each lane adds the sinusoidal embedding of its own position.
+        Under a mesh (``ctx``) ``tokens`` and ``index`` are global, ``p``
+        and ``caches`` this rank's shards, and the logits as ``prefill``'s."""
         tokens = self._as_index(tokens)
         index = self._as_index(index).reshape(-1)
+        if ctx is not None:
+            from .blocks import check_parallel_supported
+
+            check_parallel_supported(self.cfg)
+            ctx = ctx.at(tokens.shape[0], 1)
+            tokens, index = ctx.local_batch(tokens), ctx.local_batch(index)
+            x = self._embed_tokens(p, tokens, ctx)
+            x, _ = self._layers(p, x, index[:, None], caches=caches, cache_index=index, ctx=ctx)
+            x = _norm(self.cfg, p["final_norm"], x, ctx)
+            return self._logits(x, self._head_weight(p, ctx)[0]), caches
         x = self._embed_tokens(p, tokens)
         if not self.cfg.use_rope:
             x = x + sinusoidal_emb(index, self.cfg.d_model).to(self.dtype)[:, None, :]
@@ -387,6 +539,36 @@ class Model:
                     one,
                 )
             out[grp.name] = one
+        return out
+
+
+    def input_specs(self, shape_name: str, spec: dict) -> dict:
+        """Meta-tensor stand-ins for every model input of a shape cell
+        (``spec``: ``seq_len``, ``global_batch`` and ``kind``, one of train,
+        prefill and decode), as the reference's ``input_specs``; decode's
+        ``index`` is per lane, ``(B,)``, as :meth:`decode_step` takes it."""
+        cfg = self.cfg
+        S, B, kind = spec["seq_len"], spec["global_batch"], spec["kind"]
+
+        def meta(shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        out: dict = {}
+        S_text = S - (cfg.num_image_tokens if cfg.family == "vlm" else 0)
+        if kind in ("train", "prefill"):
+            out["tokens"] = meta((B, S_text))
+            if kind == "train":
+                out["targets"] = meta((B, S_text))
+            if cfg.family == "vlm":
+                out["patches"] = meta((B, cfg.num_image_tokens, cfg.vision_dim), self.dtype)
+            if cfg.is_encdec:
+                out["frames"] = meta((B, cfg.encoder_seq, cfg.d_model), self.dtype)
+        elif kind == "decode":
+            out["tokens"] = meta((B, 1))
+            out["caches"] = self.cache_shapes(B, S)
+            out["index"] = meta((B,))
+        else:
+            raise ValueError(kind)
         return out
 
 

@@ -15,9 +15,9 @@ from .common import act_fn
 def gated_mlp_params(cfg, a, d_ff: int | None = None) -> dict:
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     return {
-        "w_gate": a.param((d, ff)),
-        "w_up": a.param((d, ff)),
-        "w_down": a.param((ff, d)),
+        "w_gate": a.param((d, ff), axes=("embed", "mlp")),
+        "w_up": a.param((d, ff), axes=("embed", "mlp")),
+        "w_down": a.param((ff, d), axes=("mlp", "embed")),
     }
 
 
@@ -31,10 +31,10 @@ def gated_mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
 def dense_mlp_params(cfg, a, d_ff: int | None = None) -> dict:
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     return {
-        "w1": a.param((d, ff)),
-        "b1": a.param((ff,), "zeros"),
-        "w2": a.param((ff, d)),
-        "b2": a.param((d,), "zeros"),
+        "w1": a.param((d, ff), axes=("embed", "mlp")),
+        "b1": a.param((ff,), "zeros", axes=("mlp",)),
+        "w2": a.param((ff, d), axes=("mlp", "embed")),
+        "b2": a.param((d,), "zeros", axes=("embed",)),
     }
 
 
@@ -49,7 +49,18 @@ def mlp_params(cfg, a, d_ff: int | None = None) -> dict:
     return gated_mlp_params(cfg, a, d_ff)
 
 
-def mlp_apply(cfg, p, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(cfg, p, x: torch.Tensor, ctx=None) -> torch.Tensor:
+    """The block's feed-forward. Under a mesh (``ctx``), a gated MLP whose
+    hidden dim the spec shards runs tensor parallel: the whole sequence
+    (all-gathered where the residual stream is split) through this rank's
+    hidden block, the partial sums reduce-scattered back over the sequence
+    (all-reduced where it is whole). Any other spec gathers the weights
+    whole and runs this rank's tokens."""
+    if ctx is not None:
+        gated = cfg.act != "gelu_mlp"
+        if gated and [ctx.model_dim(p[k]) for k in ("w_gate", "w_up", "w_down")] == [1, 1, 0]:
+            return ctx.seq_reduce(gated_mlp(cfg, p, ctx.seq_gather(x)))
+        p = {k: ctx.gather(w) for k, w in p.tree().items()}
     if cfg.act == "gelu_mlp":
         return dense_mlp(cfg, p, x)
     return gated_mlp(cfg, p, x)

@@ -51,14 +51,14 @@ def ssm_params(cfg, a) -> dict:
     conv_dim = dims["conv_dim"]
     f32 = torch.float32
     return {
-        "in_proj": a.param((d, 2 * di + 2 * N + nh)),  # [z | x | B | C | dt]
-        "conv_w": a.param((cfg.conv_kernel, conv_dim)),
-        "conv_b": a.param((conv_dim,), "zeros"),
-        "a_log": a.param((nh,), "ssm_a", dtype=f32),
-        "d_skip": a.param((nh,), "ones", dtype=f32),
-        "dt_bias": a.param((nh,), "ssm_dt", dtype=f32),
-        "norm": a.param((di,), "zeros"),
-        "out_proj": a.param((di, d)),
+        "in_proj": a.param((d, 2 * di + 2 * N + nh), axes=("embed", "ssm_inner")),  # [z | x | B | C | dt]
+        "conv_w": a.param((cfg.conv_kernel, conv_dim), axes=(None, "ssm_inner")),
+        "conv_b": a.param((conv_dim,), "zeros", axes=("ssm_inner",)),
+        "a_log": a.param((nh,), "ssm_a", dtype=f32, axes=("ssm_heads",)),
+        "d_skip": a.param((nh,), "ones", dtype=f32, axes=("ssm_heads",)),
+        "dt_bias": a.param((nh,), "ssm_dt", dtype=f32, axes=("ssm_heads",)),
+        "norm": a.param((di,), "zeros", axes=("ssm_inner",)),
+        "out_proj": a.param((di, d), axes=("ssm_inner", "embed")),
     }
 
 

@@ -1,8 +1,10 @@
 """Fault-tolerant training loop, ported from the reference's
 ``repro/runtime/trainer.py``.
 
-Composition of the port's substrates, on one device:
-  * the train step: ``Model.loss`` through autograd, then AdamW in place
+Composition of the port's substrates, on one device or a mesh:
+  * the train step: ``Model.loss`` through autograd, then AdamW in place;
+    with ``mesh=``, ``parallel.steps.build_train_step`` (this rank's param
+    shards and ZeRO state)
   * ThreadPool-prefetched data pipeline (repro_torch.data)
   * async atomic checkpoints + resume (repro_torch.checkpoint)
   * watchdog heartbeat + failure injection for fault-tolerance tests
@@ -10,8 +12,13 @@ Composition of the port's substrates, on one device:
 The trainer owns one ``ThreadPool(4)``, shared by the prefetch lanes and
 the checkpoint saves, as the reference's does. The restart loop (crash,
 restore-latest, continue) is ``run_with_restarts``. The device is the
-caller's, else ``cuda:0`` (raising without a GPU); ``mesh=`` raises
-``NotImplementedError`` until the parallelism slice.
+caller's, else ``cuda:0`` (raising without a GPU).
+
+Under a mesh every rank runs the loop: each draws the global batch from the
+same seeded source and the step keeps its rows. The logged metrics are
+global values. Every rank takes part in a checkpoint's gather and rank 0
+writes it; restore lays the saved arrays out on this trainer's mesh,
+whatever mesh saved them.
 
 Metrics are read to the host (``.item()``) only on logged steps, so the
 other steps queue their work on the device without waiting for it. Each
@@ -33,7 +40,7 @@ from ..data import Prefetcher, SyntheticTokens
 from ..models import build_model
 from ..models.common import resolve_device
 from ..optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
-from ..tree import tree_leaves, tree_unflatten
+from ..tree import tree_leaves, tree_map, tree_unflatten
 
 
 def _synchronize(device: torch.device) -> None:
@@ -69,20 +76,28 @@ class Trainer:
         data_source=None,
         device=None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=) waits for the port's parallelism slice; the port trains on "
-                "one device"
-            )
         self.model_cfg = model_cfg
         self.tcfg = tcfg
         self.device = resolve_device(device)
         self.model = build_model(model_cfg, device=self.device)
         self.mesh = mesh
-        self.pool = ThreadPool(4, name="trainer")
-        self.ckpt = CheckpointManager(ckpt_dir, pool=self.pool, keep=tcfg.keep_checkpoints)
         self.ocfg = AdamWConfig(lr=tcfg.lr)
         self.lr_fn = cosine_schedule(tcfg.lr, tcfg.warmup, tcfg.num_steps)
+        self.ctx = None
+        writer = True
+        if mesh is not None:
+            import torch.distributed as dist
+
+            from ..parallel.steps import build_train_step, make_ctx
+
+            spec = {"seq_len": tcfg.seq_len, "global_batch": tcfg.global_batch, "kind": "train"}
+            self._sharded_step, self.specs, _ = build_train_step(
+                self.model, mesh, self.ocfg, self.lr_fn, self.model.input_specs("train", spec))
+            self.ctx = make_ctx(mesh)
+            writer = dist.get_rank() == 0
+        self.pool = ThreadPool(4, name="trainer")
+        self.ckpt = CheckpointManager(ckpt_dir, pool=self.pool, keep=tcfg.keep_checkpoints,
+                                      writer=writer)
         self.data = data_source or SyntheticTokens(
             model_cfg.vocab_size, tcfg.seq_len, tcfg.global_batch, seed=tcfg.seed
         )
@@ -94,20 +109,47 @@ class Trainer:
 
     def init_state(self) -> dict:
         """``{"params": ParamTree, "opt": AdamW state, "step": int}``, the
-        params from ``Model.init(seed)``."""
+        params from ``Model.init(seed)``; under a mesh, this rank's shards
+        and ZeRO state."""
         params = self.model.init(self.tcfg.seed)
-        return {"params": params, "opt": adamw_init(self.ocfg, params.tree()), "step": 0}
+        if self.mesh is not None:
+            from ..parallel.steps import shard_params
+
+            params = shard_params(self.model, params, self.mesh)
+        opt = adamw_init(self.ocfg, params.tree(), ctx=self.ctx)
+        return {"params": params, "opt": opt, "step": 0}
+
+    def _specs(self) -> dict:
+        """The checkpointed tree's specs (the step's is replicated)."""
+        return {"params": self.specs["params"], "opt": self.specs["opt"], "step": ()}
 
     def _saved(self, state: dict, step: int) -> dict:
         """The checkpointed tree: params as nested dicts, the AdamW state and
-        the step (an int32 scalar, as the reference saves it)."""
-        return {"params": state["params"].tree(), "opt": state["opt"],
+        the step (an int32 scalar, as the reference saves it); under a mesh
+        the sharded leaves are DTensors of this rank's blocks."""
+        tree = {"params": state["params"].tree(), "opt": state["opt"],
                 "step": torch.tensor(step, dtype=torch.int32)}
+        if self.mesh is None:
+            return tree
+        from torch.distributed.tensor import DTensor
+
+        from ..parallel.sharding import placements
+
+        return tree_map(
+            lambda t, s: DTensor.from_local(t.detach(), self.mesh, placements(s, self.mesh))
+            if any(e is not None for e in s) else t, tree, self._specs())
 
     def _restore(self, state: dict) -> int:
         """Load the latest checkpoint into ``state`` (params copied into the
         model's parameters in place); returns its step."""
-        tree, meta = self.ckpt.restore(self._saved(state, 0), device=self.device)
+        shardings = None
+        if self.mesh is not None:
+            from ..parallel.sharding import shardings as named
+
+            shardings = named(self._specs(), self.mesh)
+        tree, meta = self.ckpt.restore(self._saved(state, 0), device=self.device,
+                                       shardings=shardings)
+        tree = tree_map(lambda t: t.to_local() if hasattr(t, "to_local") else t, tree)
         with torch.no_grad():
             for p, saved in zip(tree_leaves(state["params"].tree()), tree_leaves(tree["params"])):
                 p.copy_(saved)
@@ -117,8 +159,11 @@ class Trainer:
     def train_step(self, state: dict, batch: dict, step: int) -> dict:
         """Loss and gradients by autograd, then one AdamW update of the
         params and the optimizer state in place. Returns the step's metrics
-        as 0-d tensors (nothing is read to the host here)."""
+        as 0-d tensors (nothing is read to the host here). Under a mesh,
+        the sharded step's global metrics."""
         params = state["params"]
+        if self.mesh is not None:
+            return self._sharded_step(params, state["opt"], batch, step)[2]
         tree = params.tree()
         leaves = tree_leaves(tree)
         loss, metrics = self.model.loss(params, batch)
@@ -173,6 +218,10 @@ class Trainer:
                     meta={"step": self.tcfg.num_steps, "cursor": prefetch.cursor},
                 )
             self.ckpt.wait()
+            if self.mesh is not None:  # every rank sees the committed checkpoint
+                import torch.distributed as dist
+
+                dist.barrier()
             return {"params": state["params"], "opt": state["opt"], "metrics": self.metrics_log}
         finally:
             prefetch.close()

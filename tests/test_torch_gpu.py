@@ -32,6 +32,7 @@ the refusal at 192/128 with a span, and a train step of small whisper and
 paligemma at head dim 256 on the card against the CPU."""
 import copy
 import importlib.util
+import json
 from pathlib import Path
 
 import numpy as np
@@ -1091,3 +1092,163 @@ def test_capture_survives_the_collector_freeing_a_graph():
     with engine:
         out = engine.generate([np.arange(5, dtype=np.int32)], 3, timeout=300)
     assert len(calls) == 3 and len(out[0]) == 3
+
+
+# -- the parallelism layer across four cards ------------------------------------------
+
+
+def _stacked_numpy(cfg, params) -> dict:
+    """The port's params as the reference lays them out (each layer group's
+    leaves stacked), numpy: what ``bridge.params_from_jax`` takes."""
+    from repro_torch.models.lm import stack_plan
+    from repro_torch.tree import tree_map
+
+    tree = tree_map(lambda t: t.detach().numpy(), params.tree())
+    for grp in stack_plan(cfg):
+        if grp.kind == "scan":
+            tree["layers"][grp.name] = tree_map(lambda *xs: np.stack(xs),
+                                                *tree["layers"][grp.name])
+    return tree
+
+
+def _parallel_port_reference(par) -> tuple:
+    """The four-card workers' inputs (``test_torch_parallel._worker``'s),
+    drawn by the port, and the single-device results on the CPU they are
+    held against."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models.common import Init
+    from repro_torch.models.moe import moe_dense, moe_params
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
+    from repro_torch.optim.adamw import decay_mask
+    from repro_torch.tree import tree_flatten_with_keys, tree_leaves, tree_map, tree_unflatten
+
+    cpu = torch.device("cpu")
+    flat = lambda tree: {k: t.detach().numpy() for k, t in tree_flatten_with_keys(tree)}  # noqa: E731
+    # head dim 32: the flash kernel is built for head dims 32, 64, 128 and 256
+    inp, want = {"overrides": {"head_dim": 32}}, {}
+    cfg = get_reduced("tinyllama-1.1b").replace(dtype="float32", **inp["overrides"])
+    model = build_model(cfg, device=cpu)
+    params = model.init(0)
+    inp["tiny"] = _stacked_numpy(cfg, params)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (par.B, par.S + 1))
+    inp["batch"] = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    inp["prompt"] = {"tokens": toks[:, :-1]}
+    logits, caches = model.prefill(params, inp["prompt"])
+    want["prefill_logits"], want["prefill_caches"] = logits.numpy(), flat(caches)
+    # the worker's step: at the schedule's peak lr, past its warmup
+    ocfg = AdamWConfig(lr=par.PEAK_LR)
+    want["train_lr"] = float(cosine_schedule(par.PEAK_LR, par.WARMUP, 100)(par.TRAIN_STEP))
+    tree = params.tree()
+    # a copy: the update writes into the params in place
+    want["train_p0"] = {k: a.copy() for k, a in flat(tree).items()}
+    want["train_decay"] = dict(zip(
+        [k for k, _ in tree_flatten_with_keys(tree)], tree_leaves(decay_mask(tree))))
+    loss, _ = model.loss(params, inp["batch"])
+    grads = tree_unflatten(tree, torch.autograd.grad(loss, tree_leaves(tree)))
+    opt = adamw_init(ocfg, tree)
+    _, _, met = adamw_update(ocfg, want["train_lr"], tree, grads, opt)
+    want["train_loss"], want["train_params"] = float(loss.detach()), flat(tree)
+    want["train_m"], want["train_v"] = flat(opt["m"]), flat(opt["v"])
+    want["train_grad_norm"] = float(met["grad_norm"])
+    mcfg = par._moe_cfg(ModelConfig)
+    g = torch.Generator().manual_seed(0)
+    mp = moe_params(mcfg, Init(g, cpu, torch.float32))
+    inp["moe_params"] = tree_map(lambda t: t.numpy(), mp)
+    inp["moe_x"] = np.random.default_rng(1).standard_normal((par.MOE_B, par.MOE_S, 32)).astype(
+        np.float32)
+    p = tree_map(lambda t: t.clone().requires_grad_(), mp)
+    x = torch.tensor(inp["moe_x"]).requires_grad_()
+    y, aux = moe_dense(mcfg, p, x)
+    val = (y * y).sum() + aux
+    want["moe_value"] = float(val.detach())
+    want["moe_grads"] = [t.numpy() for t in torch.autograd.grad(val, tree_leaves(p) + [x])]
+    inp["dec_caches"] = {}
+    for name, arch in (("granite", "granite-moe-1b-a400m"), ("tiny", "tinyllama-1.1b")):
+        dcfg = get_reduced(arch).replace(dtype="float32", **inp["overrides"])
+        dmodel = build_model(dcfg, device=cpu)
+        dparams = dmodel.init(0)
+        inp[name] = _stacked_numpy(dcfg, dparams)
+        dtoks = np.random.default_rng(2).integers(0, dcfg.vocab_size, (par.DEC_B, par.DEC_S))
+        _, dc = dmodel.prefill(dparams, {"tokens": dtoks})
+        dc = extend_caches(dc, par.DEC_EXTRA)
+        inp["dec_caches"][name] = tree_map(lambda t: t.numpy().copy(), dc)
+        dl, _ = dmodel.decode_step(dparams, torch.zeros((par.DEC_B, 1), dtype=torch.long), dc,
+                                   torch.full((par.DEC_B,), par.DEC_S))
+        want[f"decode_logits_{name}"] = dl.numpy()
+    inp["trainer"] = dict(num_steps=3, checkpoint_every=100, log_every=1, seq_len=par.S,
+                          global_batch=par.B, lr=1e-3, warmup=2)
+    return inp, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh", [(2, 2), (1, 4)], ids=["2x2", "1x4"])
+def test_sharded_steps_on_four_cards_match_one_cpu(mesh, tmp_path):
+    """``tests/test_torch_parallel.py``'s checks, each rank on its own card
+    over NCCL (the flash kernel on the local heads), held against the
+    port's single-device results on the CPU: the train step, ``moe_ep``,
+    the prefill, the decode steps, the ZeRO blocks and, on (2, 2), the
+    elastic restore; and three ``Trainer(mesh=)`` steps against the
+    single-device Trainer on one card."""
+    import pickle
+    import sys
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices: the sharded steps span four cards")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import test_torch_parallel as par
+
+    from repro_torch.configs import get_reduced as reduced
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.tree import tree_flatten_with_keys
+
+    inp, want = _parallel_port_reference(par)
+    # the single-device Trainer on a card: its init draws from the card's
+    # generator, as each rank's Trainer(mesh=) does
+    with Trainer(reduced("tinyllama-1.1b").replace(dtype="float32", **inp["overrides"]),
+                 TrainerConfig(**inp["trainer"]), str(tmp_path / "single"),
+                 device="cuda:0") as tr:
+        run = tr.run(resume=False)
+    (tmp_path / "inputs.pkl").write_bytes(pickle.dumps(inp))
+    res = par._spawn(mesh, tmp_path, str(tmp_path / "inputs.pkl"), device_type="cuda")
+    np.testing.assert_allclose(res["train_loss"], want["train_loss"], rtol=1e-5)
+    # the step as tests/test_torch_parallel.py holds it: the clip's norm and
+    # both moments 1e-5 scaled, every param the AdamW update of its moments
+    np.testing.assert_allclose(res["train_grad_norm"], want["train_grad_norm"], rtol=1e-5)
+    for moment in ("train_m", "train_v"):
+        for k, w in want[moment].items():
+            err = float(np.abs(res[moment][k] - w).max()) / max(float(np.abs(w).max()), 1e-30)
+            assert err <= 1e-5, (moment, k, err)
+    ocfg = AdamWConfig(lr=par.PEAK_LR)
+    for k, p0 in want["train_p0"].items():
+        expect = par._adamw_first_step(p0, res["train_m"][k], res["train_v"][k],
+                                       want["train_lr"], bool(want["train_decay"][k]), ocfg)
+        np.testing.assert_allclose(res["train_params"][k], expect, atol=1e-7, rtol=0, err_msg=k)
+        assert not np.array_equal(res["train_params"][k], p0), k
+    np.testing.assert_allclose(res["moe_value"], want["moe_value"], rtol=1e-5)
+    for got, w in zip(res["moe_grads"], want["moe_grads"], strict=True):
+        np.testing.assert_allclose(got, w, atol=1e-4, rtol=1e-3)
+    np.testing.assert_allclose(res["prefill_logits"], want["prefill_logits"], atol=1e-4,
+                               rtol=1e-4)
+    for k, w in want["prefill_caches"].items():
+        np.testing.assert_allclose(res["prefill_caches"][k], w, atol=1e-4, rtol=1e-4, err_msg=k)
+    for name in ("granite", "tiny"):
+        key = f"decode_logits_{name}"
+        np.testing.assert_allclose(res[key], want[key], atol=2e-4, rtol=2e-3)
+    np.testing.assert_allclose(res["trainer_losses"], [r["loss"] for r in run["metrics"]],
+                               rtol=1e-5)
+    for k, t in tree_flatten_with_keys(run["params"].tree()):
+        np.testing.assert_allclose(res["trainer_params"][k], t.detach().cpu().numpy(),
+                                   atol=1e-5, err_msg=k)
+    for rows in res["zero"]:
+        for key, p_shape, m_shape, zero in rows:
+            assert np.prod(m_shape) * (mesh[0] if zero else 1) == np.prod(p_shape), key
+    if mesh == (2, 2):
+        assert all(all(rank.values()) for rank in res["elastic"]), res["elastic"]
+        # a save on four ranks: only the writer (rank 0) holds the tree on
+        # the host, the others join the gathers on their cards
+        save = res["save_host"]
+        print(json.dumps({"checkpoint_save_host_peak_2x2": save}))
+        writer, *others = save["peak_growth_bytes"]
+        assert writer >= save["tree_bytes"], save
+        assert max(others) <= save["tree_bytes"] // 2, save

@@ -123,13 +123,39 @@ def test_moe_is_per_token():
 
 
 def test_expert_parallel_waits_for_the_parallel_port():
+    """The parallel port has landed: under a ctx ``moe_apply`` runs
+    ``moe_ep``, which on one rank at a capacity where nothing drops equals
+    ``moe_dense`` (the multi-rank cases: tests/test_torch_parallel.py)."""
     cfg, _jl, tl = _layer_params("granite-moe-1b-a400m")
+    cfg = cfg.replace(capacity_factor=float(cfg.num_experts // cfg.experts_per_token))
 
-    class Ctx:
-        expert_parallel = True
+    class Ctx:  # one rank: every collective is the identity
+        expert_parallel, seq_sharded, n_model, model_rank, world = True, True, 1, 0, 1
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        moe.moe_apply(cfg, tl, torch.zeros((1, 2, cfg.d_model)), ctx=Ctx())
+        def gather(self, w):
+            return w
+
+        def take(self, w, dim):
+            return w
+
+        def world_sum(self, x):
+            return x
+
+        def model_all_to_all(self, x, split, concat):
+            return x
+
+    x = torch.randn((2, 5, cfg.d_model), generator=torch.Generator().manual_seed(0))
+    calls = []
+    real = moe.moe_ep
+    moe.moe_ep = lambda *a: calls.append(1) or real(*a)
+    try:
+        y, aux = moe.moe_apply(cfg, tl, x, ctx=Ctx())
+    finally:
+        moe.moe_ep = real
+    want, want_aux = moe.moe_dense(cfg, tl, x)
+    assert calls == [1]
+    torch.testing.assert_close(y, want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(aux, want_aux, atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
