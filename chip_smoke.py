@@ -75,8 +75,23 @@ E/K against ``moe_dense``'s (1e-4), tinyllama trained in bf16 at the train
 cell's shape through ``Trainer(mesh=)`` (K1 44 and K1-bwd 22 launches a
 step, as on one device; a traced sharded step beside a traced
 single-device one) and 16 greedy tokens through the sharded prefill and
-decode step, equal to ``Model.prefill``/``decode_step``'s. Each phase
-prints one JSON line; any failure exits non-zero. The last three lines are
+decode step, equal to ``Model.prefill``/``decode_step``'s. Then the
+pipeline (``repro_torch.parallel.pipeline``, its tick table simulated by
+the paper's scheduler) on a ("pod",) mesh of one rank over NCCL:
+tinyllama's 22 decoder layers as the stage, the embedding before it and
+``Model.head_loss`` as the loss, M=4 microbatches; in f32 (B=1, S=256) the
+pipelined loss and every gradient against the serial ones over the same
+microbatches (1e-5 scaled, the worst leaf printed), in bf16 at the train
+cell's width (B=1 microbatches at S=2048, remat) K1 at exactly 2 x 22 x M
+launches a step and K1-bwd at 22 x M, the step timed and traced beside the
+serial step. Last, the pool on the host after the card is in use: one
+graph (a condition loop, a subflow, dataflow edges) through ``Executor``
+on the serial, thread, process and socket backends with equal results, a
+seeded ``FaultInjector`` with the same schedule on each, ``verify="strict"``
+passing a clean graph and refusing a planted race, a CUDA call in a forked
+worker failing with torch's error, and the process ``Prefetcher``'s
+batches, put on the card by the consumer, equal bit for bit to the thread
+one's. Each phase prints one JSON line; any failure exits non-zero. The last three lines are
 the kernels line, the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": ...}``.
 
@@ -2602,6 +2617,418 @@ def phase_parallel(single_cell: dict) -> dict:
     return res
 
 
+# the pipeline phase: tinyllama's 22 decoder layers as the stage function of
+# repro_torch.parallel.pipeline on a ("pod",) mesh of one rank over NCCL.
+# The embedding runs on the inputs before stage 0 and Model.head_loss (the
+# final norm, the head and the CE) is loss_fn. In f32 (B=1, S=256, M=4) the
+# pipelined loss and every gradient are held to the serial loss over the
+# same microbatches (PIPE_TOL scaled); in bf16 at the train cell's width
+# (M=4 microbatches of B=1 at S=2048, remat on) K1 must launch exactly
+# 2 x 22 x M times a step and K1-bwd 22 x M, the step's loss and every
+# gradient must equal the serial step's bit for bit (one rank: the same
+# kernels on the same inputs in the same order), and the step is timed and
+# traced beside the serial step of the same microbatches
+PIPE_ARCH = "tinyllama-1.1b"
+PIPE_M = 4
+PIPE_F32 = (1, 256)  # microbatch size and sequence, f32
+PIPE_BF16 = (1, 2048)
+PIPE_TOL = 1e-5
+PIPE_REPS = 3
+
+
+def _pipeline_losses(model, tree, mesh, M: int):
+    """The pipelined loss and the serial one, each ``f(tokens, targets)``
+    over ``M`` microbatches of the rows of ``tokens``: the embedding, the
+    decoder layers as one stage (under ``torch.utils.checkpoint``) and
+    ``Model.head_loss`` per microbatch, the mean over the microbatches.
+    Returns (pipelined, serial, tick table)."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models.blocks import block_apply
+    from repro_torch.parallel.pipeline import build_pipelined_loss
+
+    cfg = model.cfg
+    check(len(model.plan) == 1 and model.plan[0].kind == "scan" and cfg.window is None,
+          f"{cfg.name}: the pipeline phase takes one stack of full-attention layers")
+    layers = tree["layers"][model.plan[0].name]
+
+    def stage_fn(lps, x):
+        positions = torch.arange(x.shape[1], device=x.device)
+        for lp in lps:
+            x = block_apply(cfg, lp, x, positions)[0]
+        return x
+
+    def loss_fn(x, y):
+        return model.head_loss(tree, x, y)[0]
+
+    def microbatches(tokens, targets):
+        x = model._embed_tokens(tree, model._as_index(tokens))
+        B, S = x.shape[:2]
+        return (x.reshape(M, B // M, S, -1),
+                model._as_index(targets).reshape(M, B // M, S))
+
+    pipe, table = build_pipelined_loss(stage_fn, loss_fn, mesh, num_microbatches=M,
+                                       remat=True)
+
+    def pipelined(tokens, targets):
+        return pipe(layers, *microbatches(tokens, targets))
+
+    def serial(tokens, targets):
+        x_mb, y_mb = microbatches(tokens, targets)
+        total = torch.zeros((), dtype=torch.float32, device=x_mb.device)
+        for m in range(M):
+            out = checkpoint(stage_fn, layers, x_mb[m], use_reentrant=False)
+            total = total + loss_fn(out, y_mb[m]).float()
+        return total / M
+
+    return pipelined, serial, table
+
+
+def _pipeline_tokens(cfg, B: int, S: int, seed: int) -> tuple:
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S + 1))
+    return toks[:, :-1], toks[:, 1:]
+
+
+def _pipeline_f32(mesh, device) -> dict:
+    """The pipelined f32 loss and every gradient against the serial ones."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_flatten_with_keys
+
+    _release_device_memory()
+    cfg = get_config(PIPE_ARCH).replace(dtype="float32")
+    model = build_model(cfg, device=device)
+    tree = model.init(0).tree()
+    keys, leaves = zip(*tree_flatten_with_keys(tree))
+    mb, S = PIPE_F32
+    tokens, targets = _pipeline_tokens(cfg, mb * PIPE_M, S, seed=11)
+    pipelined, serial, table = _pipeline_losses(model, tree, mesh, PIPE_M)
+    runs = {}
+    for name, fn in (("pipelined", pipelined), ("serial", serial)):
+        loss = fn(tokens, targets)
+        runs[name] = (loss.detach(), torch.autograd.grad(loss, leaves))
+    loss_err = _scaled(runs["pipelined"][0], runs["serial"][0])
+    worst, worst_leaf = 0.0, None
+    for key, a, b in zip(keys, runs["pipelined"][1], runs["serial"][1]):
+        err = _scaled(a, b)
+        if err >= worst:
+            worst, worst_leaf = err, key
+    out = {"arch": PIPE_ARCH, "dtype": "float32", "microbatches": PIPE_M, "microbatch": mb,
+           "seq_len": S, "table": table.tolist(),
+           "loss": float(runs["pipelined"][0]), "serial_loss": float(runs["serial"][0]),
+           "loss_scaled_err": loss_err, "worst_leaf_scaled_err": worst,
+           "worst_leaf": worst_leaf, "leaves": len(keys),
+           "bitwise": loss_err == 0.0 and worst == 0.0, "tol": PIPE_TOL}
+    check(loss_err <= PIPE_TOL, f"pipeline f32 loss {out['loss']} against {out['serial_loss']}")
+    check(worst <= PIPE_TOL, f"pipeline f32 gradient {worst_leaf} off by {worst} scaled")
+    del model, tree, leaves, runs
+    return out
+
+
+def _pipeline_bf16(mesh, device) -> dict:
+    """The bf16 step (loss and every gradient) at the train cell's width:
+    K1 and K1-bwd launches gated, the first timed step's loss and gradients
+    equal bit for bit to the serial step's, step times beside the serial
+    step's, and one traced step of each (the host launches the pipeline
+    adds)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_flatten_with_keys
+
+    allocated = _release_device_memory()
+    cfg = get_config(PIPE_ARCH).replace(dtype="bfloat16")
+    model = build_model(cfg, device=device)
+    tree = model.init(0).tree()
+    keys, leaves = zip(*tree_flatten_with_keys(tree))
+    mb, S = PIPE_BF16
+    tokens, targets = _pipeline_tokens(cfg, mb * PIPE_M, S, seed=12)
+    pipelined, serial, _ = _pipeline_losses(model, tree, mesh, PIPE_M)
+    counters = _train_counters()
+
+    def step(fn):
+        loss = fn(tokens, targets)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), grads
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = step(fn)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, loss, grads
+
+    for fn in (pipelined, serial):  # warm: the kernels' first launches
+        step(fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    times = {"pipelined": [], "serial": []}
+    losses = {}
+    first = {}  # the first timed step's loss and gradients
+    for rep in range(PIPE_REPS):
+        for name, fn in (("pipelined", pipelined), ("serial", serial)):
+            if rep == 0:
+                for c in counters.values():
+                    c.launches = 0
+            dt, loss, grads = timed(fn)
+            times[name].append(dt)
+            losses[name] = float(loss)
+            if rep == 0:
+                launches[name] = {k: c.launches for k, c in counters.items()}
+                first[name] = (loss, grads)
+            del grads
+    peak = torch.cuda.max_memory_allocated()
+    (p_loss, p_grads), (s_loss, s_grads) = first["pipelined"], first["serial"]
+    differ = [k for k, a, b in zip(keys, p_grads, s_grads) if not torch.equal(a, b)]
+    worst = max(((_scaled(a, b), k) for k, a, b in zip(keys, p_grads, s_grads)
+                 if k in differ), default=(0.0, None))
+    del first, p_grads, s_grads
+    want = {"flash_attention": 2 * cfg.num_layers * PIPE_M,
+            "flash_attention_bwd": cfg.num_layers * PIPE_M}
+    for name in ("pipelined", "serial"):
+        for k, n in want.items():
+            check(launches[name][k] == n,
+                  f"pipeline bf16 {name}: {k} launched {launches[name][k]} times, want {n}")
+    check(all(np.isfinite(v) for v in losses.values()), f"pipeline bf16 losses {losses}")
+    check(torch.equal(p_loss, s_loss),
+          f"pipeline bf16 loss {float(p_loss)} against the serial {float(s_loss)}")
+    check(not differ, f"pipeline bf16: {len(differ)} of {len(keys)} gradients differ from the "
+          f"serial step's, the worst {worst[1]} by {worst[0]} scaled")
+    traced = {name: _traced(lambda fn=fn: step(fn), top=4)
+              for name, fn in (("pipelined", pipelined), ("serial", serial))}
+    res = {
+        "arch": PIPE_ARCH, "dtype": "bfloat16", "microbatches": PIPE_M, "microbatch": mb,
+        "seq_len": S, "remat": True, "loss": losses["pipelined"],
+        "serial_loss": losses["serial"], "bitwise": True, "leaves": len(keys),
+        "launches": launches["pipelined"],
+        "serial_launches": launches["serial"], "want_launches": want,
+        "step_s": times["pipelined"], "serial_step_s": times["serial"],
+        "step_s_median": float(np.median(times["pipelined"])),
+        "serial_step_s_median": float(np.median(times["serial"])),
+        "tokens_per_s": mb * PIPE_M * S / float(np.median(times["pipelined"])),
+        "peak_mem_bytes": peak,
+        # both steps traced on the same inputs in this call
+        "host_launches_added": (traced["pipelined"]["host_launches"]
+                                - traced["serial"]["host_launches"]),
+        "traced_ms_added": traced["pipelined"]["traced_ms"] - traced["serial"]["traced_ms"],
+        **allocated,
+    }
+    for name in ("pipelined", "serial"):
+        res.update({f"step_{name}_{k}": traced[name][k] for k in
+                    ("traced_ms", "device_busy_ms", "device_idle_share", "kernel_launches",
+                     "host_launches", "k1_device_ms", "k1_bwd_device_ms")})
+    del model, tree, leaves
+    return res
+
+
+def phase_pipeline() -> dict:
+    """The pipeline on the card: an NCCL process group of one rank on
+    ``cuda:0`` and its ("pod",) mesh of one (the exchange is skipped at
+    world 1, as the parallel layer's collectives are); the f32 parity run,
+    then the bf16 run at the train cell's width. One ``pipeline`` line."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda:0")
+    dist.init_process_group("nccl", rank=0, world_size=1, store=dist.HashStore(),
+                            timeout=datetime.timedelta(seconds=300), device_id=device)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+        res = {"world": dist.get_world_size(), "backend": dist.get_backend(),
+               "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               "f32": _pipeline_f32(mesh, device),
+               "bf16": _pipeline_bf16(mesh, device)}
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_start
+    emit("pipeline", **res)
+    return res
+
+
+# the pool phase: the paper's executor on the chip machine's host, after the
+# card is in use (the process and socket backends fork from a process that
+# holds a CUDA context, so their workers must not touch the card)
+POOL_BACKENDS = ("serial", "thread", "process", "socket")
+POOL_CHAOS = dict(fail_rate=0.25, delay_rate=0.1, kill_rate=0.08, delay_s=0.001)
+
+
+def _pool_graph(core):
+    """A condition loop (its state in the condition body), a subflow
+    gathered into a dataflow value and dataflow edges joining them, with
+    numpy work on the edges. Returns (graph, result tasks, loop state)."""
+    g = core.TaskGraph("smoke")
+    state = {"i": 0}
+    src = g.add(lambda: np.arange(4096, dtype=np.float64), name="src")
+    sq = g.then(src, lambda a: a * a, name="sq")
+
+    def spawn(rt):
+        return rt.gather([rt.add(lambda k=k: float(np.sin(np.arange(1000) * k).sum()),
+                                 name=f"p{k}") for k in range(6)])
+
+    sub = g.add(spawn, takes_runtime=True, name="sub")
+    sub.after(src)
+    total = g.then(g.gather([sq, sub], name="both"),
+                   lambda both: float(both[0].sum()) + float(np.sum(both[1])), name="total")
+    body = g.add(lambda: None, name="body")
+    body.after(src)
+
+    def more():
+        state["i"] += 1
+        return 0 if state["i"] < 5 else 1
+
+    cond = g.add(more, kind="condition", name="more")
+    cond.after(body)
+    cond.precede(body)
+    return g, (sq, sub, total), state
+
+
+def _chaos_graph(core, died):
+    g = core.TaskGraph("chaos")
+    tasks = [g.add(lambda i=i: i + 1, name=f"c:{i}",
+                   retry=core.RetryPolicy(max_attempts=10, backoff=0,
+                                          retry_on=(core.ChaosError, died)))
+             for i in range(30)]
+    return g, g.gather(tasks, name="collect")
+
+
+class _PoolTokens:
+    """The prefetcher's source: seeded token batches."""
+
+    def batch(self, step: int) -> dict:
+        rng = np.random.default_rng(step)
+        return {"tokens": rng.integers(0, 32000, (4, 2048)), "step": np.asarray(step)}
+
+
+def _pool_transform(batch: dict) -> dict:
+    """A numpy-level transform (module level, so it ships by reference)."""
+    t = batch["tokens"]
+    return {"tokens": (t * 7 + 3) % 32000, "mask": (t % 5 != 0).astype(np.float32),
+            "step": batch["step"]}
+
+
+def phase_pool() -> dict:
+    """The executor's four backends on the host, after the card is in use:
+    one graph with equal results on each, a seeded fault injector with the
+    same schedule on each, the strict verifier passing a clean graph and
+    refusing a planted race, a task body that touches CUDA in a worker
+    failing with torch's own error (no fallback), and the process
+    prefetcher's batches on ``cuda:0`` equal bit for bit to the thread
+    prefetcher's. One ``pool`` line."""
+    import torch
+
+    import repro_torch.core as core
+    from repro_torch.analysis.verify import GraphVerificationError
+    from repro_torch.data import Prefetcher, to_device
+    from repro_torch.dist import WorkerDiedError
+
+    t_start = time.perf_counter()
+    device = torch.device("cuda:0")
+    check(torch.cuda.is_initialized(), "the card is not in use yet")
+    res: dict = {"backends": list(POOL_BACKENDS)}
+    results, schedules, seconds = {}, {}, {}
+    for backend in POOL_BACKENDS:
+        t0 = time.perf_counter()
+        n = 2 if backend in ("process", "socket") else 4
+        with core.Executor(n, backend=backend) as ex:
+            g, outs, state = _pool_graph(core)
+            values = []
+            for _ in range(2):  # the second pass replays the settled graph
+                state["i"] = 0
+                ex.run(g).result(120)
+                values.append((float(outs[0].result.sum()), sorted(outs[1].result),
+                               outs[2].result, state["i"]))
+            results[backend] = values
+            inj = core.FaultInjector(seed=123, match=lambda t: (t.name or "").startswith("c:"),
+                                     **POOL_CHAOS)
+            cg, sink = _chaos_graph(core, WorkerDiedError)
+            with inj.on(ex.pool):
+                ex.run(cg).result(120)
+            schedules[backend] = (inj.schedule(), list(sink.result))
+            if backend == "process":
+                # a worker forked from this process cannot use CUDA: torch's
+                # error reaches the caller, and nothing falls back
+                task = core.Task(lambda: torch.cuda.current_device(), affinity="remote",
+                                 name="cuda-in-worker")
+                task.propagate_errors = False
+                fut = ex.run(task)
+                try:
+                    fut.result(120)
+                    res["cuda_in_worker"] = "no error"
+                except Exception as exc:  # noqa: BLE001 - the error is the result
+                    res["cuda_in_worker"] = f"{type(exc).__name__}: {exc}"[:200]
+        seconds[backend] = time.perf_counter() - t0
+    first = results["serial"]
+    check(all(v == first for v in results.values()), f"pool results differ: {results}")
+    check(first[0][3] == 5 and first[0] == first[1], f"pool loop or replay: {first}")
+    sched = schedules["serial"]
+    check(all(v == sched for v in schedules.values()), "the seeded fault schedules differ")
+    check(sched[1] == [i + 1 for i in range(30)], f"chaos values {sched[1]}")
+    kinds = [k for _n, _o, k in sched[0]]
+    check("cuda_in_worker" in res and "no error" not in res["cuda_in_worker"],
+          f"a CUDA call in a worker: {res.get('cuda_in_worker')}")
+    # the verifier: a clean graph passes strict, a planted race is refused
+    with core.Executor(2, backend="thread", verify="strict") as ex:
+        g, outs, state = _pool_graph(core)
+        ex.run(g).result(120)
+        racy = core.TaskGraph("racy")
+        total = 0
+
+        def wa():
+            nonlocal total
+            total += 1
+
+        def wb():
+            nonlocal total
+            total += 2
+
+        racy.add(wa, name="wa")  # two unordered writers of one closure cell
+        racy.add(wb, name="wb")
+        try:
+            ex.run(racy).result(120)
+            refused = None
+        except GraphVerificationError as exc:
+            refused = str(exc)[:300]
+    check(refused is not None, "verify='strict' ran a graph with a write race")
+    # the prefetchers: the process backend transforms in a worker, the
+    # consumer puts each batch on the card; the thread backend puts it there
+    # in its transform
+    steps = 6
+    src = _PoolTokens()
+    got = {}
+    with Prefetcher(src, depth=2, backend="thread",
+                    put_fn=lambda b: to_device(_pool_transform(b), device)) as pf:
+        got["thread"] = [pf.get(120) for _ in range(steps)]
+    with Prefetcher(src, depth=2, backend="process", put_fn=_pool_transform) as pf:
+        got["process"] = [to_device(pf.get(120), device) for _ in range(steps)]
+    same = all(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+               for a, b in zip(got["thread"], got["process"]))
+    on_device = all(t.device == device for b in got["process"] for t in b.values())
+    check(same and on_device, "the process prefetcher's batches differ from the thread one's")
+    res.update({
+        "results_equal": True, "graph_result": first[0][:1] + first[0][2:],
+        "chaos_schedule_equal": True, "chaos_events": len(sched[0]),
+        "chaos_kinds": {k: kinds.count(k) for k in sorted(set(kinds))},
+        "verify_strict_refused": refused, "prefetch_steps": steps,
+        "prefetch_bitwise_equal": same, "prefetch_device": str(device),
+        "backend_s": seconds, "phase_s": time.perf_counter() - t_start,
+    })
+    emit("pool", **res)
+    return res
+
+
 def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
     """The kernels JSON line: launches summed over the measured runs of the
     paths (listed per path: each train run and each served model), the rest
@@ -2803,6 +3230,11 @@ def main() -> int:
     # the sharded bf16 training run's launches count on the kernels line
     trains.append({"arch": "tinyllama-1.1b on the (1, 1) mesh",
                    "launches": par["tinyllama_bf16_trainer"]["launches"]})
+    pipe = phase_pipeline()
+    # and the pipelined bf16 step's
+    trains.append({"arch": "tinyllama-1.1b pipelined", "launches": {
+        name: pipe["bf16"]["launches"].get(name, 0) for name in _train_counters()}})
+    phase_pool()
     emit("timing", total_s=time.perf_counter() - t0)
     print(json.dumps(_kernel_line(kern, serves, trains)))
     print(dev["nvidia_smi"])

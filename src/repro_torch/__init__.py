@@ -2,8 +2,8 @@
 
 It stands alone: it imports ``torch``, numpy and the standard library, and
 nothing of JAX or of the reference package, whose jax-free modules it keeps
-its own copies of (``core``, ``configs``). Its entry points run on the GPU
-(``cuda:0``) unless the caller passes another device.
+its own copies of (``core``, ``configs``, ``dist``, ``analysis``). Its entry
+points run on the GPU (``cuda:0``) unless the caller passes another device.
 
 The model surface mirrors ``repro.models`` and the serving surface
 ``repro.serve``.

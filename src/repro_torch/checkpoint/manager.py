@@ -36,9 +36,10 @@ sized by the actual leaf count of the tree being saved, and each writer
 
     prepare -> shard{ w:leaf... -> entries }::join -> commit(+gc)
 
-so serialization and IO overlap training. The process backend is not
-ported: ``backend="process"|"socket"`` raises ``NotImplementedError`` from
-the port's ``Executor``.
+so serialization and IO overlap training. The device-to-host snapshot
+runs in ``save_async`` on the caller's thread, so on the process and socket
+backends the writers in the worker processes see host arrays only and
+never touch the device.
 """
 from __future__ import annotations
 
@@ -155,8 +156,9 @@ class CheckpointManager:
     """Async checkpoints with atomic commit, keep-k GC and resume.
 
     ``backend`` selects the execution backend for an owned pool (the
-    :class:`~repro_torch.core.Executor` switch; ignored when ``pool`` is
-    given; the port has the thread and serial backends).
+    :class:`~repro_torch.core.Executor` switch: ``"thread"``,
+    ``"process"``, ``"socket"`` or ``"serial"``; ignored when ``pool`` is
+    given).
 
     The save graph's *shape* is save-invariant (prepare → shard →
     commit; the per-leaf writers are runtime-sized by the spawner), so

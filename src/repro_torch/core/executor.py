@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import os
 import time
+import warnings
 from typing import Any, Callable, Iterable, Optional, Sequence, Union
 
 from .baseline import SerialPool
@@ -62,9 +63,16 @@ class Executor:
         * ``"thread"`` (default) — the paper's work-stealing
           :class:`ThreadPool`; best for IO/GIL-releasing bodies and
           minimum per-task overhead.
-        * ``"process"`` and ``"socket"`` — the reference package's
-          multi-process backends. Not ported yet: the port raises
-          ``NotImplementedError`` (the multi-device slice carries them).
+        * ``"process"`` — :class:`repro_torch.dist.ProcessPool`: the same
+          scheduler, with task bodies shipped to worker processes so
+          CPU-bound pure-Python bodies actually run in parallel. Large
+          array edge values cross via shared memory.
+        * ``"socket"`` — :class:`repro_torch.dist.SocketPool`: the same
+          scheduler again, with bodies shipped over TCP to connected
+          worker processes — locally forked by default, or joined from
+          other hosts (``python -m repro_torch.dist.remote_worker --connect
+          host:port``). Large arrays cross each connection once via a
+          content-hashed transfer cache (DESIGN.md §16).
         * ``"serial"`` — :class:`~repro_torch.core.SerialPool`: everything on
           the calling thread; the zero-overhead floor and a
           deterministic debugging backend.
@@ -80,10 +88,18 @@ class Executor:
     observers, name, deque_cls:
         Forwarded to the owned pool (see ``ThreadPool``).
     verify:
-        Pre-submission static verification (DESIGN.md §15). Only ``"off"``
-        is ported: ``"warn"`` and ``"strict"`` raise ``NotImplementedError``
-        until the analysis slice ports the verifier. The default comes
-        from the ``REPRO_VERIFY`` environment variable when set.
+        Pre-submission static verification (DESIGN.md §15). ``"off"``
+        (default) submits untouched; ``"warn"`` runs the
+        :mod:`repro_torch.analysis` linter + race detector over each graph the
+        first time it is submitted (and again only after structural
+        mutation, tracked by the §12 epoch fingerprint) and reports
+        findings through :mod:`warnings`; ``"strict"`` raises
+        :class:`~repro_torch.analysis.verify.GraphVerificationError` on
+        error-severity findings before any task runs. The default comes
+        from the ``REPRO_VERIFY`` environment variable when set —
+        flipping a whole deployment to ``warn`` needs no code change.
+        Verification is per *graph submission*, never per task: with
+        ``"off"`` the only cost is one attribute test in :meth:`run`.
     backend_kwargs:
         Extra keyword arguments for the owned pool's constructor (e.g.
         ``mp_context="spawn"`` or ``arena_threshold=...`` for the process
@@ -120,11 +136,8 @@ class Executor:
             raise ValueError(
                 f"unknown verify mode {verify!r}; expected 'off', 'warn' or 'strict'"
             )
-        if verify != "off":
-            raise NotImplementedError(
-                f"verify={verify!r} needs the graph verifier, which the port "
-                "does not carry yet (the analysis slice ports it)"
-            )
+        # None when off: the hot-path check in run() is one falsy test
+        self._verify_mode: Optional[str] = None if verify == "off" else verify
         if pool is not None:
             if backend is not None:
                 raise ValueError("pass either backend= or pool=, not both")
@@ -152,11 +165,14 @@ class Executor:
             kwargs.update(backend_kwargs)
             if backend == "thread":
                 self.pool = ThreadPool(num_threads, **kwargs)
+            elif backend == "process":
+                from ..dist import ProcessPool  # deferred: core stays below dist
+
+                self.pool = ProcessPool(num_threads, **kwargs)
             else:
-                raise NotImplementedError(
-                    f"backend={backend!r} is not ported yet (the multi-device "
-                    "slice carries the process and socket backends)"
-                )
+                from ..dist import SocketPool  # deferred: core stays below dist
+
+                self.pool = SocketPool(num_threads, **kwargs)
         else:
             raise ValueError(
                 f"unknown backend {backend!r}; expected 'thread', 'process', "
@@ -219,6 +235,8 @@ class Executor:
         if isinstance(work, TaskGraph):
             if priority is not None:
                 self._apply_priority(work.tasks, priority)
+            if self._verify_mode is not None:
+                self._verify(work)
             return work.as_future(self.pool, replay=replay)
         if isinstance(work, Task):
             task = work
@@ -254,10 +272,34 @@ class Executor:
         # is what makes build-once/run-N futures resolve correctly.
         g0 = tasks[0].graph if tasks else None
         if g0 is not None and len(g0) == len(tasks) and all(t.graph is g0 for t in tasks):
+            if self._verify_mode is not None:
+                self._verify(g0)
             return g0.as_future(self.pool)
         g = TaskGraph("executor-run")
         g.adopt(*tasks)
+        if self._verify_mode is not None:
+            self._verify(g)
         return g.as_future(self.pool)
+
+    def _verify(self, graph: TaskGraph) -> None:
+        """§15 pre-submission verification (``verify="warn"|"strict"``).
+
+        Cached by the graph's §12 epoch fingerprint: a build-once /
+        run-N graph verifies exactly once, and again only after a
+        structural mutation. Runtime-spawned subflows are born after
+        submission and are not covered — lint spawner scripts with
+        ``python -m repro_torch.analysis.lint`` for that.
+        """
+        if graph._verified_epoch == graph._epoch:
+            return
+        from ..analysis.verify import verify_graph  # lazy: analysis is opt-in
+
+        report = verify_graph(graph, backend=self.backend)
+        if self._verify_mode == "strict":
+            report.raise_if_errors()  # before caching: resubmission re-raises
+        graph._verified_epoch = graph._epoch
+        if not report.ok:
+            warnings.warn(str(report), stacklevel=3)
 
     @staticmethod
     def _apply_priority(tasks: Sequence[Task], priority: float) -> None:

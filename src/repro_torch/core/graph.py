@@ -765,7 +765,7 @@ class TaskGraph:
         token; successor position is the branch index), all out-edges of
         any other task are strong. Edges to another graph's hidden
         completion task are omitted — bookkeeping, not structure. This is
-        the introspection surface the :mod:`repro.analysis` verifier walks
+        the introspection surface the :mod:`repro_torch.analysis` verifier walks
         so lint rules never reimplement edge-strength semantics.
         """
         out: list[tuple[Task, Task, bool]] = []

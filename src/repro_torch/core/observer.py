@@ -39,7 +39,7 @@ Two implementations ship here:
   execution on the worker's lane, instant events for steals).
 
 A third lives with the §15 verifier:
-:class:`repro.analysis.races.RaceObserver` assigns vector clocks from
+:class:`repro_torch.analysis.races.RaceObserver` assigns vector clocks from
 graph edges at ``on_start``/``on_finish`` — the runtime happens-before
 witness that cross-checks the static race detector's report on a real
 schedule. It is an ordinary :class:`PoolObserver`; the hooks above are

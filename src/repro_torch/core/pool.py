@@ -446,7 +446,7 @@ class ThreadPool:
         # -- process-backend seams (DESIGN.md §11). Both stay None on a
         # plain ThreadPool, so the thread backend pays one falsy check per
         # submission (`_wire_tasks`) and per executed body (`_offload`).
-        # ``ProcessPool`` (repro.dist) binds them: `_wire_tasks` serializes
+        # ``ProcessPool`` (repro_torch.dist) binds them: `_wire_tasks` serializes
         # eligible bodies at submit, `_offload` ships a wired body to a
         # worker process instead of calling it in-thread.
         self._wire_tasks: Optional[Callable[..., None]] = None

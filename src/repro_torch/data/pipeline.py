@@ -6,9 +6,11 @@ default is a jax device put, the port's moves each numpy batch to a torch
 device given explicitly (``device=``; ``cuda:0`` unless the caller passes
 another, raising without a GPU). It is a plain blocking copy on the
 device's default stream, so the consumer's kernels, queued on the same
-stream, are ordered after it. The process and socket backends are not
-ported: ``backend="process"|"socket"`` raises ``NotImplementedError``, as
-the port's ``Executor`` does.
+stream, are ordered after it. On the process and socket backends the
+transform runs in a worker process, which must not touch the device (a
+process forked from one that holds a CUDA context cannot use CUDA): there
+the caller passes a numpy-level ``put_fn`` and moves the delivered batches
+to the device itself, as the reference asks for a numpy-level transform.
 
 Each prefetch lane is one **condition-looped dataflow graph**
 (DESIGN.md §10)
@@ -254,11 +256,15 @@ class _Lane:
 class Prefetcher:
     """Ordered prefetching over condition-looped lane graphs (module docs).
 
-    ``backend`` selects the execution backend for an *owned* pool
-    (``"thread"`` or ``"serial"``; ``"process"`` and ``"socket"`` raise
-    ``NotImplementedError`` in the port; ignored when ``pool`` is given).
-    ``put_fn`` transforms each host batch; the default moves every array to
-    ``device`` (:func:`to_device`), which is resolved only then.
+    ``backend`` selects the execution backend for an *owned* pool (the
+    same ``"thread"`` / ``"process"`` / ``"socket"`` / ``"serial"``
+    switch as :class:`~repro_torch.core.Executor`; ignored when ``pool`` is
+    given). With ``backend="process"`` (or ``"socket"``) each lane's
+    transform body runs in a worker process — CPU-bound transforms
+    (tokenization, augmentation, numpy-side preprocessing) overlap truly
+    in parallel. Pass a numpy-level ``put_fn`` in that case: the default
+    transform moves every array to ``device`` (:func:`to_device`), which
+    must happen in this process, so it belongs on the thread backend.
     """
 
     def __init__(
@@ -278,14 +284,6 @@ class Prefetcher:
             # same contract as Executor: a silently ignored backend= would
             # leave CPU-bound transforms GIL-serialized with no signal
             raise ValueError("pass either backend= or pool=, not both")
-        if backend in ("process", "socket"):
-            raise NotImplementedError(
-                f"the port's Prefetcher has no {backend} backend yet (the multi-device "
-                "slice ports repro.dist); use backend='thread' or 'serial'"
-            )
-        if put_fn is None:
-            dev = resolve_device(device)
-            put_fn = lambda b: to_device(b, dev)  # noqa: E731
         if pool is not None:
             self.pool = pool
             self._own_pool = False
@@ -294,6 +292,28 @@ class Prefetcher:
             self._exec = Executor(2, backend=backend, name="prefetch")
             self.pool = self._exec.pool
             self._own_pool = True
+        if self._exec.backend in ("process", "socket") and put_fn is None:
+            # checked against the *resolved* backend (a ProcessPool or
+            # SocketPool handed in via pool= must not bypass it): the
+            # default transform puts each batch on a torch device, which a
+            # worker forked from this process must not touch. Fail loudly
+            # instead of falling back to another backend.
+            if self._own_pool:
+                self._exec.close()
+            raise ValueError(
+                f'Prefetcher on a {self._exec.backend} backend requires an '
+                "explicit numpy-level put_fn: the default device transform "
+                "belongs on the thread backend (DESIGN.md §11). "
+                'Pass put_fn=<numpy transform>, or use backend="thread".'
+            )
+        if put_fn is None:
+            try:
+                dev = resolve_device(device)
+            except BaseException:
+                if self._own_pool:
+                    self._exec.close()
+                raise
+            put_fn = lambda b: to_device(b, dev)  # noqa: E731
         self.depth = max(1, depth)
         self.put_fn = put_fn
         self._lanes = [

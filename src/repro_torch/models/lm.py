@@ -326,18 +326,26 @@ class Model:
         positions = torch.arange(S, device=self.device)
         x, aux = self._layers(p, x, positions, forward=True, prefix_len=prefix_len,
                               enc_out=enc_out)
-        x = _norm(cfg, p["final_norm"], x)
         if prefix_len:  # loss only over the text suffix
             x = x[:, prefix_len:]
-        targets = self._as_index(batch["targets"])
-        mask = batch.get("loss_mask")
+        ce, n = self.head_loss(p, x, batch["targets"], batch.get("loss_mask"), seq_len=S)
+        return ce + aux, {"ce": ce, "aux": aux, "tokens": n}
+
+    def head_loss(self, p, x, targets, mask=None, *, seq_len: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The tail of :meth:`loss`: the final norm, the head and the
+        token-mean CE of the last layer's states ``x`` (B, S, d) against
+        ``targets`` (B, S), in chunks of ``cfg.loss_chunk`` positions where
+        the model's sequence (``seq_len``, else S; a VLM's counts its
+        patches) exceeds it. Returns (ce, token_count)."""
+        x = _norm(self.cfg, p["final_norm"], x)
+        targets = self._as_index(targets)
         if mask is not None:
             mask = torch.as_tensor(mask, device=self.device)
-        if cfg.loss_chunk and S > cfg.loss_chunk:
-            ce, n = self._chunked_ce(p, x, targets, mask, cfg.loss_chunk)
-        else:
-            ce, n = cross_entropy(self._head(p, x), targets, mask)
-        return ce + aux, {"ce": ce, "aux": aux, "tokens": n}
+        S = x.shape[1] if seq_len is None else seq_len
+        if self.cfg.loss_chunk and S > self.cfg.loss_chunk:
+            return self._chunked_ce(p, x, targets, mask, self.cfg.loss_chunk)
+        return cross_entropy(self._head(p, x), targets, mask)
 
     def _chunked_ce(self, p, x, targets, mask, chunk: int):
         """CE over ``chunk``-position slices whose logits are recomputed in

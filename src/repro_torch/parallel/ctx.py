@@ -149,7 +149,8 @@ class ParallelCtx:
     def batch_group(self):
         if len(self.batch_axes) != 1:
             raise NotImplementedError(
-                "a batch over several mesh axes (the multi-pod mesh) waits for the pipeline slice"
+                "a batch over several mesh axes (the multi-pod mesh) is not carried by the "
+                "port's sharded steps yet"
             )
         return self.mesh.get_group(self.batch_axes[0])
 

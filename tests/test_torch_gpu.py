@@ -29,7 +29,9 @@ with the prefix span over the same edges, the span at the other head dims,
 whisper's encoder and cross-attention (Sq=448 over Sk=1500), two launches
 at 256 bit for bit, autograd at 256 and with a span through the kernels,
 the refusal at 192/128 with a span, and a train step of small whisper and
-paligemma at head dim 256 on the card against the CPU."""
+paligemma at head dim 256 on the card against the CPU. With four cards, the
+parallel layer's and the pipeline's group checks over NCCL against the
+CPU."""
 import copy
 import importlib.util
 import json
@@ -1252,3 +1254,34 @@ def test_sharded_steps_on_four_cards_match_one_cpu(mesh, tmp_path):
         writer, *others = save["peak_growth_bytes"]
         assert writer >= save["tree_bytes"], save
         assert max(others) <= save["tree_bytes"] // 2, save
+
+
+@pytest.mark.gpu
+def test_pipeline_on_four_cards_matches_one_cpu(tmp_path):
+    """``tests/test_torch_pipeline.py``'s cases, each rank on its own card
+    over NCCL (S=4 on a ("pod",) mesh of four, S=2 on the pod axis of a
+    (2, 2) mesh; tinyllama at head dim 32 for the flash kernel and its
+    backward), held against the port's serial loss and gradients on the
+    CPU at the reference test's tolerances."""
+    import sys
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices: the pipeline spans four cards")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import test_torch_pipeline as pipe
+
+    inputs = {"overrides": {"head_dim": 32}}
+    for name, (kind, S, M, _remat) in pipe.CASES.items():
+        if kind == "mlp":
+            inputs[name] = pipe.mlp_inputs(S, M)
+    cfg = get_reduced("tinyllama-1.1b").replace(dtype="float32", num_layers=pipe.TINY_LAYERS,
+                                                **inputs["overrides"])
+    inputs["tiny"] = _stacked_numpy(cfg, build_model(cfg, device="cpu").init(0))
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (pipe.TINY_B, pipe.TINY_S + 1))
+    inputs["tokens"], inputs["targets"] = toks[:, :-1], toks[:, 1:]
+    want = pipe.port_reference(inputs)
+    res = pipe.spawn(tmp_path, inputs, device_type="cuda")
+    for name, (kind, *_rest) in pipe.CASES.items():
+        if kind == "tiny":
+            want[name]["grads"] = pipe.stacked(want[name]["grads"])
+        pipe.check_case(name, pipe.assemble(name, res[name]), want[name])

@@ -38,7 +38,11 @@ def test_importing_the_port_loads_no_jax_or_reference_module():
         "import sys, repro_torch, repro_torch.bridge, repro_torch.configs, "
         "repro_torch.core, repro_torch.kernels, repro_torch.kernels.ssd, "
         "repro_torch.models.ssm, repro_torch.serve, repro_torch.optim, repro_torch.data, "
-        "repro_torch.checkpoint, repro_torch.runtime, repro_torch.launch.train\n"
+        "repro_torch.checkpoint, repro_torch.runtime, repro_torch.launch.train, "
+        "repro_torch.core.schedule, repro_torch.core.chaos, repro_torch.dist, "
+        "repro_torch.dist.remote_worker, repro_torch.dist.socket_pool, repro_torch.analysis, "
+        "repro_torch.analysis.lint, repro_torch.analysis.races, repro_torch.analysis.fuzz, "
+        "repro_torch.analysis.verify, repro_torch.parallel.pipeline\n"
         "from repro_torch.configs import get_config\n"
         "[get_config(a) for a in ('tinyllama-1.1b', 'mamba2-1.3b', 'hymba-1.5b')]\n"
         "bad = [m for m in sys.modules\n"

@@ -514,8 +514,11 @@ def test_prefetcher_backends():
     with Prefetcher(src, depth=2, backend="serial", put_fn=lambda b: b) as pf:
         np.testing.assert_array_equal(pf.get()["tokens"], src.batch(0)["tokens"])
     for backend in ("process", "socket"):
-        with pytest.raises(NotImplementedError):
-            Prefetcher(src, backend=backend, put_fn=lambda b: b)
+        # the transform runs in a worker: a numpy-level put_fn is required
+        with pytest.raises(ValueError, match="put_fn"):
+            Prefetcher(src, backend=backend)
+        with Prefetcher(src, depth=2, backend=backend, put_fn=lambda b: b) as pf:
+            np.testing.assert_array_equal(pf.get(60)["tokens"], src.batch(0)["tokens"])
     with ThreadPool(1) as tp:
         with pytest.raises(ValueError, match="not both"):
             Prefetcher(src, pool=tp, backend="thread", put_fn=lambda b: b)
