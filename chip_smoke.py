@@ -2366,11 +2366,13 @@ PARALLEL_STEPS = 4
 PARALLEL_PROMPT, PARALLEL_NEW, PARALLEL_B = 64, 16, 4
 
 
-def _parallel_parity(arch: str, S: int, tol: float, **overrides) -> dict:
+def _parallel_parity(arch: str, S: int, tol: float, data=None, **overrides) -> dict:
     """One f32 step of ``build_train_step`` on the mesh against one
     single-device ``Trainer`` step from the same parameters and batch: the
     loss and every updated leaf, scaled (``_scaled``), and each run's
-    kernel launches."""
+    kernel launches. ``data`` (a source with ``batch(step)``, called with
+    the config) draws the batch of one sample of ``S`` text tokens (with
+    frames or patches), else ``SyntheticTokens``."""
     import shutil
 
     import torch
@@ -2390,7 +2392,8 @@ def _parallel_parity(arch: str, S: int, tol: float, **overrides) -> dict:
     try:
         single = tr.model.init(tcfg.seed)
         sharded = shard_params(tr.model, single, _MESH[0])
-        batch = to_device(SyntheticTokens(cfg.vocab_size, S, 1, seed=0).batch(0), tr.device)
+        source = data(cfg) if data else SyntheticTokens(cfg.vocab_size, S, 1, seed=0)
+        batch = to_device(source.batch(0), tr.device)
         counters = _train_counters()
         runs = {}
         for name in ("single", "mesh"):
@@ -2400,7 +2403,8 @@ def _parallel_parity(arch: str, S: int, tol: float, **overrides) -> dict:
                 m = tr.train_step({"params": single, "opt": adamw_init(tr.ocfg, single.tree())},
                                   batch, 0)
             else:
-                spec = {"seq_len": S, "global_batch": 1, "kind": "train"}
+                spec = {"seq_len": S + (cfg.num_image_tokens if cfg.family == "vlm" else 0),
+                        "global_batch": 1, "kind": "train"}
                 step, _, _ = build_train_step(tr.model, _MESH[0], tr.ocfg, tr.lr_fn,
                                               tr.model.input_specs("train", spec))
                 opt = adamw_init(tr.ocfg, sharded.tree(), ctx=make_ctx(_MESH[0]))
@@ -2614,6 +2618,271 @@ def phase_parallel(single_cell: dict) -> dict:
     torch.cuda.empty_cache()
     res["phase_s"] = time.perf_counter() - t_start
     emit("parallel", **res)
+    return res
+
+
+# the parallel_families phase: the families beyond the dense and GQA-MoE
+# decoders through the sharded steps, on an NCCL world of one rank and its
+# (data=1, model=1) mesh, at full width (the configs' own d_model, heads,
+# ssm_* and vocab) with the depth cut to FAMILY_CUTS. f32 gates: the
+# sharded train step of the four trainable families against the
+# single-device step (FAMILY_TOL scaled, their kernels' launches equal), and
+# greedy tokens of all five through the sharded prefill and decode step
+# against Model.prefill and decode_step (teacher-forced, so each step's
+# logits compare; a token may differ only at a top-2 gap below TIE_GAP).
+# deepseek-v2 keeps its expert_mlp rule on data (its experts' hidden dim
+# is gathered over a data group of one). bf16: FAMILY_STEPS sharded steps
+# at the family's train cell shape, timed, two of them traced beside a
+# single-device step on the same state, and K1, K1-bwd, K2 and K2-bwd
+# launched a step exactly as the single-device step launches them.
+FAMILY_CUTS = {
+    "mamba2-1.3b": dict(num_layers=2),
+    "hymba-1.5b": dict(num_layers=3, global_layers=(0,)),
+    "whisper-medium": dict(num_layers=2, encoder_layers=2),
+    "paligemma-3b": dict(num_layers=2),
+    "deepseek-v2-236b": dict(num_layers=2),  # its dense layer 0 and MoE layer 1
+}
+FAMILY_TRAIN = ("mamba2-1.3b", "hymba-1.5b", "whisper-medium", "paligemma-3b")
+# the f32 step's text tokens (B=1): mamba2 over 4 chunks of its scan, the
+# enc-dec and VLM cells' own (with 1500 frames, 256 patches)
+FAMILY_F32_S = {"mamba2-1.3b": 1024, "hymba-1.5b": 256, "whisper-medium": 448,
+                "paligemma-3b": 256}
+FAMILY_TOL = 1e-4
+FAMILY_B, FAMILY_PROMPT, FAMILY_NEW = 4, 64, 8
+FAMILY_STEPS = 4
+
+
+def _family_source(cfg, S: int, B: int):
+    """A family's batches: tokens with frames or patches where it takes
+    them (:class:`EncDecVLMTokens`), else :class:`SyntheticTokens`."""
+    from repro_torch.data import SyntheticTokens
+
+    if cfg.is_encdec or cfg.family == "vlm":
+        return EncDecVLMTokens(cfg, S, B)
+    return SyntheticTokens(cfg.vocab_size, S, B, seed=0)
+
+
+def _family_greedy(arch: str, mesh) -> dict:
+    """f32 greedy decoding through ``build_prefill`` and
+    ``build_decode_step`` on the mesh against ``Model.prefill`` and
+    ``decode_step`` from the same weights: the single-device run's own
+    argmax, then the sharded run fed those tokens; each step's logits
+    scaled and the tokens, a mismatch allowed only at a near-tie."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import to_device
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import extend_caches
+    from repro_torch.parallel.steps import build_decode_step, build_prefill, shard_params
+
+    allocated = _release_device_memory()
+    cfg = get_config(arch).replace(dtype="float32", **FAMILY_CUTS[arch])
+    model = build_model(cfg, device="cuda:0")
+    params = model.init(0)
+    B, new = FAMILY_B, FAMILY_NEW
+    batch = to_device(_family_source(cfg, FAMILY_PROMPT, B).batch(0), model.device)
+    batch.pop("targets")
+    S = FAMILY_PROMPT + (cfg.num_image_tokens if cfg.family == "vlm" else 0)
+    counters = _train_counters()
+    runs = {}
+    for name in ("single", "mesh"):
+        for fn in counters.values():
+            fn.launches = 0
+        if name == "single":
+            logits, caches = model.prefill(params, batch)
+            step = lambda t, c, i: model.decode_step(params, t, c, i)  # noqa: E731
+        else:
+            sharded = shard_params(model, params, mesh)
+            del params  # one copy of the weights at a time (deepseek-v2's are 21 GB)
+            prefill, _ = build_prefill(model, mesh, model.input_specs(
+                "prefill", {"seq_len": S, "global_batch": B, "kind": "prefill"}))
+            logits, caches = prefill(sharded, batch)
+        caches = extend_caches(caches, new, window=cfg.window)
+        if name == "mesh":
+            meta = torch.device("meta")
+            decode, _ = build_decode_step(model, mesh, {
+                "tokens": torch.empty((B, 1), device=meta), "caches": caches,
+                "index": torch.empty((B,), device=meta)})
+            step = lambda t, c, i: decode(sharded, t, c, i)  # noqa: E731
+        toks, steps_logits, gaps = [], [], []
+        for i in range(new):
+            last = logits[:, -1].float()
+            steps_logits.append(last)
+            top = torch.topk(last, 2, dim=-1).values
+            gaps.append(top[:, 0] - top[:, 1])
+            toks.append(last.argmax(-1))
+            feed = toks[-1] if name == "single" else runs["single"]["tokens"][:, i]
+            if i + 1 < new:
+                logits, caches = step(feed[:, None], caches,
+                                      torch.full((B,), S + i, device=model.device))
+        runs[name] = {"tokens": torch.stack(toks, 1), "logits": torch.stack(steps_logits, 1),
+                      "gaps": torch.stack(gaps, 1),
+                      "launches": {k: fn.launches for k, fn in counters.items()}}
+    single, mesh_run = runs["single"], runs["mesh"]
+    err = _scaled(mesh_run["logits"], single["logits"])
+    differ = (mesh_run["tokens"] != single["tokens"]).nonzero().tolist()
+    near = [single["gaps"][b, i].item() for b, i in differ]
+    out = {"arch": arch, "dtype": "float32", **_family_cut(arch), "batch": B,
+           "prompt": FAMILY_PROMPT, "positions": S, "new_tokens": new,
+           "logits_scaled_err": err, "token_mismatches": len(differ),
+           "mismatch_top2_gaps": near, "tokens": single["tokens"].cpu().tolist(),
+           "launches": {k: r["launches"] for k, r in runs.items()}, **allocated}
+    check(err <= FAMILY_TOL, f"parallel {arch}: greedy logits off by {err} scaled")
+    check(all(g < TIE_GAP for g in near), f"parallel {arch}: tokens differ at gaps {near}")
+    check(mesh_run["launches"] == single["launches"],
+          f"parallel {arch}: greedy launches {out['launches']}")
+    del model, sharded, caches, runs
+    return out
+
+
+def _family_cut(arch: str) -> dict:
+    """The cut of a family's depth, for its lines."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    return {"reduced": {k: {"full": getattr(full, k), "run": v} for k, v in
+                        FAMILY_CUTS[arch].items()},
+            "reduced_why": "depth cut to fit the phase's time; widths are the config's own"}
+
+
+def _family_bf16(arch: str, mesh, single_cell: dict) -> dict:
+    """bf16 sharded steps at the family's train cell shape (B=4, S=2048 or
+    its enc-dec/VLM text) through ``build_train_step``: each step's wall
+    time (the device drained at both ends), its kernel launches (gated:
+    the single-device step's), one traced sharded step beside one traced
+    single-device step on the same state, and the family's full-depth
+    single-device train cell from this run, as the phase received it."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import to_device
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
+    from repro_torch.parallel.steps import build_train_step, make_ctx, shard_params
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    allocated = _release_device_memory()
+    cfg = get_config(arch).replace(dtype="bfloat16", **FAMILY_CUTS[arch])
+    model = build_model(cfg, device="cuda:0")
+    B, S = TRAIN_KW["global_batch"], TRAIN_TEXT.get(arch, TRAIN_KW["seq_len"])
+    positions = S + (cfg.num_image_tokens if cfg.family == "vlm" else 0)
+    ocfg = AdamWConfig(lr=TRAIN_KW["lr"])
+    lr_fn = cosine_schedule(TRAIN_KW["lr"], TRAIN_KW["warmup"], FAMILY_STEPS + 2)
+    step, _, _ = build_train_step(model, mesh, ocfg, lr_fn, model.input_specs(
+        "train", {"seq_len": positions, "global_batch": B, "kind": "train"}))
+    params = shard_params(model, model.init(0), mesh)
+    opt = adamw_init(ocfg, params.tree(), ctx=make_ctx(mesh))
+    source = _family_source(cfg, S, B)
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps_s, losses = [], []
+    for i in range(FAMILY_STEPS):
+        batch = to_device(source.batch(i), model.device)
+        t0 = time.perf_counter()
+        m = step(params, opt, batch, i)[2]
+        losses.append(float(m["loss"]))  # waits for the device
+        steps_s.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(x) for x in losses), f"parallel {arch} bf16 losses {losses}")
+    per_step = _launches_per_step(cfg)
+    for name, n in per_step.items():
+        check(launches[name] == n * FAMILY_STEPS,
+              f"parallel {arch}: {name} launched {launches[name]} times in {FAMILY_STEPS} "
+              f"steps, want {n} a step")
+
+    def single_step(batch, i):
+        tree = params.tree()
+        loss, _ = model.loss(params, batch)
+        grads = tree_unflatten(tree, torch.autograd.grad(loss, tree_leaves(tree)))
+        adamw_update(ocfg, float(lr_fn(i)), tree, grads, opt)
+
+    batch = to_device(source.batch(FAMILY_STEPS), model.device)
+    traced = {}
+    for name, fn in (("mesh", lambda: step(params, opt, batch, FAMILY_STEPS)),
+                     ("single", lambda: single_step(batch, FAMILY_STEPS))):
+        fn()  # warm
+        for c in counters.values():
+            c.launches = 0
+        traced[name] = _traced(fn, top=4)
+        traced[name]["launches"] = {k: c.launches for k, c in counters.items()}
+    check(traced["mesh"]["launches"] == traced["single"]["launches"] == per_step,
+          f"parallel {arch}: traced launches {traced['mesh']['launches']} against "
+          f"{traced['single']['launches']}")
+    step_s = float(np.median(steps_s[1:]))
+    res = {"arch": arch, "dtype": "bfloat16", "mesh": "(data=1, model=1)", **_family_cut(arch),
+           "steps": FAMILY_STEPS, "batch": B, "seq_len": S, "decoder_positions": positions,
+           "encoder_frames": cfg.encoder_seq if cfg.is_encdec else 0, "loss": losses,
+           "step_s": steps_s, "step_s_median_after_first": step_s,
+           "tokens_per_s": B * S / step_s, "peak_mem_bytes": peak, "launches": launches,
+           "launches_per_step": {k: v / FAMILY_STEPS for k, v in launches.items()},
+           # the family's single-device train cell of this run, at full depth
+           "single_device_train_cell": {
+               k: single_cell[k] for k in ("step_s_median_after_first", "step_device_busy_ms",
+                                           "step_device_idle_share", "step_host_launches",
+                                           "launches_per_step")},
+           "single_device_train_cell_num_layers": get_config(arch).num_layers,
+           "host_ms_added": traced["mesh"]["traced_ms"] - traced["single"]["traced_ms"],
+           "host_launches_added": (traced["mesh"]["host_launches"]
+                                   - traced["single"]["host_launches"]),
+           **allocated}
+    for name in ("mesh", "single"):
+        res.update({f"step_{name}_{k}": traced[name][k] for k in
+                    ("traced_ms", "device_busy_ms", "device_idle_share", "kernel_launches",
+                     "host_launches", "k1_device_ms", "k1_bwd_device_ms", "k2_device_ms",
+                     "k2_bwd_device_ms")})
+    del model, params, opt
+    return res
+
+
+def phase_parallel_families(single_cells: dict) -> dict:
+    """Every family beyond the dense and GQA-MoE decoders under a mesh on
+    the card: an NCCL group of one rank on ``cuda:0`` and its (data=1,
+    model=1) mesh. For each of :data:`FAMILY_CUTS`' families at full width:
+    the f32 sharded train step against the single-device step (the four
+    trainable families: deepseek-v2's attention has no K1-bwd at
+    Dqk=192/Dv=128 yet, so its training raises on the card), f32 greedy
+    tokens through the sharded prefill and decode step, and the bf16
+    sharded step timed and traced beside the single-device step.
+    ``single_cells`` are this run's train cells by arch. One
+    ``parallel_families`` line."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", rank=0, world_size=1, store=dist.HashStore(),
+                            timeout=datetime.timedelta(seconds=300),
+                            device_id=torch.device("cuda:0"))
+    res: dict = {"world": 1, "backend": "nccl", "mesh": {"data": 1, "model": 1}}
+    try:
+        mesh = make_host_mesh(1, device_type="cuda")
+        _MESH[:] = [mesh]
+        for arch in FAMILY_TRAIN:
+            res[f"{arch}_f32_step"] = _parallel_parity(
+                arch, FAMILY_F32_S[arch], FAMILY_TOL,
+                data=lambda cfg, S=FAMILY_F32_S[arch]: _family_source(cfg, S, 1),
+                **FAMILY_CUTS[arch])
+        for arch in FAMILY_CUTS:
+            res[f"{arch}_f32_greedy"] = _family_greedy(arch, mesh)
+        for arch in FAMILY_TRAIN:
+            res[f"{arch}_bf16"] = _family_bf16(arch, mesh, single_cells[arch])
+    finally:
+        _MESH.clear()
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_start
+    emit("parallel_families", **res)
     return res
 
 
@@ -3230,6 +3499,9 @@ def main() -> int:
     # the sharded bf16 training run's launches count on the kernels line
     trains.append({"arch": "tinyllama-1.1b on the (1, 1) mesh",
                    "launches": par["tinyllama_bf16_trainer"]["launches"]})
+    fams = phase_parallel_families({t["arch"]: t for t in trains})
+    trains += [{"arch": f"{arch} on the (1, 1) mesh", "launches": fams[f"{arch}_bf16"]["launches"]}
+               for arch in FAMILY_TRAIN]
     pipe = phase_pipeline()
     # and the pipelined bf16 step's
     trains.append({"arch": "tinyllama-1.1b pipelined", "launches": {

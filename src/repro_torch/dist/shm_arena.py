@@ -48,7 +48,7 @@ from __future__ import annotations
 import hashlib
 import secrets
 import threading
-from multiprocessing import shared_memory
+from multiprocessing import resource_tracker, shared_memory
 
 import numpy as np
 
@@ -151,6 +151,11 @@ class ShmArena:
         self._caps: dict[str, int] = {}
         self._attached: dict[str, shared_memory.SharedMemory] = {}
         self._closed = False
+        if not attach_only:
+            # the owner's resource tracker runs before any worker forks, so
+            # every worker shares it: a worker's attach then registers a
+            # name the owner already holds, and must not unregister it
+            resource_tracker.ensure_running()
         self._counts = {
             "pooled_created": 0,
             "pooled_reused": 0,
@@ -263,8 +268,7 @@ class ShmArena:
         if seg is None:
             seg = self._owned.get(ref.name)
         if seg is None:
-            seg = shared_memory.SharedMemory(name=ref.name)
-            _unregister(ref.name)
+            seg = shared_memory.SharedMemory(name=ref.name)  # the owner unlinks it
             with self._lock:
                 self._attached[ref.name] = seg
         return np.ndarray(ref.shape, dtype=np.dtype(ref.dtype), buffer=seg.buf)

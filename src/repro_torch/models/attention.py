@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
+from ..parallel.ctx import reduce_scatter
 from .common import NEG_INF, apply_rope, causal_mask_bias, rms_norm
 
 ATTN_CHUNK = 2048  # q-block size for the chunked dense path
@@ -152,6 +153,63 @@ def gqa_cache_shape(cfg, batch: int, seq: int, dtype, *, ring: bool = False) -> 
     return c
 
 
+def prefill_mask(window: Optional[int], prefix_len: Optional[int], bidirectional: bool
+                 ) -> PrefillMask:
+    """A prefill's mask: every key (bidirectional), else causal with the
+    layer's window and the prompt's prefix-LM span."""
+    if bidirectional:
+        return PrefillMask(causal=False)
+    return PrefillMask(causal=True, window=window, prefix_len=prefix_len)
+
+
+def prefill_cache(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+                  window: Optional[int]) -> dict:
+    """A prefill's k/v cache: every position, or with ``window`` a ring of
+    the last ``W`` keys, laid out so position p lives at slot p % W (the
+    decode write invariant): the linear tail rolled into ring order, with
+    each lane's row of absolute positions."""
+    if window is None:
+        return {"k": k, "v": v}
+    B, S = k.shape[:2]
+    W = min(window, S)
+    shift = (S - W) % W
+    pos = torch.roll(positions[S - W :].to(torch.int32), shift)
+    return {
+        "k": torch.roll(k[:, S - W :], shift, dims=1),
+        "v": torch.roll(v[:, S - W :], shift, dims=1),
+        "pos": pos.expand(B, W).contiguous(),
+    }
+
+
+def decode_write(cache: dict, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+                 index: torch.Tensor, *, window: Optional[int] = None,
+                 prefix_len: Optional[int] = None) -> torch.Tensor:
+    """Writes each lane's new key and value (``k``, ``v``: (B, 1, KV, Dh))
+    into ``cache`` in place at its ``index`` (slot ``index % W`` of a ring,
+    whose ``pos`` row takes the absolute position) and returns the decode
+    bias (B, 1, Sk) over the cache."""
+    k_cache, v_cache = cache["k"], cache["v"]
+    B, Sk = k.shape[0], k_cache.shape[1]
+    lanes = torch.arange(B, device=k.device)
+    idx = index.long()
+    if "pos" in cache:  # ring buffer
+        slot = torch.remainder(idx, Sk)
+        k_cache[lanes, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[lanes, slot] = v[:, 0].to(v_cache.dtype)
+        pos_buf = cache["pos"]
+        pos_buf[lanes, slot] = idx.to(pos_buf.dtype)
+        q_pos = idx[:, None]
+        ok = (pos_buf >= 0) & (pos_buf <= q_pos)
+        if window is not None:
+            ok = ok & (pos_buf > q_pos - window)
+        zero = torch.zeros((), dtype=torch.float32, device=k.device)
+        return torch.where(ok, zero, torch.full_like(zero, NEG_INF))[:, None, :]
+    k_cache[lanes, idx] = k[:, 0].to(k_cache.dtype)
+    v_cache[lanes, idx] = v[:, 0].to(v_cache.dtype)
+    return causal_mask_bias(positions, torch.arange(Sk, device=k.device), window=window,
+                            prefix_len=prefix_len, valid_len=idx + 1)
+
+
 def gqa_attention(
     cfg,
     p,
@@ -181,7 +239,8 @@ def gqa_attention(
     Under a mesh (``ctx``) this rank's share runs: :func:`_gqa_sharded`.
     """
     if ctx is not None:
-        return _gqa_sharded(cfg, p, x, positions, cache=cache, cache_index=cache_index,
+        return _gqa_sharded(cfg, p, x, positions, window=window, prefix_len=prefix_len,
+                            bidirectional=bidirectional, cache=cache, cache_index=cache_index,
                             return_cache=return_cache, ctx=ctx)
     B, S, d = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
@@ -197,52 +256,15 @@ def gqa_attention(
     if cache is not None:
         if S != 1:
             raise ValueError(f"decode takes one token per lane, got S={S}")
-        lanes = torch.arange(B, device=x.device)
-        k_cache, v_cache = cache["k"], cache["v"]
-        Sk = k_cache.shape[1]
-        idx = cache_index.long()
-        if "pos" in cache:  # ring buffer
-            slot = torch.remainder(idx, Sk)
-            k_cache[lanes, slot] = k[:, 0].to(k_cache.dtype)
-            v_cache[lanes, slot] = v[:, 0].to(v_cache.dtype)
-            pos_buf = cache["pos"]
-            pos_buf[lanes, slot] = idx.to(pos_buf.dtype)
-            q_pos = idx[:, None]
-            ok = (pos_buf >= 0) & (pos_buf <= q_pos)
-            if window is not None:
-                ok = ok & (pos_buf > q_pos - window)
-            zero = torch.zeros((), dtype=torch.float32, device=x.device)
-            bias = torch.where(ok, zero, torch.full_like(zero, NEG_INF))[:, None, :]
-        else:
-            k_cache[lanes, idx] = k[:, 0].to(k_cache.dtype)
-            v_cache[lanes, idx] = v[:, 0].to(v_cache.dtype)
-            bias = causal_mask_bias(
-                positions, torch.arange(Sk, device=x.device), window=window,
-                prefix_len=prefix_len, valid_len=idx + S,
-            )
-        out = attend(q, k_cache, v_cache, bias)
+        bias = decode_write(cache, k, v, positions, cache_index, window=window,
+                            prefix_len=prefix_len)
+        out = attend(q, cache["k"], cache["v"], bias)
     else:
         # prefill positions run from 0, so causality is the kernel's
         # top-left-aligned mask
-        if bidirectional:
-            mask = PrefillMask(causal=False)
-        else:
-            mask = PrefillMask(causal=True, window=window, prefix_len=prefix_len)
-        out = attend(q, k, v, mask)
+        out = attend(q, k, v, prefill_mask(window, prefix_len, bidirectional))
         if return_cache:
-            if window is not None:  # a ring cache of the last W keys, laid
-                # out so position p lives at slot p % W (the decode write
-                # invariant): roll the linear tail into ring order
-                W = min(window, S)
-                shift = (S - W) % W
-                pos = torch.roll(positions[S - W :].to(torch.int32), shift)
-                new_cache = {
-                    "k": torch.roll(k[:, S - W :], shift, dims=1),
-                    "v": torch.roll(v[:, S - W :], shift, dims=1),
-                    "pos": pos.expand(B, W).contiguous(),
-                }
-            else:
-                new_cache = {"k": k, "v": v}
+            new_cache = prefill_cache(k, v, positions, window)
 
     y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
     return y, new_cache
@@ -270,7 +292,61 @@ def kv_cache_split(kv_heads: int, head_dim: int, n_model: int) -> Optional[str]:
     return None
 
 
-def _gqa_sharded(cfg, p, x, positions, *, cache, cache_index, return_cache, ctx):
+@dataclass(frozen=True)
+class HeadSplit:
+    """How a GQA layer's heads run under a mesh (``of``): ``heads`` when
+    the spec shards the query heads over the model axis (this rank runs
+    its own), ``kv_local`` when it shards the kv heads too; ``dh_split``
+    when the k/v caches keep the head dim's block (kv heads that do not
+    divide the model axis, ``cache_specs``)."""
+
+    heads: bool
+    kv_local: bool
+    dh_split: bool
+
+    @staticmethod
+    def of(cfg, p, ctx) -> "HeadSplit":
+        heads = ctx.model_dim(p["wq"]) == 1
+        kv_local = heads and ctx.model_dim(p["wk"]) == 1
+        dh_split = not kv_local and kv_cache_split(
+            cfg.kv_heads_padded, cfg.head_dim, ctx.n_model) == "head_dim"
+        return HeadSplit(heads, kv_local, dh_split)
+
+    def project(self, p, name: str, h: torch.Tensor, ctx) -> torch.Tensor:
+        """``h`` through this rank's columns of ``wq``/``wk``/``wv``."""
+        local = self.heads if name == "wq" else self.kv_local
+        return torch.einsum("bsd,dhk->bshk", h, ctx.take(p[name], 1 if local else None))
+
+    def to_cache(self, k: torch.Tensor, ctx) -> torch.Tensor:
+        """k or v (.., KV, Dh) as the cache keeps it on this rank."""
+        return ctx.chunk(k, 3) if self.dh_split else k
+
+    def from_cache(self, k: torch.Tensor, ctx) -> torch.Tensor:
+        """A cache's k or v with every head dim (gathered where split)."""
+        return ctx.model_gather(k, 3) if self.dh_split else k
+
+    def local_kv(self, cfg, k: torch.Tensor, ctx) -> torch.Tensor:
+        """The kv heads this rank's query heads read."""
+        if not self.heads or self.kv_local:
+            return k
+        Hl = cfg.heads_padded // ctx.n_model
+        G = cfg.heads_padded // cfg.kv_heads_padded
+        return _kv_of_local_heads(k, ctx.model_rank * Hl, Hl, G)
+
+    def out(self, p, o: torch.Tensor, x: torch.Tensor, ctx, decode: bool) -> torch.Tensor:
+        """The output projection back to the residual stream's layout: the
+        partial sums over the local heads reduce-scattered over the
+        sequence (all-reduced in decode); with every head on every rank,
+        this rank's block of the sequence."""
+        y = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), ctx.take(p["wo"], 0 if self.heads
+                                                                 else None))
+        if self.heads:
+            return ctx.seq_reduce(y)
+        return y if decode else ctx.constrain_activations(y)
+
+
+def _gqa_sharded(cfg, p, x, positions, *, window, prefix_len, bidirectional, cache,
+                 cache_index, return_cache, ctx):
     """This rank's share of GQA under a mesh (tensor parallel over heads).
 
     Where the spec shards the heads over the model axis, the rank projects
@@ -281,64 +357,37 @@ def _gqa_sharded(cfg, p, x, positions, *, cache, cache_index, return_cache, ctx)
     reduce-scattered back over the sequence (all-reduced in decode). Where
     the heads do not divide, every weight is gathered whole and the rank
     runs every head, keeping its block of the sequence. The flash kernel
-    runs on the local heads. The k/v caches keep ``cache_specs``'s layout:
-    the local kv heads, or with kv heads that do not divide the head dim's
-    block (the decode gathers it back whole, layer by layer), or whole.
+    runs on the local heads under every mask the single-device path takes
+    (a window, a prefix-LM span, bidirectional). The k/v caches keep
+    ``cache_specs``'s layout: the local kv heads, or with kv heads that do
+    not divide the head dim's block (the decode gathers it back whole,
+    layer by layer), or whole; a sliding window's ring and its ``pos`` row
+    (whole on every rank) as on one device.
     """
-    Hp, KVp, Dh = cfg.heads_padded, cfg.kv_heads_padded, cfg.head_dim
-    n = ctx.n_model
-    heads = ctx.model_dim(p["wq"]) == 1
-    kv_local = heads and ctx.model_dim(p["wk"]) == 1
-    hd, kd = (1 if heads else None), (1 if kv_local else None)
+    split = HeadSplit.of(cfg, p, ctx)
     h = ctx.seq_gather(x) if cache is None else x  # every position of the sequence
-    q = torch.einsum("bsd,dhk->bshk", h, ctx.take(p["wq"], hd))
-    k = torch.einsum("bsd,dhk->bshk", h, ctx.take(p["wk"], kd))
-    v = torch.einsum("bsd,dhk->bshk", h, ctx.take(p["wv"], kd))
+    q, k, v = (split.project(p, name, h, ctx) for name in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
-        q = q + ctx.take(p["bq"], None if hd is None else 0)
-        k = k + ctx.take(p["bk"], None if kd is None else 0)
-        v = v + ctx.take(p["bv"], None if kd is None else 0)
+        q = q + ctx.take(p["bq"], 0 if split.heads else None)
+        k = k + ctx.take(p["bk"], 0 if split.kv_local else None)
+        v = v + ctx.take(p["bv"], 0 if split.kv_local else None)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    dh_split = not kv_local and kv_cache_split(KVp, Dh, n) == "head_dim"
+    new_cache = None
     if cache is None:
-        k_all, v_all = k, v
+        out = attend(q, split.local_kv(cfg, k, ctx), split.local_kv(cfg, v, ctx),
+                     prefill_mask(window, prefix_len, bidirectional))
         if return_cache:
-            new_cache = ({"k": ctx.chunk(k, 3), "v": ctx.chunk(v, 3)} if dh_split
-                         else {"k": k, "v": v})
-        else:
-            new_cache = None
+            new_cache = prefill_cache(split.to_cache(k, ctx), split.to_cache(v, ctx), positions,
+                                      window)
     else:
-        B = x.shape[0]
-        lanes = torch.arange(B, device=x.device)
-        idx = cache_index.long()
-        k_cache, v_cache = cache["k"], cache["v"]
-        kw, vw = (ctx.chunk(k, 3), ctx.chunk(v, 3)) if dh_split else (k, v)
-        k_cache[lanes, idx] = kw[:, 0].to(k_cache.dtype)
-        v_cache[lanes, idx] = vw[:, 0].to(v_cache.dtype)
-        if dh_split:
-            k_cache, v_cache = ctx.model_gather(k_cache, 3), ctx.model_gather(v_cache, 3)
-        k_all, v_all = k_cache, v_cache
-        new_cache = None
-    if heads and not kv_local:
-        Hl = Hp // n
-        G = Hp // KVp
-        k_all = _kv_of_local_heads(k_all, ctx.model_rank * Hl, Hl, G)
-        v_all = _kv_of_local_heads(v_all, ctx.model_rank * Hl, Hl, G)
-    if cache is None:
-        out = attend(q, k_all, v_all, PrefillMask(causal=True))
-    else:
-        Sk = k_all.shape[1]
-        bias = causal_mask_bias(positions, torch.arange(Sk, device=x.device),
-                                valid_len=cache_index.long() + 1)
+        bias = decode_write(cache, split.to_cache(k, ctx), split.to_cache(v, ctx), positions,
+                            cache_index, window=window, prefix_len=prefix_len)
+        k_all, v_all = (split.local_kv(cfg, split.from_cache(cache[n], ctx), ctx)
+                        for n in ("k", "v"))
         out = attend(q, k_all, v_all, bias)
-    y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), ctx.take(p["wo"], 0 if heads else None))
-    if heads:  # partial sums over the heads
-        y = ctx.seq_reduce(y) if cache is None else ctx.model_sum(y)
-    elif cache is None:
-        y = ctx.constrain_activations(y)
-    return y, new_cache
+    return split.out(p, out, x, ctx, decode=cache is not None), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +440,30 @@ def _mla_qkv(cfg, p, x, positions):
     return q_nope, q_rope, ckv, k_rope
 
 
+def _mla_expanded(cfg, q_nope, q_rope, ckv, k_rope, wk_b, wv_b) -> torch.Tensor:
+    """Prefill and training: keys and values projected out of the latent on
+    the heads of ``wk_b``/``wv_b``, then causal :func:`attend`."""
+    B, S = ckv.shape[:2]
+    k_nope = torch.einsum("bsl,lhn->bshn", ckv, wk_b)
+    v = torch.einsum("bsl,lhv->bshv", ckv, wv_b)
+    H = k_nope.shape[2]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, cfg.qk_rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    return attend(q, k, v, PrefillMask(causal=True))
+
+
+def _mla_scores(cfg, q_eff, q_rope, ckv_c, krope_c, positions, k_pos, index) -> torch.Tensor:
+    """The absorbed form's f32 scores (B, H, 1, Sk) of the latent cache at
+    positions ``k_pos``, masked past each lane's valid length, from the
+    input-dtype operands (the reference's preferred_element_type=f32)."""
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    scores = (
+        torch.einsum("bqhl,bsl->bhqs", q_eff.float(), ckv_c.float())
+        + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), krope_c.float())
+    ) * scale
+    return scores + causal_mask_bias(positions, k_pos, valid_len=index + 1)[:, None, :, :]
+
+
 def mla_attention(
     cfg,
     p,
@@ -400,17 +473,19 @@ def mla_attention(
     cache: Optional[dict] = None,
     cache_index: Optional[torch.Tensor] = None,  # (B,) write offsets
     return_cache: bool = False,
+    ctx=None,
     **_unused,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Prefill and training take the expanded form: keys and values
     projected out of the latent per head, then :func:`attend`. Decode takes
     the absorbed form: scores and values straight against the compressed
     cache, into which each lane's latent and rotated key are written in
-    place at its ``cache_index``."""
+    place at its ``cache_index``. Under a mesh (``ctx``) this rank's share
+    runs: :func:`_mla_sharded`."""
+    if ctx is not None:
+        return _mla_sharded(cfg, p, x, positions, cache=cache, cache_index=cache_index,
+                            return_cache=return_cache, ctx=ctx)
     B, S, d = x.shape
-    H = cfg.num_heads
-    nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    scale = (nope + rope_d) ** -0.5
     q_nope, q_rope, ckv, k_rope = _mla_qkv(cfg, p, x, positions)
 
     new_cache = None
@@ -424,28 +499,91 @@ def mla_attention(
         ckv_c, krope_c = cache["ckv"], cache["krope"]
         ckv_c[lanes, idx] = ckv[:, 0].to(ckv_c.dtype)
         krope_c[lanes, idx] = k_rope[:, 0].to(krope_c.dtype)
-        Sk = ckv_c.shape[1]
         q_eff = torch.einsum("bqhn,lhn->bqhl", q_nope, p["wk_b"])  # absorb W_UK
-        # f32 scores from the input-dtype operands, as the reference's
-        # preferred_element_type=f32
-        scores = (
-            torch.einsum("bqhl,bsl->bhqs", q_eff.float(), ckv_c.float())
-            + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), krope_c.float())
-        ) * scale
-        bias = causal_mask_bias(positions, torch.arange(Sk, device=x.device), valid_len=idx + S)
-        scores = scores + bias[:, None, :, :]
+        scores = _mla_scores(cfg, q_eff, q_rope, ckv_c, krope_c, positions,
+                             torch.arange(ckv_c.shape[1], device=x.device), idx)
         w = F.softmax(scores, dim=-1).to(x.dtype)
-        ctx = torch.einsum("bhqs,bsl->bqhl", w, ckv_c)
-        out = torch.einsum("bqhl,lhv->bqhv", ctx, p["wv_b"])  # absorb W_UV
+        ctx_l = torch.einsum("bhqs,bsl->bqhl", w, ckv_c)
+        out = torch.einsum("bqhl,lhv->bqhv", ctx_l, p["wv_b"])  # absorb W_UV
     else:
         # prefill/train: expanded form (better matmul shapes at long Sq)
-        k_nope = torch.einsum("bsl,lhn->bshn", ckv, p["wk_b"])
-        v = torch.einsum("bsl,lhv->bshv", ckv, p["wv_b"])
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope_d)], dim=-1)
-        q = torch.cat([q_nope, q_rope], dim=-1)
-        out = attend(q, k, v, PrefillMask(causal=True))
+        out = _mla_expanded(cfg, q_nope, q_rope, ckv, k_rope, p["wk_b"], p["wv_b"])
         if return_cache:
             new_cache = {"ckv": ckv, "krope": k_rope}
 
     y = torch.einsum("bshv,hvd->bsd", out.to(x.dtype), p["wo"])
     return y, new_cache
+
+
+def _mla_sharded(cfg, p, x, positions, *, cache, cache_index, return_cache, ctx):
+    """This rank's share of MLA under a mesh. The latent projections
+    (``wq_a``, ``wkv_a`` and their norms) run whole on every rank (their
+    specs shard the model dim, so they are gathered); the query heads,
+    ``wk_b``, ``wv_b`` and ``wo`` run on the rank's own heads where the spec
+    shards them (else whole), and ``wo``'s partial sums over the heads are
+    reduce-scattered back over the sequence.
+
+    Prefill and training take the expanded form on the local heads over the
+    whole sequence (the flash kernel at Dqk=192/Dv=128 on the card) and
+    return the latents split over the sequence as ``cache_specs`` lays them
+    out. Decode takes the absorbed form against that layout: each rank
+    writes the new latent only where it owns the lane's position, scores
+    its block of positions for every head (the absorbed queries gathered
+    over the heads), and the softmax's max and sum are taken over the model
+    group; the weighted latents are reduce-scattered back onto the local
+    heads, which absorb ``wv_b`` and ``wo``. Where the caches are whole
+    (their length does not divide), each rank attends over all of them on
+    its heads."""
+    B, S, _ = x.shape
+    heads = ctx.model_dim(p["wq_b" if cfg.q_lora_rank else "wq"]) == 1
+    hd = 1 if heads else None
+    lp = {k: ctx.take(p[k], hd) for k in ("wq_b", "wq", "wk_b", "wv_b") if k in p}
+    lp.update({k: ctx.gather(p[k]) for k in ("wq_a", "q_norm", "wkv_a", "kv_norm") if k in p})
+    wo = ctx.take(p["wo"], 0 if heads else None)
+    decode = cache is not None
+    h = x if decode else ctx.seq_gather(x)  # every position of the sequence
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(cfg, lp, h, positions)
+    new_cache = None
+    if not decode:
+        out = _mla_expanded(cfg, q_nope, q_rope, ckv, k_rope, lp["wk_b"], lp["wv_b"])
+        if return_cache:
+            seq = ctx.seq_split_of(S)
+            new_cache = {"ckv": ctx.chunk(ckv, 1) if seq else ckv,
+                         "krope": ctx.chunk(k_rope, 1) if seq else k_rope}
+    else:
+        if S != 1:
+            raise ValueError(f"decode takes one token per lane, got S={S}")
+        if ctx.cache_len is None:
+            raise ValueError("MLA's sharded decode needs the caches' global length "
+                             "(parallel.steps.build_decode_step gives it)")
+        ckv_c, krope_c = cache["ckv"], cache["krope"]
+        Sl = ckv_c.shape[1]
+        seq = ctx.seq_split_of(ctx.cache_len)
+        lo = ctx.model_rank * Sl if seq else 0
+        lanes = torch.arange(B, device=x.device)
+        idx = cache_index.long()
+        # the new latent goes to the rank whose block holds its position
+        own = ((idx >= lo) & (idx < lo + Sl))[:, None]
+        slot = (idx - lo).clamp(0, Sl - 1)
+        ckv_c[lanes, slot] = torch.where(own, ckv[:, 0].to(ckv_c.dtype), ckv_c[lanes, slot])
+        krope_c[lanes, slot] = torch.where(own, k_rope[:, 0].to(krope_c.dtype),
+                                           krope_c[lanes, slot])
+        q_eff = torch.einsum("bqhn,lhn->bqhl", q_nope, lp["wk_b"])  # absorb W_UK
+        if seq and heads:  # every head scores this rank's positions
+            q_eff, q_rope = ctx.model_gather(q_eff, 2), ctx.model_gather(q_rope, 2)
+        scores = _mla_scores(cfg, q_eff, q_rope, ckv_c, krope_c, positions,
+                             lo + torch.arange(Sl, device=x.device), idx)
+        if seq:  # the softmax over every rank's block of positions
+            mx = ctx.model_max(scores.amax(dim=-1, keepdim=True))
+            e = torch.exp(scores - mx)
+            w = (e / ctx.model_sum(e.sum(dim=-1, keepdim=True))).to(x.dtype)
+            part = torch.einsum("bhqs,bsl->bqhl", w, ckv_c)
+            lat = reduce_scatter(part, 2, ctx.model_group) if heads else ctx.model_sum(part)
+        else:
+            w = F.softmax(scores, dim=-1).to(x.dtype)
+            lat = torch.einsum("bhqs,bsl->bqhl", w, ckv_c)
+        out = torch.einsum("bqhl,lhv->bqhv", lat, lp["wv_b"])  # absorb W_UV
+    y = torch.einsum("bshv,hvd->bsd", out.to(x.dtype), wo)
+    if heads:
+        return ctx.seq_reduce(y), new_cache
+    return (y if decode else ctx.constrain_activations(y)), new_cache

@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from .attention import (
+    HeadSplit,
     PrefillMask,
     attend,
     gqa_attention,
@@ -53,23 +54,6 @@ def check_supported(cfg) -> None:
             "decoders with GQA or MLA attention, the attention-free SSM decoder and the "
             f"LayerNorm encoder-decoder; {cfg.name} (family={cfg.family!r}, "
             f"attention={cfg.attention!r}, norm={cfg.norm!r}) is none of them"
-        )
-
-
-def check_parallel_supported(cfg) -> None:
-    """Raise for a config the port does not yet run under a mesh: the
-    dense and GQA-MoE decoders run; MLA, SSM, hybrid, enc-dec and VLM, and
-    deepseek-v2's expert hidden dim on the data axis, wait for a later
-    slice."""
-    rules = dict(cfg.sharding_rules or ())
-    ok = (cfg.family in ("dense", "moe") and cfg.attention == "gqa" and cfg.use_rope
-          and cfg.window is None and not cfg.is_encdec and rules.get("expert_mlp") is None)
-    if not ok:
-        raise NotImplementedError(
-            f"{cfg.name} (family={cfg.family!r}, attention={cfg.attention!r}) under a mesh "
-            "waits for a later slice of the port (ROADMAP queue 1: MLA, SSM/hybrid, enc-dec "
-            "and VLM under a mesh, and the expert hidden dim sharded over data); the dense "
-            "and GQA-MoE decoders run sharded"
         )
 
 
@@ -135,15 +119,16 @@ def block_apply(
     scalar, and None for a layer without the MoE layer (where the reference
     returns a zero: a layer of the other families launches nothing for
     it). Decode writes the cache in place; a decoder layer's ``cross``
-    cache is read, never written. Under a mesh (``ctx``, the dense and GQA
-    MoE decoders: :func:`check_parallel_supported`) ``x`` is this rank's
-    block of the residual stream and the result is too."""
+    cache is read, never written. Under a mesh (``ctx``) ``x`` is this
+    rank's block of the residual stream and the result is too; ``enc_out``
+    is this rank's rows of the encoder's states, whole along their
+    sequence."""
     new_cache: dict = {}
     s_out = None
     if cfg.family in ("ssm", "hybrid"):
         s_out, s_cache = ssm_apply(
-            cfg, p["ssm"], _norm(cfg, p["ssm_norm"], x),
-            cache=cache.get("ssm") if cache else None, return_cache=return_cache,
+            cfg, p["ssm"], _norm(cfg, p["ssm_norm"], x, ctx),
+            cache=cache.get("ssm") if cache else None, return_cache=return_cache, ctx=ctx,
         )
         if s_cache is not None:
             new_cache["ssm"] = s_cache
@@ -160,7 +145,7 @@ def block_apply(
             cache=cache.get("attn") if cache else None,
             cache_index=cache_index,
             return_cache=return_cache,
-            **({} if ctx is None else {"ctx": ctx}),
+            ctx=ctx,
         )
         if a_cache is not None:
             new_cache["attn"] = a_cache
@@ -170,8 +155,8 @@ def block_apply(
         x = x + s_out
     if "cross" in p:
         c_out, c_cache = _cross_attention(
-            cfg, p["cross"], _norm(cfg, p["cross_norm"], x), enc_out,
-            cache=cache.get("cross") if cache else None, return_cache=return_cache,
+            cfg, p["cross"], _norm(cfg, p["cross_norm"], x, ctx), enc_out,
+            cache=cache.get("cross") if cache else None, return_cache=return_cache, ctx=ctx,
         )
         x = x + c_out
         if c_cache is not None:
@@ -186,20 +171,40 @@ def block_apply(
 
 
 def _cross_attention(cfg, p, x: torch.Tensor, enc_out: Optional[torch.Tensor], *,
-                     cache: Optional[dict] = None, return_cache: bool = False):
+                     cache: Optional[dict] = None, return_cache: bool = False, ctx=None):
     """Cross-attention: queries from the decoder, keys and values from the
     encoder, every frame visible (the flash kernel, non-causal with Sq !=
     Sk, in prefill). Prefill projects the encoder's states and, with
-    ``return_cache``, returns them as the static cache that decode reads."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    if cache is not None:
-        k, v = cache["k"], cache["v"]
+    ``return_cache``, returns them as the static cache that decode reads.
+
+    Under a mesh (``ctx``) the rank runs its heads as self-attention does
+    (``HeadSplit``): queries of the whole decoder sequence, keys and values
+    projected on its kv heads from the encoder's states (whole along their
+    sequence), the output's partial sums reduce-scattered back over the
+    sequence. The static cache keeps ``cache_specs``'s k/v layout."""
+    if ctx is None:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        if cache is not None:
+            k, v = cache["k"], cache["v"]
+        else:
+            k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
+            v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+        out = attend(q, k, v, PrefillMask(causal=False))
+        y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+        return y, ({"k": k, "v": v} if return_cache else None)
+    split = HeadSplit.of(cfg, p, ctx)
+    decode = cache is not None
+    q = split.project(p, "wq", x if decode else ctx.seq_gather(x), ctx)
+    new_cache = None
+    if decode:
+        k, v = (split.from_cache(cache[n], ctx) for n in ("k", "v"))
     else:
-        k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
-        v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
-    out = attend(q, k, v, PrefillMask(causal=False))
-    y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
-    return y, ({"k": k, "v": v} if return_cache else None)
+        k, v = (split.project(p, n, enc_out, ctx) for n in ("wk", "wv"))
+        if return_cache:
+            new_cache = {"k": split.to_cache(k, ctx), "v": split.to_cache(v, ctx)}
+    out = attend(q, split.local_kv(cfg, k, ctx), split.local_kv(cfg, v, ctx),
+                 PrefillMask(causal=False))
+    return split.out(p, out, x, ctx, decode=decode), new_cache
 
 
 def block_cache_shape(cfg, batch: int, seq: int, dtype, *, is_global: bool = True,

@@ -193,22 +193,25 @@ class Model:
             a = torch.as_tensor(np.asarray(a))
         return a.to(self.device, self.dtype)
 
-    def _embed_tokens(self, p, tokens: torch.Tensor, ctx=None) -> torch.Tensor:
+    def _embed_tokens(self, p, tokens: torch.Tensor, ctx=None, *, whole: bool = False
+                      ) -> torch.Tensor:
         """Token embeddings. Under a mesh (``ctx``) ``tokens`` are this
         rank's rows, whole along the sequence, and the result is this rank's
-        block of the residual stream: with the vocabulary split over the
-        model axis each rank looks up its own rows and the partial sums are
-        reduce-scattered over the sequence (all-reduced where it is whole);
-        otherwise the table is gathered whole."""
+        block of the residual stream (whole along the sequence with
+        ``whole``): with the vocabulary split over the model axis each rank
+        looks up its own rows and the partial sums are reduce-scattered over
+        the sequence (all-reduced where it is whole); otherwise the table is
+        gathered whole."""
         w = p["embed"]
         if ctx is not None and ctx.n_model > 1 and ctx.model_dim(w) == 0:
             Vl = w.shape[0]
             t = tokens - ctx.model_rank * Vl
             mine = ((t >= 0) & (t < Vl)).to(w.dtype)
-            x = ctx.seq_reduce(F.embedding(t.clamp(0, Vl - 1), w) * mine[..., None])
-            x = x.to(self.dtype)
+            part = F.embedding(t.clamp(0, Vl - 1), w) * mine[..., None]
+            x = (ctx.model_sum(part) if whole else ctx.seq_reduce(part)).to(self.dtype)
         elif ctx is not None:
-            x = ctx.constrain_activations(F.embedding(tokens, ctx.gather(w))).to(self.dtype)
+            x = F.embedding(tokens, ctx.gather(w)).to(self.dtype)
+            x = x if whole else ctx.constrain_activations(x)
         else:
             # F.embedding: its backward sums rows without atomics on the card
             x = F.embedding(tokens, w).to(self.dtype)
@@ -221,32 +224,60 @@ class Model:
             return torch.einsum("bsd,vd->bsv", x, p["embed"])
         return torch.einsum("bsd,dv->bsv", x, p["lm_head"])
 
-    def _input_states(self, p, batch: dict) -> Tuple[torch.Tensor, Optional[int]]:
+    def _seq_len(self, batch: dict) -> int:
+        """The model's sequence: a VLM's patches, then its text."""
+        S = batch["tokens"].shape[1]
+        if self.cfg.family == "vlm" and "patches" in batch:
+            S += self.cfg.num_image_tokens
+        return S
+
+    def _input_states(self, p, batch: dict, ctx=None) -> Tuple[torch.Tensor, Optional[int]]:
         """The token embeddings, after a VLM's projected patches, with
         sinusoidal positions where the config has no RoPE. Returns (x,
-        prefix_len): the VLM's prefix-LM span, else None."""
+        prefix_len): the VLM's prefix-LM span, else None. Under a mesh
+        (``ctx``, at the global batch and the model's sequence) ``x`` is
+        this rank's block of the residual stream: the patches join the
+        stream before it is split over the sequence."""
         cfg = self.cfg
-        x = self._embed_tokens(p, self._as_index(batch["tokens"]))
+        tokens = self._as_index(batch["tokens"])
+        vlm = cfg.family == "vlm" and "patches" in batch
+        if ctx is not None:
+            tokens = ctx.local_batch(tokens)
+        x = self._embed_tokens(p, tokens, ctx, whole=vlm)
         prefix_len = None
-        if cfg.family == "vlm" and "patches" in batch:
-            pv = torch.einsum("bnv,vd->bnd", self._as_input(batch["patches"]), p["vision_proj"])
+        if vlm:
+            patches = self._as_input(batch["patches"])
+            proj = p["vision_proj"]
+            if ctx is not None:
+                patches, proj = ctx.local_batch(patches), ctx.gather(proj)
+            pv = torch.einsum("bnv,vd->bnd", patches, proj)
             x = torch.cat([pv, x], dim=1)
             prefix_len = cfg.num_image_tokens
+            if ctx is not None:
+                x = ctx.constrain_activations(x)
         if not cfg.use_rope:
-            S = x.shape[1]
-            x = x + sinusoidal_emb(torch.arange(S, device=self.device),
-                                   cfg.d_model).to(self.dtype)[None]
+            S = self._seq_len(batch)
+            pos = sinusoidal_emb(torch.arange(S, device=self.device), cfg.d_model)[None]
+            x = x + (pos if ctx is None else ctx.constrain_activations(pos)).to(self.dtype)
         return x, prefix_len
 
-    def _encode(self, p, frames) -> torch.Tensor:
+    def _encode(self, p, frames, ctx=None) -> torch.Tensor:
         """The encoder: frames plus sinusoidal positions through the
-        bidirectional encoder layers, then its final norm."""
+        bidirectional encoder layers, then its final norm. Under a mesh the
+        encoder's stream is split over the sequence as the decoder's is,
+        and the result is this rank's rows, whole along the sequence (an
+        all-gather), which every decoder layer's cross-attention reads."""
         x = self._as_input(frames)
-        S = x.shape[1]
+        B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device)
-        x = x + sinusoidal_emb(positions, self.cfg.d_model).to(self.dtype)[None]
-        x, _ = self._layers(p, x, positions, forward=True, encoder=True)
-        return _norm(self.cfg, p["enc_norm"], x)
+        pos = sinusoidal_emb(positions, self.cfg.d_model).to(self.dtype)[None]
+        if ctx is None:
+            x, _ = self._layers(p, x + pos, positions, forward=True, encoder=True)
+            return _norm(self.cfg, p["enc_norm"], x)
+        ctx = ctx.at(B, S)
+        x = ctx.constrain_activations(ctx.local_batch(x) + pos)
+        x, _ = self._layers(p, x, positions, forward=True, encoder=True, ctx=ctx)
+        return ctx.seq_gather(_norm(self.cfg, p["enc_norm"], x, ctx))
 
     def _layers(self, p, x, positions, *, caches=None, cache_index=None, forward=False,
                 encoder=False, prefix_len=None, enc_out=None, ctx=None):
@@ -262,9 +293,7 @@ class Model:
         and ``enc_out`` reach every decoder layer. ``ctx`` (a mesh) reaches
         every layer, with ``x`` this rank's block of the residual stream."""
         plan, layers = (self.enc_plan, p["enc_layers"]) if encoder else (self.plan, p["layers"])
-        kw = dict(bidirectional=encoder, prefix_len=prefix_len, enc_out=enc_out)
-        if ctx is not None:
-            kw["ctx"] = ctx
+        kw = dict(bidirectional=encoder, prefix_len=prefix_len, enc_out=enc_out, ctx=ctx)
         if forward:
             remat = self.cfg.remat != "none" and torch.is_grad_enabled()
             total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -393,37 +422,47 @@ class Model:
         summing each gradient over the mesh axes its parameter's spec does
         not shard gives the gradient of the loss (``parallel.steps``). The
         metrics are the global values. This rank takes its rows of the batch
-        and its block of the sequence; the head runs over a vocabulary split
-        over the model axis where its spec splits it (the log-sum-exp and
-        the target's logit reduced over the group) and over the rank's own
-        positions otherwise. With ``loss_chunk`` the CE runs in chunks of
-        positions, recomputed in the backward, and the positions past the
-        last whole chunk are left out, as in the single-device loss."""
-        from .blocks import check_parallel_supported
-
+        and its block of the sequence (a VLM's counting its patches, whose
+        positions carry no loss; an encoder-decoder's encoder runs sharded
+        first); the head runs over a vocabulary split over the model axis
+        where its spec splits it (the log-sum-exp and the target's logit
+        reduced over the group) and over the rank's own positions otherwise.
+        With ``loss_chunk`` the CE runs in chunks of positions, recomputed
+        in the backward, and the text positions past the last whole chunk
+        are left out, as in the single-device loss."""
         cfg = self.cfg
-        check_parallel_supported(cfg)
-        tokens = self._as_index(batch["tokens"])
-        B, S = tokens.shape
+        B = batch["tokens"].shape[0]
+        S = self._seq_len(batch)
         ctx = ctx.at(B, S)
-        tokens = ctx.local_batch(tokens)
+        enc_out = self._encode(p, batch["frames"], ctx) if cfg.is_encdec else None
         positions = torch.arange(S, device=self.device)
-        x = self._embed_tokens(p, tokens, ctx)
-        x, aux = self._layers(p, x, positions, forward=True, ctx=ctx)
+        x, prefix_len = self._input_states(p, batch, ctx)
+        x, aux = self._layers(p, x, positions, forward=True, prefix_len=prefix_len,
+                              enc_out=enc_out, ctx=ctx)
         x = _norm(cfg, p["final_norm"], x, ctx)
         targets = ctx.local_batch(self._as_index(batch["targets"]))
         mask = batch.get("loss_mask")
         m = (torch.ones(targets.shape, dtype=torch.float32, device=self.device) if mask is None
              else ctx.local_batch(torch.as_tensor(mask, device=self.device)).float())
         chunked = bool(cfg.loss_chunk) and S > cfg.loss_chunk
-        if chunked:  # positions past the last whole chunk are dropped
-            m = m * (positions < S // cfg.loss_chunk * cfg.loss_chunk)
+        if chunked:  # text positions past the last whole chunk are dropped
+            T = targets.shape[1]
+            m = m * (torch.arange(T, device=self.device) < T // cfg.loss_chunk * cfg.loss_chunk)
         w, vocab_split = self._head_weight(p, ctx)
+        split = ctx.seq_sharded and not vocab_split
         if vocab_split:
             x = ctx.seq_gather(x)
-        elif ctx.seq_sharded:
-            targets, m = ctx.chunk(targets, 1), ctx.chunk(m, 1)
-        copies = ctx.copies(x.shape[1] != S)
+        # the positions x holds, from the first with a target (a VLM's
+        # patches carry none; a rank whose block holds only patches keeps
+        # one position at weight 0, so its backward joins the collectives)
+        lo = ctx.model_rank * x.shape[1] if split else 0
+        pos = torch.arange(lo, lo + x.shape[1], device=self.device)
+        first = min(max((prefix_len or 0) - lo, 0), x.shape[1] - 1)
+        x, pos = x[:, first:], pos[first:]
+        text = (pos - (prefix_len or 0)).clamp(min=0)
+        targets = targets.index_select(1, text)
+        m = m.index_select(1, text) * (pos >= (prefix_len or 0))
+        copies = ctx.copies(split)
         n = torch.clamp(ctx.world_sum(m.sum().detach()) / copies, min=1.0)
 
         def one(xx, tt, mm):
@@ -490,15 +529,13 @@ class Model:
         return self._head(p, last), caches
 
     def _prefill_sharded(self, p, batch: dict, ctx, last_pos):
-        from .blocks import check_parallel_supported
-
-        check_parallel_supported(self.cfg)
-        tokens = self._as_index(batch["tokens"])
-        B, S = tokens.shape
+        B, S = batch["tokens"].shape[0], self._seq_len(batch)
         ctx = ctx.at(B, S)
+        enc_out = self._encode(p, batch["frames"], ctx) if self.cfg.is_encdec else None
         positions = torch.arange(S, device=self.device)
-        x = self._embed_tokens(p, ctx.local_batch(tokens), ctx)
-        x, caches = self._layers(p, x, positions, ctx=ctx)
+        x, prefix_len = self._input_states(p, batch, ctx)
+        x, caches = self._layers(p, x, positions, prefix_len=prefix_len, enc_out=enc_out,
+                                 ctx=ctx)
         x = ctx.seq_gather(_norm(self.cfg, p["final_norm"], x, ctx))
         if isinstance(last_pos, torch.Tensor):
             last = x.index_select(1, last_pos.reshape(1))
@@ -518,12 +555,11 @@ class Model:
         tokens = self._as_index(tokens)
         index = self._as_index(index).reshape(-1)
         if ctx is not None:
-            from .blocks import check_parallel_supported
-
-            check_parallel_supported(self.cfg)
             ctx = ctx.at(tokens.shape[0], 1)
             tokens, index = ctx.local_batch(tokens), ctx.local_batch(index)
             x = self._embed_tokens(p, tokens, ctx)
+            if not self.cfg.use_rope:
+                x = x + sinusoidal_emb(index, self.cfg.d_model).to(self.dtype)[:, None, :]
             x, _ = self._layers(p, x, index[:, None], caches=caches, cache_index=index, ctx=ctx)
             x = _norm(self.cfg, p["final_norm"], x, ctx)
             return self._logits(x, self._head_weight(p, ctx)[0]), caches

@@ -50,17 +50,23 @@ def mlp_params(cfg, a, d_ff: int | None = None) -> dict:
 
 
 def mlp_apply(cfg, p, x: torch.Tensor, ctx=None) -> torch.Tensor:
-    """The block's feed-forward. Under a mesh (``ctx``), a gated MLP whose
-    hidden dim the spec shards runs tensor parallel: the whole sequence
+    """The block's feed-forward. Under a mesh (``ctx``), an MLP whose hidden
+    dim the spec shards runs tensor parallel: the whole sequence
     (all-gathered where the residual stream is split) through this rank's
     hidden block, the partial sums reduce-scattered back over the sequence
-    (all-reduced where it is whole). Any other spec gathers the weights
-    whole and runs this rank's tokens."""
+    (all-reduced where it is whole); the GELU MLP's ``b1`` is this rank's
+    block and its ``b2`` is added once, after the reduction. Any other spec
+    gathers the weights whole and runs this rank's tokens."""
     if ctx is not None:
-        gated = cfg.act != "gelu_mlp"
-        if gated and [ctx.model_dim(p[k]) for k in ("w_gate", "w_up", "w_down")] == [1, 1, 0]:
+        if cfg.act == "gelu_mlp":
+            if [ctx.model_dim(p[k]) for k in ("w1", "b1", "w2")] == [1, 0, 0]:
+                h = F.gelu(torch.einsum("bsd,df->bsf", ctx.seq_gather(x), p["w1"]) + p["b1"],
+                           approximate="tanh")
+                y = ctx.seq_reduce(torch.einsum("bsf,fd->bsd", h, p["w2"]))
+                return y + ctx.gather(p["b2"])
+        elif [ctx.model_dim(p[k]) for k in ("w_gate", "w_up", "w_down")] == [1, 1, 0]:
             return ctx.seq_reduce(gated_mlp(cfg, p, ctx.seq_gather(x)))
-        p = {k: ctx.gather(w) for k, w in p.tree().items()}
+        p = {k: ctx.gather(w) for k, w in (p.tree() if hasattr(p, "tree") else p).items()}
     if cfg.act == "gelu_mlp":
         return dense_mlp(cfg, p, x)
     return gated_mlp(cfg, p, x)

@@ -13,7 +13,11 @@ with an all-to-all, runs its local experts and sends the outputs back
 (``_combine_local``). Capacity overflow drops (GShard semantics), so it
 equals ``moe_dense`` only at a ``capacity_factor`` where nothing drops. In
 decode the tokens are whole on every model rank: each runs its local
-experts and the outputs are summed over the group.
+experts and the outputs are summed over the group. Where the config's
+rules put ``expert_mlp`` on ``data`` (deepseek-v2's 2-D expert sharding),
+each expert's hidden dim is stored split over ``data`` and all-gathered
+inside the layer; the shared experts take the gated MLP's tensor-parallel
+path.
 
 The expert products are plain PyTorch, as the reference leaves them to
 XLA outside any kernel. They are batched matrix products over the expert
@@ -30,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import act_fn
+from .mlp import mlp_apply
 
 
 def moe_params(cfg, a) -> dict:
@@ -165,7 +170,9 @@ def moe_ep(cfg, p, x: torch.Tensor, ctx) -> Tuple[torch.Tensor, torch.Tensor]:
         # decode: capacity must cover the worst case (all local tokens on one
         # expert): dropping a decode token corrupts its stream
         C = max(8, -(-T // 8) * 8)
-    w_gate, w_up, w_down = (ctx.take(p[k], 0) for k in ("w_gate", "w_up", "w_down"))
+    # deepseek-v2's 2-D expert sharding: the hidden dim gathered just in time
+    w_gate, w_up, w_down = (_expert_gather(p[k], ctx.take(p[k], 0), dim, ctx)
+                            for k, dim in (("w_gate", 2), ("w_up", 2), ("w_down", 1)))
     buf, slot, keep = _dispatch_local(cfg, x.reshape(T, d), ids.reshape(T, K), C)
     if ctx.seq_sharded:
         # expert-major exchange: (E, C, d) -> (E/n, n*C, d) per model rank
@@ -180,11 +187,19 @@ def moe_ep(cfg, p, x: torch.Tensor, ctx) -> Tuple[torch.Tensor, torch.Tensor]:
         y_buf = ctx.model_sum(torch.cat([y_l.new_zeros((lo, C, d)), y_l,
                                          y_l.new_zeros((E - lo - e_loc, C, d))]))
     y = _combine_local(y_buf, weights.reshape(T, K), slot, keep).reshape(B, S, d)
-    if cfg.num_shared_experts:
-        sp = p["shared"]
-        y = y + _shared_experts(cfg, {k: ctx.gather(sp[k]) for k in ("w_gate", "w_up", "w_down")},
-                                x)
+    if cfg.num_shared_experts:  # the gated MLP's tensor-parallel path
+        y = y + mlp_apply(cfg, p["shared"], x, ctx)
     return y, aux
+
+
+def _expert_gather(w: torch.Tensor, local: torch.Tensor, dim: int, ctx) -> torch.Tensor:
+    """``local`` (this rank's experts of ``w``) whole along its hidden
+    ``dim`` where ``w``'s spec splits that dim over another mesh axis
+    (``data``: the ``expert_mlp`` rule): an all-gather inside the layer,
+    whose adjoint reduce-scatters the gradient back onto the block, summed
+    over the ranks that used it. Persistent storage stays 1/n_data."""
+    axis = (tuple(getattr(w, "mesh_spec", ())) + (None,) * w.ndim)[dim]
+    return local if axis is None else ctx.axis_gather(local, dim, axis)
 
 
 def moe_apply(cfg, p, x: torch.Tensor, ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -36,6 +36,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from ..parallel.sharding import mesh_shape
 from ..tree import tree_leaves, tree_map
 
 _MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -137,20 +138,35 @@ def adamw_abstract_state(cfg: AdamWConfig, abstract_params: Any) -> dict:
 def _sharded_grads(params: list, grads: list, ctx) -> Tuple[list, torch.Tensor]:
     """Each gradient summed over the mesh axes its param is replicated on,
     as this rank's ZeRO block, and the global norm of the whole tree."""
+    shape = mesh_shape(ctx.mesh)
     out, sq = [], []
     for p, g in zip(params, grads):
         if ctx.model_dim(p) is None:
             g = ctx.model_sum(g)
         dim = _zero_dim(p)
-        g = ctx.batch_sum(g) if dim is None else ctx.batch_scatter(g, dim)
+        # a spec that puts a batch axis on a dim (deepseek-v2's expert hidden
+        # dim on data) leaves no ZeRO dim: the all-gather's adjoint in the
+        # layer already summed the gradient over that axis
+        sharded = _spec_axes(p.mesh_spec)
+        g = ctx.batch_sum_except(g, sharded) if dim is None else ctx.batch_scatter(g, dim)
         # ranks that hold each element of this block: the norm counts it once
-        copies = (ctx.n_batch if dim is None else 1) * (
-            ctx.n_model if ctx.model_dim(p) is None else 1)
+        copies = 1 if dim is not None else math.prod(
+            shape[a] for a in ctx.batch_axes if a not in sharded)
+        copies *= ctx.n_model if ctx.model_dim(p) is None else 1
         out.append(g)
         sq.append(torch.sum(torch.square(g.float())) / copies if copies > 1
                   else torch.sum(torch.square(g.float())))
     total = torch.stack(sq).sum() if sq else torch.zeros(())
     return out, torch.sqrt(ctx.world_sum(total))
+
+
+def _spec_axes(spec: tuple) -> set:
+    """The mesh axes a spec shards some dim over."""
+    out: set = set()
+    for entry in spec:
+        if entry is not None:
+            out.update(entry if isinstance(entry, tuple) else (entry,))
+    return out
 
 
 def global_norm(tree: Any) -> torch.Tensor:

@@ -17,6 +17,12 @@ that, ``parallel.steps``). A collective over a group of one rank is skipped.
 
 The sharded parameters carry their spec as the attribute ``mesh_spec``
 (``parallel.steps.shard_params``); :meth:`gather` and :meth:`take` read it.
+
+A batch over several mesh axes (the multi-pod mesh's ``("pod", "data")``)
+runs its batch collectives on one group over the flattened axes, rank
+``pod * n_data + data`` of it; :func:`batch_group_of` creates it, once per
+mesh, on every rank (``new_group`` is collective), and ``make_ctx`` passes
+it in.
 """
 from __future__ import annotations
 
@@ -37,6 +43,36 @@ _reduce_scatter_flat = getattr(dist, "reduce_scatter_single", None) or dist.redu
 
 def _size(group) -> int:
     return dist.get_world_size(group)
+
+
+_FLAT_GROUPS: dict = {}  # (id(mesh), axes) -> (mesh, group): one group per mesh
+
+
+def batch_group_of(mesh, axes: Tuple[str, ...]):
+    """The process group over the flattened mesh ``axes``: the group of the
+    one axis among them wider than one rank, or, where several are, a group
+    over all of them, its ranks in the order of the flattened index (the
+    first axis outermost). Every rank calls this with the same meshes in
+    the same order: the groups are created collectively, once per mesh."""
+    shape = mesh_shape(mesh)
+    wide = [a for a in axes if shape[a] > 1]
+    if len(wide) <= 1:
+        return mesh.get_group(wide[0] if wide else axes[0])
+    key = (id(mesh), tuple(axes))
+    if key not in _FLAT_GROUPS:
+        names = list(mesh.mesh_dim_names)
+        order = [names.index(a) for a in axes] + [i for i, a in enumerate(names) if a not in axes]
+        n = 1
+        for a in axes:
+            n *= shape[a]
+        grid = mesh.mesh.permute(order).reshape(n, -1)
+        ranks = [grid[:, j].tolist() for j in range(grid.shape[1])]
+        # a group orders its ranks by global rank: that must be the flattened index
+        if any(r != sorted(r) for r in ranks):
+            raise ValueError(f"the mesh's ranks do not ascend along {axes}: {ranks}")
+        group, _ = dist.new_subgroups_by_enumeration(ranks)
+        _FLAT_GROUPS[key] = (mesh, group)  # the mesh is kept, so its id is not reused
+    return _FLAT_GROUPS[key][1]
 
 
 class _AllGather(torch.autograd.Function):
@@ -126,6 +162,11 @@ class ParallelCtx:
     # the global batch and full sequence length of the inputs in flight (``at``)
     batch: Optional[int] = None
     seq_len: Optional[int] = None
+    # decode: the global length of MLA's latent caches, which are split over
+    # the sequence where the model axis divides it (``parallel.steps``)
+    cache_len: Optional[int] = None
+    # the group over the batch axes (``batch_group_of``): make_ctx's
+    group: object = dataclasses.field(default=None, compare=False, repr=False)
 
     # -- the mesh ------------------------------------------------------------------
 
@@ -147,12 +188,9 @@ class ParallelCtx:
 
     @property
     def batch_group(self):
-        if len(self.batch_axes) != 1:
-            raise NotImplementedError(
-                "a batch over several mesh axes (the multi-pod mesh) is not carried by the "
-                "port's sharded steps yet"
-            )
-        return self.mesh.get_group(self.batch_axes[0])
+        if self.group is None:
+            raise ValueError("the batch axes' group comes from parallel.steps.make_ctx")
+        return self.group
 
     @property
     def model_rank(self) -> int:
@@ -259,6 +297,27 @@ class ParallelCtx:
 
     def batch_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return all_gather(x, dim, self.batch_group)
+
+    def batch_sum_except(self, x: torch.Tensor, sharded: set) -> torch.Tensor:
+        """Sums over the batch axes that are not in ``sharded`` (a
+        parameter's spec that puts ``data`` on a dim is already whole over
+        it, deepseek-v2's expert hidden dim: only ``pod`` is summed)."""
+        rest = [a for a in self.batch_axes if a not in sharded]
+        if len(rest) == len(self.batch_axes):
+            return self.batch_sum(x)
+        for a in rest:
+            x = all_reduce(x, self.mesh.get_group(a))
+        return x
+
+    def axis_gather(self, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        """``x`` whole along ``dim`` over the mesh axis ``axis`` (an
+        all-gather; its adjoint reduce-scatters the gradient back)."""
+        return all_gather(x, dim, self.mesh.get_group(axis))
+
+    def seq_split_of(self, S: int) -> bool:
+        """Whether a cache of ``S`` positions is split over the model axis
+        along its sequence (MLA's latents in ``cache_specs``)."""
+        return self.n_model > 1 and S % self.n_model == 0 and S >= self.n_model
 
     def model_max(self, x: torch.Tensor) -> torch.Tensor:
         """An elementwise max over the model group (no gradient)."""

@@ -12,23 +12,26 @@ array a rank holds; :func:`full_tensor` assembles one.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
 
 import torch
 
 from ..launch.mesh import batch_axes_of
 from ..models.attention import kv_cache_split
-from ..models.blocks import check_parallel_supported
 from ..models.common import ParamTree
 from ..optim import AdamWConfig, adamw_update
 from ..optim.adamw import adamw_abstract_state
-from ..tree import tree_leaves, tree_map, tree_unflatten
-from .ctx import ParallelCtx
+from ..tree import tree_flatten_with_keys, tree_leaves, tree_map, tree_unflatten
+from .ctx import ParallelCtx, batch_group_of
 from .sharding import mesh_shape, param_specs, placements, rules_for, zero_specs
 
 
 def make_ctx(mesh) -> ParallelCtx:
-    return ParallelCtx(mesh, batch_axes=batch_axes_of(mesh))
+    """The mesh's ctx, with the group over its batch axes (created on the
+    first call for a mesh; every rank makes the same calls)."""
+    axes = batch_axes_of(mesh)
+    return ParallelCtx(mesh, batch_axes=axes, group=batch_group_of(mesh, axes))
 
 
 def model_param_specs(model, mesh):
@@ -60,16 +63,17 @@ def batch_specs(model, batch_abstract: dict, batch_axes, mesh) -> dict:
 def cache_specs(abstract_caches: Any, mesh, batch_axes) -> Any:
     """Specs for a (layer-group-stacked) cache tree: batch over the data
     axes; kv heads over model, else the head dim where the kv heads do not
-    divide (awkward or few kv heads), else replicated; MLA's compressed
-    caches shard the sequence; SSM state its heads (or state) dim; conv
-    streams their channels."""
+    divide (awkward or few kv heads), else replicated; a ring's positions
+    (one row per lane, where the reference keeps one row per call) the
+    batch only; MLA's compressed caches shard the sequence; SSM state its
+    heads (or state) dim; conv streams their channels."""
     n_model = mesh_shape(mesh)["model"]
     bpart = ParallelCtx(mesh, batch_axes=batch_axes).batch_part
 
     def spec(name: str, leaf) -> tuple:
         nd = leaf.ndim
-        if name == "pos":
-            return (None,) * nd
+        if name == "pos":  # (..., B, W): a ring's absolute positions, one row per lane
+            return (*([None] * (nd - 2)), bpart(leaf.shape[-2]), None)
         if name in ("k", "v"):  # (..., B, S, KV, Dh)
             split = kv_cache_split(leaf.shape[-2], leaf.shape[-1], n_model)
             lead = [None] * (nd - 4)
@@ -158,8 +162,8 @@ def build_train_step(
     """Returns (step, specs, abstract state). ``step(params, opt, batch,
     step)`` takes this rank's param shards and ZeRO state, updates them in
     place (where the reference donates its buffers) and returns them with
-    the step's global metrics; ``batch`` is the global batch."""
-    check_parallel_supported(model.cfg)
+    the step's global metrics; ``batch`` is the global batch (with an
+    encoder-decoder's ``frames`` or a VLM's ``patches``)."""
     ctx = make_ctx(mesh)
     batch_axes = ctx.batch_axes
     pspecs = model_param_specs(model, mesh)
@@ -190,13 +194,17 @@ def _logits_spec(model, ctx: ParallelCtx, B: int) -> tuple:
 def build_prefill(model, mesh, batch_abstract: dict):
     """Returns (prefill, specs): ``prefill(params, batch)`` gives this
     rank's logits and caches, laid out by ``specs["logits"]`` and
-    ``specs["caches"]``."""
-    check_parallel_supported(model.cfg)
+    ``specs["caches"]``. ``batch`` holds ``tokens`` and, for an
+    encoder-decoder, ``frames`` or, for a VLM, ``patches``, each split over
+    the batch axes as the tokens are; a VLM's sequence counts its image
+    tokens before its text."""
     ctx = make_ctx(mesh)
     batch_axes = ctx.batch_axes
     pspecs = model_param_specs(model, mesh)
     bspecs = batch_specs(model, batch_abstract, batch_axes, mesh)
     B, S = batch_abstract["tokens"].shape
+    if model.cfg.family == "vlm":
+        S += model.cfg.num_image_tokens
     cspecs = cache_specs(model.cache_shapes(B, S), mesh, batch_axes)
 
     def prefill_fn(params, batch):
@@ -210,13 +218,20 @@ def build_prefill(model, mesh, batch_abstract: dict):
 def build_decode_step(model, mesh, batch_abstract: dict):
     """decode: one token for every sequence, the caches (this rank's
     shards) updated in place. ``batch_abstract`` holds ``tokens`` (B, 1),
-    ``caches`` and ``index`` (B,)."""
-    check_parallel_supported(model.cfg)
+    ``caches`` (the global caches, or meta tensors of their shapes) and
+    ``index`` (B,); an encoder-decoder's ``frames`` or a VLM's ``patches``
+    may ride beside them (decode reads neither: the cross cache holds the
+    encoded frames, the caches the patches). MLA's latents are split over
+    the sequence, so the step is told their global length."""
     ctx = make_ctx(mesh)
     batch_axes = ctx.batch_axes
     pspecs = model_param_specs(model, mesh)
     Bt = batch_abstract["tokens"].shape[0]
     cspecs = cache_specs(batch_abstract["caches"], mesh, batch_axes)
+    latent = [t for k, t in tree_flatten_with_keys(batch_abstract["caches"])
+              if k.endswith("ckv")]
+    if latent:
+        ctx = dataclasses.replace(ctx, cache_len=latent[0].shape[-2])
 
     def decode_fn(params, tokens, caches, index):
         return model.decode_step(params, tokens, caches, index, ctx)

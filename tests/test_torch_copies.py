@@ -5,15 +5,16 @@ an absolute import of the reference package becomes a relative one (every
 copy sits one package below ``repro_torch``, as its original sits below
 ``repro``), and every other ``repro.`` (docstrings, CLI program names,
 error messages, doctests) becomes ``repro_torch.``. A line the port changed
-beyond that is a repair and is listed in :data:`REPAIRS` with the reason;
-any other difference (a line, or the count of lines) is drift and fails
-here.
+or added beyond that is a repair and is listed in :data:`REPAIRS` with the
+reason; any other difference (a changed, added or dropped line) is drift
+and fails here.
 
 The copies' command lines run with the reference absent: ``python -m
 repro_torch.dist.remote_worker --help``, ``python -m repro_torch.analysis.lint
 --help`` and ``python -m repro_torch.analysis.fuzz --quick`` load no module
 of ``repro`` or JAX.
 """
+import difflib
 import re
 import subprocess
 import sys
@@ -52,14 +53,37 @@ COPIES = (
     "analysis/races.py",
     "analysis/verify.py",
     "analysis/fuzz.py",
+    "testing.py",
 )
 
-# path -> the port's lines that a repair or a rewording changed (each in
-# place of the rewritten reference's line at the same position), with the
-# reason in the comment above each
+# path -> the port's lines that a repair or a rewording changed or added,
+# with the reason in the comment above each
 REPAIRS = {
     # wording of a docstring
     "core/graph.py": ["    consumers receive plain values. The graph-building API mirrors"],
+    # ROADMAP F13: a worker forked after the owner's resource tracker started
+    # shares it, and its unregister after attaching a pooled segment dropped
+    # the owner's registration, so the owner's unlink made the tracker print
+    # KeyError tracebacks (from the second process pool of a process on).
+    # The owner now starts the tracker before any worker forks, so every
+    # worker shares it, and an attach leaves the owner's registration alone.
+    "dist/shm_arena.py": [
+        "from multiprocessing import resource_tracker, shared_memory",
+        "        if not attach_only:",
+        "            # the owner's resource tracker runs before any worker forks, so",
+        "            # every worker shares it: a worker's attach then registers a",
+        "            # name the owner already holds, and must not unregister it",
+        "            resource_tracker.ensure_running()",
+        "            seg = shared_memory.SharedMemory(name=ref.name)  # the owner unlinks it",
+    ],
+    # the shim's docstring names its own module: the rewrite's relative
+    # import is for a copy one package below, and this one sits at the top;
+    # and the wording of the composite's inner function's name
+    "testing.py": [
+        "        from repro_torch.testing import given, settings, st",
+        "        def strategy_of(*args: Any, **kw: Any) -> Strategy:",
+        "        return strategy_of",
+    ],
     # wording of the section comment over the CLI's entry point
     "analysis/lint.py": [
         "# -- command line --------------------------------------------------------------",
@@ -76,15 +100,19 @@ def rewrite(src: str) -> str:
 
 
 def _drift(rel: str) -> list:
-    """(line number, rewritten reference line, port line) wherever the two
-    differ in a line the repairs do not list."""
+    """(port line number, rewritten reference lines, port lines) of every
+    run of lines where the two differ, unless the run replaces or adds
+    lines that the repairs list (a run that drops lines and adds none is
+    drift)."""
     want = rewrite((REF / rel).read_text()).splitlines()
     got = (PORT / rel).read_text().splitlines()
-    if len(want) != len(got):
-        return [(0, f"{len(want)} lines", f"{len(got)} lines")]
     listed = set(REPAIRS.get(rel, ()))
-    return [(i + 1, a, b) for i, (a, b) in enumerate(zip(want, got))
-            if a != b and b not in listed]
+    out = []
+    for tag, i1, i2, j1, j2 in difflib.SequenceMatcher(None, want, got,
+                                                       autojunk=False).get_opcodes():
+        if tag != "equal" and (j1 == j2 or any(b not in listed for b in got[j1:j2])):
+            out.append((j1 + 1, want[i1:i2], got[j1:j2]))
+    return out
 
 
 @pytest.mark.parametrize("rel", COPIES)

@@ -217,3 +217,37 @@ def test_freelist_keyed_by_requested_bucket_not_os_size():
         assert ref2.name == ref.name  # reused even if seg.size were rounded
     finally:
         arena.close()
+
+
+_TWO_POOLS = """
+import numpy as np
+import repro_torch.core as core
+
+for _ in range(2):
+    with core.Executor(2, backend="process") as ex:
+        g = core.TaskGraph("edges")
+        src = g.add(lambda: np.arange(40960, dtype=np.float64), name="src")
+        sq = g.then(src, lambda a: a * a, name="sq")
+        ex.run(g).result(60)
+        assert float(sq.result[-1]) == 40959.0 ** 2
+print("ok")
+"""
+
+
+def test_second_process_pool_leaves_stderr_empty():
+    """ROADMAP F13: two process pools in turn, each moving an array edge
+    value through the arena (a pooled segment a worker attaches), print
+    nothing on stderr. Before the repair, the resource tracker that the
+    second pool's workers share with their parent printed ``KeyError:
+    '/repro_a_...'`` tracebacks as the parent unlinked its segments."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    proc = subprocess.run([sys.executable, "-c", _TWO_POOLS], capture_output=True, text=True,
+                          timeout=120, env=dict(os.environ, PYTHONPATH=str(src)))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+    assert proc.stderr == ""

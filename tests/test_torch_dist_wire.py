@@ -310,7 +310,7 @@ try:
     from hypothesis import given, settings
     from hypothesis import strategies as st
 except ImportError:
-    from repro.testing import given, settings, st
+    from repro_torch.testing import given, settings, st
 
 
 @st.composite

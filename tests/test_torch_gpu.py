@@ -1102,14 +1102,14 @@ def test_capture_survives_the_collector_freeing_a_graph():
 def _stacked_numpy(cfg, params) -> dict:
     """The port's params as the reference lays them out (each layer group's
     leaves stacked), numpy: what ``bridge.params_from_jax`` takes."""
-    from repro_torch.models.lm import stack_plan
+    from repro_torch.models.lm import encoder_plan, stack_plan
     from repro_torch.tree import tree_map
 
     tree = tree_map(lambda t: t.detach().numpy(), params.tree())
-    for grp in stack_plan(cfg):
-        if grp.kind == "scan":
-            tree["layers"][grp.name] = tree_map(lambda *xs: np.stack(xs),
-                                                *tree["layers"][grp.name])
+    for key, plan in (("layers", stack_plan(cfg)), ("enc_layers", encoder_plan(cfg) or ())):
+        for grp in plan:
+            if grp.kind == "scan":
+                tree[key][grp.name] = tree_map(lambda *xs: np.stack(xs), *tree[key][grp.name])
     return tree
 
 
@@ -1254,6 +1254,80 @@ def test_sharded_steps_on_four_cards_match_one_cpu(mesh, tmp_path):
         writer, *others = save["peak_growth_bytes"]
         assert writer >= save["tree_bytes"], save
         assert max(others) <= save["tree_bytes"] // 2, save
+
+
+# the families' four-card overrides: head dim 32 where K1 runs at the
+# reduced head dim 16 (its instantiations take 32, 64, 128, 256 and MLA's
+# Dqk=192/Dv=128, which deepseek-v2's widen to)
+FAMILY_CARD_OVERRIDES = {
+    "hymba-1.5b": {"head_dim": 32}, "whisper-medium": {"head_dim": 32},
+    "paligemma-3b": {"head_dim": 32}, "tinyllama-1.1b": {"head_dim": 32},
+    "granite-moe-1b-a400m": {"head_dim": 32},
+    "deepseek-v2-236b": {"qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+                         "v_head_dim": 128},
+}
+
+
+def _families_on_four_ranks(mesh: tuple, tmp_path, device_type: str) -> None:
+    """``tests/test_torch_parallel_families.py``'s group of ``mesh`` on four
+    ranks against the port's single-device results on the CPU."""
+    import pickle
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import test_torch_parallel as par
+    import test_torch_parallel_families as fam
+
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.tree import tree_flatten_with_keys
+
+    inp, want = fam.port_reference(mesh, FAMILY_CARD_OVERRIDES, _stacked_numpy)
+    archs, moe, trainers = fam.MESHES[mesh]
+    singles = {}
+    for arch in fam.TRAINER_ARCHS if trainers else ():
+        # the single-device Trainer on the ranks' device type: its init
+        # draws from that device's generator, as each rank's Trainer does
+        cfg = get_reduced(arch).replace(dtype="float32", **FAMILY_CARD_OVERRIDES.get(arch, {}))
+        dev = "cuda:0" if device_type == "cuda" else "cpu"
+        with Trainer(cfg, TrainerConfig(**fam.TRAINER), str(tmp_path / f"single_{arch}"),
+                     data_source=fam._trainer_source(cfg), device=dev) as tr:
+            run = tr.run(resume=False)
+        singles[arch] = ([r["loss"] for r in run["metrics"]],
+                         {k: t.detach().cpu().numpy() for k, t in tree_flatten_with_keys(
+                             run["params"].tree())})
+    (tmp_path / "inputs.pkl").write_bytes(pickle.dumps(inp))
+    res = par._spawn(mesh, tmp_path, str(tmp_path / "inputs.pkl"), device_type=device_type,
+                     module="test_torch_parallel_families")
+    tol = dict(atol=1e-4, rtol=1e-4)  # the four-card dense test's prefill tolerance
+    for arch in archs:
+        if "train" in want[arch]:
+            fam.check_train(res[arch]["train"], want[arch]["train"])
+        fam.check_prefill(res[arch]["prefill"], want[arch]["prefill"], **tol)
+        fam.check_decode(res[arch]["decode"], want[arch]["decode"], cache_tol=tol)
+    if moe:
+        fam.check_moe(res["moe"]["dense"], want["moe"]["dense"])
+        drops = want["moe"]["drops"][mesh[1:]]
+        assert drops["dropped"] > 0
+        fam.check_moe(res["moe"]["drops"], drops)
+    for arch, (losses, params) in singles.items():
+        fam.check_trainer(res["trainer"][arch], losses, params)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh", [(1, 2, 2), (1, 1, 4), (2, 1, 2)],
+                         ids=["2x2", "1x4", "pods_2x1x2"])
+def test_families_on_four_cards_match_one_cpu(mesh, tmp_path):
+    """Every family under a mesh, each rank on its own card over NCCL (the
+    kernels on the local heads), held against the port's single-device
+    results on the CPU: on (2, 2) and (1, 4) deepseek-v2 (prefill and
+    decode: its K1-bwd at 192/128 is not built), mamba2, hymba, whisper and
+    paligemma (train step, prefill, decode), deepseek-v2's ``moe_ep`` with
+    its experts' hidden dim on data, and on (2, 2) two ``Trainer(mesh=)``
+    steps of mamba2 and whisper; on the multi-pod (2, 1, 2), tinyllama and
+    granite-moe."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices: the sharded steps span four cards")
+    _families_on_four_ranks(mesh, tmp_path, "cuda")
 
 
 @pytest.mark.gpu

@@ -250,14 +250,17 @@ def _save_host_peaks(rank: int, dev, mesh, tmp: str) -> dict:
     return {"tree_bytes": nbytes, "peak_growth_bytes": peaks}
 
 
-def _spawn(mesh: tuple, tmp, inputs: str, device_type: str = "cpu") -> dict:
+def _spawn(mesh: tuple, tmp, inputs: str, device_type: str = "cpu",
+           module: str = "test_torch_parallel") -> dict:
+    """One group of ``WORLD`` ranks, each running ``module._worker(rank,
+    *mesh, store, inputs, out, device_type)``; rank 0's results."""
     store, out = str(tmp / "store"), str(tmp / "results.pkl")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
-    code = ("import sys; sys.path.insert(0, sys.argv[1]); import test_torch_parallel as t; "
-            "t._worker(*map(int, sys.argv[2:5]), *sys.argv[5:])")
+    code = (f"import sys; sys.path.insert(0, sys.argv[1]); import {module} as t; "
+            "n = int(sys.argv[2]); t._worker(*map(int, sys.argv[3:4 + n]), *sys.argv[4 + n:])")
     procs = [subprocess.Popen(
-        [sys.executable, "-c", code, os.path.dirname(os.path.abspath(__file__)), str(rank),
-         str(mesh[0]), str(mesh[1]), store, inputs, out, device_type],
+        [sys.executable, "-c", code, os.path.dirname(os.path.abspath(__file__)),
+         str(len(mesh)), str(rank), *map(str, mesh), store, inputs, out, device_type],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for rank in range(WORLD)]
     logs = []
     try:
@@ -373,7 +376,7 @@ def _stack_port(tree: dict) -> dict:
     groups: dict = {}
     for key, arr in tree.items():
         parts = key.split(".")
-        if parts[0] == "layers" and parts[2].isdigit():
+        if parts[0] in ("layers", "enc_layers") and parts[2].isdigit():
             groups.setdefault(".".join(parts[:2] + parts[3:]), {})[int(parts[2])] = arr
         else:
             groups[key] = arr
@@ -624,17 +627,3 @@ def test_moe_apply_without_expert_parallel_raises():
     ctx = ParallelCtx(_ShapeMesh(data=1, model=1), expert_parallel=False)
     with pytest.raises(NotImplementedError, match="expert parallel"):
         moe_apply(get_reduced("granite-moe-1b-a400m"), {}, torch.zeros(1, 2, 4), ctx)
-
-
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "mamba2-1.3b", "hymba-1.5b",
-                                  "whisper-medium", "paligemma-3b"])
-def test_families_after_this_slice_raise_under_a_mesh(arch):
-    from repro_torch.configs import get_reduced
-    from repro_torch.models import build_model
-    from repro_torch.parallel.steps import build_train_step
-
-    model = build_model(get_reduced(arch).replace(dtype="float32"), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_train_step(model, object(), None, None, {})
-    with pytest.raises(NotImplementedError, match="later slice"):
-        model.loss(None, {}, ctx=object())

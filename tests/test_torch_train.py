@@ -387,11 +387,27 @@ def test_watchdog_fires(tmp_path):
 
 
 def test_trainer_mesh_and_default_device(tmp_path):
-    # the dense and GQA-MoE decoders train on a mesh (tests/test_torch_parallel.py);
-    # the SSM family under a mesh waits for a later slice
+    # every family trains on a mesh (tests/test_torch_parallel{,_families}.py):
+    # here the SSM family on a one-rank gloo mesh, step for step with one device
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
     ssm = get_reduced("mamba2-1.3b").replace(dtype="float32")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Trainer(ssm, TrainerConfig(), str(tmp_path), mesh=object(), device="cpu")
+    tcfg = TrainerConfig(num_steps=2, log_every=1, seq_len=16, global_batch=2, lr=1e-3)
+    runs = {}
+    dist.init_process_group("gloo", rank=0, world_size=1, store=dist.HashStore())
+    try:
+        for name, mesh in (("mesh", make_host_mesh(1, device_type="cpu")), ("single", None)):
+            with Trainer(ssm, tcfg, str(tmp_path / name), mesh=mesh, device="cpu") as tr:
+                runs[name] = tr.run(resume=False)
+    finally:
+        dist.destroy_process_group()
+    assert [r["loss"] for r in runs["mesh"]["metrics"]] == [
+        r["loss"] for r in runs["single"]["metrics"]]
+    for a, b in zip(tree_leaves(runs["mesh"]["params"].tree()),
+                    tree_leaves(runs["single"]["params"].tree())):
+        assert torch.equal(a, b)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(tiny_cfg(), TrainerConfig(), str(tmp_path))
