@@ -11,8 +11,10 @@ each, started together) and holds each against its plain PyTorch version on
 the card in bf16 (the served and trained designs) and f32 (the parity
 designs): flash attention's backward also at the training shapes of
 tinyllama, hymba, whisper (encoder S=1500, cross-attention Sq=448 over
-Sk=1500, decoder causal S=448) and paligemma (Dqk=Dv=256 under the prefix
-span, its own instantiations; the build fails if they spill), in bf16 also
+Sk=1500, decoder causal S=448), paligemma (Dqk=Dv=256 under the prefix
+span, its own instantiations; the build fails if they spill) and, in both
+dtypes with two launches bit for bit, deepseek-v2 (Dqk=192, Dv=128, its
+own instantiation, at the ``deepseek_train`` phase's sequence), in bf16 also
 in ulps, beside a lower-precision control and SDPA's own backward, the SSD
 scan's backward over the scan's sweep and at
 mamba2's and hymba's training shapes (two launches bit for bit; in bf16 also
@@ -67,7 +69,20 @@ and the MoE aux loss, that every leaf took a gradient, its master moved
 and every bf16 leaf is its master rounded, the AdamW state and the final
 checkpoint, saved into ``build/`` and deleted), and holds each model's
 full-width f32 gradients through the kernels against those through the
-plain versions. Last, the parallelism layer (``repro_torch.parallel``) on
+plain versions. Then deepseek-v2-236b (MLA and MoE) trains at full width on
+the card (``deepseek_train``): its depth and sequence from the dry run
+(``repro_torch.launch.dryrun``, run on the host in a process of its own
+beside the card's phases: the deepest depth, at least its dense layer 0
+and one MoE layer, whose predicted peak leaves 10 GB of the card free,
+then the longest of S=2048, 1024 and 512 that does), B=1, AdamW's moments
+in bf16 (the reference's rule over 1e11 parameters), a few bf16 steps of
+``Trainer``'s step with the train cells' gates, tokens/s, the model-FLOP
+share, the peak beside the prediction and a traced step, then its f32
+gradients at depth 2, S=256 through the kernels against the plain
+versions'. The ``dryrun`` phase prints the dry run's predicted peak of
+every train cell beside the peak its phase measured, and one full-width
+cell on a fake world of 256 ranks (tinyllama ``train_4k`` on 16x16).
+Last, the parallelism layer (``repro_torch.parallel``) on
 an NCCL process group of one rank and its (data=1, model=1) mesh: the
 sharded f32 train step of tinyllama (B=1, S=256) against the single-device
 Trainer step (1e-5 scaled), granite-moe's expert-parallel step at capacity
@@ -351,31 +366,17 @@ def _times(kernel, plain, library, iters: int) -> dict:
     return out
 
 
-def _visible_pairs(Sq, Sk, causal, window=None, prefix_len=None) -> int:
-    """The (q, k) pairs a prefill mask leaves visible, queries and keys
-    from position 0: all Sq·Sk without ``causal`` (whisper's encoder and
-    cross-attention, Sq != Sk there); with it, key k is seen by query q
-    when k <= q or k < ``prefix_len``, and k > q - ``window``."""
-    if not causal:
-        return Sq * Sk
-    pairs = 0
-    for q in range(Sq):
-        hi = min(Sk, max(q + 1, prefix_len or 0))
-        lo = 0 if window is None else max(0, q - window + 1)
-        pairs += max(0, hi - lo)
-    return pairs
-
-
 def _attention_bound(B, H, KV, Sq, Sk, Dh, elem_bytes, causal, peak_flops, Dv=None,
                      prefix_len=None, window=None):
     """Least time for the work: each input read once, the output written
     once; FLOPs over the (q, k) pairs the mask leaves visible
-    (:func:`_visible_pairs`), 2 Dh for Q·Kᵀ and 2 Dv for P·V per pair and
+    (``analysis.roofline.visible_pairs``), 2 Dh for Q·Kᵀ and 2 Dv for P·V per pair and
     head."""
+    from repro_torch.analysis.roofline import attention_cost
+
     Dv = Dh if Dv is None else Dv
-    pairs = _visible_pairs(Sq, Sk, causal, window, prefix_len)
-    flops = 2 * B * H * (Dh + Dv) * pairs
-    nbytes = elem_bytes * (B * H * Sq * (Dh + Dv) + B * KV * Sk * (Dh + Dv))
+    flops, nbytes = attention_cost(B, H, KV, Sq, Sk, Dh, Dv, elem_bytes, causal=causal,
+                                   window=window, prefix_len=prefix_len)
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -383,6 +384,9 @@ def _attention_bound(B, H, KV, Sq, Sk, Dh, elem_bytes, causal, peak_flops, Dv=No
 # deepseek-v2's expanded MLA prefill at full width: H = KV = 128, Dqk = 128
 # nope + 64 rope, Dv = 128 (the kernels phase's check and timing)
 MLA_K1 = dict(B=1, H=128, KV=128, S=512, Dh=192, Dv=128)
+# its training attention (K1-bwd's 192/128 instantiation), at the
+# deepseek_train phase's B and sequence
+DEEPSEEK_TRAIN_ATTN = dict(B=1, H=128, KV=128, Dh=192, Dv=128)
 # the enc-dec and VLM prefills' K1 shapes at full width, B=4 (the kernels
 # phase's checks and timings): paligemma's gemma backbone (MQA, Dh=256,
 # the 256 image tokens a prefix-LM span before a 64-token prompt), and
@@ -400,8 +404,7 @@ ENCDEC_VLM_K1 = (
 
 def _flash_cases() -> list:
     """K1's sweep, each case in bf16 and f32: (label, B, H, KV, Sq, Sk, Dh,
-    causal, window, k_len, model_layout, dtype[, Dv[, prefix_len]]); a case
-    with a Dv entry has no backward kernel (phase_flash_bwd skips it)."""
+    causal, window, k_len, model_layout, dtype[, Dv[, prefix_len]])."""
     import torch
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -437,6 +440,10 @@ def _flash_cases() -> list:
              True, dt, 128),
             ("MLA Dqk=192 Dv=128 k_len=100 Sk=128", 2, 4, 4, 128, 128, 192, True, None, 100,
              False, dt, 128),
+            ("MLA Dqk=192 Dv=128 B=2 ragged S=257", 2, 8, 8, 257, 257, 192, True, None, None,
+             True, dt, 128),
+            ("MLA Dqk=192 Dv=128 B=2 k_len=200 S=257", 2, 8, 8, 257, 257, 192, True, None, 200,
+             True, dt, 128),
         ]
     # the enc-dec and VLM paths: paligemma's Dh=256 with its prefix span
     # (and the span's tile edges), whisper's non-causal forms at Dh=64
@@ -647,7 +654,8 @@ def _ulps(got, want) -> float:
 def _bwd_bf16_control(q, k, v, o, lse, do, *, causal, window, k_len, prefix_len=None):
     """A lower-precision backward, for reading what the bf16 tolerance
     rejects: the plain formulas with S, P and dS rounded to bf16 before
-    their products, f32 accumulation. (B, H, S, Dh) layout."""
+    their products, f32 accumulation. (B, H, S, D) layout, q and k Dqk
+    wide, v, o and do Dv wide."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -657,7 +665,7 @@ def _bwd_bf16_control(q, k, v, o, lse, do, *, causal, window, k_len, prefix_len=
     G, scale, bf16 = H // KV, Dh**-0.5, torch.bfloat16
 
     def grouped(t):
-        return t.reshape(B, KV, G, Sq, Dh).to(bf16)
+        return t.reshape(B, KV, G, Sq, t.shape[-1]).to(bf16)
 
     qg, og, dog, kb, vb = grouped(q), grouped(o), grouped(do), k.to(bf16), v.to(bf16)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, kb).float() * scale
@@ -744,15 +752,17 @@ def _profiled_ms(fn, calls: int = 10) -> dict:
 
 
 def _attention_bwd_bound(B, H, KV, Sq, Sk, Dh, elem_bytes, peak_flops, causal=True,
-                         prefix_len=None, window=None):
-    """Least time for the backward (Dqk = Dv = Dh): q, k, v, o, dO and the
-    f32 lse read once, dq, dk, dv written once; FLOPs of its five products
-    (S and dP recomputed, dV, dK, dQ), 2.5x the forward's, over the pairs
-    the mask leaves visible (:func:`_visible_pairs`)."""
-    pairs = _visible_pairs(Sq, Sk, causal, window, prefix_len)
-    flops = 10 * B * H * Dh * pairs
-    nbytes = elem_bytes * (3 * B * H * Sq * Dh + 2 * B * KV * Sk * Dh) + 4 * B * H * Sq \
-        + elem_bytes * (B * H * Sq * Dh + 2 * B * KV * Sk * Dh)
+                         prefix_len=None, window=None, Dv=None):
+    """Least time for the backward (Dqk = ``Dh``, Dv = Dh if None): q, k, v,
+    o, dO and the f32 lse read once, dq, dk, dv written once; FLOPs of its
+    five products over the pairs the mask leaves visible
+    (``analysis.roofline.visible_pairs``): S, dK and dQ 2 Dqk a pair and head, dP and dV
+    2 Dv (at Dqk = Dv 2.5x the forward's)."""
+    from repro_torch.analysis.roofline import attention_bwd_cost
+
+    Dv = Dh if Dv is None else Dv
+    flops, nbytes = attention_bwd_cost(B, H, KV, Sq, Sk, Dh, Dv, elem_bytes, causal=causal,
+                                       window=window, prefix_len=prefix_len)
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -801,7 +811,7 @@ def _sdpa_bwd(q, k, v, do, *, causal, window=None, prefix_len=None):
                    + (" with the boolean mask" if masked else ""))
 
 
-def _bwd_timing(q, k, v, o, lse, do, kw, B, H, KV, Sq, Sk, Dh) -> dict:
+def _bwd_timing(q, k, v, o, lse, do, kw, B, H, KV, Sq, Sk, Dh, Dv=None) -> dict:
     """K1-bwd at one shape (model layout, bf16): eager ms, device ms by
     graph replay and by profiler, the plain version's ms, SDPA's autograd
     backward (``library_ms``, ``library_device_ms`` from a profiler trace)
@@ -824,18 +834,70 @@ def _bwd_timing(q, k, v, o, lse, do, kw, B, H, KV, Sq, Sk, Dh) -> dict:
     t["library_device_ms"] = None if library is None else sum(_profiled_ms(library).values())
     t["bound_ms"], t["bound_by"] = _attention_bwd_bound(
         B, H, KV, Sq, Sk, Dh, 2, PEAK_BF16_FLOPS, causal=kw["causal"],
-        prefix_len=kw.get("prefix_len"), window=kw.get("window"))
+        prefix_len=kw.get("prefix_len"), window=kw.get("window"), Dv=Dv)
     return t
 
 
-def phase_flash_bwd() -> dict:
+def _deepseek_bwd(S: int) -> dict:
+    """K1-bwd at deepseek-v2's training attention (:data:`DEEPSEEK_TRAIN_ATTN`
+    at sequence ``S``, causal, Dqk=192, Dv=128, its own instantiation): in
+    bf16 and f32 against the plain version (bf16 also in ulps beside the
+    lower-precision control, which must read above the gate), two launches
+    equal bit for bit, and in bf16 timed beside the plain version, SDPA's
+    autograd backward (which takes Dv != Dqk) and the bound."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    m = DEEPSEEK_TRAIN_ATTN
+    B, H, KV, Dh, Dv = m["B"], m["H"], m["KV"], m["Dh"], m["Dv"]
+    kw = dict(causal=True, window=None, k_len=None)
+    label = f"deepseek train B={B} H={H} KV={KV} Dqk={Dh} Dv={Dv} S={S} causal"
+    out = {"at": label}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        q, k, v = _qkv(B, H, KV, S, S, Dh, dt, seed=1300, model_layout=True, Dv=Dv)
+        do = torch.randn((B, S, H, Dv), generator=torch.Generator(device="cuda").manual_seed(1301),
+                         device=q.device).to(dt)
+        sdpa = None
+        if dt == torch.bfloat16:
+            sdpa, _ = _sdpa_bwd(q, k, v, do, causal=True)
+        o, lse, r = _bwd_case(q, k, v, do, kw, True, library=None if sdpa is None else (
+            lambda: [g.transpose(1, 2) for g in sdpa()]))
+        del sdpa
+        with torch.no_grad():
+            first = fa.flash_attention_bwd(q, k, v, o, lse, do, bshd=True, **kw)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, bshd=True, **kw)
+        r["bitwise_repeat"] = all(torch.equal(a, b) for a, b in zip(first, again))
+        del first, again
+        emit("kernels", kernel="flash_attention_bwd", case=label, dtype=name,
+             shape=[B, H, KV, S, S, Dh, Dv], **r)
+        check(r["ok"], f"flash_attention_bwd {label} {name}: {r}")
+        check(r["bitwise_repeat"], f"flash_attention_bwd {label} {name}: two launches differ")
+        if dt == torch.bfloat16:
+            check(max(r["control_ulp_err"].values()) > BWD_ULP_TOL,
+                  f"the bf16 control passes the ulp tolerance at {label}: {r['control_ulp_err']}")
+            r.update(_bwd_timing(q, k, v, o, lse, do, kw, B, H, KV, S, S, Dh, Dv=Dv))
+            emit("kernels", kernel="flash_attention_bwd", timing=label,
+                 **{k_: r[k_] for k_ in ("ms", "plain_ms", "device_ms", "kernel_profiled_ms",
+                                         "library_ms", "library_device_ms", "library_note",
+                                         "bound_ms", "bound_by")})
+        out[name] = r
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_flash_bwd(deepseek_seq: int) -> dict:
     """K1's backward against its plain version over the forward's sweep
-    (every case with Dqk = Dv: gemma's 256/256 with the prefix span and
-    whisper's non-causal forms included), in both dtypes, with the forward's
-    output and lse checked too, then the same in bf16 at the train paths'
-    own shapes, each timed beside the plain version, the autograd backward
-    of PyTorch's SDPA and its bound: tinyllama's, hymba's two masks, and
-    the enc-dec and VLM cells' four (:data:`ENCDEC_VLM_BWD`)."""
+    (gemma's 256/256 with the prefix span, MLA's 192/128 and whisper's
+    non-causal forms included), in both dtypes, with the forward's output
+    and lse checked too, then the same in bf16 at the train paths' own
+    shapes, each timed beside the plain version, the autograd backward of
+    PyTorch's SDPA and its bound: tinyllama's, hymba's two masks, the
+    enc-dec and VLM cells' four (:data:`ENCDEC_VLM_BWD`) and, in both
+    dtypes, deepseek-v2's at the ``deepseek_train`` phase's sequence
+    (:func:`_deepseek_bwd`)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -843,7 +905,7 @@ def phase_flash_bwd() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst = worst_abs = worst_ulp = 0.0
-    dh256 = {}
+    dh256, mla = {}, {}
 
     def record(r, key=None):
         nonlocal worst, worst_abs, worst_ulp
@@ -855,19 +917,20 @@ def phase_flash_bwd() -> dict:
 
     for i, case in enumerate(_flash_cases()):
         label, B, H, KV, Sq, Sk, Dh, causal, window, k_len, model_layout, dt = case[:12]
+        Dv = case[12] if len(case) > 12 else Dh
         prefix = case[13] if len(case) > 13 else None
-        if len(case) > 12 and case[12] != Dh:  # Dqk != Dv: no backward kernel yet
-            continue
-        q, k, v = _qkv(B, H, KV, Sq, Sk, Dh, dt, seed=500 + i, model_layout=model_layout)
+        q, k, v = _qkv(B, H, KV, Sq, Sk, Dh, dt, seed=500 + i, model_layout=model_layout, Dv=Dv)
         g = torch.Generator(device="cuda").manual_seed(900 + i)
-        do = torch.randn(q.shape, generator=g, device=q.device).to(dt)
+        do = torch.randn((*q.shape[:3], Dv), generator=g, device=q.device).to(dt)
         kw = dict(causal=causal, window=window, k_len=k_len, prefix_len=prefix)
         _, _, r = _bwd_case(q, k, v, do, kw, model_layout)
         name = str(dt).split(".")[-1]
         emit("kernels", kernel="flash_attention_bwd", case=label, dtype=name,
-             shape=[B, H, KV, Sq, Sk, Dh], prefix_len=prefix, **r)
+             shape=[B, H, KV, Sq, Sk, Dh, Dv], prefix_len=prefix, **r)
         check(r["ok"], f"flash_attention_bwd {label} {name}: {r}")
         record(r, name if Dh == 256 else None)
+        if Dv != Dh:
+            mla[name] = max(mla.get(name, 0.0), *r["scaled_err"].values())
         del q, k, v, do
 
     B, H, KV, S, Dh = TRAIN_ATTN
@@ -931,10 +994,15 @@ def phase_flash_bwd() -> dict:
         at_shapes[label] = r
         del q, k, v, o, lse, do
         torch.cuda.empty_cache()
+    deepseek = _deepseek_bwd(deepseek_seq)
+    for name in ("bfloat16", "float32"):
+        record(deepseek[name])
+        mla[name] = max(mla.get(name, 0.0), *deepseek[name]["scaled_err"].values())
     return {"flash_attention_bwd": {"max_scaled_err": worst, "max_abs_err": worst_abs,
                                     "max_ulp_err": worst_ulp, "dh256_max_scaled_err": dh256,
-                                    "timing": t, "train_shape": r_train,
-                                    "train_shapes": at_shapes}}
+                                    "mla_max_scaled_err": mla, "timing": t,
+                                    "train_shape": r_train, "train_shapes": at_shapes,
+                                    "deepseek": deepseek}}
 
 
 def _ssd_inputs(B, S, H, P, N, dtype, seed, laws="wide"):
@@ -970,13 +1038,9 @@ def _ssd_bound(B, S, H, P, N, cl, elem_bytes, peak_flops):
     over the same pairs, the inter-chunk term C state for every chunk but
     the first (which enters with a zero state), and the state update of
     every chunk."""
-    full, rest = divmod(S, cl)
-    chunks = [cl] * full + ([rest] if rest else [])
-    pairs = sum(n * (n + 1) // 2 for n in chunks)
-    entering = S - chunks[0]
-    flops = B * (2 * N * pairs + H * (2 * P * pairs + 2 * N * P * entering + 2 * N * P * S))
-    nbytes = (elem_bytes * (2 * B * S * H * P + 2 * B * S * N) + 4 * (B * S * H + H)
-              + 4 * B * H * P * N)
+    from repro_torch.analysis.roofline import ssd_cost
+
+    flops, nbytes = ssd_cost(B, S, H, P, N, cl, elem_bytes)
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -1075,12 +1139,9 @@ def _ssd_bwd_bound(B, S, H, P, N, cl, elem_bytes, peak_flops):
     every chunk but the first (which enters with a zero state). A count
     that takes the chunk-local dB and dC per head instead adds H 4 N per
     pair, work the head sums show the function does not need."""
-    full, rest = divmod(S, cl)
-    chunks = [cl] * full + ([rest] if rest else [])
-    pairs = sum(n * (n + 1) // 2 for n in chunks)
-    entering = S - chunks[0]
-    flops = B * (6 * N * pairs + H * (4 * P * pairs + 8 * P * N * S + 2 * P * N * entering))
-    nbytes = elem_bytes * (3 * B * S * H * P + 4 * B * S * N) + 4 * (2 * B * S * H + 2 * H)
+    from repro_torch.analysis.roofline import ssd_bwd_cost
+
+    flops, nbytes = ssd_bwd_cost(B, S, H, P, N, cl, elem_bytes)
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -2005,78 +2066,6 @@ def _launches_per_step(cfg) -> dict:
             "ssd": 2 * ssm, "ssd_bwd": ssm}
 
 
-def _model_flops(cfg, params, B: int, S: int) -> tuple:
-    """Model FLOPs of one step (no remat recompute), ``S`` the text tokens a
-    sample: 6 per parameter and position for the parameter products each
-    position runs. A decoder-side parameter runs over the decoder's
-    positions (a VLM's image patches and text, S otherwise), an
-    encoder-decoder's encoder parameters and its decoder layers'
-    cross-attention K and V projections over the encoder's frames, a VLM's
-    vision projection over its patches, and the head over the text only;
-    the embedding table counts only where the head is tied to it (its
-    forward is a gather, not a product). Without the zero-padded attention
-    heads (``kv_pad_to``: their products are of zeros) and, in each MoE
-    layer, with the ``experts_per_token`` routed experts a token is sent to
-    of the ``num_experts`` (the shared experts and the router all count;
-    the port's ``moe_dense`` runs every expert, which is not counted). Each
-    attention call's two products over the (q, k) pairs its mask leaves
-    visible (causal, within the window on a window layer, the VLM's prefix
-    span; all pairs in the encoder and the cross-attention), forward (2 Dqk
-    + 2 Dv per pair per head) and backward (twice that). The SSD scan's own
-    products are not counted. Returns (FLOPs, formula, the parameters
-    counted, each at its positions, summed over the positions of one
-    sample)."""
-    from repro_torch.models.lm import encoder_plan, stack_plan
-    from repro_torch.tree import tree_flatten_with_keys
-
-    d = cfg.d_model
-    F = cfg.encoder_seq if cfg.is_encdec else 0
-    P = cfg.num_image_tokens if cfg.family == "vlm" else 0
-    S_dec = P + S
-    by_pos: dict = {}  # positions a sample -> parameters run over them
-    for key, leaf in tree_flatten_with_keys(params.tree()):
-        parts = key.split(".")
-        if parts[0].startswith("enc_") or ("cross" in parts and parts[-1] in ("wk", "wv")):
-            pos = F
-        elif parts[0] == "vision_proj":
-            pos = P
-        elif parts[0] == "embed":
-            pos = S if cfg.tie_embeddings else 0
-        elif parts[0] == "lm_head":
-            pos = S
-        else:
-            pos = S_dec
-        by_pos[pos] = by_pos.get(pos, 0) + leaf.numel()
-    idle = 0
-    dqk = dv = cfg.head_dim
-    if cfg.attention == "gqa":  # wq, wo and wk, wv over the padded heads
-        pads = 2 * (cfg.heads_padded - cfg.num_heads) + 2 * (cfg.kv_heads_padded - cfg.num_kv_heads)
-        idle += cfg.num_layers * pads * cfg.head_dim * d
-    elif cfg.attention == "mla":
-        dqk, dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
-    if cfg.is_moe:
-        idle += (sum(g.count for g in stack_plan(cfg) if g.moe)
-                 * (cfg.num_experts - cfg.experts_per_token) * 3 * d * cfg.moe_d_ff)
-    by_pos[S_dec] -= idle
-    attn = 0
-    if cfg.attention != "none":
-        calls = [(g.count, S_dec, S_dec, True, None if g.is_global else cfg.window)
-                 for g in stack_plan(cfg)]
-        if cfg.is_encdec:  # the encoder's layers, and each decoder layer's cross-attention
-            calls += [(g.count, F, F, False, None) for g in encoder_plan(cfg)]
-            calls.append((cfg.num_layers, S_dec, F, False, None))
-        for count, Sq, Sk, causal, window in calls:
-            pairs = _visible_pairs(Sq, Sk, causal, window, P or None)
-            attn += 6 * count * B * cfg.num_heads * (dqk + dv) * pairs
-    formula = ("6*B*sum(N_p*p) + 6*B*H*(Dqk+Dv)*(visible pairs) per attention call; N_p the "
-               "parameters run over p positions a sample (encoder and cross K/V: the frames; "
-               "vision projection: the patches; tied head: the text; the rest: the decoder's "
-               "positions), less the embedding table (untied), zero-padded heads and the routed "
-               "experts a token is not sent to (MoE: experts_per_token of num_experts active)")
-    n_pos = sum(n * pos for pos, n in by_pos.items())
-    return 6 * B * n_pos + attn, formula, n_pos
-
-
 def _stale_leaves(params, opt, init) -> dict:
     """Indices of the leaves (in ``tree_leaves`` order) that training left
     behind. ``no_grad``: the first moment is all zero, so no step gave the
@@ -2085,19 +2074,29 @@ def _stale_leaves(params, opt, init) -> dict:
     ``off_master``: the parameter is not its master rounded. ``at_init``
     (reported, not a fault): the parameter equals its init, as a bf16 leaf
     may where every update stayed under half its ulp (whisper's LayerNorm
-    gains at 1.0, where a step of lr 3e-4 does not move bf16(1.0))."""
+    gains at 1.0, where a step of lr 3e-4 does not move bf16(1.0)).
+    ``init`` is a ``ParamTree`` or its leaves, which may wait on the host:
+    each comes to the parameter's device in turn (a second copy of
+    deepseek-v2's weights would not fit beside its training state)."""
     import torch
 
     from repro_torch.tree import tree_leaves
 
-    leaves = list(zip(tree_leaves(params.tree()), tree_leaves(opt["master"]),
-                      tree_leaves(init.tree()), tree_leaves(opt["m"]), strict=True))
-    return {"no_grad": [k for k, (*_, m1) in enumerate(leaves) if not bool(m1.ne(0).any())],
-            "unchanged": [k for k, (_, m, i, _) in enumerate(leaves)
-                          if torch.equal(m, i.float())],
-            "off_master": [k for k, (p, m, _, _) in enumerate(leaves)
-                           if not torch.equal(p, m.to(p.dtype))],
-            "at_init": [k for k, (p, _, i, _) in enumerate(leaves) if torch.equal(p, i)]}
+    init_leaves = tree_leaves(init.tree()) if hasattr(init, "tree") else init
+    leaves = zip(tree_leaves(params.tree()), tree_leaves(opt["master"]), init_leaves,
+                 tree_leaves(opt["m"]), strict=True)
+    out = {"no_grad": [], "unchanged": [], "off_master": [], "at_init": []}
+    for k, (p, mst, i, m1) in enumerate(leaves):
+        i = i.to(p.device)
+        if not bool(m1.ne(0).any()):
+            out["no_grad"].append(k)
+        if torch.equal(mst, i.float()):
+            out["unchanged"].append(k)
+        if not torch.equal(p, mst.to(p.dtype)):
+            out["off_master"].append(k)
+        if torch.equal(p, i):
+            out["at_init"].append(k)
+    return out
 
 
 def phase_train(arch: str, steps: int) -> dict:
@@ -2110,6 +2109,7 @@ def phase_train(arch: str, steps: int) -> dict:
 
     import torch
 
+    from repro_torch.analysis.roofline import step_model_flops
     from repro_torch.configs import get_config
     from repro_torch.data import to_device
     from repro_torch.runtime import Trainer, TrainerConfig
@@ -2190,7 +2190,7 @@ def phase_train(arch: str, steps: int) -> dict:
         positions = S + (cfg.num_image_tokens if cfg.family == "vlm" else 0)
         frames = cfg.encoder_seq if cfg.is_encdec else 0
         step_s = float(np.median(steps_s[1:]))
-        flops, formula, n_pos = _model_flops(cfg, params, B, S)
+        flops, formula, n_pos = step_model_flops(cfg, params, B, S)
         res = {
             "arch": arch, "dtype": "bfloat16", "steps": steps, "batch": B,
             "seq_len": S, "decoder_positions": positions, "encoder_frames": frames,
@@ -2287,11 +2287,13 @@ def _plain_ssd():
     return ssd_bshp
 
 
-def phase_train_parity(arch: str, B: int, S: int) -> dict:
-    """Loss and every gradient of full-width, full-depth ``arch`` in f32 on
-    the card, through the kernels and then with the model's attention and
-    scan calls patched (here only) to the plain versions; the largest
-    scaled error per leaf group."""
+def phase_train_parity(arch: str, B: int, S: int, depth=None) -> dict:
+    """Loss and every gradient of full-width ``arch`` in f32 on the card
+    (full depth, or ``depth`` decoder layers), through the kernels and then
+    with the model's attention and scan calls patched (here only) to the
+    plain versions; the largest scaled error per leaf group. With a
+    ``depth``, the kernels' gradients wait on the host while the plain run
+    takes the card (deepseek-v2's two layers are 21.4 GB of f32 weights)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2306,6 +2308,8 @@ def phase_train_parity(arch: str, B: int, S: int) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     _release_device_memory()
     cfg = get_config(arch).replace(dtype="float32")
+    if depth is not None:
+        cfg = cfg.replace(num_layers=depth)
     model = build_model(cfg, device="cuda:0")
     params = model.init(seed=0)
     src = (EncDecVLMTokens(cfg, S, B) if arch in TRAIN_TEXT
@@ -2323,6 +2327,9 @@ def phase_train_parity(arch: str, B: int, S: int) -> dict:
         fn.launches = 0
     loss_k, grads_k = loss_and_grads()
     launches = {name: fn.launches for name, fn in counters.items()}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
+    if depth is not None:
+        grads_k = [g.cpu() for g in grads_k]
     kernel_fns = attention_mod.flash_attention, ssm_mod.ssd_bshp
     attention_mod.flash_attention, ssm_mod.ssd_bshp = _plain_attention(), _plain_ssd()
     try:
@@ -2332,14 +2339,14 @@ def phase_train_parity(arch: str, B: int, S: int) -> dict:
     groups = {}  # leaf group (layer index dropped) -> (max abs diff, max abs plain)
     for (key, _), gk, gp in zip(keyed, grads_k, grads_p):
         group = ".".join(part for part in key.split(".") if not part.isdigit())
-        d, m = (gk - gp).abs().max().item(), gp.abs().max().item()
+        d, m = (gk.to(gp.device) - gp).abs().max().item(), gp.abs().max().item()
         d0, m0 = groups.get(group, (0.0, 0.0))
         groups[group] = (max(d, d0), max(m, m0))
     scaled = {g: d / m if m else d for g, (d, m) in groups.items()}
     worst = max(scaled.values())
-    finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
     chunks = -(-S // cfg.ssm_chunk) if cfg.family in ("ssm", "hybrid") else None
-    emit("train_parity", arch=arch, dtype="float32", batch=B, seq_len=S, ssd_chunks=chunks,
+    emit("train_parity", arch=arch, dtype="float32", batch=B, seq_len=S, layers=cfg.num_layers,
+         ssd_chunks=chunks,
          loss_kernels=loss_k, loss_plain=loss_p, launches=launches, scaled_grad_err=scaled,
          worst=worst, tol=PARITY_TOL, finite=finite, phase_s=time.perf_counter() - t_start)
     check(finite and np.isfinite(loss_k), f"{arch}: non-finite loss or gradient through the kernels")
@@ -2352,6 +2359,262 @@ def phase_train_parity(arch: str, B: int, S: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"arch": arch, "worst": worst, "scaled": scaled}
+
+
+# deepseek-v2-236b trained on one card at full width: the depth and S from
+# the dry run (the deepest depth, at least the dense layer 0 and one MoE
+# layer, whose predicted peak leaves DEEPSEEK_FREE_BYTES of the card free,
+# then the longest of DEEPSEEK_SEQS that does at that depth), B=1, AdamW's
+# moments in bf16 (the reference's rule for a config over 1e11 parameters,
+# applied to the full config) and moe_dense, as the single-device reference
+# runs it; its f32 gradient gate at depth 2, B=1, S=256
+DEEPSEEK = "deepseek-v2-236b"
+DEEPSEEK_MIN_DEPTH = 2
+DEEPSEEK_SEQS = (2048, 1024, 512)
+DEEPSEEK_FREE_BYTES = 10e9
+DEEPSEEK_STEPS = 4
+DEEPSEEK_PARITY = (1, 256)
+DRYRUN_LOG = ROOT / "build" / "chip_smoke_dryrun.jsonl"
+# the fake-world cell the dryrun phase runs beside the single-device ones
+DRYRUN_MESH_CELL = ("tinyllama-1.1b", "train_4k", (16, 16))
+
+
+def _train_spec(cfg, B: int, S: int) -> dict:
+    """A train cell's shape as the dry run takes it: ``S`` text tokens, a
+    VLM's patches ahead of them."""
+    extra = cfg.num_image_tokens if cfg.family == "vlm" else 0
+    return {"kind": "train", "seq_len": S + extra, "global_batch": B}
+
+
+def _dryrun_child(total_bytes: int, path: str) -> None:
+    """The dry run's predictions, in a process of their own on the host (it
+    touches no card): deepseek-v2's plan, then each train cell's
+    single-device peak at its shape (AdamW's moments in f32, as ``Trainer``
+    keeps them and the reference's rule gives them under 1e11 parameters),
+    then one cell on a fake world of 256 ranks.
+    One JSON line each into ``path``. It runs at the lowest priority on one
+    thread: beside it the card's phases time host-bound paths (eager
+    prefills, kernel enqueues), which a process competing for the host's
+    cores at their priority slows."""
+    import torch
+
+    os.nice(19)
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import moments_dtype_for, run_cell
+
+    def write(**fields):
+        with open(path, "a") as f:
+            f.write(json.dumps(fields, default=float) + "\n")
+
+    full = get_config(DEEPSEEK)
+    limit = total_bytes - DEEPSEEK_FREE_BYTES
+    preds = {}
+
+    def peak(depth, S):
+        if (depth, S) not in preds:
+            cfg = full.replace(num_layers=depth, dtype="bfloat16")
+            r = run_cell(cfg, "train", _train_spec(cfg, 1, S), None, full_cfg=full,
+                         verbose=False)
+            preds[(depth, S)] = r["memory"]["peak_bytes"]
+        return preds[(depth, S)]
+
+    depth = DEEPSEEK_MIN_DEPTH
+    while depth < full.num_layers and peak(depth + 1, min(DEEPSEEK_SEQS)) <= limit:
+        depth += 1
+    fitting = [S for S in DEEPSEEK_SEQS if peak(depth, S) <= limit]
+    seq = fitting[0] if fitting else min(DEEPSEEK_SEQS)
+    write(kind="deepseek_plan", depth=depth, seq=seq, moments=moments_dtype_for(full),
+          limit_bytes=limit,
+          fits=bool(fitting), predicted_peak_bytes=peak(depth, seq),
+          predictions=[{"depth": d, "seq": S, "peak_bytes": b} for (d, S), b in preds.items()])
+    for arch, _steps in TRAIN_CELLS:
+        cfg = get_config(arch).replace(dtype="bfloat16")
+        S = TRAIN_TEXT.get(arch, TRAIN_KW["seq_len"])
+        r = run_cell(cfg, "train", _train_spec(cfg, TRAIN_KW["global_batch"], S), None,
+                     verbose=False)
+        write(kind="train_cell", arch=arch, result=r)
+    arch, shape, mesh = DRYRUN_MESH_CELL
+    cfg = get_config(arch)
+    r = run_cell(cfg, shape, dict(cfg.shapes()[shape]), mesh, verbose=False)
+    write(kind="mesh_cell", result=r)
+
+
+class DryRuns:
+    """The dry-run process (:func:`_dryrun_child`), started with the script
+    and joined by the ``dryrun`` phase (or killed when the script ends)."""
+
+    def __init__(self) -> None:
+        import multiprocessing
+
+        import torch
+
+        DRYRUN_LOG.parent.mkdir(parents=True, exist_ok=True)
+        DRYRUN_LOG.unlink(missing_ok=True)
+        self.total_bytes = torch.cuda.get_device_properties(0).total_memory
+        self.t0 = time.perf_counter()
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=_dryrun_child, args=(self.total_bytes, str(DRYRUN_LOG)), daemon=True)
+        self.proc.start()
+
+    def lines(self) -> list:
+        return ([json.loads(ln) for ln in DRYRUN_LOG.read_text().splitlines()]
+                if DRYRUN_LOG.exists() else [])
+
+    def wait_for(self, kind: str, timeout: float = 600.0) -> dict:
+        """The first line of ``kind``, waiting for the process to write it."""
+        end = time.perf_counter() + timeout
+        while True:
+            found = [ln for ln in self.lines() if ln["kind"] == kind]
+            if found:
+                return found[0]
+            check(self.proc.is_alive() or self.proc.exitcode == 0,
+                  f"the dry run exited with {self.proc.exitcode} before its {kind} line")
+            check(time.perf_counter() < end, f"no {kind} line from the dry run in {timeout} s")
+            time.sleep(0.5)
+
+    def join(self, timeout: float = 600.0) -> list:
+        self.proc.join(timeout)
+        check(self.proc.exitcode == 0, f"the dry run exited with {self.proc.exitcode}")
+        return self.lines()
+
+    def close(self) -> None:
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join(30)
+
+
+def phase_deepseek_train(plan: dict) -> dict:
+    """deepseek-v2-236b at full width on one card, its depth and S from the
+    dry run's ``plan``: ``DEEPSEEK_STEPS`` bf16 steps of ``Trainer``'s
+    train step (no checkpoint: the state is some 64 GB), with the train
+    cells' gates (finite loss, grad norm and aux loss; every leaf a
+    gradient, its master moved and its bf16 copy the master rounded; K1 and
+    K1-bwd launches a step exact), tokens/s, the model-FLOP share, the peak
+    beside the dry run's prediction and a traced step; then the f32
+    gradient gate at depth 2 (``phase_train_parity``)."""
+    import torch
+
+    from repro_torch.analysis.roofline import step_model_flops
+    from repro_torch.configs import get_config
+    from repro_torch.data import to_device
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    allocated = _release_device_memory()
+    depth, S, B = plan["depth"], plan["seq"], 1
+    cfg = get_config(DEEPSEEK).replace(dtype="bfloat16", num_layers=depth)
+    check(cfg.remat == "full", f"{DEEPSEEK} trains with remat {cfg.remat!r}")
+    emit("deepseek_train", depth=depth, seq_len=S, batch=B, moments=plan["moments"], **allocated)
+    tcfg = TrainerConfig(num_steps=DEEPSEEK_STEPS, seq_len=S, global_batch=B, lr=TRAIN_KW["lr"],
+                         warmup=TRAIN_KW["warmup"], moments_dtype=plan["moments"])
+    tr = Trainer(cfg, tcfg, str(ROOT / "build" / "chip_smoke_deepseek_ckpt"), device="cuda:0")
+    try:
+        counters = _train_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = tr.init_state()
+        init_host = [t.detach().cpu() for t in tree_leaves(state["params"].tree())]
+        for fn in counters.values():
+            fn.launches = 0
+        rows, steps_s = [], []
+        for step in range(DEEPSEEK_STEPS):
+            batch = to_device(tr.data.batch(step), tr.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = tr.train_step(state, batch, step)
+            rows.append({k: float(v) for k, v in metrics.items()})  # waits for the device
+            steps_s.append(time.perf_counter() - t0)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        params, opt = state["params"], state["opt"]
+        check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows),
+              f"{DEEPSEEK}: a non-finite loss or grad norm: {rows}")
+        check(all(np.isfinite(r["aux"]) and r["aux"] > 0 for r in rows),
+              f"{DEEPSEEK}: aux losses {[r['aux'] for r in rows]}")
+        stale = _stale_leaves(params, opt, init_host)
+        check(not stale["no_grad"], f"{DEEPSEEK}: leaves took no gradient: {stale}")
+        check(not stale["unchanged"], f"{DEEPSEEK}: master leaves unchanged: {stale}")
+        check(not stale["off_master"], f"{DEEPSEEK}: leaves differ from their master: {stale}")
+        dtypes = {part: sorted({str(t.dtype) for t in tree_leaves(opt[part])})
+                  for part in ("m", "v", "master")}
+        check(dtypes == {"m": ["torch.bfloat16"], "v": ["torch.bfloat16"],
+                         "master": ["torch.float32"]}, f"{DEEPSEEK}: state dtypes {dtypes}")
+        per_step = _launches_per_step(cfg)
+        for name, n in per_step.items():
+            check(launches[name] == n * DEEPSEEK_STEPS,
+                  f"{DEEPSEEK}: {name} launched {launches[name]} times in {DEEPSEEK_STEPS} "
+                  f"steps, want {n} a step")
+        batch = to_device(tr.data.batch(DEEPSEEK_STEPS), tr.device)
+        trace = _traced(lambda: tr.train_step(state, batch, DEEPSEEK_STEPS), top=6)
+        step_s = float(np.median(steps_s[1:]))
+        flops, _formula, _n_pos = step_model_flops(cfg, params, B, S)
+        n_params = sum(p.numel() for p in params.parameters())
+        res = {
+            "arch": DEEPSEEK, "dtype": "bfloat16", "layers": depth, "batch": B, "seq_len": S,
+            "moments": plan["moments"], "params": n_params, "steps": DEEPSEEK_STEPS,
+            "loss": [r["loss"] for r in rows], "aux": [r["aux"] for r in rows],
+            "grad_norm": [r["grad_norm"] for r in rows],
+            "step_s": steps_s, "step_s_median_after_first": step_s,
+            "tokens_per_s": B * S / step_s, "model_flops_per_step": flops,
+            "model_flop_share_of_989_tflops": flops / step_s / PEAK_BF16_FLOPS,
+            "peak_mem_bytes": peak, "predicted_peak_bytes": plan["predicted_peak_bytes"],
+            "peak_over_predicted": peak / plan["predicted_peak_bytes"],
+            "launches": launches, "launches_per_step": {k: v / DEEPSEEK_STEPS
+                                                        for k, v in launches.items()},
+            "bf16_leaves_at_init": len(stale["at_init"]),
+        }
+        res.update({f"step_{k}": v for k, v in trace.items()})
+        emit("deepseek_train", **res)
+    finally:
+        tr.close()
+    del tr, state, params, opt, init_host
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["parity"] = phase_train_parity(DEEPSEEK, *DEEPSEEK_PARITY, depth=DEEPSEEK_MIN_DEPTH)
+    res["phase_s"] = time.perf_counter() - t_start
+    emit("deepseek_train", phase_s=res["phase_s"])
+    return res
+
+
+def phase_dryrun(dry: DryRuns, trains: list) -> dict:
+    """The dry run's predicted peak (``launch/dryrun.py --single-device``) of
+    each train cell beside the peak its train phase measured
+    (``torch.cuda.max_memory_allocated``), deepseek-v2's beside its phase's,
+    and the fake-world cell: a comparison, not a gate."""
+    lines = dry.join()
+    measured = {t["arch"]: t["peak_mem_bytes"] for t in trains if "peak_mem_bytes" in t}
+    out = {"wall_s": time.perf_counter() - dry.t0, "cells": {}}
+    for ln in lines:
+        if ln["kind"] == "train_cell":
+            r = ln["result"]
+            got = measured.get(ln["arch"])
+            cell = {"predicted_peak_bytes": r["memory"]["peak_bytes"], "measured_peak_bytes": got,
+                    "measured_over_predicted": None if got is None
+                    else got / r["memory"]["peak_bytes"],
+                    "flops_per_device": r["flops_per_device"],
+                    "bytes_per_device": r["bytes_per_device"],
+                    "dominant": r["roofline"]["dominant"], "run_s": r["run_s"]}
+            out["cells"][ln["arch"]] = cell
+            emit("dryrun", arch=ln["arch"], batch=r["global_batch"], seq_len=r["seq_len"], **cell)
+        elif ln["kind"] == "deepseek_plan":
+            got = measured.get(DEEPSEEK)
+            out["deepseek"] = {**ln, "measured_peak_bytes": got}
+            emit("dryrun", arch=DEEPSEEK, plan=ln, measured_peak_bytes=got,
+                 measured_over_predicted=None if got is None
+                 else got / ln["predicted_peak_bytes"])
+        elif ln["kind"] == "mesh_cell":
+            r = ln["result"]
+            out["mesh_cell"] = {k: r[k] for k in ("arch", "shape", "mesh", "chips", "run_s",
+                                                  "flops_per_device", "bytes_per_device",
+                                                  "collectives", "memory", "roofline")}
+            emit("dryrun", **out["mesh_cell"])
+    check("mesh_cell" in out and len(out["cells"]) == len(TRAIN_CELLS),
+          f"the dry run's lines: {[ln['kind'] for ln in lines]}")
+    emit("dryrun", wall_s=out["wall_s"])
+    return out
 
 
 # the parallel phase: the one card as a (data=1, model=1) mesh over an
@@ -3306,7 +3569,7 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
     import torch
 
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.kernels.flash_attention import BWD_HEAD_DIM_PAIRS
     from repro_torch.kernels.flash_attention import design as fa_design
     from repro_torch.kernels.flash_attention import design_bwd
     from repro_torch.kernels.ssd import DESIGN_BWD as SSD_DESIGN_BWD
@@ -3414,7 +3677,8 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                 "library_device_ms": t_bwd["library_device_ms"],
                 "design": design_bwd(torch.bfloat16, 64),
                 "design_by_dtype_head_dim": {
-                    str(dt).split(".")[-1]: {dh: design_bwd(dt, dh) for dh in HEAD_DIMS}
+                    str(dt).split(".")[-1]: {f"{dqk}/{dv}": design_bwd(dt, dqk, dv)
+                                             for dqk, dv in BWD_HEAD_DIM_PAIRS}
                     for dt in (torch.bfloat16, torch.float32)},
                 "ptxas": {k: v for k, v in ptxas_resources(
                     build.build_log["flash_attention_bwd"]["ptxas"]).items()
@@ -3425,6 +3689,22 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                 "at": "B=4 H=32 KV=4 Dh=64 Sq=Sk=2048 bf16 causal; library: the autograd "
                       "backward of F.scaled_dot_product_attention",
                 "dh256_max_scaled_err": bwd["dh256_max_scaled_err"],
+                # deepseek-v2's training attention, its own instantiation
+                "dqk_192_dv_128": {
+                    "at": bwd["deepseek"]["at"] + " bf16; library: SDPA's autograd backward",
+                    "design": design_bwd(torch.bfloat16, 192, 128),
+                    "max_scaled_err": bwd["mla_max_scaled_err"],
+                    "bitwise_repeat": {dt: bwd["deepseek"][dt]["bitwise_repeat"]
+                                       for dt in ("bfloat16", "float32")},
+                    "ptxas": {k: v for k, v in ptxas_resources(
+                        build.build_log["flash_attention_bwd"]["ptxas"]).items()
+                        if re.search(r"<(?:\w+,)?(?:192,)?128(?:,|>)", k) and
+                        ("192" in k or k.startswith("bwd_preprocess"))},
+                    **{k: bwd["deepseek"]["bfloat16"][k]
+                       for k in ("ms", "plain_ms", "device_ms", "kernel_profiled_ms",
+                                 "library_ms", "library_device_ms", "library_note",
+                                 "bound_ms", "bound_by", "ulp_err", "control_ulp_err")},
+                },
                 # hymba's two masks and the enc-dec and VLM cells' shapes
                 "train_shapes": {
                     label: {k: r[k] for k in ("ms", "plain_ms", "device_ms", "kernel_profiled_ms",
@@ -3480,9 +3760,19 @@ def main() -> int:
 
     t0 = time.perf_counter()
     dev = phase_device()
+    dry = DryRuns()  # on the host, beside the card's phases
+    try:
+        return _run(t0, dev, dry)
+    finally:
+        dry.close()
+
+
+def _run(t0: float, dev: dict, dry: DryRuns) -> int:
     phase_build()
     kern = phase_kernels()
-    kern.update(phase_flash_bwd())
+    plan = dry.wait_for("deepseek_plan")
+    emit("dryrun", deepseek_plan=plan, waited_s=time.perf_counter() - dry.t0)
+    kern.update(phase_flash_bwd(plan["seq"]))
     kern.update(phase_ssd_kernels())
     kern.update(phase_ssd_bwd())
     emit("timing", kernels_phases_s=time.perf_counter() - t0)
@@ -3495,6 +3785,9 @@ def main() -> int:
     emit("timing", train_phases_s=time.perf_counter() - t0)
     for arch, B, S in PARITY_CELLS:
         phase_train_parity(arch, B, S)
+    trains.append(phase_deepseek_train(plan))
+    emit("timing", deepseek_train_phase_s=time.perf_counter() - t0)
+    phase_dryrun(dry, trains)
     par = phase_parallel(trains[0])
     # the sharded bf16 training run's launches count on the kernels line
     trains.append({"arch": "tinyllama-1.1b on the (1, 1) mesh",

@@ -1,7 +1,12 @@
 """repro_torch.analysis — static & dynamic analysis over the runtime (DESIGN.md §15).
 
-The port carries the graph-verification half (the model-analysis half,
-``hlo`` and ``roofline``, is XLA and TPU code and has no copy here):
+The port carries the graph-verification half as copies, and the
+model-analysis half as counterparts of the reference's XLA and TPU code:
+:mod:`~repro_torch.analysis.roofline` (the three-term roofline at the
+H100's constants, the reference's model FLOPs and the train cells' count)
+and :mod:`~repro_torch.analysis.traffic` (the collectives a step runs,
+recorded as they run, in place of ``hlo``'s parse of the partitioned HLO),
+both read by ``launch/dryrun.py``:
 
 * **graph verification** (:mod:`~repro_torch.analysis.lint`,
   :mod:`~repro_torch.analysis.races`, :mod:`~repro_torch.analysis.fuzz`,

@@ -82,6 +82,16 @@
 //    7). The
 //    streamed tiles hold 32 rows, as at 128; bwd_dq_mma keeps its one pass
 //    (128 dQ registers beside 32 of S and dP).
+//  - At Dqk = 192, Dv = 128 (deepseek-v2's expanded MLA prefill: 128 nope +
+//    64 rope dims of query and key, 128 of value) every kernel takes the
+//    two widths apart: Q, K, dQ and dK are 192 wide, V, O, dO and dV 128.
+//    S^T = K Q^T runs 192 deep and dP^T = V dO^T 128 deep. A warp's dK (24
+//    n-tiles) and dV (16) together would be 160 f32 registers a thread
+//    before any score fragment, so the dK/dV work runs as 256's two passes
+//    side by side (the dV pass 64 accumulators, the dK pass 96), with the
+//    streamed tiles at 32 rows; bwd_dq_mma keeps one pass (96 dQ
+//    registers). The f32 form keeps 64-key tiles (200 192 bytes of shared
+//    memory), and D = rowsum(dO o O) runs over the 128 value dims.
 // What holds the bf16 form back next (about 1.1 ms at the training shape
 // on an H100 SXM at 700 W, twice PyTorch's SDPA backward): the split's
 // doubled products, and each warpgroup waiting for its products before
@@ -156,7 +166,7 @@ __device__ __forceinline__ bool visible(const Params& p, int k_valid, int qi, in
 
 // -- D = rowsum(dO o O) ----------------------------------------------------------
 
-template <typename T, int DH>
+template <typename T, int DV>
 __global__ void __launch_bounds__(THREADS) bwd_preprocess(Params p) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int qi = blockIdx.x * (THREADS / 32) + warp;
@@ -166,7 +176,7 @@ __global__ void __launch_bounds__(THREADS) bwd_preprocess(Params p) {
   const T* dO = static_cast<const T*>(p.dO) + b * p.sdo.b + h * p.sdo.h + qi * p.sdo.s;
   float acc = 0.f;
 #pragma unroll
-  for (int d = lane; d < DH; d += 32) acc = fmaf(ld(o + d), ld(dO + d), acc);
+  for (int d = lane; d < DV; d += 32) acc = fmaf(ld(o + d), ld(dO + d), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) p.delta[(long long)bh * p.Sq + qi] = acc;
@@ -175,21 +185,23 @@ __global__ void __launch_bounds__(THREADS) bwd_preprocess(Params p) {
 // -- f32: FMA tiles ----------------------------------------------------------------
 
 // keys of a key tile: 64, and 32 at head dim 256
-template <int DH>
+template <int DQK, int DV>
 __host__ __device__ constexpr int f32_keys() {
-  return DH == 256 ? 32 : BK;
+  return DQK == 256 || DV == 256 ? 32 : BK;
 }
 // a score-tile row (the tile's keys + 4): the warp's two row groups hit disjoint banks
-template <int DH>
+template <int DQK, int DV>
 __host__ __device__ constexpr int f32_ps() {
-  return f32_keys<DH>() + 4;
+  return f32_keys<DQK, DV>() + 4;
 }
 
-template <int DH>
+template <int DQK, int DV>
 constexpr int smem_bytes() {
-  // q and dO tiles (64 rows), k and v tiles (f32_keys rows), padded to DH + 1
-  // (conflict-free column walks), the P and dS tiles, and a q tile's lse and D
-  return (2 * (BQ + f32_keys<DH>()) * (DH + 1) + 2 * BQ * f32_ps<DH>() + 2 * BQ) * 4;
+  // q and k tiles (64 and f32_keys rows) padded to DQK + 1, dO and v tiles
+  // padded to DV + 1 (conflict-free column walks), the P and dS tiles, and a
+  // q tile's lse and D (at 192/128: 200 192 bytes)
+  return ((BQ + f32_keys<DQK, DV>()) * (DQK + DV + 2) + 2 * BQ * f32_ps<DQK, DV>() + 2 * BQ) *
+         4;
 }
 
 // rows [r0, r0 + ROWS) of a (seq, Dh) slice into a padded f32 tile, zeros past n
@@ -204,41 +216,70 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, long lon
 
 // S = Q K^T and dP = dO V^T for one (q tile, key tile) pair, then P and dS
 // into shared memory. Thread (ty, tx) owns q rows 4 ty + i, keys tx + 16 j.
-template <int DH>
+// Q and K rows are DQK + 1 floats apart, dO and V rows DV + 1.
+template <int DQK, int DV>
 __device__ __forceinline__ void scores(const Params& p, int k_valid, int q0, int k0,
                                        const float* q_s, const float* do_s, const float* k_s,
                                        const float* v_s, const float* lse_s, const float* dl_s,
                                        float* p_s, float* ds_s) {
-  constexpr int QS = DH + 1, KJ = f32_keys<DH>() / 16, PS = f32_ps<DH>();
+  constexpr int QS = DQK + 1, VS = DV + 1, KJ = f32_keys<DQK, DV>() / 16;
+  constexpr int PS = f32_ps<DQK, DV>();
   // at 256 the caller's 64 dQ (or dK and dV) registers stay live: a
   // shallower unroll keeps the loads in flight within 128 registers
-  constexpr int UNROLL = DH == 256 ? 2 : 4;
+  constexpr int UNROLL = DQK == 256 ? 2 : 4;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   float s[4][KJ], dp[4][KJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < KJ; ++j) s[i][j] = dp[i][j] = 0.f;
+  if constexpr (DQK == DV) {  // one walk over the head dim feeds both products
 #pragma unroll UNROLL
-  for (int d = 0; d < DH; ++d) {
-    float qv[4], gv[4], kv[KJ], vv[KJ];
+    for (int d = 0; d < DQK; ++d) {
+      float qv[4], gv[4], kv[KJ], vv[KJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = q_s[(4 * ty + i) * QS + d];
-      gv[i] = do_s[(4 * ty + i) * QS + d];
-    }
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) {
-      kv[j] = k_s[(tx + 16 * j) * QS + d];
-      vv[j] = v_s[(tx + 16 * j) * QS + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = q_s[(4 * ty + i) * QS + d];
+        gv[i] = do_s[(4 * ty + i) * QS + d];
+      }
 #pragma unroll
       for (int j = 0; j < KJ; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+        kv[j] = k_s[(tx + 16 * j) * QS + d];
+        vv[j] = v_s[(tx + 16 * j) * QS + d];
       }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+        }
+    }
+  } else {  // S over the DQK dims, dP over the DV dims
+#pragma unroll UNROLL
+    for (int d = 0; d < DQK; ++d) {
+      float qv[4], kv[KJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = q_s[(4 * ty + i) * QS + d];
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) kv[j] = k_s[(tx + 16 * j) * QS + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+#pragma unroll UNROLL
+    for (int d = 0; d < DV; ++d) {
+      float gv[4], vv[KJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) gv[i] = do_s[(4 * ty + i) * VS + d];
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) vv[j] = v_s[(tx + 16 * j) * VS + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+    }
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -256,17 +297,17 @@ __device__ __forceinline__ void scores(const Params& p, int k_valid, int q0, int
 
 // -- dK, dV ---------------------------------------------------------------------
 
-template <int DH>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS) bwd_dkdv(Params p) {
-  constexpr int QS = DH + 1;
-  constexpr int DC = DH / 16;  // gradient columns per thread
-  constexpr int KR = f32_keys<DH>(), KI = KR / 16, PS = f32_ps<DH>();  // KI keys per thread
+  constexpr int QS = DQK + 1, VS = DV + 1;
+  constexpr int CK = DQK / 16, CV = DV / 16;  // dK and dV columns per thread
+  constexpr int KR = f32_keys<DQK, DV>(), KI = KR / 16, PS = f32_ps<DQK, DV>();  // KI keys per thread
   extern __shared__ float smem[];
   float* q_s = smem;
   float* do_s = q_s + BQ * QS;
-  float* k_s = do_s + BQ * QS;
+  float* k_s = do_s + BQ * VS;
   float* v_s = k_s + KR * QS;
-  float* p_s = v_s + KR * QS;
+  float* p_s = v_s + KR * VS;
   float* ds_s = p_s + BQ * PS;
   float* lse_s = ds_s + BQ * PS;
   float* dl_s = lse_s + BQ;
@@ -277,9 +318,9 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv(Params p) {
   const int G = p.H / p.KV;
   const int k_valid = min(p.k_len, p.Sk);
 
-  load_tile<DH, KR>(k_s, static_cast<const float*>(p.k) + b * p.sk.b + kvh * p.sk.h, p.sk.s, k0,
-                    p.Sk);
-  load_tile<DH, KR>(v_s, static_cast<const float*>(p.v) + b * p.sv.b + kvh * p.sv.h, p.sv.s, k0,
+  load_tile<DQK, KR>(k_s, static_cast<const float*>(p.k) + b * p.sk.b + kvh * p.sk.h, p.sk.s,
+                     k0, p.Sk);
+  load_tile<DV, KR>(v_s, static_cast<const float*>(p.v) + b * p.sv.b + kvh * p.sv.h, p.sv.s, k0,
                     p.Sk);
 
   // the q rows that can see a key of this tile: causal q >= k0, every q
@@ -290,11 +331,14 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv(Params p) {
   if (p.window > 0) q_hi = min(q_hi, k0 + KR - 1 + p.window);
   if (k0 >= k_valid) q_hi = 0;
 
-  float dk[KI][DC], dv[KI][DC];
+  float dk[KI][CK], dv[KI][CV];
 #pragma unroll
-  for (int i = 0; i < KI; ++i)
+  for (int i = 0; i < KI; ++i) {
 #pragma unroll
-    for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
+    for (int c = 0; c < CK; ++c) dk[i][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CV; ++c) dv[i][c] = 0.f;
+  }
 
   for (int hg = 0; hg < G; ++hg) {
     const int h = kvh * G + hg, bh = b * p.H + h;
@@ -302,38 +346,37 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv(Params p) {
     const float* dog = static_cast<const float*>(p.dO) + b * p.sdo.b + h * p.sdo.h;
     for (int q0 = q_lo; q0 < q_hi; q0 += BQ) {
       __syncthreads();  // the previous tile's readers are done
-      load_tile<DH, BQ>(q_s, qg, p.sq.s, q0, p.Sq);
-      load_tile<DH, BQ>(do_s, dog, p.sdo.s, q0, p.Sq);
+      load_tile<DQK, BQ>(q_s, qg, p.sq.s, q0, p.Sq);
+      load_tile<DV, BQ>(do_s, dog, p.sdo.s, q0, p.Sq);
       for (int r = tid; r < BQ; r += THREADS) {
         const bool in = q0 + r < p.Sq;
         lse_s[r] = in ? p.lse[(long long)bh * p.Sq + q0 + r] : 0.f;
         dl_s[r] = in ? p.delta[(long long)bh * p.Sq + q0 + r] : 0.f;
       }
       __syncthreads();
-      scores<DH>(p, k_valid, q0, k0, q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s);
+      scores<DQK, DV>(p, k_valid, q0, k0, q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s);
       __syncthreads();
       // dV[key, d] += sum_q P[q, key] dO[q, d];  dK[key, d] += sum_q dS[q, key] Q[q, d]
       // thread (ty, tx) owns keys KI ty + i and columns tx + 16 c
 #pragma unroll 4
       for (int r = 0; r < BQ; ++r) {
-        float pv[KI], sv[KI], gv[DC], qv[DC];
+        float pv[KI], sv[KI], gv[CV], qv[CK];
 #pragma unroll
         for (int i = 0; i < KI; ++i) {
           pv[i] = p_s[r * PS + KI * ty + i];
           sv[i] = ds_s[r * PS + KI * ty + i];
         }
 #pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          gv[c] = do_s[r * QS + tx + 16 * c];
-          qv[c] = q_s[r * QS + tx + 16 * c];
+        for (int c = 0; c < CV; ++c) gv[c] = do_s[r * VS + tx + 16 * c];
+#pragma unroll
+        for (int c = 0; c < CK; ++c) qv[c] = q_s[r * QS + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < KI; ++i) {
+#pragma unroll
+          for (int c = 0; c < CV; ++c) dv[i][c] = fmaf(pv[i], gv[c], dv[i][c]);
+#pragma unroll
+          for (int c = 0; c < CK; ++c) dk[i][c] = fmaf(sv[i], qv[c], dk[i][c]);
         }
-#pragma unroll
-        for (int i = 0; i < KI; ++i)
-#pragma unroll
-          for (int c = 0; c < DC; ++c) {
-            dv[i][c] = fmaf(pv[i], gv[c], dv[i][c]);
-            dk[i][c] = fmaf(sv[i], qv[c], dk[i][c]);
-          }
       }
     }
   }
@@ -345,27 +388,26 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv(Params p) {
     const int kj = k0 + KI * ty + i;
     if (kj >= p.Sk) continue;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      dkg[(long long)kj * p.sdk.s + tx + 16 * c] = dk[i][c] * p.scale;
-      dvg[(long long)kj * p.sdv.s + tx + 16 * c] = dv[i][c];
-    }
+    for (int c = 0; c < CK; ++c) dkg[(long long)kj * p.sdk.s + tx + 16 * c] = dk[i][c] * p.scale;
+#pragma unroll
+    for (int c = 0; c < CV; ++c) dvg[(long long)kj * p.sdv.s + tx + 16 * c] = dv[i][c];
   }
 }
 
 // -- dQ -------------------------------------------------------------------------
 
-template <int DH>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS) bwd_dq(Params p) {
-  constexpr int QS = DH + 1;
-  constexpr int DC = DH / 16;
-  constexpr int KR = f32_keys<DH>(), PS = f32_ps<DH>();
-  constexpr int UNROLL = DH == 256 ? 2 : 4;  // at 256, within 128 registers beside dQ
+  constexpr int QS = DQK + 1, VS = DV + 1;
+  constexpr int CK = DQK / 16;
+  constexpr int KR = f32_keys<DQK, DV>(), PS = f32_ps<DQK, DV>();
+  constexpr int UNROLL = DQK == 256 ? 2 : 4;  // at 256, within 128 registers beside dQ
   extern __shared__ float smem[];
   float* q_s = smem;
   float* do_s = q_s + BQ * QS;
-  float* k_s = do_s + BQ * QS;
+  float* k_s = do_s + BQ * VS;
   float* v_s = k_s + KR * QS;
-  float* p_s = v_s + KR * QS;
+  float* p_s = v_s + KR * VS;
   float* ds_s = p_s + BQ * PS;
   float* lse_s = ds_s + BQ * PS;
   float* dl_s = lse_s + BQ;
@@ -376,9 +418,9 @@ __global__ void __launch_bounds__(THREADS) bwd_dq(Params p) {
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last (heaviest causal) tiles first
   const int k_valid = min(p.k_len, p.Sk);
 
-  load_tile<DH, BQ>(q_s, static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.s, q0,
-                    p.Sq);
-  load_tile<DH, BQ>(do_s, static_cast<const float*>(p.dO) + b * p.sdo.b + h * p.sdo.h, p.sdo.s,
+  load_tile<DQK, BQ>(q_s, static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.s, q0,
+                     p.Sq);
+  load_tile<DV, BQ>(do_s, static_cast<const float*>(p.dO) + b * p.sdo.b + h * p.sdo.h, p.sdo.s,
                     q0, p.Sq);
   for (int r = tid; r < BQ; r += THREADS) {
     const bool in = q0 + r < p.Sq;
@@ -393,31 +435,31 @@ __global__ void __launch_bounds__(THREADS) bwd_dq(Params p) {
   const float* kg = static_cast<const float*>(p.k) + b * p.sk.b + kvh * p.sk.h;
   const float* vg = static_cast<const float*>(p.v) + b * p.sv.b + kvh * p.sv.h;
 
-  float dq[4][DC];
+  float dq[4][CK];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) dq[i][c] = 0.f;
+    for (int c = 0; c < CK; ++c) dq[i][c] = 0.f;
 
   for (int k0 = k_lo; k0 < k_hi; k0 += KR) {
     __syncthreads();  // the previous tile's readers are done (and q, dO are in)
-    load_tile<DH, KR>(k_s, kg, p.sk.s, k0, p.Sk);
-    load_tile<DH, KR>(v_s, vg, p.sv.s, k0, p.Sk);
+    load_tile<DQK, KR>(k_s, kg, p.sk.s, k0, p.Sk);
+    load_tile<DV, KR>(v_s, vg, p.sv.s, k0, p.Sk);
     __syncthreads();
-    scores<DH>(p, k_valid, q0, k0, q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s);
+    scores<DQK, DV>(p, k_valid, q0, k0, q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s);
     __syncthreads();
     // dQ[q, d] += sum_key dS[q, key] K[key, d]; thread owns rows 4 ty + i
 #pragma unroll UNROLL
     for (int c0 = 0; c0 < KR; ++c0) {
-      float sv[4], kv[DC];
+      float sv[4], kv[CK];
 #pragma unroll
       for (int i = 0; i < 4; ++i) sv[i] = ds_s[(4 * ty + i) * PS + c0];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) kv[c] = k_s[c0 * QS + tx + 16 * c];
+      for (int c = 0; c < CK; ++c) kv[c] = k_s[c0 * QS + tx + 16 * c];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int c = 0; c < DC; ++c) dq[i][c] = fmaf(sv[i], kv[c], dq[i][c]);
+        for (int c = 0; c < CK; ++c) dq[i][c] = fmaf(sv[i], kv[c], dq[i][c]);
     }
   }
 
@@ -427,7 +469,7 @@ __global__ void __launch_bounds__(THREADS) bwd_dq(Params p) {
     const int qi = q0 + 4 * ty + i;
     if (qi >= p.Sq) continue;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) dqg[(long long)qi * p.sdq.s + tx + 16 * c] = dq[i][c] * p.scale;
+    for (int c = 0; c < CK; ++c) dqg[(long long)qi * p.sdq.s + tx + 16 * c] = dq[i][c] * p.scale;
   }
 }
 
@@ -437,9 +479,9 @@ constexpr int MMA_THREADS = 128;  // 4 warps (one warpgroup), each 16 rows of th
 constexpr float LOG2E = 1.4426950408889634f;
 
 // rows of a streamed tile: q rows in bwd_dkdv, keys in bwd_dq
-template <int DH>
+template <int DQK, int DV>
 __host__ __device__ constexpr int stream_rows() {
-  return DH <= 64 ? 64 : 32;
+  return DQK <= 64 && DV <= 64 ? 64 : 32;
 }
 
 // A bf16 tile's layout in shared memory. For mma.sync (WG false): rows
@@ -465,13 +507,15 @@ __device__ __forceinline__ const __nv_bfloat16* at(const unsigned char* tile, in
   return reinterpret_cast<const __nv_bfloat16*>(tile) + r * (DH + 8) + c;
 }
 
-// the fixed 64-row tiles and two stages of the two streamed tiles;
-// bwd_dkdv adds two stages of the streamed q rows' lse and D, and the
-// swizzled layout 1 KiB of alignment slack
-template <int DH, bool WG>
+// the fixed 64-row tiles and two stages of the two streamed tiles, one of
+// each pair DQK wide (Q, K) and one DV wide (dO, V); bwd_dkdv adds two
+// stages of the streamed q rows' lse and D, and the swizzled layout 1 KiB
+// of alignment slack
+template <int DQK, int DV, bool WG>
 constexpr int tc_smem_bytes(bool stats) {
-  return 2 * tile_bytes<DH, WG>(64) + 4 * tile_bytes<DH, WG>(stream_rows<DH>()) +
-         (stats ? 4 * stream_rows<DH>() * 4 : 0) + (WG ? 1024 : 0);
+  constexpr int SR = stream_rows<DQK, DV>();
+  return tile_bytes<DQK, WG>(64) + tile_bytes<DV, WG>(64) + 2 * tile_bytes<DQK, WG>(SR) +
+         2 * tile_bytes<DV, WG>(SR) + (stats ? 4 * SR * 4 : 0) + (WG ? 1024 : 0);
 }
 
 template <bool WG>
@@ -581,25 +625,28 @@ __device__ __forceinline__ void wgmma_split_ab(float (&acc)[8][4], const float (
   tc::wgmma_wait0();
 }
 
-// what a dK/dV CTA computes: dV and dK together, or (at head dim 256) one
-// of them
+// what a dK/dV CTA computes: dV and dK together, or (at head dims 256/256
+// and 192/128) one of them
 constexpr int DKDV_DV = 1, DKDV_DK = 2, DKDV_BOTH = 3;
 
-template <int DH, bool WG, int PART>
+// Q and K rows are DQK wide, dO and V rows DV wide; S^T and dK take the
+// DQK dims, dP^T and dV the DV dims
+template <int DQK, int DV, bool WG, int PART>
 __device__ __forceinline__ void dkdv_mma_body(const Params& p) {
   using bf16 = __nv_bfloat16;
-  constexpr bool DV = PART & DKDV_DV, DK = PART & DKDV_DK;
+  constexpr bool DO_DV = PART & DKDV_DV, DO_DK = PART & DKDV_DK;
   static_assert(!WG || PART == DKDV_BOTH, "the wgmma form computes dV and dK together");
-  constexpr int QN = stream_rows<DH>();  // q rows of a streamed tile
-  constexpr int NQ = QN / 8;             // n-tiles of S^T (q columns)
-  constexpr int ND = DH / 8;             // n-tiles of dK and dV
-  constexpr int TK = tile_bytes<DH, WG>(BK), TQ = tile_bytes<DH, WG>(QN);
+  constexpr int QN = stream_rows<DQK, DV>();  // q rows of a streamed tile
+  constexpr int NQ = QN / 8;                  // n-tiles of S^T (q columns)
+  constexpr int NK = DQK / 8, NV = DV / 8;    // n-tiles of dK and of dV
+  constexpr int TK = tile_bytes<DQK, WG>(BK), TV = tile_bytes<DV, WG>(BK);
+  constexpr int TQ = tile_bytes<DQK, WG>(QN), TO = tile_bytes<DV, WG>(QN);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* k_s = tiles_base<WG>(smem_raw);
   unsigned char* v_s = k_s + TK;
-  unsigned char* q_s = v_s + TK;    // [stage]
+  unsigned char* q_s = v_s + TV;       // [stage]
   unsigned char* do_s = q_s + 2 * TQ;  // [stage]
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * TQ);  // [stage][QN]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * TO);  // [stage][QN]
   float* dl_s = lse_s + 2 * QN;                             // [stage][QN]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
@@ -608,10 +655,10 @@ __device__ __forceinline__ void dkdv_mma_body(const Params& p) {
   const int G = p.H / p.KV;
   const int k_valid = min(p.k_len, p.Sk);
 
-  cp_rows<DH, WG>(k_s, static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h, p.sk.s, k0,
-                  BK, p.Sk);
-  if constexpr (DK)  // dV's pass reads no V
-    cp_rows<DH, WG>(v_s, static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h, p.sv.s, k0,
+  cp_rows<DQK, WG>(k_s, static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h, p.sk.s, k0,
+                   BK, p.Sk);
+  if constexpr (DO_DK)  // dV's pass reads no V
+    cp_rows<DV, WG>(v_s, static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h, p.sv.s, k0,
                     BK, p.Sk);
 
   // the q rows that can see a key of this tile: causal q >= k0, every q
@@ -627,9 +674,9 @@ __device__ __forceinline__ void dkdv_mma_body(const Params& p) {
 
   auto load_q = [&](int it, int stage) {
     const int h = kvh * G + it / n_q, q0 = q_lo + (it % n_q) * QN;
-    cp_rows<DH, WG>(q_s + stage * TQ, static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h,
-                    p.sq.s, q0, QN, p.Sq);
-    cp_rows<DH, WG>(do_s + stage * TQ,
+    cp_rows<DQK, WG>(q_s + stage * TQ, static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h,
+                     p.sq.s, q0, QN, p.Sq);
+    cp_rows<DV, WG>(do_s + stage * TO,
                     static_cast<const bf16*>(p.dO) + b * p.sdo.b + h * p.sdo.h, p.sdo.s, q0, QN,
                     p.Sq);
     const long long row = (long long)(b * p.H + h) * p.Sq;
@@ -637,7 +684,7 @@ __device__ __forceinline__ void dkdv_mma_body(const Params& p) {
       const int qi = q0 + r;
       const long long at_ = row + min(qi, p.Sq - 1);
       tc::cp_async4(lse_s + stage * QN + r, p.lse + at_, qi < p.Sq);
-      if constexpr (DK) tc::cp_async4(dl_s + stage * QN + r, p.delta + at_, qi < p.Sq);
+      if constexpr (DO_DK) tc::cp_async4(dl_s + stage * QN + r, p.delta + at_, qi < p.Sq);
     }
   };
   if (n_it > 0) load_q(0, 0);
@@ -646,13 +693,13 @@ __device__ __forceinline__ void dkdv_mma_body(const Params& p) {
   const float sl2 = p.scale * LOG2E;  // P = 2^(S * scale * log2(e) - lse * log2(e))
   const int kr = k0 + 16 * warp + (lane >> 2);  // this lane's keys: kr and kr + 8
   // a pass's unused accumulator shrinks to one n-tile, zeroed and never read
-  float dk[DK ? ND : 1][4], dv[DV ? ND : 1][4];
+  float dk[DO_DK ? NK : 1][4], dv[DO_DV ? NV : 1][4];
 #pragma unroll
-  for (int n = 0; n < (DK ? ND : 1); ++n)
+  for (int n = 0; n < (DO_DK ? NK : 1); ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = 0.f;
 #pragma unroll
-  for (int n = 0; n < (DV ? ND : 1); ++n)
+  for (int n = 0; n < (DO_DV ? NV : 1); ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dv[n][e] = 0.f;
 
@@ -665,7 +712,7 @@ __device__ __forceinline__ void dkdv_mma_body(const Params& p) {
     __syncthreads();
     const int q0 = q_lo + (it % n_q) * QN;
     const unsigned char* qs = q_s + stage * TQ;
-    const unsigned char* ds = do_s + stage * TQ;
+    const unsigned char* ds = do_s + stage * TO;
     const float* ls = lse_s + stage * QN;
     const float* dls = dl_s + stage * QN;
 
@@ -675,8 +722,8 @@ __device__ __forceinline__ void dkdv_mma_body(const Params& p) {
       wgmma_abt2(s, tc::sw128_desc(k_s), tc::sw128_desc(qs), dp, tc::sw128_desc(v_s),
                  tc::sw128_desc(ds));
     } else {
-      mma_abt<DH, QN>(s, k_s, 16 * warp, qs, lane);
-      if constexpr (DK) mma_abt<DH, QN>(dp, v_s, 16 * warp, ds, lane);
+      mma_abt<DQK, QN>(s, k_s, 16 * warp, qs, lane);
+      if constexpr (DO_DK) mma_abt<DV, QN>(dp, v_s, 16 * warp, ds, lane);
     }
 
     // P^T and dS^T in place, f32; only tiles at the diagonal (past the
@@ -695,7 +742,7 @@ __device__ __forceinline__ void dkdv_mma_body(const Params& p) {
         float pr = exp2_ftz(s[n][e] * sl2 - ((e & 1) ? l.y : l.x) * LOG2E);
         if (edge && !(qi < p.Sq && visible(p, k_valid, qi, kj))) pr = 0.f;
         s[n][e] = pr;
-        if constexpr (DK) dp[n][e] = pr * (dp[n][e] - ((e & 1) ? d.y : d.x));
+        if constexpr (DO_DK) dp[n][e] = pr * (dp[n][e] - ((e & 1) ? d.y : d.x));
       }
     }
 
@@ -704,8 +751,8 @@ __device__ __forceinline__ void dkdv_mma_body(const Params& p) {
       wgmma_split_ab(dv, s, tc::sw128_desc(ds));
       wgmma_split_ab(dk, dp, tc::sw128_desc(qs));
     } else {
-      if constexpr (DV) mma_split_ab<DH, QN>(dv, s, ds, lane);
-      if constexpr (DK) mma_split_ab<DH, QN>(dk, dp, qs, lane);
+      if constexpr (DO_DV) mma_split_ab<DV, QN>(dv, s, ds, lane);
+      if constexpr (DO_DK) mma_split_ab<DQK, QN>(dk, dp, qs, lane);
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
@@ -717,47 +764,48 @@ __device__ __forceinline__ void dkdv_mma_body(const Params& p) {
   for (int i = 0; i < 2; ++i) {
     const int kj = kr + 8 * i;
     if (kj >= p.Sk) continue;
-    if constexpr (DK) {
+    if constexpr (DO_DK) {
 #pragma unroll
-      for (int n = 0; n < ND; ++n)
+      for (int n = 0; n < NK; ++n)
         *reinterpret_cast<uint32_t*>(dkg + kj * p.sdk.s + 8 * n + 2 * t) =
             tc::pack_bf16(dk[n][2 * i] * p.scale, dk[n][2 * i + 1] * p.scale);
     }
-    if constexpr (DV) {
+    if constexpr (DO_DV) {
 #pragma unroll
-      for (int n = 0; n < ND; ++n)
+      for (int n = 0; n < NV; ++n)
         *reinterpret_cast<uint32_t*>(dvg + kj * p.sdv.s + 8 * n + 2 * t) =
             tc::pack_bf16(dv[n][2 * i], dv[n][2 * i + 1]);
     }
   }
 }
 
-template <int DH, bool WG>
+template <int DQK, int DV, bool WG>
 __global__ void __launch_bounds__(MMA_THREADS) bwd_dkdv_mma(Params p) {
-  dkdv_mma_body<DH, WG, DKDV_BOTH>(p);
+  dkdv_mma_body<DQK, DV, WG, DKDV_BOTH>(p);
 }
 
-// head dim 256: the grid's z picks the pass, 0 dV and 1 dK; registers are
-// the larger pass's
-template <int DH>
+// head dims 256/256 and 192/128: the grid's z picks the pass, 0 dV and 1
+// dK; registers are the larger pass's
+template <int DQK, int DV>
 __global__ void __launch_bounds__(MMA_THREADS) bwd_dkdv_mma_passes(Params p) {
   if (blockIdx.z == 0)
-    dkdv_mma_body<DH, false, DKDV_DV>(p);
+    dkdv_mma_body<DQK, DV, false, DKDV_DV>(p);
   else
-    dkdv_mma_body<DH, false, DKDV_DK>(p);
+    dkdv_mma_body<DQK, DV, false, DKDV_DK>(p);
 }
 
-template <int DH, bool WG>
+template <int DQK, int DV, bool WG>
 __global__ void __launch_bounds__(MMA_THREADS) bwd_dq_mma(Params p) {
   using bf16 = __nv_bfloat16;
-  constexpr int KN = stream_rows<DH>();  // keys of a streamed tile
-  constexpr int NK = KN / 8;             // n-tiles of S (keys)
-  constexpr int ND = DH / 8;             // n-tiles of dQ
-  constexpr int TQ = tile_bytes<DH, WG>(BQ), TK = tile_bytes<DH, WG>(KN);
+  constexpr int KN = stream_rows<DQK, DV>();  // keys of a streamed tile
+  constexpr int NK = KN / 8;                  // n-tiles of S (keys)
+  constexpr int ND = DQK / 8;                 // n-tiles of dQ
+  constexpr int TQ = tile_bytes<DQK, WG>(BQ), TO = tile_bytes<DV, WG>(BQ);
+  constexpr int TK = tile_bytes<DQK, WG>(KN), TV = tile_bytes<DV, WG>(KN);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* q_s = tiles_base<WG>(smem_raw);
   unsigned char* do_s = q_s + TQ;
-  unsigned char* k_s = do_s + TQ;    // [stage]
+  unsigned char* k_s = do_s + TO;     // [stage]
   unsigned char* v_s = k_s + 2 * TK;  // [stage]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
@@ -766,9 +814,9 @@ __global__ void __launch_bounds__(MMA_THREADS) bwd_dq_mma(Params p) {
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last (heaviest causal) tiles first
   const int k_valid = min(p.k_len, p.Sk);
 
-  cp_rows<DH, WG>(q_s, static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.s, q0, BQ,
-                  p.Sq);
-  cp_rows<DH, WG>(do_s, static_cast<const bf16*>(p.dO) + b * p.sdo.b + h * p.sdo.h, p.sdo.s, q0,
+  cp_rows<DQK, WG>(q_s, static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.s, q0, BQ,
+                   p.Sq);
+  cp_rows<DV, WG>(do_s, static_cast<const bf16*>(p.dO) + b * p.sdo.b + h * p.sdo.h, p.sdo.s, q0,
                   BQ, p.Sq);
   // the keys these rows see, as the forward walks them: a causal tile's
   // run to its diagonal or to the end of the prefix span
@@ -778,8 +826,8 @@ __global__ void __launch_bounds__(MMA_THREADS) bwd_dq_mma(Params p) {
   const bf16* kg = static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h;
   const bf16* vg = static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h;
   auto load_kv = [&](int kt, int stage) {
-    cp_rows<DH, WG>(k_s + stage * TK, kg, p.sk.s, kt, KN, p.Sk);
-    cp_rows<DH, WG>(v_s + stage * TK, vg, p.sv.s, kt, KN, p.Sk);
+    cp_rows<DQK, WG>(k_s + stage * TK, kg, p.sk.s, kt, KN, p.Sk);
+    cp_rows<DV, WG>(v_s + stage * TV, vg, p.sv.s, kt, KN, p.Sk);
   };
   if (k_lo < k_hi) load_kv(k_lo, 0);
   tc::cp_async_commit();  // with Q and dO
@@ -809,7 +857,7 @@ __global__ void __launch_bounds__(MMA_THREADS) bwd_dq_mma(Params p) {
     if constexpr (WG) tc::fence_proxy_async();
     __syncthreads();
     const unsigned char* ks = k_s + stage * TK;
-    const unsigned char* vs = v_s + stage * TK;
+    const unsigned char* vs = v_s + stage * TV;
 
     // S = Q K^T and dP = dO V^T: this warp's 16 q rows x KN keys
     float s[NK][4], dp[NK][4];
@@ -817,8 +865,8 @@ __global__ void __launch_bounds__(MMA_THREADS) bwd_dq_mma(Params p) {
       wgmma_abt2(s, tc::sw128_desc(q_s), tc::sw128_desc(ks), dp, tc::sw128_desc(do_s),
                  tc::sw128_desc(vs));
     } else {
-      mma_abt<DH, KN>(s, q_s, 16 * warp, ks, lane);
-      mma_abt<DH, KN>(dp, do_s, 16 * warp, vs, lane);
+      mma_abt<DQK, KN>(s, q_s, 16 * warp, ks, lane);
+      mma_abt<DV, KN>(dp, do_s, 16 * warp, vs, lane);
     }
 
     const bool edge = (p.causal && kt + KN - 1 > q0 && kt + KN > p.prefix_len) ||
@@ -838,7 +886,7 @@ __global__ void __launch_bounds__(MMA_THREADS) bwd_dq_mma(Params p) {
     if constexpr (WG) {
       wgmma_split_ab(dq, dp, tc::sw128_desc(ks));
     } else {
-      mma_split_ab<DH, KN>(dq, dp, ks, lane);
+      mma_split_ab<DQK, KN>(dq, dp, ks, lane);
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
@@ -878,44 +926,52 @@ cudaError_t launch_one(Kernel kernel, dim3 grid, int threads, int smem, int devi
   return cudaGetLastError();
 }
 
-template <typename T, int DH>
+template <typename T, int DQK, int DV>
 cudaError_t launch(const Params& p, int device, cudaStream_t stream) {
   static std::atomic<bool> set_dkdv[MAX_DEVICES], set_dq[MAX_DEVICES];
   constexpr bool F32 = std::is_same<T, float>::value;
-  constexpr int key_tile = F32 ? f32_keys<DH>() : BK;
+  constexpr int key_tile = F32 ? f32_keys<DQK, DV>() : BK;
   const int q_tiles = (p.Sq + BQ - 1) / BQ, k_tiles = (p.Sk + key_tile - 1) / key_tile;
   if (q_tiles > 65535 || k_tiles > 65535) return cudaErrorInvalidValue;
-  bwd_preprocess<T, DH><<<dim3((p.Sq + 7) / 8, p.B * p.H), THREADS, 0, stream>>>(p);
+  bwd_preprocess<T, DV><<<dim3((p.Sq + 7) / 8, p.B * p.H), THREADS, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 dkdv_grid(p.B * p.KV, k_tiles), dq_grid(p.B * p.H, q_tiles);
   if constexpr (F32) {
-    constexpr int smem = smem_bytes<DH>();
-    err = launch_one(bwd_dkdv<DH>, dkdv_grid, THREADS, smem, device, set_dkdv, stream, p);
+    constexpr int smem = smem_bytes<DQK, DV>();
+    err = launch_one(bwd_dkdv<DQK, DV>, dkdv_grid, THREADS, smem, device, set_dkdv, stream, p);
     if (err != cudaSuccess) return err;
-    return launch_one(bwd_dq<DH>, dq_grid, THREADS, smem, device, set_dq, stream, p);
+    return launch_one(bwd_dq<DQK, DV>, dq_grid, THREADS, smem, device, set_dq, stream, p);
   } else {
-    constexpr bool WG = DH == 64;  // wgmma at head dim 64, mma.sync at 32, 128 and 256
-    constexpr int smem_kv = tc_smem_bytes<DH, WG>(true), smem_q = tc_smem_bytes<DH, WG>(false);
-    if constexpr (DH == 256) {  // the dV and the dK pass, side by side in one grid
-      err = launch_one(bwd_dkdv_mma_passes<DH>, dim3(p.B * p.KV, k_tiles, 2), MMA_THREADS,
+    // wgmma at head dim 64, mma.sync at 32, 128, 192/128 and 256
+    constexpr bool WG = DQK == 64 && DV == 64;
+    constexpr int smem_kv = tc_smem_bytes<DQK, DV, WG>(true);
+    constexpr int smem_q = tc_smem_bytes<DQK, DV, WG>(false);
+    // the dV and the dK pass side by side in one grid where one warp's dK
+    // and dV would not fit its registers (256/256) or leave none for the
+    // score fragments (192/128: 96 + 64 accumulators a thread)
+    if constexpr (DQK == 256 || DQK != DV) {
+      err = launch_one(bwd_dkdv_mma_passes<DQK, DV>, dim3(p.B * p.KV, k_tiles, 2), MMA_THREADS,
                        smem_kv, device, set_dkdv, stream, p);
     } else {
-      err = launch_one(bwd_dkdv_mma<DH, WG>, dkdv_grid, MMA_THREADS, smem_kv, device, set_dkdv,
-                       stream, p);
+      err = launch_one(bwd_dkdv_mma<DQK, DV, WG>, dkdv_grid, MMA_THREADS, smem_kv, device,
+                       set_dkdv, stream, p);
     }
     if (err != cudaSuccess) return err;
-    return launch_one(bwd_dq_mma<DH, WG>, dq_grid, MMA_THREADS, smem_q, device, set_dq, stream, p);
+    return launch_one(bwd_dq_mma<DQK, DV, WG>, dq_grid, MMA_THREADS, smem_q, device, set_dq,
+                      stream, p);
   }
 }
 
 template <typename T>
-cudaError_t launch_dh(const Params& p, int Dh, int device, cudaStream_t stream) {
-  switch (Dh) {
-    case 32: return launch<T, 32>(p, device, stream);
-    case 64: return launch<T, 64>(p, device, stream);
-    case 128: return launch<T, 128>(p, device, stream);
-    case 256: return launch<T, 256>(p, device, stream);
+cudaError_t launch_dims(const Params& p, int Dqk, int Dv, int device, cudaStream_t stream) {
+  if (Dqk == 192 && Dv == 128) return launch<T, 192, 128>(p, device, stream);  // MLA
+  if (Dqk != Dv) return cudaErrorInvalidValue;
+  switch (Dqk) {
+    case 32: return launch<T, 32, 32>(p, device, stream);
+    case 64: return launch<T, 64, 64>(p, device, stream);
+    case 128: return launch<T, 128, 128>(p, device, stream);
+    case 256: return launch<T, 256, 256>(p, device, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -938,9 +994,11 @@ struct DeviceScope {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, the same for q, k, v, o, dO and the
-// gradients. Dh: 32, 64, 128 or 256. `strides` holds, in elements, (batch,
-// head, seq) strides of q, k, v, o, dO, dq, dk, dv in that order (24
-// values); the last (Dh) dim of each must be contiguous. lse is the
+// gradients. (Dqk, Dv): (32, 32), (64, 64), (128, 128), (256, 256) or MLA's
+// (192, 128); q, k and dq, dk are Dqk wide, v, o, dO and dv Dv wide.
+// `strides` holds, in elements, (batch, head, seq) strides of q, k, v, o,
+// dO, dq, dk, dv in that order (24 values); the last dim of each must be
+// contiguous. lse is the
 // forward's (B, H, Sq) f32 output and delta a (B, H, Sq) f32 scratch. With
 // `causal`, keys at positions below `prefix_len` (0: none) are visible to
 // every query, as in the forward. Launches the three kernels on `stream`
@@ -950,7 +1008,7 @@ struct DeviceScope {
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dO,
     const float* lse, float* delta, void* dq, void* dk, void* dv, int dtype, int device,
-    int B, int H, int KV, int Sq, int Sk, int Dh, const long long* strides,
+    int B, int H, int KV, int Sq, int Sk, int Dqk, int Dv, const long long* strides,
     int causal, int window, int k_len, int prefix_len, float scale, void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Sk < 1 || prefix_len < 0 ||
       (dtype != 0 && dtype != 1))
@@ -982,6 +1040,6 @@ extern "C" int flash_attention_bwd(
   p.prefix_len = prefix_len;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 1 ? launch_dh<__nv_bfloat16>(p, Dh, device, st)
-                          : launch_dh<float>(p, Dh, device, st));
+  return (int)(dtype == 1 ? launch_dims<__nv_bfloat16>(p, Dqk, Dv, device, st)
+                          : launch_dims<float>(p, Dqk, Dv, device, st));
 }

@@ -35,6 +35,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # of its own: flash attention forward and backward, the SSD scan forward and
 # backward
 SOURCES = ("flash_attention", "flash_attention_bwd", "ssd", "ssd_bwd")
+
+# launch/dryrun.py's stand-ins for the kernels while it models a step, or
+# None: the wrappers hand CPU tensors to its methods (named as the kernels)
+# in place of the plain versions; CUDA tensors never reach it
+STAND_IN = None
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

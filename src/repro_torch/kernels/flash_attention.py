@@ -35,9 +35,10 @@ on an instantiation of its own. The scale is ``Dqk**-0.5``. Besides the
 causal, window and valid-length (``k_len``) masks, the forward takes a
 prefix-LM span: with ``causal`` and ``prefix_len``, keys at positions below
 ``prefix_len`` are visible to every query (paligemma's image tokens), as
-the reference's ``causal_mask_bias`` builds it. The backward takes Dqk = Dv
-in :data:`HEAD_DIMS` (256 included) and the same masks, the prefix span
-too: on a CUDA tensor, attention at MLA's 192/128 under autograd raises
+the reference's ``causal_mask_bias`` builds it. The backward takes the
+pairs of :data:`BWD_HEAD_DIM_PAIRS` (Dqk = Dv in :data:`HEAD_DIMS`, 256
+included, and MLA's 192/128, deepseek-v2's training) and the same masks,
+the prefix span too; on a CUDA tensor any other pair under autograd raises
 ``NotImplementedError`` before anything is launched.
 
 The first launch of each kernel instantiation (device, dtype, Dqk, Dv,
@@ -53,14 +54,17 @@ from typing import Optional
 
 import torch
 
+from ..analysis import traffic
 from . import build
 
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the backward's head dims (Dqk = Dv)
+# the head dims with Dqk = Dv
 HEAD_DIMS = (32, 64, 128, 256)
 # the forward's (Dqk, Dv) pairs, each an instantiation of its own
 HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128), (192, 128), (256, 256))
+# the backward's: Dqk = Dv in HEAD_DIMS, and MLA's 192/128
+BWD_HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 
 
 def design(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = None) -> str:
@@ -77,18 +81,21 @@ def design(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = None) 
     return "wgmma" if (head_dim, v_head_dim) == (64, 64) else "mma.sync"
 
 
-def design_bwd(dtype: torch.dtype, head_dim: int) -> str:
-    """The backward's design for this dtype and head dim, as
-    ``csrc/flash_attention_bwd.cu`` names them: bf16 on the tensor cores
-    with P and dS split into hi + lo bf16 parts, on ``wgmma`` at head dim 64
-    and ``mma.sync`` at 32 and 128, and at 256 on ``mma.sync`` with dV and
-    dK in two passes side by side in one launch (a warp's dK and dV
-    together would not fit its registers); f32 on FMA tiles."""
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"head_dim {head_dim} not in the kernel's {HEAD_DIMS}")
+def design_bwd(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = None) -> str:
+    """The backward's design for this dtype and (query/key, value) head
+    dims, as ``csrc/flash_attention_bwd.cu`` names them: bf16 on the tensor
+    cores with P and dS split into hi + lo bf16 parts, on ``wgmma`` at head
+    dim 64 and ``mma.sync`` at 32 and 128, and at 256/256 and MLA's 192/128
+    on ``mma.sync`` with dV and dK in two passes side by side in one launch
+    (a warp's dK and dV together would not fit its registers beside the
+    score fragments); f32 on FMA tiles."""
+    v_head_dim = head_dim if v_head_dim is None else v_head_dim
+    if (head_dim, v_head_dim) not in BWD_HEAD_DIM_PAIRS:
+        raise ValueError(f"head_dim {(head_dim, v_head_dim)} not in the backward's "
+                         f"{BWD_HEAD_DIM_PAIRS}")
     if dtype == torch.float32:
         return "fma-f32"
-    if head_dim == 256:
+    if head_dim in (192, 256):
         return "mma.sync-split-dv-dk-passes"
     return ("wgmma" if head_dim == 64 else "mma.sync") + "-split"
 
@@ -108,7 +115,7 @@ def _scaled_error(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got.float() - want.float()).abs().max().item() / scale
 
 
-# keyed by (device index, dtype, head_dim); the error of each gradient is scaled
+# keyed by (device index, dtype, Dqk, Dv); the error of each gradient is scaled
 _bwd_guard = build.FirstLaunchGuard("flash_attention_bwd", _scaled_error)
 
 
@@ -127,7 +134,7 @@ def _kernel_fn(name: str = "flash_attention_fwd"):
                 )
             else:
                 fn = build.library("flash_attention_bwd").flash_attention_bwd
-                fn.argtypes = [ptr] * 10 + [i32] * 8 + [ptr] + [i32] * 4 + [ctypes.c_float, ptr]
+                fn.argtypes = [ptr] * 10 + [i32] * 9 + [ptr] + [i32] * 4 + [ctypes.c_float, ptr]
             fn.restype = i32
             _fns[name] = fn
         return fn
@@ -315,7 +322,12 @@ def _forward(q, k, v, causal, window, k_len, bshd, *, lse, prefix_len=None):
     """One counted forward launch, or the plain version on the CPU; ``lse``:
     also the rows' statistics (serving asks for none, and the kernel then
     writes none)."""
+    traffic.note_kernel("flash_attention")
     if build.device_type(q, k, v) == "cpu":
+        if build.STAND_IN is not None:
+            return build.STAND_IN.flash_attention(q, k, v, causal=causal, window=window,
+                                                  k_len=k_len, bshd=bshd, lse=lse,
+                                                  prefix_len=prefix_len)
         qt, kt, vt = _to_bhsd(bshd, q, k, v)
         o, stats = flash_attention_lse_ref(qt, kt, vt, causal=causal, window=window, k_len=k_len,
                                            prefix_len=prefix_len)
@@ -339,19 +351,26 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None, k_len=
     (``flash_attention_bwd.launches`` counts each set of three kernels),
     CPU tensors take
     :func:`flash_attention_bwd_ref`."""
+    traffic.note_kernel("flash_attention_bwd")
     if build.device_type(q, k, v, o, lse, do) == "cpu":
+        if build.STAND_IN is not None:
+            return build.STAND_IN.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                                      window=window, k_len=k_len, bshd=bshd,
+                                                      prefix_len=prefix_len)
         qt, kt, vt, ot, dot = _to_bhsd(bshd, q, k, v, o, do)
         grads = flash_attention_bwd_ref(qt, kt, vt, ot, lse, dot, causal=causal, window=window,
                                         k_len=k_len, prefix_len=prefix_len)
         return _to_bhsd(bshd, *grads)
     k_len = check_inputs(q, k, v, k_len, bshd=bshd, prefix_len=prefix_len)
     _require_bwd_dims(q, v)
-    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+    out_shape = (*q.shape[:3], v.shape[3])  # q's, Dv wide
+    if o.shape != out_shape or do.shape != out_shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} {do.dtype} "
-                         f"must match q {tuple(q.shape)} {q.dtype}")
+                         f"must be {out_shape} {q.dtype}")
     if do.stride(-1) != 1 or (do.dtype == torch.bfloat16 and not build.rows_16_byte_aligned(do)):
         do = do.contiguous()  # the bf16 kernels copy dO's rows in 16-byte pieces
-    _check_first_bwd_launch(q.device, q.dtype, q.shape[-1])
+    _check_first_bwd_launch(q.device, q.dtype, q.shape[-1], v.shape[-1])
     grads = _launch_bwd(q, k, v, o, lse, do, causal=causal, window=window, k_len=k_len,
                         bshd=bshd, prefix_len=prefix_len)
     build.count_launch(flash_attention_bwd, "flash_attention_bwd")
@@ -414,15 +433,13 @@ def check_inputs(q, k, v, k_len=None, *, bshd=False, prefix_len=None) -> int:
 
 
 def _require_bwd_dims(q, v) -> None:
-    """The backward kernels take Dqk = Dv in :data:`HEAD_DIMS`, with any of
-    the forward's masks; MLA's 192/128 has a forward instantiation and no
-    backward yet."""
+    """The backward kernels take the (Dqk, Dv) pairs of
+    :data:`BWD_HEAD_DIM_PAIRS`, with any of the forward's masks."""
     dims = (q.shape[-1], v.shape[-1])
-    if dims[0] != dims[1] or dims[0] not in HEAD_DIMS:
+    if dims not in BWD_HEAD_DIM_PAIRS:
         raise NotImplementedError(
-            f"flash attention's backward kernel takes Dqk = Dv in {HEAD_DIMS}; (Dqk, Dv) = "
-            f"{dims} has a forward kernel only, and training through it on the card waits "
-            "for that backward (ROADMAP queue 2 item 1)"
+            f"flash attention's backward kernel takes (Dqk, Dv) in {BWD_HEAD_DIM_PAIRS}; "
+            f"(Dqk, Dv) = {dims} has no backward instantiation"
         )
 
 
@@ -465,9 +482,9 @@ def _bhs_strides(hd, sd, *tensors) -> list:
 
 def _launch_bwd(q, k, v, o, lse, do, *, causal, window, k_len, bshd=False, prefix_len=None):
     """One set of the backward launches (preprocess, dK/dV, dQ; in bf16 at
-    Dh = 256, dV and dK apart)."""
+    256/256 and 192/128, dV and dK apart)."""
     hd, sd = (2, 1) if bshd else (1, 2)
-    B, H, Sq, Dh = q.shape[0], q.shape[hd], q.shape[sd], q.shape[3]
+    B, H, Sq, Dh, Dv = q.shape[0], q.shape[hd], q.shape[sd], q.shape[3], v.shape[3]
     KV, Sk = k.shape[hd], k.shape[sd]
     lse = lse.float().contiguous()
     if tuple(lse.shape) != (B, H, Sq):
@@ -478,7 +495,7 @@ def _launch_bwd(q, k, v, o, lse, do, *, causal, window, k_len, bshd=False, prefi
     err = _kernel_fn("flash_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _DTYPE_CODES[q.dtype], q.device.index, B, H, KV, Sq, Sk, Dh, strides,
+        _DTYPE_CODES[q.dtype], q.device.index, B, H, KV, Sq, Sk, Dh, Dv, strides,
         int(causal), 0 if window is None else int(window), k_len,
         0 if prefix_len is None else int(prefix_len), Dh**-0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -516,16 +533,18 @@ def _check_first_launch(device: torch.device, dtype: torch.dtype, Dh: int,
     _guard.check((device.index, dtype, Dh, Dv), case)
 
 
-def _check_first_bwd_launch(device: torch.device, dtype: torch.dtype, Dh: int) -> None:
+def _check_first_bwd_launch(device: torch.device, dtype: torch.dtype, Dh: int,
+                            Dv: Optional[int] = None) -> None:
     """The same for the backward: the forward kernel's o and lse and a random
     dO go through the backward kernels and its plain version; each
     gradient's error is scaled by its largest value."""
+    Dv = Dh if Dv is None else Dv
 
     def case():
-        q, k, v = _guard_inputs(device, dtype, Dh)
+        q, k, v = _guard_inputs(device, dtype, Dh, Dv)
         with torch.no_grad():
             o, lse = _launch(q, k, v, causal=True, window=None, k_len=q.shape[2], lse=True)
-        do = torch.randn(q.shape, generator=torch.Generator(device=device).manual_seed(1),
+        do = torch.randn(o.shape, generator=torch.Generator(device=device).manual_seed(1),
                          device=device).to(dtype)
         args = (q, k, v, o, lse, do)
 
@@ -534,7 +553,7 @@ def _check_first_bwd_launch(device: torch.device, dtype: torch.dtype, Dh: int) -
 
         return launch, flash_attention_bwd_ref(*args, causal=True)
 
-    _bwd_guard.check((device.index, dtype, Dh), case)
+    _bwd_guard.check((device.index, dtype, Dh, Dv), case)
 
 
 flash_attention_bhsd.launches = 0

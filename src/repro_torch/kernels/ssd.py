@@ -43,6 +43,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..analysis import traffic
 from . import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -329,7 +330,10 @@ def ssd_bshp(
 
 def _forward(x, dt, A, Bm, Cm, chunk):
     """(y, final state): one counted launch, or the plain version on the CPU."""
+    traffic.note_kernel("ssd")
     if build.device_type(x, dt, A, Bm, Cm) == "cpu":
+        if build.STAND_IN is not None:
+            return build.STAND_IN.ssd(x, dt, A, Bm, Cm, chunk=chunk)
         return ssd_ref(x, dt, A, Bm, Cm, chunk=chunk, return_final_state=True)
     cl = check_inputs(x, dt, A, Bm, Cm, chunk)
     _check_first_launch(x.device, x.dtype)
@@ -345,8 +349,11 @@ def ssd_bwd(x, dt, A, Bm, Cm, dy, dfinal=None, *, chunk=64):
     (``ssd_bwd.launches`` counts each set), which take what the forward
     takes (:func:`check_inputs`) with P up to :data:`MAX_HEAD_BWD`; CPU
     tensors take :func:`ssd_bwd_ref`."""
+    traffic.note_kernel("ssd_bwd")
     tensors = (x, dt, A, Bm, Cm, dy) + (() if dfinal is None else (dfinal,))
     if build.device_type(*tensors) == "cpu":
+        if build.STAND_IN is not None:
+            return build.STAND_IN.ssd_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk=chunk)
         return ssd_bwd_ref(x, dt, A, Bm, Cm, dy, dfinal, chunk=chunk)
     cl = check_inputs(x, dt, A, Bm, Cm, chunk)
     B, S, H, P = x.shape

@@ -4,12 +4,18 @@ from the reference's ``repro/launch/train.py``. It trains on ``--device``
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
         --device cpu --reduced --steps 20 --ckpt build/ckpt
+
+``--depth`` cuts the decoder's layers (a full-width model that does not fit
+the card whole, as deepseek-v2's); AdamW's moments are bf16 where the
+arch's full config has over 1e11 parameters (the reference's rule,
+``launch.dryrun.moments_dtype_for``), whatever the depth.
 """
 from __future__ import annotations
 
 import argparse
 
 from repro_torch.configs import ARCH_NAMES, get_config, get_reduced
+from repro_torch.launch.dryrun import moments_dtype_for
 from repro_torch.runtime import Trainer, TrainerConfig
 
 
@@ -26,9 +32,12 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--fail-at", type=int, default=None)
+    ap.add_argument("--depth", type=int, default=None, help="decoder layers (default: all)")
     args = ap.parse_args(argv)
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.depth is not None:
+        cfg = cfg.replace(num_layers=args.depth)
     tcfg = TrainerConfig(
         num_steps=args.steps,
         checkpoint_every=args.ckpt_every,
@@ -37,6 +46,7 @@ def main(argv=None) -> None:
         global_batch=args.batch,
         lr=args.lr,
         fail_at_step=args.fail_at,
+        moments_dtype=moments_dtype_for(get_config(args.arch)),
     )
     with Trainer(cfg, tcfg, args.ckpt, device=args.device) as tr:
         out = tr.run_with_restarts() if args.fail_at else tr.run(resume=args.resume)

@@ -30,6 +30,7 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from ..kernels import build
 from ..kernels.flash_attention import flash_attention
 from ..parallel.ctx import reduce_scatter
 from .common import NEG_INF, apply_rope, causal_mask_bias, rms_norm
@@ -65,9 +66,11 @@ def attend(
     mask: Union[torch.Tensor, PrefillMask],
 ) -> torch.Tensor:
     """``mask`` is a prefill's :class:`PrefillMask`, or an additive f32 bias
-    ``(B or 1, Sq, Sk)`` (decode builds one from each lane's cache)."""
+    ``(B or 1, Sq, Sk)`` (decode builds one from each lane's cache). On the
+    card a prefill goes to the flash kernel; so it does on the CPU while the
+    dry run stands in for the kernels (``kernels.build.STAND_IN``)."""
     B, Sq, H, Dh = q.shape
-    if q.is_cuda and Sq > 1:
+    if (q.is_cuda or build.STAND_IN is not None) and Sq > 1:
         if not isinstance(mask, PrefillMask):
             raise NotImplementedError(
                 "an additive bias over more than one query (queries not starting "

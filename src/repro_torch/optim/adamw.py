@@ -218,10 +218,33 @@ def adamw_update(
     return params, state, {"grad_norm": gnorm, "lr": lr}
 
 
+# On one device a leaf's update runs on flat pieces of at most this many
+# elements: the update is elementwise, so the pieces give the whole leaf's
+# result bit for bit, and its f32 temporaries stay at a few pieces' size
+# (whole, those of one of deepseek-v2's 1.26e9-element expert leaves would
+# take some 30 GB beside its bf16 moments)
+UPDATE_PIECE = 1 << 26
+
+
 def _update_leaf(cfg, lr, p, g, m, v, master, decay, scale, c1, c2, ctx) -> None:
     """One param's update, in place: on its ZeRO block under a mesh (the
-    whole param on one device), the new block then all-gathered over the
-    data axes into the param shard. ``master`` is None without masters."""
+    whole param on one device, in pieces of :data:`UPDATE_PIECE`), the new
+    block then all-gathered over the data axes into the param shard.
+    ``master`` is None without masters."""
+    state = (p, m, v) if master is None else (p, m, v, master)
+    if ctx is None and p.numel() > UPDATE_PIECE and all(t.is_contiguous() for t in state):
+        flat = [t.view(-1) for t in state] + [None] * (4 - len(state))
+        pf, mf, vf, mstf = flat
+        gf = g.reshape(-1)
+        for i in range(0, pf.numel(), UPDATE_PIECE):
+            piece = slice(i, i + UPDATE_PIECE)
+            _update_block(cfg, lr, pf[piece], gf[piece], mf[piece], vf[piece],
+                          None if mstf is None else mstf[piece], decay, scale, c1, c2, None)
+        return
+    _update_block(cfg, lr, p, g, m, v, master, decay, scale, c1, c2, ctx)
+
+
+def _update_block(cfg, lr, p, g, m, v, master, decay, scale, c1, c2, ctx) -> None:
     b1, b2 = cfg.b1, cfg.b2
     gf = g.float() * scale
     m1 = b1 * m.float() + (1 - b1) * gf

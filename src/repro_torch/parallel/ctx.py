@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..analysis import traffic
 from .sharding import mesh_shape
 
 
@@ -82,6 +83,8 @@ class _AllGather(torch.autograd.Function):
         xm = x.movedim(dim, 0).contiguous()
         out = xm.new_empty((_size(group) * xm.shape[0], *xm.shape[1:]))
         _all_gather_flat(out, xm, group=group)
+        if traffic.ACTIVE is not None:
+            traffic.ACTIVE.collective("all-gather", out, _size(group))
         return out.movedim(0, dim)
 
     @staticmethod
@@ -96,6 +99,8 @@ class _ReduceScatter(torch.autograd.Function):
         xm = x.movedim(dim, 0).contiguous()
         out = xm.new_empty((xm.shape[0] // _size(group), *xm.shape[1:]))
         _reduce_scatter_flat(out, xm, group=group)
+        if traffic.ACTIVE is not None:
+            traffic.ACTIVE.collective("reduce-scatter", out, _size(group))
         return out.movedim(0, dim)
 
     @staticmethod
@@ -109,6 +114,8 @@ class _AllReduce(torch.autograd.Function):
         ctx.group = group
         out = x.contiguous().clone()
         dist.all_reduce(out, group=group)
+        if traffic.ACTIVE is not None:
+            traffic.ACTIVE.collective("all-reduce", out, _size(group))
         return out
 
     @staticmethod
@@ -129,6 +136,8 @@ class _AllToAll(torch.autograd.Function):
         blocks = xm.reshape(n, xm.shape[0] // n, *xm.shape[1:]).contiguous()
         out = torch.empty_like(blocks)
         dist.all_to_all_single(out, blocks, group=group)
+        if traffic.ACTIVE is not None:
+            traffic.ACTIVE.collective("all-to-all", out, _size(group))
         return torch.cat([b.movedim(0, split) for b in out.unbind(0)], dim=concat)
 
     @staticmethod
@@ -324,6 +333,8 @@ class ParallelCtx:
         if self.n_model > 1:
             x = x.detach().clone()
             dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.model_group)
+            if traffic.ACTIVE is not None:
+                traffic.ACTIVE.collective("all-reduce", x, self.n_model)
         return x
 
     def world_sum(self, x: torch.Tensor) -> torch.Tensor:

@@ -49,6 +49,7 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
+from ..analysis import traffic
 from ..core.schedule import PipelineOp, SimTask, simulate
 from ..tree import tree_leaves, tree_unflatten
 from .sharding import mesh_shape
@@ -104,6 +105,8 @@ class _Ring:
                dist.P2POp(dist.irecv, recv, src, self.group)]
         for work in dist.batch_isend_irecv(ops):
             work.wait()
+        if traffic.ACTIVE is not None:
+            traffic.ACTIVE.collective("collective-permute", recv, self.size)
         return recv
 
 
@@ -193,6 +196,8 @@ class _ReplicatedSum(torch.autograd.Function):
         out = x.detach().clone()
         if ring.size > 1:
             dist.all_reduce(out, group=ring.group)
+            if traffic.ACTIVE is not None:
+                traffic.ACTIVE.collective("all-reduce", out, ring.size)
         return out
 
     @staticmethod

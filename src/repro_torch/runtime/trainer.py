@@ -60,6 +60,9 @@ class TrainerConfig:
     keep_checkpoints: int = 3
     prefetch_depth: int = 2
     seed: int = 0
+    # AdamW's moments: "bfloat16" for very large models (the reference's rule
+    # above 1e11 parameters, ``launch.dryrun.moments_dtype_for``)
+    moments_dtype: str = "float32"
     # fault injection: raise at this step (once) to test restart/resume
     fail_at_step: Optional[int] = None
     heartbeat_timeout_s: float = 300.0
@@ -81,7 +84,7 @@ class Trainer:
         self.device = resolve_device(device)
         self.model = build_model(model_cfg, device=self.device)
         self.mesh = mesh
-        self.ocfg = AdamWConfig(lr=tcfg.lr)
+        self.ocfg = AdamWConfig(lr=tcfg.lr, moments_dtype=tcfg.moments_dtype)
         self.lr_fn = cosine_schedule(tcfg.lr, tcfg.warmup, tcfg.num_steps)
         self.ctx = None
         writer = True

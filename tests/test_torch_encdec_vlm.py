@@ -427,12 +427,14 @@ def test_prefix_len_must_not_be_negative():
         tfa.check_inputs(q, k, k, bshd=True, prefix_len=-1)
 
 
-# (Dqk, Dv, prefix_len, what autograd on the card does): MLA's 192/128 has a
-# forward kernel and no backward, with or without a span; gemma's 256/256
-# and the prefix span at every head dim take the backward kernel
+# (Dqk, Dv, prefix_len, what autograd on the card does): MLA's 192/128,
+# gemma's 256/256 and the prefix span at every head dim take the backward
+# kernel; an unequal pair the backward has no instantiation of raises
 BWD_ON_CARD = {
-    "192/128 raises": (192, 128, None, "raises"),
-    "192/128 with a span raises": (192, 128, 256, "raises"),
+    "192/128 trains": (192, 128, None, "trains"),
+    "192/128 with a span trains": (192, 128, 256, "trains"),
+    "256/128 raises": (256, 128, None, "raises"),
+    "128/192 with a span raises": (128, 192, 256, "raises"),
     "256/256 with a span trains": (256, 256, 256, "trains"),
     "256/256 trains": (256, 256, None, "trains"),
     "64/64 with a span trains": (64, 64, 4, "trains"),
@@ -442,10 +444,12 @@ BWD_ON_CARD = {
 @pytest.mark.parametrize("name", list(BWD_ON_CARD))
 def test_training_on_the_card_takes_256_and_a_prefix_and_refuses_192_128(name, monkeypatch):
     """Off the CPU (meta tensors stand in for the card's), a call under
-    autograd at 192/128 raises before anything is launched and does not
-    fall back to the plain version; at 256/256, or with a prefix span, it
-    goes to the autograd function (stubbed here: the kernels need the card)
-    with the span in its mask. Under no_grad every case passes the input
+    autograd at an unequal pair other than MLA's 192/128 raises before
+    anything is launched and does not fall back to the plain version (the
+    name is older than the 192/128 backward, which training now takes); at
+    192/128 and 256/256, or with a prefix span, it goes to the autograd
+    function (stubbed here: the kernels need the card) with the span in its
+    mask. Under no_grad every case the forward takes passes the input
     check."""
     dqk, dv, prefix, does = BWD_ON_CARD[name]
     q = torch.empty((1, 320, 8, dqk), device="meta", dtype=torch.bfloat16, requires_grad=True)
@@ -455,7 +459,7 @@ def test_training_on_the_card_takes_256_and_a_prefix_and_refuses_192_128(name, m
     monkeypatch.setattr(tfa.FlashAttention, "apply", lambda *a: applied.append(a) or "applied")
     before = tfa.flash_attention_bhsd.launches, tfa.flash_attention_bwd.launches
     if does == "raises":
-        with pytest.raises(NotImplementedError, match=r"\(192, 128\)"):
+        with pytest.raises(NotImplementedError, match=fr"\({dqk}, {dv}\)"):
             tfa.flash_attention(q, k, v, causal=True, prefix_len=prefix)
         assert not applied
     else:
@@ -463,7 +467,11 @@ def test_training_on_the_card_takes_256_and_a_prefix_and_refuses_192_128(name, m
         assert applied[0][-1] == prefix
     assert (tfa.flash_attention_bhsd.launches, tfa.flash_attention_bwd.launches) == before
     with torch.no_grad():
-        assert tfa.check_inputs(q, k, v, bshd=True, prefix_len=prefix) == 320
+        if does == "raises":  # the forward has no instantiation of these pairs either
+            with pytest.raises(ValueError, match="head dims"):
+                tfa.check_inputs(q, k, v, bshd=True, prefix_len=prefix)
+        else:
+            assert tfa.check_inputs(q, k, v, bshd=True, prefix_len=prefix) == 320
 
 
 def test_design_names_the_256_instantiation():

@@ -8,8 +8,9 @@ patches, made with numpy from a seed by the train cells' data source
 run with that source, checkpointed and resumed exactly; K1's plain backward
 at the cross-attention's shape (non-causal, Sq != Sk) and under the
 prefix-LM span against the reference's VJP; and the train phases' launch
-counts and model FLOPs (``chip_smoke._launches_per_step``,
-``_model_flops``). The kernels themselves run on the card only
+counts (``chip_smoke._launches_per_step``) and model FLOPs
+(``analysis.roofline.step_model_flops``, which ``chip_smoke.py`` imports).
+The kernels themselves run on the card only
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
 import dataclasses
 import importlib.util
@@ -29,6 +30,7 @@ from repro.models.lm import stack_plan as jax_stack_plan
 from repro.optim import AdamWConfig as JaxAdamWConfig
 from repro.optim import adamw_init as jax_adamw_init
 from repro.optim import adamw_update as jax_adamw_update
+from repro_torch.analysis.roofline import step_model_flops, visible_pairs
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.kernels import flash_attention as tfa
@@ -309,7 +311,7 @@ def test_launches_per_step(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_model_flops_count_frames_patches_and_the_text_head(arch):
-    """``_model_flops`` on the reduced config against the count written
+    """``step_model_flops`` on the reduced config against the count written
     out from the reference's parameter tree: encoder parameters and the
     cross-attention's K and V projections over the frames, the vision
     projection over the patches, the tied head over the text, the rest over
@@ -338,7 +340,7 @@ def test_model_flops_count_frames_patches_and_the_text_head(arch):
                  + cfg.num_layers * Sd * F)
     else:  # every query sees the P patches, and the text causally
         pairs = cfg.num_layers * sum(max(q + 1, P) for q in range(Sd))
-    flops, _, n_pos = chip_smoke._model_flops(cfg, tp, B, S)
+    flops, _, n_pos = step_model_flops(cfg, tp, B, S)
     assert n_pos * 6 * B == param_flops
     assert flops == param_flops + 6 * B * H * 2 * Dh * pairs
 
@@ -351,7 +353,7 @@ def test_model_flops_of_a_dense_model_are_six_n_per_token():
     B, S = 2, 11
     n = sum(p.numel() for p in tp.parameters()) - cfg.vocab_size * cfg.d_model
     assert not cfg.tie_embeddings
-    flops, _, n_pos = chip_smoke._model_flops(cfg, tp, B, S)
+    flops, _, n_pos = step_model_flops(cfg, tp, B, S)
     assert n_pos == n * S
     attn = 6 * cfg.num_layers * B * cfg.num_heads * 2 * cfg.head_dim * S * (S + 1) // 2
     assert flops == 6 * n * B * S + attn
@@ -366,7 +368,7 @@ def test_model_flops_of_a_dense_model_are_six_n_per_token():
 ])
 def test_visible_pairs_and_the_backward_bound(case):
     Sq, Sk, causal, window, prefix, pairs = case
-    assert chip_smoke._visible_pairs(Sq, Sk, causal, window, prefix) == pairs
+    assert visible_pairs(Sq, Sk, causal, window, prefix) == pairs
     mask = tfa._mask(Sq, Sk, causal, window, None, "cpu", prefix)
     assert int(mask.expand(Sq, Sk).sum()) == pairs
     B, H, KV, Dh = 4, 8, 1, 256

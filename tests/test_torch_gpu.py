@@ -18,8 +18,13 @@ decode tick against eager ``decode_step`` bit for bit (three families, both
 cache layouts, f32 and bf16), an engine whose ticks and bucketed prefills
 all replay graphs, a capture beside another engine's work on other threads,
 and the first-launch guard refusing to run inside a capture. MLA's flash
-attention at Dqk=192, Dv=128 against its plain version, its refusal under
-autograd (no backward kernel yet), and reduced granite-moe and deepseek-v2
+attention at Dqk=192, Dv=128 against its plain version, forward and
+backward (causal, with and without ``k_len``, B=1 and B=2 at ragged S, in
+bf16 also in ulps and bit for bit), autograd at 192/128 through both
+kernels while an unequal pair with no backward instantiation is refused,
+a train step of reduced deepseek-v2 with its MLA widened to 192/128 on the
+card against the CPU and two bf16 ``Trainer`` steps of it at depth 2 and
+S=256, and reduced granite-moe and deepseek-v2
 (2 layers, MLA at 192/128) served through the graphs against the same
 weights decoded on the CPU. Flash attention at gemma's Dqk=Dv=256 with and
 without a prefix-LM span swept across the tile edges, whisper's non-causal
@@ -27,8 +32,8 @@ forms up to Sk=1500, and small whisper and paligemma prefills and greedy
 decodes on the card against the CPU. Flash attention's backward at 256/256
 with the prefix span over the same edges, the span at the other head dims,
 whisper's encoder and cross-attention (Sq=448 over Sk=1500), two launches
-at 256 bit for bit, autograd at 256 and with a span through the kernels,
-the refusal at 192/128 with a span, and a train step of small whisper and
+at 256 bit for bit, autograd at 256 and with a span through the kernels
+(and at 192/128 with a span), and a train step of small whisper and
 paligemma at head dim 256 on the card against the CPU. With four cards, the
 parallel layer's and the pipeline's group checks over NCCL against the
 CPU."""
@@ -127,7 +132,7 @@ def test_flash_kernel_tile_edges_on_card(name, dtype):
     assert err <= tol, (name, dtype, err)
 
 
-# cases with no backward kernel, forward only; (B, H, KV, Sq, Sk, Dqk,
+# cases held forward only here; (B, H, KV, Sq, Sk, Dqk,
 # causal, window, k_len[, Dv[, prefix_len]]). MLA's expanded prefill: Dqk =
 # 192 (128 nope + 64 rope), Dv = 128, on the kernel's own instantiation;
 # whisper's forms at Dh=64 (non-causal with Sq != Sk up to its 1500 encoder
@@ -159,19 +164,43 @@ def test_flash_kernel_forward_only_cases_on_card(name, dtype):
     assert err <= tol, (name, dtype, err)
 
 
+def _autograd_at(dev, dqk, dv, prefix_len=None):
+    """Attention under autograd on the card at (Dqk, Dv): the forward and
+    backward launches it made and its gradients against the plain
+    versions'."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k = (torch.randn((1, 70, 4, dqk), generator=g, device=dev).requires_grad_()
+            for _ in range(2))
+    v = torch.randn((1, 70, 4, dv), generator=g, device=dev).requires_grad_()
+    before = tfa.flash_attention_bhsd.launches, tfa.flash_attention_bwd.launches
+    out = tfa.flash_attention(q, k, v, causal=True, prefix_len=prefix_len)
+    out.square().sum().backward()
+    launches = (tfa.flash_attention_bhsd.launches - before[0],
+                tfa.flash_attention_bwd.launches - before[1])
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    want = tfa.attention_ref(qt, kt, vt, causal=True, prefix_len=prefix_len)
+    want.square().sum().backward()
+    for t, w in ((q, qt), (k, kt), (v, vt)):
+        torch.testing.assert_close(t.grad, w.grad.transpose(1, 2), atol=1e-4, rtol=1e-4)
+    return launches
+
+
 @pytest.mark.gpu
 def test_flash_attention_at_192_128_refuses_autograd_on_card():
-    """K1 at 192/128 has a forward kernel and no backward: under autograd on
-    the card the call raises before any launch, and falls back to nothing."""
+    """(The name predates the 192/128 backward.) Under autograd on the card,
+    K1 at MLA's 192/128 runs the forward kernel and its own backward
+    instantiation, gradients within 1e-4 of the plain versions'; an unequal
+    pair with no backward instantiation (256/128, which the forward does
+    not take either) raises before any launch and falls back to nothing."""
     dev = _cuda()
-    q, k = (torch.zeros((1, 16, 4, 192), device=dev, requires_grad=True) for _ in range(2))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert _autograd_at(dev, 192, 128) == (1, 1)
+    q, k = (torch.zeros((1, 16, 4, 256), device=dev, requires_grad=True) for _ in range(2))
     v = torch.zeros((1, 16, 4, 128), device=dev, requires_grad=True)
-    before = tfa.flash_attention_bhsd.launches
-    with pytest.raises(NotImplementedError, match=r"\(192, 128\)"):
+    before = tfa.flash_attention_bhsd.launches, tfa.flash_attention_bwd.launches
+    with pytest.raises(NotImplementedError, match=r"\(256, 128\)"):
         tfa.flash_attention(q, k, v, causal=True)
-    assert tfa.flash_attention_bhsd.launches == before
-    with torch.no_grad():
-        assert tfa.flash_attention(q, k, v, causal=True).shape == (1, 16, 4, 128)
+    assert (tfa.flash_attention_bhsd.launches, tfa.flash_attention_bwd.launches) == before
 
 
 # gemma's head dim (paligemma: H=8 on one kv-head): S ragged and whole
@@ -196,15 +225,12 @@ def test_flash_kernel_at_256_with_prefix_span_on_card(S, dtype):
 
 @pytest.mark.gpu
 def test_flash_attention_at_192_128_with_a_prefix_refuses_autograd_on_card():
-    """K1 at 192/128 has no backward kernel with a prefix span either:
-    under autograd on the card the call raises before any launch."""
+    """(The name predates the 192/128 backward.) With a prefix span too,
+    autograd at 192/128 on the card runs both kernels once, gradients
+    within 1e-4 of the plain versions'."""
     dev = _cuda()
-    before = tfa.flash_attention_bhsd.launches, tfa.flash_attention_bwd.launches
-    q, k = (torch.zeros((1, 16, 4, 192), device=dev, requires_grad=True) for _ in range(2))
-    v = torch.zeros((1, 16, 4, 128), device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match=r"\(192, 128\)"):
-        tfa.flash_attention(q, k, v, causal=True, prefix_len=4)
-    assert (tfa.flash_attention_bhsd.launches, tfa.flash_attention_bwd.launches) == before
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert _autograd_at(dev, 192, 128, prefix_len=20) == (1, 1)
 
 
 @pytest.mark.gpu
@@ -544,16 +570,16 @@ def _bwd_error(dev, rng, dt, case) -> float:
     """One set of backward launches in the model's layout against the plain
     version: the largest error of dq, dk and dv, each over max(1, its
     largest value); the set is counted and its instantiation was checked.
-    A case's optional eleventh entry is the prefix-LM span (its tenth, Dv,
-    is Dh)."""
+    A case's optional tenth entry is Dv (Dh if absent), its eleventh the
+    prefix-LM span."""
     args, mask = _bwd_inputs(dev, rng, dt, case)
     q, k, v, o, lse, do = args
-    Dh = q.shape[-1]
+    Dh, Dv = q.shape[-1], v.shape[-1]
     before = tfa.flash_attention_bwd.launches
     got = tfa.flash_attention_bwd(*args, bshd=True, **mask)
     torch.cuda.synchronize()
     assert tfa.flash_attention_bwd.launches == before + 1
-    assert (0, dt, Dh) in tfa._bwd_guard.checked  # its first launch was checked
+    assert (0, dt, Dh, Dv) in tfa._bwd_guard.checked  # its first launch was checked
     want = tfa.flash_attention_bwd_ref(*(t.transpose(1, 2) for t in (q, k, v, o)), lse,
                                        do.transpose(1, 2), **mask)
     errs = []
@@ -601,9 +627,9 @@ def _bf16_ulps(got, want) -> float:
 
 def _bwd_inputs(dev, rng, dt, case):
     B, H, KV, Sq, Sk, Dh, causal, window, k_len = case[:9]
-    assert len(case) < 10 or case[9] == Dh  # the backward takes Dqk = Dv
+    Dv = case[9] if len(case) > 9 else Dh
     prefix_len = case[10] if len(case) > 10 else None
-    shapes = [(B, Sq, H, Dh), (B, Sk, KV, Dh), (B, Sk, KV, Dh), (B, Sq, H, Dh)]
+    shapes = [(B, Sq, H, Dh), (B, Sk, KV, Dh), (B, Sk, KV, Dv), (B, Sq, H, Dv)]
     q, k, v, do = (torch.from_numpy(rng.standard_normal(s)).to(dev, dt) for s in shapes)
     mask = dict(causal=causal, window=window, k_len=k_len, prefix_len=prefix_len)
     with torch.no_grad():
@@ -648,6 +674,44 @@ def test_flash_bwd_is_bitwise_repeatable_on_card(dtype):
         second = tfa.flash_attention_bwd(*args, bshd=True, **mask)
         for label, a, b in zip(("dq", "dk", "dv"), first, second):
             assert torch.equal(a, b), (name, dtype, label)
+
+
+# deepseek-v2's training attention at Dqk=192, Dv=128 (K1-bwd's own
+# instantiation): causal, with and without k_len, B=1 and B=2 at ragged S;
+# (B, H, KV, Sq, Sk, Dqk, causal, window, k_len, Dv)
+BWD_192_128 = {
+    "B=1 H=KV=16 S=512": (1, 16, 16, 512, 512, 192, True, None, None, 128),
+    "B=1 GQA ragged S=300": (1, 8, 2, 300, 300, 192, True, None, None, 128),
+    "B=2 ragged S=257": (2, 8, 8, 257, 257, 192, True, None, None, 128),
+    "B=2 ragged S=257 k_len=200": (2, 8, 8, 257, 257, 192, True, None, 200, 128),
+    "B=1 k_len=100 Sk=128": (1, 4, 4, 128, 128, 192, True, None, 100, 128),
+    "B=2 S=40 < one tile": (2, 4, 4, 40, 40, 192, True, None, None, 128),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(BWD_192_128))
+def test_flash_bwd_at_192_128_matches_plain_version_on_card(name, dtype):
+    """K1-bwd at MLA's 192/128 against its plain version: f32 within 1e-4
+    scaled, bf16 within 2^-7 scaled and 2 ulps; two launches bit for bit."""
+    dev = _cuda()
+    dt, tol = FLASH_TOL[dtype]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert tfa.design_bwd(dt, 192, 128) == ("fma-f32" if dtype == "float32"
+                                            else "mma.sync-split-dv-dk-passes")
+    err = _bwd_error(dev, np.random.default_rng(31), dt, BWD_192_128[name])
+    assert err <= tol, (name, dtype, err)
+    args, mask = _bwd_inputs(dev, np.random.default_rng(32), dt, BWD_192_128[name])
+    first = tfa.flash_attention_bwd(*args, bshd=True, **mask)
+    again = tfa.flash_attention_bwd(*args, bshd=True, **mask)
+    assert all(torch.equal(a, b) for a, b in zip(first, again)), name
+    if dtype == "bfloat16":
+        q, k, v, o, lse, do = args
+        want = tfa.flash_attention_bwd_ref(*(t.transpose(1, 2) for t in (q, k, v, o)), lse,
+                                           do.transpose(1, 2), **mask)
+        for label, g, w in zip(("dq", "dk", "dv"), first, want):
+            assert _bf16_ulps(g, w.transpose(1, 2)) <= BWD_ULP_TOL, (name, label)
 
 
 @pytest.mark.gpu
@@ -779,8 +843,16 @@ def test_autograd_goes_through_the_kernels_and_raw_launches_refuse():
     assert all(torch.isfinite(p.grad).all() for p in params.parameters())
 
 
+# reduced deepseek-v2 with its MLA widened to the kernels' 192/128 (128
+# nope + 64 rope dims of query and key, 128 of value)
+MLA_192_128 = dict(qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128)
+
+
 def _train_cfg(arch="tinyllama-1.1b", head_dim=32):
-    # the flash kernels are built for head dims 32, 64, 128 and 256
+    # the flash kernels are built for head dims 32, 64, 128 and 256, and
+    # MLA's 192/128
+    if arch == "deepseek-v2-236b":
+        return get_reduced(arch).replace(dtype="float32", **MLA_192_128)
     return get_reduced(arch).replace(dtype="float32", head_dim=head_dim)
 
 
@@ -790,6 +862,8 @@ def _train_cfg(arch="tinyllama-1.1b", head_dim=32):
     # the enc-dec and VLM paths at gemma's 256: whisper's encoder, decoder
     # and cross-attention, paligemma under its prefix span
     ("whisper-medium", 256), ("paligemma-3b", 256),
+    # MLA + MoE, K1 and K1-bwd at 192/128
+    ("deepseek-v2-236b", 192),
 ])
 def test_train_step_on_card_matches_cpu(arch, head_dim):
     """One step of a reduced model (loss, autograd through K1 and its
@@ -832,6 +906,33 @@ def test_train_step_on_card_matches_cpu(arch, head_dim):
     assert l1 == pytest.approx(l0, rel=1e-4) and n1 == pytest.approx(n0, rel=1e-4)
     for a, b in zip(p0, p1):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_deepseek_trains_two_bf16_steps_on_card(tmp_path):
+    """Two bf16 steps of ``Trainer`` on reduced deepseek-v2 with its MLA at
+    192/128, at depth 2 (the dense layer 0 and one MoE layer) and S=256:
+    finite losses, grad norms and aux losses, K1 2 x 2 and K1-bwd 2
+    launches a step (remat), bf16 moments as the full config's size asks,
+    every leaf a gradient. (Full width runs in ``chip_smoke.py``'s
+    ``deepseek_train`` phase.)"""
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    dev = _cuda()
+    cfg = _train_cfg("deepseek-v2-236b").replace(dtype="bfloat16", num_layers=2)
+    tcfg = TrainerConfig(num_steps=2, checkpoint_every=100, log_every=1, seq_len=256,
+                         global_batch=1, lr=1e-3, warmup=1, moments_dtype="bfloat16")
+    fwd0, bwd0 = tfa.flash_attention_bhsd.launches, tfa.flash_attention_bwd.launches
+    with Trainer(cfg, tcfg, str(tmp_path / "ckpt"), device=dev) as tr:
+        out = tr.run(resume=False)
+    assert tfa.flash_attention_bhsd.launches - fwd0 == 2 * 2 * 2
+    assert tfa.flash_attention_bwd.launches - bwd0 == 2 * 2
+    rows = out["metrics"]
+    assert len(rows) == 2 and all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                                  and r["aux"] > 0 for r in rows)
+    assert {t.dtype for t in tree_leaves(out["opt"]["m"])} == {torch.bfloat16}
+    assert all(bool(m.ne(0).any()) for m in tree_leaves(out["opt"]["m"]))
 
 
 @pytest.mark.gpu
@@ -1320,7 +1421,7 @@ def test_families_on_four_cards_match_one_cpu(mesh, tmp_path):
     """Every family under a mesh, each rank on its own card over NCCL (the
     kernels on the local heads), held against the port's single-device
     results on the CPU: on (2, 2) and (1, 4) deepseek-v2 (prefill and
-    decode: its K1-bwd at 192/128 is not built), mamba2, hymba, whisper and
+    decode; its train step under a mesh is ROADMAP queue 1 item 3), mamba2, hymba, whisper and
     paligemma (train step, prefill, decode), deepseek-v2's ``moe_ep`` with
     its experts' hidden dim on data, and on (2, 2) two ``Trainer(mesh=)``
     steps of mamba2 and whisper; on the multi-pod (2, 1, 2), tinyllama and

@@ -214,12 +214,14 @@ def test_bridge_defaults_to_the_gpu(models):
     assert str(got.value) == str(want.value)
 
 
-def test_deepseek_training_on_the_card_waits_for_k1_bwd_at_192_128():
-    """deepseek-v2's expanded MLA runs flash attention at Dqk=192, Dv=128,
-    which has a forward kernel and no backward yet: off the CPU, a call
-    under autograd raises before anything is launched (meta tensors stand
-    in for the card's), and does not fall back to the plain version. Under
-    no_grad the same call passes the input check."""
+def test_deepseek_training_on_the_card_waits_for_k1_bwd_at_192_128(monkeypatch):
+    """(The name predates K1-bwd at 192/128, which training now takes.)
+    deepseek-v2's expanded MLA runs flash attention at Dqk=192, Dv=128:
+    off the CPU (meta tensors stand in for the card's), a call under
+    autograd goes to the autograd function whose backward is the 192/128
+    kernel (stubbed here: the kernels need the card), launching nothing
+    before it and falling back to no plain version. Under no_grad the same
+    call passes the input check."""
     from repro_torch.kernels import flash_attention as tfa
 
     cfg = get_reduced("deepseek-v2-236b").replace(
@@ -230,8 +232,12 @@ def test_deepseek_training_on_the_card_waits_for_k1_bwd_at_192_128():
                         requires_grad=True) for _ in range(2))
     v = torch.empty((B, S, H, cfg.v_head_dim), device="meta", dtype=torch.bfloat16,
                     requires_grad=True)
-    with pytest.raises(NotImplementedError, match=r"\(192, 128\)"):
-        tfa.flash_attention(q, k, v, causal=True)
+    applied = []
+    monkeypatch.setattr(tfa.FlashAttention, "apply", lambda *a: applied.append(a) or "applied")
+    before = tfa.flash_attention_bhsd.launches, tfa.flash_attention_bwd.launches
+    assert tfa.flash_attention(q, k, v, causal=True) == "applied" and len(applied) == 1
+    assert (tfa.flash_attention_bhsd.launches, tfa.flash_attention_bwd.launches) == before
+    tfa._require_bwd_dims(q, v)  # the backward takes the pair
     with torch.no_grad():
         assert tfa.check_inputs(q, k, v, bshd=True) == S
 

@@ -21,7 +21,7 @@ single-device ``loss`` + ``adamw_update``, ``moe_dense``, ``prefill`` and
 * each rank's ZeRO blocks: 1/n_data of every zero-sharded leaf;
 * a checkpoint saved on (2, 2) restored bit for bit onto (1, 4), (4, 1) and
   one device, and each rank's peak host memory over a save there (only the
-  writer holds the tree on the host).
+  writer holds the tree on the host), sampled from ``VmRSS`` by a thread.
 
 The dispatch helpers and ``capacity_for`` are held against the reference's at
 capacity factor 1.25 (where tokens drop) in this process.
@@ -221,11 +221,14 @@ def _status_bytes(key: str) -> int:
 def _save_host_peaks(rank: int, dev, mesh, tmp: str) -> dict:
     """Each rank's peak host memory over one checkpoint save of a 64 MiB
     tree of sharded leaves (32 leaves of 2 MiB f32, split over data and
-    model): the growth of the process's peak resident set (reset first,
-    through ``/proc/self/clear_refs``) over its resident set before. Rank 0
-    writes and holds the tree on the host; the others join the gathers,
-    one leaf at a time, and keep nothing (on the CPU a gathered leaf is
-    host memory too, so theirs grow by about one leaf and its buffers)."""
+    model): the largest resident set a thread samples over the save (every
+    half millisecond, from ``/proc/self/status``, which every machine lets a
+    process read) less the resident set before. Rank 0 writes and holds the
+    tree on the host; the others join the gathers, one leaf at a time, and
+    keep nothing (on the CPU a gathered leaf is host memory too, so theirs
+    grow by about one leaf and its buffers)."""
+    import threading
+
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -239,12 +242,23 @@ def _save_host_peaks(rank: int, dev, mesh, tmp: str) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     with CheckpointManager(os.path.join(tmp, "save_host"), keep=1, writer=rank == 0) as cm:
-        with open("/proc/self/clear_refs", "w") as f:
-            f.write("5")  # the peak resident set starts again from the current one
         before = _status_bytes("VmRSS")
-        cm.save_async(1, tree)
-        cm.wait()
-        peak = _status_bytes("VmHWM") - before
+        seen = [before]
+        done = threading.Event()
+
+        def sample():
+            while not done.wait(0.0005):
+                seen[0] = max(seen[0], _status_bytes("VmRSS"))
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        try:
+            cm.save_async(1, tree)
+            cm.wait()
+        finally:
+            done.set()
+            sampler.join()
+        peak = max(seen[0], _status_bytes("VmRSS")) - before
     peaks = [None] * dist.get_world_size()
     dist.all_gather_object(peaks, peak)
     return {"tree_bytes": nbytes, "peak_growth_bytes": peaks}
