@@ -12,9 +12,11 @@ the card in bf16 (the served and trained designs) and f32 (the parity
 designs): flash attention's backward also at the training shapes of
 tinyllama, hymba, whisper (encoder S=1500, cross-attention Sq=448 over
 Sk=1500, decoder causal S=448), paligemma (Dqk=Dv=256 under the prefix
-span, its own instantiations; the build fails if they spill) and, in both
-dtypes with two launches bit for bit, deepseek-v2 (Dqk=192, Dv=128, its
-own instantiation, at the ``deepseek_train`` phase's sequence), in bf16 also
+span, its own instantiations, the q-heads split over CTAs; the build fails
+if they or the 192/128 ones spill) and, in both dtypes with two launches
+bit for bit, deepseek-v2 (Dqk=192, Dv=128, its own instantiation, at the
+``deepseek_train`` phase's sequence), each with its device ms by launch,
+in bf16 also
 in ulps, beside a lower-precision control and SDPA's own backward, the SSD
 scan's backward over the scan's sweep and at
 mamba2's and hymba's training shapes (two launches bit for bit; in bf16 also
@@ -210,13 +212,14 @@ def phase_build() -> None:
         emit("build", source=f"src/repro_torch/csrc/{name}.cu", nvcc_s=log["seconds"],
              cached=log["cached"], ptxas=log["ptxas"], resources=ptxas_resources(log["ptxas"]))
     # K1 at gemma's 256/256 holds a 16-row output fragment of 128 f32
-    # registers a thread, and K1-bwd there 128 dK, dV or dQ registers: none
-    # of their instantiations may spill
-    dh256 = _dh256_resources(build)
-    check(len(dh256["flash_attention"]) == 2 and len(dh256["flash_attention_bwd"]) == 6
+    # registers a thread, and K1-bwd's wide pairs 96 to 128 dK, dV or dQ
+    # accumulators a thread beside the score fragments: none of their
+    # instantiations may spill
+    wide = _wide_resources(build)
+    check(len(wide["flash_attention"]) == 2 and len(wide["flash_attention_bwd"]) == 12
           and all(v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0
-                  for res in dh256.values() for v in res.values()),
-          f"K1's or K1-bwd's 256 instantiations spill or are missing: {dh256}")
+                  for res in wide.values() for v in res.values()),
+          f"K1's or K1-bwd's wide instantiations spill or are missing: {wide}")
     version = subprocess.run([build.nvcc(), "--version"], capture_output=True, text=True,
                              timeout=60, check=True).stdout.strip().splitlines()[-1]
     cudart = _mapped_cudart()
@@ -225,15 +228,17 @@ def phase_build() -> None:
           f"the kernel libraries and PyTorch must share one CUDA runtime; mapped: {cudart}")
 
 
-def _dh256_resources(build) -> dict:
+def _wide_resources(build) -> dict:
     """ptxas registers and spills of K1's instantiations at 256/256 and
-    K1-bwd's at head dim 256 (bf16: preprocess, the dV and dK passes' one
-    kernel, dQ; f32: preprocess, dK/dV, dQ), per library."""
+    K1-bwd's at 256/256 and 192/128, per library: at 256 the preprocess in
+    both dtypes, f32 dK/dV and dQ, bf16 ``bwd_dkdv_wg2``, ``bwd_dkdv_reduce``
+    and ``bwd_dq_wg`` (7); at 192/128 the same but the preprocess, which is
+    128/128's (5)."""
     fwd = ptxas_resources(build.build_log["flash_attention"]["ptxas"])
     bwd = ptxas_resources(build.build_log["flash_attention_bwd"]["ptxas"])
     return {"flash_attention": {k: v for k, v in fwd.items() if k.endswith("<256,256>")},
             "flash_attention_bwd": {k: v for k, v in bwd.items()
-                                    if re.search(r"<(?:\w+,)?256(?:,|>)", k)}}
+                                    if re.search(r"<(?:(?:\w+,)?256|192,128)(?:,|>)", k)}}
 
 
 def _kernel_label(mangled: str) -> str:
@@ -813,9 +818,10 @@ def _sdpa_bwd(q, k, v, do, *, causal, window=None, prefix_len=None):
 
 def _bwd_timing(q, k, v, o, lse, do, kw, B, H, KV, Sq, Sk, Dh, Dv=None) -> dict:
     """K1-bwd at one shape (model layout, bf16): eager ms, device ms by
-    graph replay and by profiler, the plain version's ms, SDPA's autograd
-    backward (``library_ms``, ``library_device_ms`` from a profiler trace)
-    and the bound."""
+    graph replay and by profiler (in all, and by launch under the kernel's
+    short name: ``kernel_profiled_by_launch``), the plain version's ms,
+    SDPA's autograd backward (``library_ms``, ``library_device_ms`` from a
+    profiler trace) and the bound."""
     from repro_torch.kernels import flash_attention as fa
 
     def kernel():
@@ -826,7 +832,13 @@ def _bwd_timing(q, k, v, o, lse, do, kw, B, H, KV, Sq, Sk, Dh, Dv=None) -> dict:
          "plain_ms": _time_ms(lambda: fa.flash_attention_bwd_ref(qt, kt, vt, ot, lse, dot, **kw),
                               3, 1)}
     t["device_ms"] = _graph_ms(kernel, calls=5, replays=3)
-    t["kernel_profiled_ms"] = sum(_profiled_ms(kernel, calls=3).values())
+    by_launch = {}
+    for name, ms in _profiled_ms(kernel, calls=3).items():
+        short = re.search(r"bwd_\w+", name)
+        short = short.group(0) if short else name[:80]
+        by_launch[short] = by_launch.get(short, 0.0) + ms
+    t["kernel_profiled_ms"] = sum(by_launch.values())
+    t["kernel_profiled_by_launch"] = by_launch
     library, t["library_note"] = _sdpa_bwd(q, k, v, do, causal=kw["causal"],
                                            window=kw.get("window"),
                                            prefix_len=kw.get("prefix_len"))
@@ -879,9 +891,11 @@ def _deepseek_bwd(S: int) -> dict:
                   f"the bf16 control passes the ulp tolerance at {label}: {r['control_ulp_err']}")
             r.update(_bwd_timing(q, k, v, o, lse, do, kw, B, H, KV, S, S, Dh, Dv=Dv))
             emit("kernels", kernel="flash_attention_bwd", timing=label,
+                 design=fa.design_bwd(dt, Dh, Dv),
                  **{k_: r[k_] for k_ in ("ms", "plain_ms", "device_ms", "kernel_profiled_ms",
-                                         "library_ms", "library_device_ms", "library_note",
-                                         "bound_ms", "bound_by")})
+                                         "kernel_profiled_by_launch", "library_ms",
+                                         "library_device_ms", "library_note", "bound_ms",
+                                         "bound_by")})
         out[name] = r
         del q, k, v, o, lse, do
         torch.cuda.empty_cache()
@@ -988,9 +1002,11 @@ def phase_flash_bwd(deepseek_seq: int) -> dict:
         record(r, "bfloat16" if Dh == 256 else None)
         r.update(_bwd_timing(q, k, v, o, lse, do, kw, B, H, KV, Sq, Sk, Dh))
         emit("kernels", kernel="flash_attention_bwd", timing=full,
+             design=fa.design_bwd(bf16, Dh),
              **{k_: r[k_] for k_ in ("ms", "plain_ms", "device_ms", "kernel_profiled_ms",
-                                     "library_ms", "library_device_ms", "library_note",
-                                     "bound_ms", "bound_by")})
+                                     "kernel_profiled_by_launch", "library_ms",
+                                     "library_device_ms", "library_note", "bound_ms",
+                                     "bound_by")})
         at_shapes[label] = r
         del q, k, v, o, lse, do
         torch.cuda.empty_cache()
@@ -1461,7 +1477,7 @@ def _traced(fn, top: int = 3) -> dict:
         ms = e.time_range.elapsed_us() / 1e3
         ms0, n0 = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms0 + ms, n0 + 1)
-        name = re.search(r"(flash_fwd_\w+|ssd_bwd_\w+|ssd_\w+|bwd_(?:dkdv|dq|preprocess)(?:_mma)?)",
+        name = re.search(r"(flash_fwd_\w+|ssd_bwd_\w+|ssd_\w+|bwd_(?:dkdv|dq|preprocess)\w*)",
                          e.name)
         if name:
             ports[name.group(1)] = ports.get(name.group(1), 0.0) + ms
@@ -3571,7 +3587,7 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import BWD_HEAD_DIM_PAIRS
     from repro_torch.kernels.flash_attention import design as fa_design
-    from repro_torch.kernels.flash_attention import design_bwd
+    from repro_torch.kernels.flash_attention import bwd_head_split, design_bwd
     from repro_torch.kernels.ssd import DESIGN_BWD as SSD_DESIGN_BWD
     from repro_torch.kernels.ssd import DESIGNS as SSD_DESIGNS
 
@@ -3664,7 +3680,8 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                 "replaces": "src/repro/models/attention.py:58",
                 "launches": bwd_n,
                 "launches_by_path": bwd_by,
-                "launch_unit": "one set of three kernels (preprocess, dK/dV, dQ)",
+                "launch_unit": "one set of kernels (preprocess, dK/dV, dQ, and at the wide "
+                               "pairs with a head split the dK/dV partials' reduce)",
                 "max_abs_err": bwd["max_abs_err"],
                 "max_scaled_err": bwd["max_scaled_err"],
                 "max_ulp_err_bf16": bwd["max_ulp_err"],
@@ -3702,13 +3719,31 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                         ("192" in k or k.startswith("bwd_preprocess"))},
                     **{k: bwd["deepseek"]["bfloat16"][k]
                        for k in ("ms", "plain_ms", "device_ms", "kernel_profiled_ms",
-                                 "library_ms", "library_device_ms", "library_note",
-                                 "bound_ms", "bound_by", "ulp_err", "control_ulp_err")},
+                                 "kernel_profiled_by_launch", "library_ms",
+                                 "library_device_ms", "library_note", "bound_ms", "bound_by",
+                                 "ulp_err", "control_ulp_err")},
+                },
+                # paligemma's training attention, its own instantiation,
+                # the q-heads split over CTAs
+                "dqk_256_dv_256": {
+                    "at": "B=4 H=8 KV=1 Dqk=Dv=256 Sq=Sk=512 prefix 256 bf16",
+                    "design": design_bwd(torch.bfloat16, 256, 256),
+                    "head_split": bwd_head_split(
+                        4, 1, 8, 8, torch.cuda.get_device_properties(0).multi_processor_count),
+                    "ptxas": {k: v for k, v in ptxas_resources(
+                        build.build_log["flash_attention_bwd"]["ptxas"]).items()
+                        if re.search(r"<(?:\w+,)?256(?:,|>)", k)},
+                    **{k: bwd["train_shapes"][ENCDEC_VLM_BWD[0][0]][k]
+                       for k in ("ms", "plain_ms", "device_ms", "kernel_profiled_ms",
+                                 "kernel_profiled_by_launch", "library_ms",
+                                 "library_device_ms", "library_note", "bound_ms", "bound_by",
+                                 "ulp_err", "control_ulp_err")},
                 },
                 # hymba's two masks and the enc-dec and VLM cells' shapes
                 "train_shapes": {
                     label: {k: r[k] for k in ("ms", "plain_ms", "device_ms", "kernel_profiled_ms",
-                                              "library_ms", "library_device_ms", "library_note",
+                                              "kernel_profiled_by_launch", "library_ms",
+                                              "library_device_ms", "library_note",
                                               "bound_ms", "bound_by", "ulp_err")}
                     for label, r in bwd["train_shapes"].items()},
             },

@@ -20,8 +20,8 @@
 // addressed through strides, so the model's (B, S, H, Dh) views need no
 // copy. A row that sees no key gets zero gradient.
 //
-// Three launches, no float atomics, so the result is the same bit for bit
-// from run to run:
+// Three launches (four in bf16 at 192/128 and 256/256 with a head split),
+// no float atomics, so the result is the same bit for bit from run to run:
 //  - bwd_preprocess: D, one warp per row.
 //  - bwd_dkdv: one CTA per (batch * kv-head, key tile), heaviest causal
 //    tiles (the first) dispatched first. It keeps its K and V tile in
@@ -30,6 +30,8 @@
 //    recomputing P and dS per tile, and writes dK and dV once.
 //  - bwd_dq: one CTA per (batch * q-head, 64-row q tile), heaviest first,
 //    walking the key tiles its rows see, and writes dQ once.
+//  - bwd_dkdv_reduce (bf16 wide pairs with n_split > 1 only): the f32 dK
+//    and dV partials of a group's q-head subsets summed in split order.
 // A per-key-tile dQ partial (the usual way to avoid atomics) would take
 // about 2 GB at the training shape; recomputing P and dS in bwd_dq costs
 // two of its products instead.
@@ -39,20 +41,10 @@
 // q, k, v, o, dO and lse read and dq, dk, dv written once, so it is bounded
 // by tensor-core operations by a wide margin.
 //
-// bf16 (the trained path; bwd_dkdv_mma, bwd_dq_mma): every product on the
-// tensor cores with bf16 operands and f32 sums, 4 warps (one warpgroup) a
-// CTA, warp w owning rows 16 w .. 16 w + 15 of the CTA's 64-row tile (keys
-// in bwd_dkdv, q rows in bwd_dq). Operands stay bf16 in shared memory,
-// filled by 16-byte cp.async; the streamed tiles (Q, dO with their lse and
-// D in bwd_dkdv; K, V in bwd_dq) are double-buffered, the next loading
+// bf16 (the trained path): every product on the tensor cores with bf16
+// operands and f32 sums; operands stay bf16 in shared memory, filled by
+// 16-byte cp.async, the streamed tiles double-buffered, the next loading
 // while this one computes.
-//  - Head dim 64 (the trained one): wgmma.m64n64k16 from tiles in the
-//    128-byte swizzle. The score products read both operands from shared
-//    memory (K-major); the gradient products take P^T, dS^T or dS from
-//    registers and dO, Q or K from shared memory (MN-major), as the
-//    forward's P V does.
-//  - Head dims 32 and 128: mma.sync.m16n8k16 fed by ldmatrix from rows
-//    padded by 16 bytes, the same products warp by warp.
 //  - bwd_dkdv computes S^T = K Q^T and dP^T = V dO^T with the keys as the M
 //    dimension, so P^T and dS^T come out in the accumulator layout that is
 //    the A operand of dV += P^T dO and dK += dS^T Q: they never leave
@@ -64,38 +56,78 @@
 //    bf16 hi part and a bf16 lo part (lo = bf16(x - hi)) and each product
 //    that takes P or dS (dV, dK, dQ) is issued twice into the same f32 sum:
 //    10 tensor-core products a (q, key) tile pair where the bound counts 5.
-//  - At Dh = 128 the streamed tiles hold 32 rows (q rows in bwd_dkdv, keys
-//    in bwd_dq), so a warp's dK and dV (or dQ) accumulators, 128 (64) f32
-//    registers, fit beside the score fragments.
-//  - At Dh = 256 (gemma's, in paligemma: MQA, a prefix-LM span) a warp's
-//    dK and dV for its 16 keys would be 2 x 32 n-tiles x 4 = 256 f32
-//    registers a thread, over the 255 cap before any score fragment. So
-//    the dK/dV work runs as two passes side by side in one launch
-//    (bwd_dkdv_mma_passes, the grid's z picking the pass): one CTA set
-//    computes dV (S^T and P^T only: it needs no V, no dP and no D), the
-//    other dK (S^T and dP^T, so S^T is computed twice), each holding 128
-//    accumulator registers. Of the alternatives, two warpgroups splitting
-//    dK and dV's columns would share one S^T and dP^T through shared
-//    memory, with a barrier between the score and the gradient products of
-//    every tile; two CTAs splitting the columns would each recompute both
-//    256-deep score products (8 products a tile pair against these passes'
-//    7). The
-//    streamed tiles hold 32 rows, as at 128; bwd_dq_mma keeps its one pass
-//    (128 dQ registers beside 32 of S and dP).
-//  - At Dqk = 192, Dv = 128 (deepseek-v2's expanded MLA prefill: 128 nope +
-//    64 rope dims of query and key, 128 of value) every kernel takes the
-//    two widths apart: Q, K, dQ and dK are 192 wide, V, O, dO and dV 128.
-//    S^T = K Q^T runs 192 deep and dP^T = V dO^T 128 deep. A warp's dK (24
-//    n-tiles) and dV (16) together would be 160 f32 registers a thread
-//    before any score fragment, so the dK/dV work runs as 256's two passes
-//    side by side (the dV pass 64 accumulators, the dK pass 96), with the
-//    streamed tiles at 32 rows; bwd_dq_mma keeps one pass (96 dQ
-//    registers). The f32 form keeps 64-key tiles (200 192 bytes of shared
-//    memory), and D = rowsum(dO o O) runs over the 128 value dims.
-// What holds the bf16 form back next (about 1.1 ms at the training shape
-// on an H100 SXM at 700 W, twice PyTorch's SDPA backward): the split's
-// doubled products, and each warpgroup waiting for its products before
-// its softmax, with no second warpgroup or producer warp to overlap them.
+//  - Head dims 32, 64 and 128 (bwd_dkdv_mma, bwd_dq_mma): 4 warps (one
+//    warpgroup) a CTA, warp w owning rows 16 w .. 16 w + 15 of the CTA's
+//    64-row tile (keys in bwd_dkdv, q rows in bwd_dq). At 64 (the trained
+//    one) wgmma.m64n64k16 from tiles in the 128-byte swizzle: the score
+//    products read both operands from shared memory (K-major), the
+//    gradient products take P^T, dS^T or dS from registers and dO, Q or K
+//    from shared memory (MN-major). At 32 and 128 mma.sync.m16n8k16 fed by
+//    ldmatrix from rows padded by 16 bytes; at 128 the streamed tiles hold
+//    32 rows, so a warp's dK and dV (or dQ) accumulators fit beside the
+//    score fragments.
+//  - The wide pairs, 256/256 (gemma's, in paligemma: MQA, a prefix-LM
+//    span) and 192/128 (deepseek-v2's expanded MLA: Q, K, dQ, dK 192 wide,
+//    V, O, dO, dV 128; S^T runs 192 deep, dP^T 128): one warpgroup cannot
+//    hold a key tile's dK and dV beside the score fragments (256 f32
+//    registers a thread at 256/256, 160 at 192/128), so bwd_dkdv_wg2 gives
+//    each 64-key tile two warpgroups on wgmma. Warpgroup 0 computes S^T =
+//    K Q^T once, forms P^T, writes it to shared memory (32 f32 a thread, in
+//    the fragment layout the other warpgroup's thread of the same rank
+//    holds, so the exchange is one conflict-free store and load each) and
+//    accumulates dV += P^T dO (64 or 128 f32 a thread); warpgroup 1
+//    computes dP^T = V dO^T, takes P^T across a named barrier, forms dS^T
+//    and accumulates dK += dS^T Q (96 or 128). Six products a tile pair
+//    (S^T, dP^T, dV and dK twice), where the earlier dV and dK passes
+//    issued S^T twice. Every tile is 64 rows, stored as 64-column slabs of
+//    8 KiB in the 128-byte swizzle. The score products are chains of
+//    m64n64k16 whose K-major operands step slab by slab over the depth;
+//    each gradient product is one m64nNk16 a k-step over all of its
+//    MN-major operand's slabs (N = Dv or Dqk: 128, 192 or 256; dQ at 256
+//    two of N = 128, as one of 256 spills), the slabs one descriptor's
+//    leading byte offset apart. Shared memory: K, V, two
+//    stages of Q, dO and their lse and D, the exchange (215 040 bytes at
+//    256/256, 141 312 at 192/128); no instantiation spills.
+//  - Head split: with MQA or few heads, B * KV * key tiles CTAs leave most
+//    of the card idle (paligemma's training shape: 4 * 1 * 8 = 32 on 132
+//    SMs), so a group's G q-heads are split over n_split CTAs (the wrapper's
+//    bwd_head_split: the largest divisor of G that keeps the grid within
+//    the SM count; 4 there, 1 at deepseek-v2's 128 * 32 CTAs). A split CTA
+//    writes f32 partials to a scratch the wrapper allocates, and
+//    bwd_dkdv_reduce sums them in split order: no atomics, fixed bits.
+//  - bwd_dq_wg: dQ on wgmma over Dqk / 64 slabs of accumulators (96 or 128
+//    f32 a thread), one warpgroup per 64 q rows; at 192/128 two warpgroups
+//    (128 q rows) share a CTA's K/V ring, at 256/256 the tiles leave room
+//    for one (197 632 bytes). A warpgroup skips the key tiles none of its
+//    rows sees.
+//  - Design choices the card settled, in trials at deepseek-v2's shape:
+//    the two dK/dV warpgroups run in lockstep, one CTA-wide barrier
+//    opening each ring stage; letting them run an iteration apart
+//    (parity-alternating named barriers, a second exchange buffer, the
+//    ring filled by warpgroup 0 alone) read slower. Dispatching a group's
+//    key tiles together (for L2 reuse of Q and dO) read slower than the
+//    groups first; a third ring stage, issuing the next stage's copies
+//    behind the score products and splitting a score product into two
+//    accumulator chains did not help, nor, in a trial left unfinished
+//    (its dK and dV still wrong), 128-row q tiles at 192/128 (K held in
+//    registers, m64n128 score products, half the barriers a q row). One
+//    wide-N product per k-step in place of one m64n64k16 per slab did. No producer warp: a cp.async producer warp would issue
+//    2 560 16-byte copies a tile pair at 192/128, where both warpgroups'
+//    copies take 10 a thread; TMA needs tensor maps over the strided
+//    views, built on the host each launch.
+// What bounds it (deepseek-v2's training shape, B=1 H=KV=128 S=2048 causal,
+// on an H100 SXM at 700 W): the bound is 4.47e11 FLOP of tensor-core work,
+// 0.452 ms; the hi + lo split issues twice that, 0.904 ms at peak. The
+// kernels read about 2.7 ms (PERF.md), a third of peak on the work they
+// issue; SDPA's backward, which rounds P and dS once, reads 1.22 ms. What
+// holds it back next is not settled: taking products out shortens the
+// dK/dV launch far less than their share of its tensor-core work, yet
+// halving the tile pairs (and with them the barriers and waits) did not
+// shorten the unfinished trial either. Without stall counters (no profiler here reads
+// them) the candidates are each warpgroup's wait for its products before
+// its softmax, with nothing of its own to overlap them, and the shared
+// memory the m64n64 score products read; a TMA producer with mbarriers
+// and a second score fragment in flight a warpgroup are the next trials.
 //
 // f32 (the parity path; bwd_dkdv, bwd_dq): FMA tiles on the FP32 pipes, as
 // the forward's f32 form: the tensor cores take no f32 operand that holds a
@@ -144,6 +176,12 @@ struct Params {
   int k_len;   // keys at positions >= k_len are masked
   int prefix_len;  // causal: keys at positions < prefix_len are visible to every query
   float scale;
+  // bf16 at 192/128 and 256/256: the CTAs a group's q-heads are split over,
+  // and with n_split > 1 their f32 dK and dV partials, (n_split, B, KV, Sk,
+  // Dqk) then (n_split, B, KV, Sk, Dv)
+  int n_split;
+  float* dk_part;
+  float* dv_part;
 };
 
 template <typename T>
@@ -625,8 +663,8 @@ __device__ __forceinline__ void wgmma_split_ab(float (&acc)[8][4], const float (
   tc::wgmma_wait0();
 }
 
-// what a dK/dV CTA computes: dV and dK together, or (at head dims 256/256
-// and 192/128) one of them
+// what a dK/dV CTA computes: dV and dK together (the one form launched;
+// the single-part forms served the wide pairs before bwd_dkdv_wg2)
 constexpr int DKDV_DV = 1, DKDV_DK = 2, DKDV_BOTH = 3;
 
 // Q and K rows are DQK wide, dO and V rows DV wide; S^T and dK take the
@@ -784,16 +822,6 @@ __global__ void __launch_bounds__(MMA_THREADS) bwd_dkdv_mma(Params p) {
   dkdv_mma_body<DQK, DV, WG, DKDV_BOTH>(p);
 }
 
-// head dims 256/256 and 192/128: the grid's z picks the pass, 0 dV and 1
-// dK; registers are the larger pass's
-template <int DQK, int DV>
-__global__ void __launch_bounds__(MMA_THREADS) bwd_dkdv_mma_passes(Params p) {
-  if (blockIdx.z == 0)
-    dkdv_mma_body<DQK, DV, false, DKDV_DV>(p);
-  else
-    dkdv_mma_body<DQK, DV, false, DKDV_DK>(p);
-}
-
 template <int DQK, int DV, bool WG>
 __global__ void __launch_bounds__(MMA_THREADS) bwd_dq_mma(Params p) {
   using bf16 = __nv_bfloat16;
@@ -904,6 +932,492 @@ __global__ void __launch_bounds__(MMA_THREADS) bwd_dq_mma(Params p) {
   }
 }
 
+// -- bf16 at 192/128 and 256/256: two warpgroups on wgmma over 64-column slabs ----
+//
+// Every operand tile has 64 rows and is stored as Dh / 64 slabs of 64 x 64
+// bf16 (8 KiB each) in the 128-byte swizzle. A score product is a chain of
+// wgmma.m64n64k16 whose K-major operands step 32 bytes a k-step inside a
+// slab and move to the next slab after four; a gradient product is one
+// m64nNk16 a k-step over all the slabs of its MN-major operand.
+
+constexpr int SLAB_BYTES = 64 * 128;     // one 64-row slab
+constexpr int WIDE_DKDV_THREADS = 256;   // warpgroup 0 (S^T, P^T, dV) and 1 (dP^T, dS^T, dK)
+// P^T, 32 f32 a thread (the m64n64 fragment), exchanged between the two
+// warpgroups' threads of the same rank, which hold the same fragment layout
+constexpr int PX_FLOATS = 32 * 128;
+
+template <int D>
+__host__ __device__ constexpr int slab_tile_bytes() {
+  return D / 64 * SLAB_BYTES;
+}
+
+// the K and V tiles, two stages of Q and dO, the P^T exchange, two stages
+// of the q rows' lse and D, and 1 KiB of alignment slack (192/128: 141 312
+// bytes; 256/256: 215 040)
+template <int DQK, int DV>
+constexpr int wide_dkdv_smem() {
+  return 3 * slab_tile_bytes<DQK>() + 3 * slab_tile_bytes<DV>() + PX_FLOATS * 4 + 4 * 64 * 4 +
+         1024;
+}
+// QW warpgroups' Q and dO tiles and two stages of K and V (192/128 with
+// QW = 2: 164 864 bytes; 256/256 with QW = 1: 197 632)
+template <int DQK, int DV, int QW>
+constexpr int wide_dq_smem() {
+  return (QW + 2) * (slab_tile_bytes<DQK>() + slab_tile_bytes<DV>()) + 1024;
+}
+// q warpgroups of a dQ CTA: two sharing the K/V ring where their tiles fit
+// the 232 448 bytes a CTA may opt in to
+template <int DQK, int DV>
+constexpr int wide_dq_warpgroups() {
+  return wide_dq_smem<DQK, DV, 2>() <= 232448 ? 2 : 1;
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// rows [r0, r0 + 64) of a (seq, DH) slice into a slab tile by 16-byte
+// copies from NT threads, zeros from row `len` of the slice on
+template <int DH, int NT>
+__device__ __forceinline__ void cp_slabs(unsigned char* dst, const __nv_bfloat16* src,
+                                         long long ss, int r0, int len) {
+  constexpr int CH = DH / 8;
+  for (int c = threadIdx.x; c < 64 * CH; c += NT) {
+    const int r = c / CH, pc = c % CH, i = r0 + r;
+    tc::cp_async16(dst + (pc >> 3) * SLAB_BYTES + tc::swz128(r, pc & 7),
+                   src + (long long)min(i, len - 1) * ss + 8 * pc, i < len);
+  }
+}
+
+// d += A B with N = 128, 192 or 256 columns: A (64 x 16) from registers as
+// in tc::wgmma_rs_tb, B (16 x N) from shared memory, MN-major, as 64-column
+// slabs (sw128_desc_slabs); d[j] holds columns 8 j .. 8 j + 7 as
+// tc::wgmma_rs_tb's d does, so a [NS][8][4] array of slab accumulators is
+// its d for N = 64 NS
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb_n(float (&d)[N / 8][4], const uint32_t (&a)[4],
+                                              uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs_tb_n<128>(float (&d)[16][4], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tb_n<192>(float (&d)[24][4], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]), "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]), "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]), "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]), "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]), "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]), "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tb_n<256>(float (&d)[32][4], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]), "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]), "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]), "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]), "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]), "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]), "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]), "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]), "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]), "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]), "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]), "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]), "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]), "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]), "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// descriptor of an MN-major operand stored as 64-column slabs in the
+// 128-byte swizzle: 8-row groups 1024 bytes apart (the stride byte offset)
+// and the slabs, N's 64-column blocks, SLAB_BYTES apart (the leading byte
+// offset)
+__device__ __forceinline__ uint64_t sw128_desc_slabs(const void* smem) {
+  return (tc::sw128_desc(smem) & ~(uint64_t(0x3FFF) << 16)) | (uint64_t(SLAB_BYTES >> 4) << 16);
+}
+
+// x (+)= Y Z^T over KS slabs of depth, Y and Z 64-row slab tiles, both
+// K-major; issued, not waited for
+template <int KS>
+__device__ __forceinline__ void wg_abt_issue(float (&x)[8][4], const unsigned char* y,
+                                             const unsigned char* z) {
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    const uint64_t dy = tc::sw128_desc(y + s * SLAB_BYTES);
+    const uint64_t dz = tc::sw128_desc(z + s * SLAB_BYTES);
+#pragma unroll
+    for (int kd = 0; kd < 4; ++kd) tc::wgmma_ss(x, dy + 2 * kd, dz + 2 * kd, s | kd);
+  }
+}
+
+// acc[n] += X Z[:, 64 n .. 64 n + 63] for the NS slabs of Z's columns, one
+// m64n(64 NW)k16 product a k-step, part and NW slabs: X (64 x 64) an f32
+// fragment as hi + lo register A operands, Z (64 rows, the product's depth)
+// MN-major; waited for
+template <int NS, int NW = NS>
+__device__ __forceinline__ void wg_split_ab(float (&acc)[NS][8][4], const float (&x)[8][4],
+                                            const unsigned char* z) {
+  static_assert(NS % NW == 0, "whole products");
+  uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) tc::pack_a_split(hi[kk], lo[kk], x[2 * kk], x[2 * kk + 1]);
+  tc::wgmma_fence();
+#pragma unroll
+  for (int g = 0; g < NS; g += NW) {
+    float(&d)[NW * 8][4] = reinterpret_cast<float(&)[NW * 8][4]>(acc[g]);
+    const uint64_t dz = sw128_desc_slabs(z + g * SLAB_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // 16 rows of Z a step
+      wgmma_rs_tb_n<64 * NW>(d, hi[kk], dz + (16 * 128 >> 4) * kk);
+      wgmma_rs_tb_n<64 * NW>(d, lo[kk], dz + (16 * 128 >> 4) * kk);
+    }
+  }
+  tc::wgmma_commit();
+  tc::wgmma_wait0();
+}
+
+constexpr int ROLE_DV = 0, ROLE_DK = 1;
+
+// One warpgroup's part of a dK/dV CTA. Both walk the same (q-head, q tile)
+// stream and fill the ring together. ROLE_DV computes S^T = K Q^T once,
+// forms P^T, hands it to ROLE_DK through shared memory and accumulates
+// dV += P^T dO; ROLE_DK computes dP^T = V dO^T, takes P^T, forms dS^T =
+// P^T o (dP^T - D) and accumulates dK += dS^T Q. Named barrier 1 (all 256
+// threads) opens each ring stage, barrier 2 hands P^T over.
+template <int DQK, int DV, int ROLE>
+__device__ __forceinline__ void dkdv_wide_role(const Params& p, unsigned char* k_s) {
+  using bf16 = __nv_bfloat16;
+  constexpr int KS = DQK / 64, VS = DV / 64, NT = WIDE_DKDV_THREADS;
+  constexpr int TK = slab_tile_bytes<DQK>(), TV = slab_tile_bytes<DV>();
+  constexpr int NA = ROLE == ROLE_DV ? VS : KS;  // accumulator slabs
+  unsigned char* v_s = k_s + TK;
+  unsigned char* q_s = v_s + TV;       // [stage]
+  unsigned char* do_s = q_s + 2 * TK;  // [stage]
+  float* px = reinterpret_cast<float*>(do_s + 2 * TV);
+  float* lse_s = px + PX_FLOATS;  // [stage][64]
+  float* dl_s = lse_s + 2 * BQ;   // [stage][64]
+
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  // x: (batch * kv-head, split) with the split fastest; y: the key tile,
+  // the first (heaviest under causality) dispatched first
+  const int split = blockIdx.x % p.n_split, bkv = blockIdx.x / p.n_split;
+  const int b = bkv / p.KV, kvh = bkv % p.KV;
+  const int k0 = blockIdx.y * BK;
+  const int G = p.H / p.KV, GS = G / p.n_split, h0 = kvh * G + split * GS;
+  const int k_valid = min(p.k_len, p.Sk);
+
+  cp_slabs<DQK, NT>(k_s, static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h, p.sk.s, k0,
+                    p.Sk);
+  cp_slabs<DV, NT>(v_s, static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h, p.sv.s, k0,
+                   p.Sk);
+
+  // the q rows that can see a key of this tile, as in dkdv_mma_body; the
+  // CTA walks n_q q tiles for each of its GS q-heads
+  const int q_lo = p.causal && k0 >= p.prefix_len ? k0 : 0;
+  int q_hi = p.Sq;
+  if (p.window > 0) q_hi = min(q_hi, k0 + BK - 1 + p.window);
+  if (k0 >= k_valid) q_hi = 0;
+  const int n_q = q_hi > q_lo ? (q_hi - q_lo + BQ - 1) / BQ : 0;
+  const int n_it = GS * n_q;
+
+  auto load_q = [&](int it, int stage) {
+    const int h = h0 + it / n_q, q0 = q_lo + (it % n_q) * BQ;
+    cp_slabs<DQK, NT>(q_s + stage * TK, static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h,
+                      p.sq.s, q0, p.Sq);
+    cp_slabs<DV, NT>(do_s + stage * TV,
+                     static_cast<const bf16*>(p.dO) + b * p.sdo.b + h * p.sdo.h, p.sdo.s, q0,
+                     p.Sq);
+    if (threadIdx.x < 2 * BQ) {  // 64 threads the lse, 64 the D
+      const int r = threadIdx.x & (BQ - 1), qi = q0 + r;
+      const long long at_ = (long long)(b * p.H + h) * p.Sq + min(qi, p.Sq - 1);
+      if (threadIdx.x < BQ)
+        tc::cp_async4(lse_s + stage * BQ + r, p.lse + at_, qi < p.Sq);
+      else
+        tc::cp_async4(dl_s + stage * BQ + r, p.delta + at_, qi < p.Sq);
+    }
+  };
+  if (n_it > 0) load_q(0, 0);
+  tc::cp_async_commit();  // with K and V
+
+  const float sl2 = p.scale * LOG2E;
+  const int kr = k0 + 16 * warp + (lane >> 2);  // this lane's keys: kr and kr + 8
+  float acc[NA][8][4];
+#pragma unroll
+  for (int n = 0; n < NA; ++n)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][j][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it & 1;
+    tc::cp_async_wait<0>();  // this stage (and, the first time, K and V) has landed
+    tc::fence_proxy_async();
+    // every thread is past the previous iteration: the other stage and the
+    // P^T exchange are free
+    bar_sync(1, NT);
+    const int q0 = q_lo + (it % n_q) * BQ;
+    const unsigned char* qs = q_s + stage * TK;
+    const unsigned char* ds = do_s + stage * TV;
+    // the next stage's copies are issued while the score product runs
+    auto load_next = [&] {
+      if (it + 1 < n_it) load_q(it + 1, stage ^ 1);
+      tc::cp_async_commit();
+    };
+    float x[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+    tc::wgmma_fence();
+    if constexpr (ROLE == ROLE_DV)
+      wg_abt_issue<KS>(x, k_s, qs);  // S^T: this warp's 16 keys x 64 q rows
+    else
+      wg_abt_issue<VS>(x, v_s, ds);  // dP^T
+    tc::wgmma_commit();
+    load_next();
+    tc::wgmma_wait0();
+    if constexpr (ROLE == ROLE_DV) {
+      const float* ls = lse_s + stage * BQ;
+      // only tiles at the diagonal (past the prefix span), the window's
+      // edge, the valid length or the ragged q end evaluate the mask
+      const bool edge = (p.causal && q0 < k0 + BK - 1 && k0 + BK > p.prefix_len) ||
+                        (p.window > 0 && k0 <= q0 + BQ - 1 - p.window) || k0 + BK > k_valid ||
+                        q0 + BQ > p.Sq;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 l = *reinterpret_cast<const float2*>(ls + 8 * n + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + 8 * n + 2 * t + (e & 1), kj = kr + 8 * (e >> 1);
+          float pr = exp2_ftz(x[n][e] * sl2 - ((e & 1) ? l.y : l.x) * LOG2E);
+          if (edge && !(qi < p.Sq && visible(p, k_valid, qi, kj))) pr = 0.f;
+          x[n][e] = pr;
+          px[(4 * n + e) * 128 + tid] = pr;
+        }
+      }
+      bar_arrive(2, NT);
+      wg_split_ab<VS>(acc, x, ds);  // dV += P^T dO
+    } else {
+      const float* dls = dl_s + stage * BQ;
+      bar_sync(2, NT);  // P^T is in
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 d = *reinterpret_cast<const float2*>(dls + 8 * n + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[n][e] = px[(4 * n + e) * 128 + tid] * (x[n][e] - ((e & 1) ? d.y : d.x));
+      }
+      wg_split_ab<KS>(acc, x, qs);  // dK += dS^T Q
+    }
+  }
+  tc::cp_async_wait<0>();  // with no q tile at all, K and V may still be in flight
+
+  // dV, or dK * scale, into the bf16 gradient; with the head split this
+  // CTA's f32 partial instead
+  constexpr int W = ROLE == ROLE_DV ? DV : DQK;
+  if (p.n_split == 1) {
+    bf16* g = ROLE == ROLE_DV ? static_cast<bf16*>(p.dv) + b * p.sdv.b + kvh * p.sdv.h
+                              : static_cast<bf16*>(p.dk) + b * p.sdk.b + kvh * p.sdk.h;
+    const long long gs = ROLE == ROLE_DV ? p.sdv.s : p.sdk.s;
+    const float mul = ROLE == ROLE_DV ? 1.f : p.scale;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int kj = kr + 8 * i;
+      if (kj >= p.Sk) continue;
+#pragma unroll
+      for (int n = 0; n < NA; ++n)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(g + kj * gs + 64 * n + 8 * j + 2 * t) =
+              tc::pack_bf16(acc[n][j][2 * i] * mul, acc[n][j][2 * i + 1] * mul);
+    }
+  } else {
+    float* part = (ROLE == ROLE_DV ? p.dv_part : p.dk_part) +
+                  ((long long)split * p.B * p.KV + bkv) * p.Sk * W;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int kj = kr + 8 * i;
+      if (kj >= p.Sk) continue;
+#pragma unroll
+      for (int n = 0; n < NA; ++n)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<float2*>(part + (long long)kj * W + 64 * n + 8 * j + 2 * t) =
+              make_float2(acc[n][j][2 * i], acc[n][j][2 * i + 1]);
+    }
+  }
+}
+
+template <int DQK, int DV>
+__global__ void __launch_bounds__(WIDE_DKDV_THREADS, 1) bwd_dkdv_wg2(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* k_s = tiles_base<true>(smem_raw);
+  // a warpgroup-uniform branch: each role keeps only its own accumulators live
+  if (threadIdx.x < 128)
+    dkdv_wide_role<DQK, DV, ROLE_DV>(p, k_s);
+  else
+    dkdv_wide_role<DQK, DV, ROLE_DK>(p, k_s);
+}
+
+// the head split's reduction: one CTA per (batch * kv-head, key), the
+// n_split partials summed in split order, dK scaled, both rounded to bf16
+template <int DQK, int DV>
+__global__ void __launch_bounds__(128) bwd_dkdv_reduce(Params p) {
+  using bf16 = __nv_bfloat16;
+  const long long row = blockIdx.x, rows = (long long)p.B * p.KV * p.Sk;
+  const int kj = (int)(row % p.Sk), bkv = (int)(row / p.Sk), b = bkv / p.KV, kvh = bkv % p.KV;
+  for (int c = threadIdx.x; c < (DQK + DV) / 2; c += blockDim.x) {
+    const bool is_k = c < DQK / 2;
+    const int W = is_k ? DQK : DV, col = 2 * (is_k ? c : c - DQK / 2);
+    const float* src = (is_k ? p.dk_part : p.dv_part) + row * W + col;
+    float2 s = *reinterpret_cast<const float2*>(src);
+    for (int i = 1; i < p.n_split; ++i) {
+      const float2 x = *reinterpret_cast<const float2*>(src + i * rows * W);
+      s.x += x.x;
+      s.y += x.y;
+    }
+    if (is_k) {
+      bf16* g = static_cast<bf16*>(p.dk) + b * p.sdk.b + kvh * p.sdk.h + kj * p.sdk.s + col;
+      *reinterpret_cast<uint32_t*>(g) = tc::pack_bf16(s.x * p.scale, s.y * p.scale);
+    } else {
+      bf16* g = static_cast<bf16*>(p.dv) + b * p.sdv.b + kvh * p.sdv.h + kj * p.sdv.s + col;
+      *reinterpret_cast<uint32_t*>(g) = tc::pack_bf16(s.x, s.y);
+    }
+  }
+}
+
+// dQ at the wide pairs: one CTA per (batch * q-head, QW * 64 q rows),
+// warpgroup w owning rows 64 w .. 64 w + 63, all of them sharing a
+// two-stage ring of 64-key K and V tiles; S = Q K^T and dP = dO V^T in one
+// wgmma group, then dQ += dS K with dS as hi + lo register operands
+template <int DQK, int DV, int QW>
+__global__ void __launch_bounds__(128 * QW, 1) bwd_dq_wg(Params p) {
+  using bf16 = __nv_bfloat16;
+  constexpr int KS = DQK / 64, VS = DV / 64, NT = 128 * QW;
+  constexpr int TQ = slab_tile_bytes<DQK>(), TO = slab_tile_bytes<DV>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* q_s = tiles_base<true>(smem_raw);  // [warpgroup]
+  unsigned char* do_s = q_s + QW * TQ;              // [warpgroup]
+  unsigned char* k_s = do_s + QW * TO;              // [stage]
+  unsigned char* v_s = k_s + 2 * TQ;                // [stage]
+
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int kvh = h / (p.H / p.KV);
+  const int q0c = (gridDim.y - 1 - blockIdx.y) * BQ * QW;  // last (heaviest causal) tiles first
+  const int q0 = q0c + BQ * wg;
+  const int k_valid = min(p.k_len, p.Sk);
+
+#pragma unroll
+  for (int w = 0; w < QW; ++w) {
+    cp_slabs<DQK, NT>(q_s + w * TQ, static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h,
+                      p.sq.s, q0c + BQ * w, p.Sq);
+    cp_slabs<DV, NT>(do_s + w * TO, static_cast<const bf16*>(p.dO) + b * p.sdo.b + h * p.sdo.h,
+                     p.sdo.s, q0c + BQ * w, p.Sq);
+  }
+  // the keys the CTA's rows see, as bwd_dq_mma walks them
+  const int q_last_c = min(q0c + BQ * QW, p.Sq) - 1;
+  const int k_hi = p.causal ? min(k_valid, max(q_last_c + 1, p.prefix_len)) : k_valid;
+  const int k_lo = p.window > 0 ? max(0, q0c - p.window + 1) / BK * BK : 0;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h;
+  auto load_kv = [&](int kt, int stage) {
+    cp_slabs<DQK, NT>(k_s + stage * TQ, kg, p.sk.s, kt, p.Sk);
+    cp_slabs<DV, NT>(v_s + stage * TO, vg, p.sv.s, kt, p.Sk);
+  };
+  if (k_lo < k_hi) load_kv(k_lo, 0);
+  tc::cp_async_commit();  // with Q and dO
+
+  // this lane's q rows qr and qr + 8, and their lse (log2 domain) and D
+  const int qr = q0 + 16 * warp + (lane >> 2);
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = qr + 8 * i;
+    const long long at_ = (long long)bh * p.Sq + min(qi, p.Sq - 1);
+    lse2[i] = qi < p.Sq ? p.lse[at_] * LOG2E : 0.f;
+    dl[i] = qi < p.Sq ? p.delta[at_] : 0.f;
+  }
+  const int q_last = min(q0 + BQ, p.Sq) - 1;  // below q0 when these rows lie past Sq
+  const float sl2 = p.scale * LOG2E;
+  float dq[KS][8][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[n][j][e] = 0.f;
+
+  int stage = 0;
+  for (int kt = k_lo; kt < k_hi; kt += BK, stage ^= 1) {
+    tc::cp_async_wait<0>();  // this tile (and, the first time, Q and dO) has landed
+    tc::fence_proxy_async();
+    __syncthreads();  // and every warpgroup is done with the other stage
+    // the next stage's copies are issued while the score products run
+    auto load_next = [&] {
+      if (kt + BK < k_hi) load_kv(kt + BK, stage ^ 1);
+      tc::cp_async_commit();
+    };
+    // a warpgroup none of whose rows sees this tile skips it: rows past
+    // Sq, keys after its last row (past the prefix span), or keys before
+    // its first row's window
+    if (q0 >= p.Sq || (p.causal && kt > q_last && kt >= p.prefix_len) ||
+        (p.window > 0 && kt + BK - 1 <= q0 - p.window)) {
+      load_next();
+      continue;
+    }
+    const unsigned char* ks = k_s + stage * TQ;
+    const unsigned char* vs = v_s + stage * TO;
+
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    tc::wgmma_fence();
+    wg_abt_issue<KS>(s, q_s + wg * TQ, ks);    // S: this warp's 16 q rows x 64 keys
+    wg_abt_issue<VS>(dp, do_s + wg * TO, vs);  // dP
+    tc::wgmma_commit();
+    load_next();
+    tc::wgmma_wait0();
+
+    const bool edge = (p.causal && kt + BK - 1 > q0 && kt + BK > p.prefix_len) ||
+                      (p.window > 0 && kt <= q_last - p.window) || kt + BK > k_valid ||
+                      q0 + BQ > p.Sq;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, qi = qr + 8 * i, kj = kt + 8 * n + 2 * t + (e & 1);
+        float pr = exp2_ftz(s[n][e] * sl2 - lse2[i]);
+        if (edge && !(qi < p.Sq && visible(p, k_valid, qi, kj))) pr = 0.f;
+        dp[n][e] = pr * (dp[n][e] - dl[i]);
+      }
+    // dQ += dS K; at 256 two m64n128 products a k-step: an m64n256 product
+    // beside dQ's 128 accumulators spills
+    wg_split_ab<KS, KS == 4 ? 2 : KS>(dq, dp, ks);
+  }
+  tc::cp_async_wait<0>();  // with no key tile at all, Q and dO may still be in flight
+
+  bf16* dqg = static_cast<bf16*>(p.dq) + b * p.sdq.b + h * p.sdq.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = qr + 8 * i;
+    if (qi >= p.Sq) continue;
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(dqg + qi * p.sdq.s + 64 * n + 8 * j + 2 * t) =
+            tc::pack_bf16(dq[n][j][2 * i] * p.scale, dq[n][j][2 * i + 1] * p.scale);
+  }
+}
+
 // -- launch ---------------------------------------------------------------------
 
 // the opt-in above 48 KiB belongs to the function on one device: set it once
@@ -942,21 +1456,28 @@ cudaError_t launch(const Params& p, int device, cudaStream_t stream) {
     err = launch_one(bwd_dkdv<DQK, DV>, dkdv_grid, THREADS, smem, device, set_dkdv, stream, p);
     if (err != cudaSuccess) return err;
     return launch_one(bwd_dq<DQK, DV>, dq_grid, THREADS, smem, device, set_dq, stream, p);
+  } else if constexpr (DQK == 256 || DQK != DV) {
+    // 256/256 and 192/128: two warpgroups a dK/dV CTA sharing S^T, the
+    // group's q-heads split over n_split CTAs (then a reduce launch), and
+    // dQ on QW warpgroups
+    constexpr int QW = wide_dq_warpgroups<DQK, DV>();
+    err = launch_one(bwd_dkdv_wg2<DQK, DV>, dim3(p.B * p.KV * p.n_split, k_tiles),
+                     WIDE_DKDV_THREADS, wide_dkdv_smem<DQK, DV>(), device, set_dkdv, stream, p);
+    if (err != cudaSuccess) return err;
+    if (p.n_split > 1) {
+      bwd_dkdv_reduce<DQK, DV><<<p.B * p.KV * p.Sk, 128, 0, stream>>>(p);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    return launch_one(bwd_dq_wg<DQK, DV, QW>, dim3(p.B * p.H, (p.Sq + BQ * QW - 1) / (BQ * QW)),
+                      128 * QW, wide_dq_smem<DQK, DV, QW>(), device, set_dq, stream, p);
   } else {
-    // wgmma at head dim 64, mma.sync at 32, 128, 192/128 and 256
+    // wgmma at head dim 64, mma.sync at 32 and 128
     constexpr bool WG = DQK == 64 && DV == 64;
     constexpr int smem_kv = tc_smem_bytes<DQK, DV, WG>(true);
     constexpr int smem_q = tc_smem_bytes<DQK, DV, WG>(false);
-    // the dV and the dK pass side by side in one grid where one warp's dK
-    // and dV would not fit its registers (256/256) or leave none for the
-    // score fragments (192/128: 96 + 64 accumulators a thread)
-    if constexpr (DQK == 256 || DQK != DV) {
-      err = launch_one(bwd_dkdv_mma_passes<DQK, DV>, dim3(p.B * p.KV, k_tiles, 2), MMA_THREADS,
-                       smem_kv, device, set_dkdv, stream, p);
-    } else {
-      err = launch_one(bwd_dkdv_mma<DQK, DV, WG>, dkdv_grid, MMA_THREADS, smem_kv, device,
-                       set_dkdv, stream, p);
-    }
+    err = launch_one(bwd_dkdv_mma<DQK, DV, WG>, dkdv_grid, MMA_THREADS, smem_kv, device, set_dkdv,
+                     stream, p);
     if (err != cudaSuccess) return err;
     return launch_one(bwd_dq_mma<DQK, DV, WG>, dq_grid, MMA_THREADS, smem_q, device, set_dq,
                       stream, p);
@@ -1001,17 +1522,24 @@ struct DeviceScope {
 // contiguous. lse is the
 // forward's (B, H, Sq) f32 output and delta a (B, H, Sq) f32 scratch. With
 // `causal`, keys at positions below `prefix_len` (0: none) are visible to
-// every query, as in the forward. Launches the three kernels on `stream`
-// of `device` (made the thread's current device
-// for the call, then restored). Returns the first launch's error that is
-// not cudaSuccess.
+// every query, as in the forward. `n_split`: in bf16 at (192, 128) and
+// (256, 256), the CTAs each kv-head's H / KV q-heads are split over (a
+// divisor of H / KV), and with n_split > 1 `part` an f32 scratch of
+// n_split * B * KV * Sk * (Dqk + Dv) values; elsewhere 1. Launches the
+// kernels (preprocess, dK/dV, the reduce with n_split > 1, dQ) on `stream`
+// of `device` (made the thread's current device for the call, then
+// restored). Returns the first launch's error that is not cudaSuccess.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dO,
     const float* lse, float* delta, void* dq, void* dk, void* dv, int dtype, int device,
     int B, int H, int KV, int Sq, int Sk, int Dqk, int Dv, const long long* strides,
-    int causal, int window, int k_len, int prefix_len, float scale, void* stream) {
+    int causal, int window, int k_len, int prefix_len, float scale, void* stream, int n_split,
+    float* part) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Sk < 1 || prefix_len < 0 ||
       (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const bool wide = dtype == 1 && ((Dqk == 192 && Dv == 128) || (Dqk == 256 && Dv == 256));
+  if (n_split < 1 || (H / KV) % n_split != 0 || (n_split > 1 && (!wide || !part)))
     return (int)cudaErrorInvalidValue;
   if (device < 0 || device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   DeviceScope scope(device);
@@ -1039,6 +1567,9 @@ extern "C" int flash_attention_bwd(
   p.k_len = k_len;
   p.prefix_len = prefix_len;
   p.scale = scale;
+  p.n_split = n_split;
+  p.dk_part = n_split > 1 ? part : nullptr;
+  p.dv_part = n_split > 1 ? part + (long long)n_split * B * KV * Sk * Dqk : nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(dtype == 1 ? launch_dims<__nv_bfloat16>(p, Dqk, Dv, device, st)
                           : launch_dims<float>(p, Dqk, Dv, device, st));

@@ -20,7 +20,10 @@ trained path) runs on the tensor cores and float32 (the parity path) on
 FMA tiles, forward (:func:`design`) and backward (:func:`design_bwd`). The
 bf16 backward splits P and dS into bf16 hi and lo parts for the products
 that take them, so its gradients keep the precision of the f32 formulas to
-within one bf16 rounding.
+within one bf16 rounding. At the wide pairs (:data:`WIDE_BWD_PAIRS`) its
+dK/dV launch may split a kv-head's q-heads over CTAs
+(:func:`bwd_head_split`), whose f32 partials the wrapper's scratch holds
+until a reduce launch sums them.
 
 Under autograd (grad enabled and an input requiring grad) the wrappers go
 through :class:`FlashAttention`, whose backward launches the backward
@@ -65,6 +68,8 @@ HEAD_DIMS = (32, 64, 128, 256)
 HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128), (192, 128), (256, 256))
 # the backward's: Dqk = Dv in HEAD_DIMS, and MLA's 192/128
 BWD_HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
+# the backward's wide pairs, whose bf16 form is "wgmma-split-2wg"
+WIDE_BWD_PAIRS = ((192, 128), (256, 256))
 
 
 def design(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = None) -> str:
@@ -85,19 +90,43 @@ def design_bwd(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = No
     """The backward's design for this dtype and (query/key, value) head
     dims, as ``csrc/flash_attention_bwd.cu`` names them: bf16 on the tensor
     cores with P and dS split into hi + lo bf16 parts, on ``wgmma`` at head
-    dim 64 and ``mma.sync`` at 32 and 128, and at 256/256 and MLA's 192/128
-    on ``mma.sync`` with dV and dK in two passes side by side in one launch
-    (a warp's dK and dV together would not fit its registers beside the
-    score fragments); f32 on FMA tiles."""
+    dim 64 and ``mma.sync`` at 32 and 128; at the wide pairs 256/256 and
+    MLA's 192/128 (:data:`WIDE_BWD_PAIRS`) "wgmma-split-2wg": a dK/dV CTA of
+    two warpgroups on ``wgmma``, one computing Sᵀ once, forming Pᵀ and
+    accumulating dV, the other taking Pᵀ through shared memory and
+    accumulating dK, with a group's q-heads split over
+    :func:`bwd_head_split` CTAs (f32 partials, then a reduce launch), and dQ
+    on ``wgmma``; f32 on FMA tiles."""
     v_head_dim = head_dim if v_head_dim is None else v_head_dim
     if (head_dim, v_head_dim) not in BWD_HEAD_DIM_PAIRS:
         raise ValueError(f"head_dim {(head_dim, v_head_dim)} not in the backward's "
                          f"{BWD_HEAD_DIM_PAIRS}")
     if dtype == torch.float32:
         return "fma-f32"
-    if head_dim in (192, 256):
-        return "mma.sync-split-dv-dk-passes"
+    if (head_dim, v_head_dim) in WIDE_BWD_PAIRS:
+        return "wgmma-split-2wg"
     return ("wgmma" if head_dim == 64 else "mma.sync") + "-split"
+
+
+def bwd_head_split(B: int, KV: int, k_tiles: int, G: int, sms: int) -> int:
+    """The CTAs a kv-head's ``G`` q-heads are split over in the wide pairs'
+    dK/dV launch: the largest divisor of G that keeps ``B·KV·k_tiles`` (one
+    CTA per batch, kv-head and 64-key tile) times it within the card's
+    ``sms`` (one such CTA fits an SM), and 1 where the unsplit grid already
+    reaches it. Each split CTA writes f32 partials that a reduce launch sums
+    in split order."""
+    cells = B * KV * k_tiles
+    return max(d for d in range(1, G + 1) if G % d == 0 and (d == 1 or cells * d <= sms))
+
+
+_sm_counts: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _sm_counts.get(device.index)
+    if n is None:
+        n = _sm_counts[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
 
 
 _fn_lock = threading.Lock()
@@ -134,7 +163,8 @@ def _kernel_fn(name: str = "flash_attention_fwd"):
                 )
             else:
                 fn = build.library("flash_attention_bwd").flash_attention_bwd
-                fn.argtypes = [ptr] * 10 + [i32] * 9 + [ptr] + [i32] * 4 + [ctypes.c_float, ptr]
+                fn.argtypes = ([ptr] * 10 + [i32] * 9 + [ptr] + [i32] * 4
+                               + [ctypes.c_float, ptr, i32, ptr])
             fn.restype = i32
             _fns[name] = fn
         return fn
@@ -348,8 +378,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None, k_len=
     (``bshd``: the model's (B, S, heads, Dh)), each gradient in its input's
     dtype and shape; with ``causal``, keys below ``prefix_len`` are visible
     to every query. CUDA tensors launch the backward kernels
-    (``flash_attention_bwd.launches`` counts each set of three kernels),
-    CPU tensors take
+    (``flash_attention_bwd.launches`` counts each set: preprocess, dK/dV,
+    dQ, and the head split's reduce where it runs), CPU tensors take
     :func:`flash_attention_bwd_ref`."""
     traffic.note_kernel("flash_attention_bwd")
     if build.device_type(q, k, v, o, lse, do) == "cpu":
@@ -481,8 +511,9 @@ def _bhs_strides(hd, sd, *tensors) -> list:
 
 
 def _launch_bwd(q, k, v, o, lse, do, *, causal, window, k_len, bshd=False, prefix_len=None):
-    """One set of the backward launches (preprocess, dK/dV, dQ; in bf16 at
-    256/256 and 192/128, dV and dK apart)."""
+    """One set of the backward launches: preprocess, dK/dV, dQ, and in bf16
+    at the wide pairs with a head split (:func:`bwd_head_split`) a reduce
+    of the dK/dV partials, which go to a scratch allocated here."""
     hd, sd = (2, 1) if bshd else (1, 2)
     B, H, Sq, Dh, Dv = q.shape[0], q.shape[hd], q.shape[sd], q.shape[3], v.shape[3]
     KV, Sk = k.shape[hd], k.shape[sd]
@@ -492,13 +523,20 @@ def _launch_bwd(q, k, v, o, lse, do, *, causal, window, k_len, bshd=False, prefi
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     strides = (ctypes.c_longlong * 24)(*_bhs_strides(hd, sd, q, k, v, o, do, dq, dk, dv))
+    n_split, part = 1, None
+    if q.dtype == torch.bfloat16 and (Dh, Dv) in WIDE_BWD_PAIRS:
+        n_split = bwd_head_split(B, KV, -(-Sk // 64), H // KV, _sm_count(q.device))
+        if n_split > 1:
+            part = torch.empty(n_split * B * KV * Sk * (Dh + Dv), dtype=torch.float32,
+                               device=q.device)
     err = _kernel_fn("flash_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _DTYPE_CODES[q.dtype], q.device.index, B, H, KV, Sq, Sk, Dh, Dv, strides,
         int(causal), 0 if window is None else int(window), k_len,
         0 if prefix_len is None else int(prefix_len), Dh**-0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        torch.cuda.current_stream(q.device).cuda_stream, n_split,
+        None if part is None else part.data_ptr(),
     )
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd failed to launch: cudaError_t {err}")

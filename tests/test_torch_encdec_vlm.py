@@ -478,7 +478,7 @@ def test_design_names_the_256_instantiation():
     assert tfa.design(torch.bfloat16, 256, 256) == "mma.sync"
     assert tfa.design(torch.float32, 256) == "fma-f32"
     assert 256 in tfa.HEAD_DIMS
-    assert tfa.design_bwd(torch.bfloat16, 256) == "mma.sync-split-dv-dk-passes"
+    assert tfa.design_bwd(torch.bfloat16, 256) == "wgmma-split-2wg"
     assert tfa.design_bwd(torch.float32, 256) == "fma-f32"
     with pytest.raises(ValueError, match="head_dim"):
         tfa.design_bwd(torch.bfloat16, 192)

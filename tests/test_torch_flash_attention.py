@@ -209,10 +209,14 @@ def _split(x):
     return hi, (x - hi.float()).to(torch.bfloat16)
 
 
-def _bwd_emulation(q, k, v, o, lse, do, *, causal, window, k_len, split, prefix_len=None):
+def _bwd_emulation(q, k, v, o, lse, do, *, causal, window, k_len, split, prefix_len=None,
+                   n_split=1):
     """The bf16 backward's arithmetic in PyTorch: products of bf16 operands
     summed in f32, P and dS split into hi + lo parts (``split``) or rounded
-    to one bf16 each. (B, H, S, Dh) layout, bf16 in and out."""
+    to one bf16 each. With ``n_split``, dK and dV are the wide pairs' head
+    split: each kv-head's q-heads in ``n_split`` consecutive subsets, an f32
+    partial per subset, the partials summed in split order and only then
+    scaled and rounded. (B, H, S, Dh) layout, bf16 in and out."""
     B, H, Sq, Dh = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G, scale = H // KV, Dh**-0.5
@@ -232,8 +236,19 @@ def _bwd_emulation(q, k, v, o, lse, do, *, causal, window, k_len, split, prefix_
     p = torch.where(mask, torch.exp(s * scale - lse.reshape(B, KV, G, Sq, 1)), 0.0)
     delta = (dog * og).sum(dim=-1, keepdim=True)
     ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dog, vf) - delta)
-    dv = sum(mm("bkgqs,bkgqd->bksd", x, dog) for x in parts(p))
-    dk = sum(mm("bkgqs,bkgqd->bksd", x, qg) for x in parts(ds)) * scale
+    gs = G // n_split
+
+    def split_sum(x, y):  # the subsets' partials, summed in split order
+        out = None
+        for i in range(n_split):
+            heads = slice(i * gs, (i + 1) * gs)
+            part = sum(mm("bkgqs,bkgqd->bksd", xp[:, :, heads], y[:, :, heads])
+                       for xp in parts(x))
+            out = part if out is None else out + part
+        return out
+
+    dv = split_sum(p, dog)
+    dk = split_sum(ds, qg) * scale
     dq = sum(mm("bkgqs,bksd->bkgqd", x, kf) for x in parts(ds)) * scale
     bf16 = torch.bfloat16
     return dq.reshape(B, H, Sq, Dh).to(bf16), dk.to(bf16), dv.to(bf16)
@@ -271,6 +286,42 @@ def test_bf16_bwd_with_p_and_ds_rounded_once_fails_the_ulp_gate(name):
     assert worst > BWD_ULP_TOL, (name, worst)
 
 
+# the wide pairs' head split at paligemma's training shape (B=4, one
+# kv-head of 8 q-heads, 8 key tiles: 32 CTAs unsplit on 132 SMs), at B=1
+# MQA, and never above G nor off G's divisors
+@pytest.mark.parametrize("shape, want", [
+    ((4, 1, 8, 8, 132), 4),
+    ((1, 1, 8, 8, 132), 8),
+    ((1, 128, 32, 1, 132), 1),   # deepseek-v2's training attention
+    ((2, 8, 16, 1, 132), 1),
+    ((1, 2, 3, 6, 132), 6),
+    ((1, 1, 40, 6, 132), 3),
+    ((1, 1, 200, 8, 132), 1),    # the unsplit grid already fills the card
+])
+def test_bwd_head_split_fills_the_card_and_divides_the_group(shape, want):
+    B, KV, k_tiles, G, sms = shape
+    n = tfa.bwd_head_split(B, KV, k_tiles, G, sms)
+    assert n == want
+    assert 1 <= n <= G and G % n == 0
+    assert n == 1 or B * KV * k_tiles * n <= sms
+
+
+@pytest.mark.parametrize("name", ["mqa dh256 prefix 64", "gqa dh256 prefix 100 ragged"])
+def test_bf16_bwd_head_split_partials_hold_the_ulp_gate(name):
+    """dK and dV as the wide pairs' split CTAs and reduce launch sum them:
+    each subset of q-heads an f32 partial, summed in split order, within
+    the same 2-ulp gate at every split count the group takes; dQ is
+    untouched."""
+    args, mask, want = _bwd_precision_inputs(name)
+    G = args[0].shape[1] // args[1].shape[1]
+    whole = _bwd_emulation(*args, **mask, split=True)
+    for n_split in (d for d in range(2, G + 1) if G % d == 0):
+        got = _bwd_emulation(*args, **mask, split=True, n_split=n_split)
+        assert torch.equal(got[0], whole[0])  # dQ takes no split
+        for g, w, label in zip(got[1:], want[1:], ("dk", "dv")):
+            assert _bf16_ulps(g, w) <= BWD_ULP_TOL, (name, n_split, label, _bf16_ulps(g, w))
+
+
 def test_split_parts_carry_sixteen_bits():
     """hi + lo recovers an f32 value to about 2^-16 of it, where one bf16
     keeps 2^-8."""
@@ -286,7 +337,8 @@ def test_backward_design_names():
     assert tfa.design_bwd(torch.bfloat16, 64) == "wgmma-split"
     for dh in (32, 128):
         assert tfa.design_bwd(torch.bfloat16, dh) == "mma.sync-split"
-    assert tfa.design_bwd(torch.bfloat16, 256) == "mma.sync-split-dv-dk-passes"
+    assert tfa.design_bwd(torch.bfloat16, 256) == "wgmma-split-2wg"
+    assert tfa.design_bwd(torch.bfloat16, 192, 128) == "wgmma-split-2wg"
     with pytest.raises(ValueError, match="head_dim"):
         tfa.design_bwd(torch.bfloat16, 96)
 

@@ -699,7 +699,7 @@ def test_flash_bwd_at_192_128_matches_plain_version_on_card(name, dtype):
     dt, tol = FLASH_TOL[dtype]
     torch.backends.cuda.matmul.allow_tf32 = False
     assert tfa.design_bwd(dt, 192, 128) == ("fma-f32" if dtype == "float32"
-                                            else "mma.sync-split-dv-dk-passes")
+                                            else "wgmma-split-2wg")
     err = _bwd_error(dev, np.random.default_rng(31), dt, BWD_192_128[name])
     assert err <= tol, (name, dtype, err)
     args, mask = _bwd_inputs(dev, np.random.default_rng(32), dt, BWD_192_128[name])
@@ -784,9 +784,10 @@ def test_flash_bwd_kernel_encdec_vlm_shapes_on_card(name, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_bwd_at_256_is_bitwise_repeatable_on_card(dtype):
-    """The 256/256 instantiations (bf16: the dV and the dK pass side by side
-    in one launch) use no float atomics either: two launches give the same
-    gradients bit for bit, with and without the prefix span."""
+    """The 256/256 instantiations (bf16: two warpgroups a dK/dV CTA, the
+    q-heads split over CTAs and their partials reduced in split order) use
+    no float atomics either: two launches give the same gradients bit for
+    bit, with and without the prefix span."""
     dev = _cuda()
     dt, _tol = FLASH_TOL[dtype]
     rng = np.random.default_rng(27)
@@ -797,6 +798,74 @@ def test_flash_bwd_at_256_is_bitwise_repeatable_on_card(dtype):
         second = tfa.flash_attention_bwd(*args, bshd=True, **mask)
         for label, a, b in zip(("dq", "dk", "dv"), first, second):
             assert torch.equal(a, b), (prefix, dtype, label)
+
+
+# K1-bwd's wide pairs in bf16 ("wgmma-split-2wg"), the q-head split
+# engaged (paligemma's training shape, B=1 MQA, GQA) and not (many
+# kv-heads), with ragged Sq and Sk, a prefix span that ends inside a key
+# tile, a window and k_len; (B, H, KV, Sq, Sk, Dqk, causal, window, k_len,
+# Dv, prefix_len)
+BWD_WIDE = {
+    "paligemma train B=4 MQA S=512 prefix 256": (4, 8, 1, 512, 512, 256, True, None, None, 256,
+                                                 256),
+    "256 B=1 MQA S=300 prefix 100": (1, 8, 1, 300, 300, 256, True, None, None, 256, 100),
+    "256 unsplit B=2 H=KV=8 S=1100": (2, 8, 8, 1100, 1100, 256, True, None, None, 256),
+    "256 MQA Sq=70 Sk=1500 bidirectional": (1, 8, 1, 70, 1500, 256, False, None, None, 256),
+    "256 GQA window 33 S=161": (1, 4, 2, 161, 161, 256, True, 33, None, 256),
+    "192/128 B=1 MQA S=256": (1, 8, 1, 256, 256, 192, True, None, None, 128),
+    "192/128 unsplit H=KV=16 S=512": (1, 16, 16, 512, 512, 192, True, None, None, 128),
+    "192/128 GQA window 70 S=300": (1, 8, 2, 300, 300, 192, True, 70, None, 128),
+    "192/128 GQA prefix 100 k_len 200 S=257": (2, 8, 2, 257, 257, 192, True, None, 200, 128, 100),
+    "192/128 MQA Sq=100 Sk=333 bidirectional": (1, 4, 1, 100, 333, 192, False, None, None, 128),
+}
+
+
+def _wide_split(dev, case) -> int:
+    B, H, KV, _Sq, Sk = case[:5]
+    return tfa.bwd_head_split(B, KV, -(-Sk // 64), H // KV,
+                              torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(BWD_WIDE))
+def test_flash_bwd_wide_pairs_with_and_without_the_head_split_on_card(name):
+    """The wide pairs' bf16 design against the plain version: within 2^-7
+    scaled and 2 ulps, every case in the split it names (paligemma's
+    training shape split 4 ways on an H100's 132 SMs), two launches bit
+    for bit."""
+    dev = _cuda()
+    case = BWD_WIDE[name]
+    assert tfa.design_bwd(torch.bfloat16, case[5], case[9]) == "wgmma-split-2wg"
+    n_split = _wide_split(dev, case)
+    assert (n_split > 1) == ("unsplit" not in name), (name, n_split)
+    err = _bwd_error(dev, np.random.default_rng(41), torch.bfloat16, case)
+    assert err <= 2.0**-7, (name, err)
+    args, mask = _bwd_inputs(dev, np.random.default_rng(42), torch.bfloat16, case)
+    first = tfa.flash_attention_bwd(*args, bshd=True, **mask)
+    again = tfa.flash_attention_bwd(*args, bshd=True, **mask)
+    assert all(torch.equal(a, b) for a, b in zip(first, again)), name
+    q, k, v, o, lse, do = args
+    want = tfa.flash_attention_bwd_ref(*(t.transpose(1, 2) for t in (q, k, v, o)), lse,
+                                       do.transpose(1, 2), **mask)
+    for label, g, w in zip(("dq", "dk", "dv"), first, want):
+        assert _bf16_ulps(g, w.transpose(1, 2)) <= BWD_ULP_TOL, (name, label)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dqk,dv", [(192, 128), (256, 256)])
+def test_flash_bwd_wide_pairs_are_bitwise_repeatable_at_the_train_shapes_on_card(dqk, dv):
+    """At the train cells' own shapes (deepseek-v2's B=1 H=KV=128 S=2048,
+    unsplit; paligemma's B=4 H=8 KV=1 S=512 under its prefix span, split),
+    two launches give the same gradients bit for bit."""
+    dev = _cuda()
+    case = ((1, 128, 128, 2048, 2048, 192, True, None, None, 128) if dqk == 192
+            else (4, 8, 1, 512, 512, 256, True, None, None, 256, 256))
+    args, mask = _bwd_inputs(dev, np.random.default_rng(43), torch.bfloat16, case)
+    first = tfa.flash_attention_bwd(*args, bshd=True, **mask)
+    again = tfa.flash_attention_bwd(*args, bshd=True, **mask)
+    for label, a, b in zip(("dq", "dk", "dv"), first, again):
+        assert torch.isfinite(a.float()).all(), label
+        assert torch.equal(a, b), (dqk, dv, label)
 
 
 @pytest.mark.gpu

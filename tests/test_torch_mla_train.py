@@ -3,7 +3,8 @@ Dqk=192 / Dv=128 (K1-bwd's own instantiation on the card).
 
 * The wrapper's checks on the meta device: the backward takes 192/128 and
   the Dqk = Dv pairs, and still refuses every other unequal pair before
-  anything runs; the design names the dV and dK passes.
+  anything runs; the design names the two-warpgroup ``wgmma`` form, and
+  the head split stays off at deepseek-v2's training shape.
 * Reduced deepseek-v2's loss, aux loss and every gradient with each
   prefill's attention sent through ``flash_attention``'s autograd function
   (its plain versions on the CPU, forward and backward, at the reduced
@@ -56,11 +57,15 @@ def test_the_backward_takes_192_128_and_refuses_other_unequal_pairs():
 
 
 def test_the_backward_design_at_192_128():
-    assert tfa.design_bwd(torch.bfloat16, 192, 128) == "mma.sync-split-dv-dk-passes"
+    assert tfa.design_bwd(torch.bfloat16, 192, 128) == "wgmma-split-2wg"
     assert tfa.design_bwd(torch.float32, 192, 128) == "fma-f32"
-    assert tfa.design_bwd(torch.bfloat16, 256) == "mma.sync-split-dv-dk-passes"
+    assert tfa.design_bwd(torch.bfloat16, 256) == "wgmma-split-2wg"
+    assert tfa.WIDE_BWD_PAIRS == ((192, 128), (256, 256))
     with pytest.raises(ValueError, match="head_dim"):
         tfa.design_bwd(torch.bfloat16, 128, 192)
+    # deepseek-v2's training attention (B=1, 128 kv-heads of one q-head,
+    # 32 key tiles at S=2048) fills an H100's 132 SMs unsplit
+    assert tfa.bwd_head_split(1, 128, 32, 1, 132) == 1
 
 
 def test_on_the_card_autograd_at_192_128_reaches_the_autograd_function(monkeypatch):
