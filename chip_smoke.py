@@ -32,7 +32,10 @@ K1 is also held and timed at deepseek-v2's expanded MLA prefill (H = KV =
 takes Dv != Dqk on the card, and at the enc-dec and VLM prefills' shapes
 (B=4): paligemma's (H=8 on one kv-head, Dqk = Dv = 256, its own
 instantiation, S=320 under a prefix-LM span over the first 256 positions;
-the build fails if that instantiation spills), whisper's encoder (H=KV=16,
+the build fails if K1's instantiations at 192/128 or 256/256 spill),
+and at the two wide pairs' training shapes (deepseek-v2 S=2048,
+paligemma S=512 under its prefix span; two launches bit for bit, timed
+beside the plain version, SDPA and the bound), whisper's encoder (H=KV=16,
 Dh=64, S=1500, non-causal), decoder self-attention (causal, S=32, one ragged
 tile) and cross-attention (Sq=32 over Sk=1500), beside SDPA (with the
 boolean causal or prefix-LM mask where the case has one).
@@ -111,6 +114,14 @@ batches, put on the card by the consumer, equal bit for bit to the thread
 one's. Each phase prints one JSON line; any failure exits non-zero. The last three lines are
 the kernels line, the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": ...}``.
+
+``python3 chip_smoke.py --k1-wide`` runs only K1 at the wide pairs' four
+main-path shapes (deepseek-v2's MLA prefill S=512 and training S=2048,
+paligemma's prefill S=320 and training S=512 under the prefix span) with
+the kernels phase's inputs, gates and timings. Copied into the root of
+another checkout (a parent commit, or a trial, unpacked under ``build/``)
+it reads that checkout's kernel the same way, so that two forms compare
+within one chip call.
 
 It imports nothing of JAX or of the reference package.
 """
@@ -211,12 +222,12 @@ def phase_build() -> None:
         log = build.build_log[name]
         emit("build", source=f"src/repro_torch/csrc/{name}.cu", nvcc_s=log["seconds"],
              cached=log["cached"], ptxas=log["ptxas"], resources=ptxas_resources(log["ptxas"]))
-    # K1 at gemma's 256/256 holds a 16-row output fragment of 128 f32
-    # registers a thread, and K1-bwd's wide pairs 96 to 128 dK, dV or dQ
-    # accumulators a thread beside the score fragments: none of their
-    # instantiations may spill
+    # K1's wide pairs hold a 64-row output fragment of 64 (192/128, under
+    # the 128 registers of two CTAs an SM) or 128 (256/256) f32 registers a
+    # thread beside the score fragment, and K1-bwd's 96 to 128 dK, dV or dQ
+    # accumulators a thread: none of their instantiations may spill
     wide = _wide_resources(build)
-    check(len(wide["flash_attention"]) == 2 and len(wide["flash_attention_bwd"]) == 12
+    check(len(wide["flash_attention"]) == 4 and len(wide["flash_attention_bwd"]) == 12
           and all(v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0
                   for res in wide.values() for v in res.values()),
           f"K1's or K1-bwd's wide instantiations spill or are missing: {wide}")
@@ -229,16 +240,23 @@ def phase_build() -> None:
 
 
 def _wide_resources(build) -> dict:
-    """ptxas registers and spills of K1's instantiations at 256/256 and
-    K1-bwd's at 256/256 and 192/128, per library: at 256 the preprocess in
-    both dtypes, f32 dK/dV and dQ, bf16 ``bwd_dkdv_wg2``, ``bwd_dkdv_reduce``
-    and ``bwd_dq_wg`` (7); at 192/128 the same but the preprocess, which is
+    """ptxas registers and spills of K1's and K1-bwd's instantiations at
+    256/256 and 192/128, per library: K1's bf16 ``flash_fwd_wide`` and f32
+    ``flash_fwd_f32`` at each (4); K1-bwd's at 256 the preprocess in both
+    dtypes, f32 dK/dV and dQ, bf16 ``bwd_dkdv_wg2``, ``bwd_dkdv_reduce``
+    and ``bwd_dq_wg`` (7), at 192/128 the same but the preprocess, which is
     128/128's (5)."""
-    fwd = ptxas_resources(build.build_log["flash_attention"]["ptxas"])
     bwd = ptxas_resources(build.build_log["flash_attention_bwd"]["ptxas"])
-    return {"flash_attention": {k: v for k, v in fwd.items() if k.endswith("<256,256>")},
+    return {"flash_attention": _wide_resources_of(build.build_log["flash_attention"]["ptxas"]),
             "flash_attention_bwd": {k: v for k, v in bwd.items()
                                     if re.search(r"<(?:(?:\w+,)?256|192,128)(?:,|>)", k)}}
+
+
+def _wide_resources_of(ptxas: list) -> dict:
+    """ptxas registers and spills of K1's instantiations at 192/128 and
+    256/256 in one ``ptxas -v`` report of the forward's library."""
+    return {k: v for k, v in ptxas_resources(ptxas).items()
+            if re.search(r"<(?:192,128|256,256)(?:,|>)", k)}
 
 
 def _kernel_label(mangled: str) -> str:
@@ -536,22 +554,89 @@ def phase_kernels() -> dict:
              timing=f"{label} bf16 causal B={B} H={H} KV={KV} Dh={Dh}", **timings[label])
     timings["deepseek MLA S=512"] = _mla_timing()
     timings.update(_encdec_vlm_timings())
-    return {"flash_attention": {"max_abs_err": worst, "timings": timings,
+    train = _wide_train_timings()
+    return {"flash_attention": {"max_abs_err": worst, "timings": timings, "train": train,
                                 "mla_max_abs_err": mla_errs, "dh256_max_abs_err": dh256_errs}}
 
 
-def _encdec_vlm_timings() -> dict:
-    """K1 at the enc-dec and VLM prefills' shapes (:data:`ENCDEC_VLM_K1`,
-    bf16) beside its plain version and SDPA on the same inputs (a causal
-    case with its boolean mask, prefix-LM for paligemma), each with its
-    bound."""
+# the wide pairs' training attention, as the train cells run K1 there
+# (model layout, bf16): deepseek-v2's at S=2048 (causal, Dqk=192, Dv=128)
+# and paligemma's over 256 patches and 256 text tokens (the prefix span):
+# (label, B, H, KV, S, Dqk, Dv, prefix_len)
+WIDE_TRAIN_K1 = (
+    ("deepseek train S=2048", 1, 128, 128, 2048, 192, 128, None),
+    ("paligemma train S=512 prefix 256", 4, 8, 1, 512, 256, 256, 256),
+)
+
+
+def _wide_train_timings() -> dict:
+    """K1 at :data:`WIDE_TRAIN_K1` (bf16, causal, with the lse as the
+    autograd Function asks for it): the output against the plain version,
+    two launches' output and lse equal bit for bit (gated), then timed
+    beside the plain version and SDPA (``is_causal``, or the boolean
+    prefix-LM mask), which the port never calls, with the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    for i, (label, B, H, KV, S, Dh, Dv, prefix) in enumerate(WIDE_TRAIN_K1):
+        q, k, v = _qkv(B, H, KV, S, S, Dh, torch.bfloat16, seed=400 + i, model_layout=True,
+                       Dv=Dv)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        kw = dict(causal=True, prefix_len=prefix)
+        with torch.no_grad():
+            first = fa.flash_attention_lse(q, k, v, bshd=True, **kw)
+            again = fa.flash_attention_lse(q, k, v, bshd=True, **kw)
+        want = fa.flash_attention_ref(qt, kt, vt, **kw)
+        torch.cuda.synchronize()
+        err = (first[0].transpose(1, 2).float() - want.float()).abs().max().item()
+        bitwise = all(torch.equal(a, b) for a, b in zip(first, again))
+        del first, again, want
+        torch.cuda.empty_cache()
+        check(err <= FWD_TOL["bfloat16"], f"flash_attention {label}: max_abs_err {err}")
+        check(bitwise, f"flash_attention {label}: two launches differ")
+        qc, kc, vc = (t.contiguous() for t in (qt, kt, vt))
+        mask = fa._mask(S, S, True, None, None, q.device, prefix) if prefix else None
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask,
+                                                  is_causal=mask is None, enable_gqa=KV != H)
+
+        try:  # measured, not used: the port never calls SDPA
+            sdpa()
+            torch.cuda.synchronize()
+            note = "F.scaled_dot_product_attention" + (
+                " with the boolean prefix-LM mask" if prefix else ", is_causal")
+        except RuntimeError as e:
+            sdpa, note = None, f"SDPA refused: {str(e)[:200]}"
+        r = _times(lambda: fa.flash_attention_lse(q, k, v, bshd=True, **kw),
+                   lambda: fa.flash_attention_lse_ref(qt, kt, vt, **kw), sdpa, iters=10)
+        bound_ms, bound_by = _attention_bound(B, H, KV, S, S, Dh, 2, True, PEAK_BF16_FLOPS,
+                                              Dv=Dv, prefix_len=prefix)
+        r.update(max_abs_err=err, bitwise_repeat=bitwise, bound_ms=bound_ms, bound_by=bound_by,
+                 library_note=note, design=fa.design(torch.bfloat16, Dh, Dv))
+        emit("kernels", kernel="flash_attention",
+             timing=f"{label} bf16 causal B={B} H={H} KV={KV} Dqk={Dh} Dv={Dv}", **r)
+        out[label] = r
+        del q, k, v, qt, kt, vt, qc, kc, vc, mask
+        torch.cuda.empty_cache()
+    return out
+
+
+def _encdec_vlm_timings(cases=ENCDEC_VLM_K1) -> dict:
+    """K1 at the enc-dec and VLM prefills' shapes (``cases``, bf16) beside
+    its plain version and SDPA on the same inputs (a causal case with its
+    boolean mask, prefix-LM for paligemma), each with its bound and its
+    ``max_abs_err`` from the plain version."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import _mask, flash_attention, flash_attention_ref
 
     out = {}
-    for i, (label, B, H, KV, Sq, Sk, Dh, causal, prefix) in enumerate(ENCDEC_VLM_K1):
+    for i, (label, B, H, KV, Sq, Sk, Dh, causal, prefix) in enumerate(cases):
         q, k, v = _qkv(B, H, KV, Sq, Sk, Dh, torch.bfloat16, seed=200 + i, model_layout=True)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         qc, kc, vc = (t.contiguous() for t in (qt, kt, vt))
@@ -568,11 +653,13 @@ def _encdec_vlm_timings() -> dict:
                     f"{(got.float() - flash_attention(q, k, v, **kw).float()).abs().max().item()}")
         except RuntimeError as e:
             sdpa, note = None, f"SDPA refused: {str(e)[:200]}"
+        err = (flash_attention(q, k, v, **kw).transpose(1, 2).float()
+               - flash_attention_ref(qt, kt, vt, **kw).float()).abs().max().item()
         out[label] = _times(lambda: flash_attention(q, k, v, **kw),
                             lambda: flash_attention_ref(qt, kt, vt, **kw), sdpa, iters=20)
         bound_ms, bound_by = _attention_bound(B, H, KV, Sq, Sk, Dh, 2, causal, PEAK_BF16_FLOPS,
                                               prefix_len=prefix)
-        out[label].update(bound_ms=bound_ms, bound_by=bound_by, library_note=note,
+        out[label].update(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by, library_note=note,
                           library="F.scaled_dot_product_attention"
                           + (" with the boolean prefix-LM mask" if prefix
                              else " with the boolean causal mask" if causal else ""))
@@ -585,7 +672,7 @@ def _mla_timing() -> dict:
     """K1 at deepseek-v2's expanded MLA prefill (:data:`MLA_K1`, bf16,
     causal) beside its plain version and, where it takes Dv != Dqk on the
     card, SDPA (which the port never calls): the error SDPA raises is kept
-    as ``library_note`` otherwise."""
+    as ``library_note`` otherwise; ``max_abs_err`` from the plain version."""
     import torch
     import torch.nn.functional as F
 
@@ -600,18 +687,21 @@ def _mla_timing() -> dict:
     def sdpa():
         return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True)
 
+    want = flash_attention_ref(qt, kt, vt, causal=True)
+    err = (flash_attention(q, k, v, causal=True).transpose(1, 2).float()
+           - want.float()).abs().max().item()
     note = None
     try:
         got = sdpa()
         torch.cuda.synchronize()
-        want = flash_attention_ref(qt, kt, vt, causal=True)
         note = f"SDPA max abs diff from the plain version {(got.float() - want.float()).abs().max().item()}"
     except RuntimeError as e:  # measured, not used: the port never calls SDPA
         sdpa, note = None, f"SDPA refused Dqk={Dh} Dv={Dv}: {str(e)[:200]}"
+    del want
     out = _times(lambda: flash_attention(q, k, v, causal=True),
                  lambda: flash_attention_ref(qt, kt, vt, causal=True), sdpa, iters=20)
     bound_ms, bound_by = _attention_bound(B, H, KV, S, S, Dh, 2, True, PEAK_BF16_FLOPS, Dv=Dv)
-    out.update(bound_ms=bound_ms, bound_by=bound_by, library_note=note)
+    out.update(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by, library_note=note)
     emit("kernels", kernel="flash_attention",
          timing=f"deepseek MLA bf16 causal B={B} H={H} KV={KV} Dqk={Dh} Dv={Dv} S={S}", **out)
     return out
@@ -3632,7 +3722,13 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                         **MLA_K1),
                     "design": fa_design(torch.bfloat16, 192, 128),
                     "max_abs_err": fa["mla_max_abs_err"],
+                    "ptxas": {k: v for k, v in ptxas_resources(
+                        build.build_log["flash_attention"]["ptxas"]).items()
+                        if re.search(r"<192,128(?:,|>)", k)},
                     **{k: t_mla[k] for k in timing_keys},
+                    # deepseek-v2's training attention
+                    "train": {"at": WIDE_TRAIN_K1[0][0] + " B=1 H=KV=128 bf16 causal",
+                              **fa["train"][WIDE_TRAIN_K1[0][0]]},
                 },
                 # paligemma's prefill (its own instantiation, the prefix-LM
                 # span) and whisper's two non-causal forms at Dh=64
@@ -3642,8 +3738,11 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                     "max_abs_err": fa["dh256_max_abs_err"],
                     "ptxas": {k: v for k, v in ptxas_resources(
                         build.build_log["flash_attention"]["ptxas"]).items()
-                        if k.endswith("<256,256>")},
+                        if re.search(r"<256,256(?:,|>)", k)},
                     **{k: fa["timings"][ENCDEC_VLM_K1[0][0]][k] for k in timing_keys},
+                    # paligemma's training attention
+                    "train": {"at": WIDE_TRAIN_K1[1][0] + " B=4 H=8 KV=1 bf16",
+                              **fa["train"][WIDE_TRAIN_K1[1][0]]},
                 },
                 "whisper": {
                     label: {"at": f"B={B} H={H} KV={KV} Dh={Dh} Sq={Sq} Sk={Sk} bf16 "
@@ -3783,11 +3882,15 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
     }
 
 
-def main() -> int:
+def main(argv: list) -> int:
     # one card: the first, unless the caller chose the visible devices
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
     import torch
 
+    if argv not in ([], ["--k1-wide"]):
+        print(f"chip_smoke: unknown arguments {argv}; the only one is --k1-wide",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3795,11 +3898,43 @@ def main() -> int:
 
     t0 = time.perf_counter()
     dev = phase_device()
+    if argv:
+        return k1_wide(dev)
     dry = DryRuns()  # on the host, beside the card's phases
     try:
         return _run(t0, dev, dry)
     finally:
         dry.close()
+
+
+def k1_wide(dev: dict) -> int:
+    """K1 at the wide pairs' four main-path shapes, as the kernels phase
+    holds and times them: deepseek-v2's MLA prefill, paligemma's prefill
+    and both models' training attention (:func:`_mla_timing`,
+    :func:`_encdec_vlm_timings`, :func:`_wide_train_timings`), each output
+    within the bf16 tolerance of the plain version. The last line is
+    ``{"ok": true, "k1_wide": {shape: {design, ms, device_ms, ...}}}``."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    build.library("flash_attention")
+    emit("build", source="src/repro_torch/csrc/flash_attention.cu",
+         resources=_wide_resources_of(build.build_log["flash_attention"]["ptxas"]))
+    got = {"deepseek MLA S=512": _mla_timing(), **_encdec_vlm_timings(ENCDEC_VLM_K1[:1]),
+           **_wide_train_timings()}
+    for label, r in got.items():
+        check(r["max_abs_err"] <= FWD_TOL["bfloat16"],
+              f"flash_attention {label}: max_abs_err {r['max_abs_err']}")
+    keys = ("ms", "device_ms", "plain_ms", "library_device_ms", "bound_ms", "bound_by",
+            "max_abs_err")
+    print(dev["nvidia_smi"])
+    print(json.dumps({"ok": True, "k1_wide": {
+        label: {"design": fa.design(torch.bfloat16, 192 if "deepseek" in label else 256,
+                                    128 if "deepseek" in label else 256),
+                **{k: r.get(k) for k in keys}} for label, r in got.items()}}))
+    return 0
 
 
 def _run(t0: float, dev: dict, dry: DryRuns) -> int:
@@ -3844,4 +3979,4 @@ def _run(t0: float, dev: dict, dry: DryRuns) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

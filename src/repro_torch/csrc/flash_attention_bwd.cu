@@ -940,7 +940,7 @@ __global__ void __launch_bounds__(MMA_THREADS) bwd_dq_mma(Params p) {
 // slab and move to the next slab after four; a gradient product is one
 // m64nNk16 a k-step over all the slabs of its MN-major operand.
 
-constexpr int SLAB_BYTES = 64 * 128;     // one 64-row slab
+using tc::SLAB_BYTES;  // one 64-row slab (tensor_core.cuh)
 constexpr int WIDE_DKDV_THREADS = 256;   // warpgroup 0 (S^T, P^T, dV) and 1 (dP^T, dS^T, dK)
 // P^T, 32 f32 a thread (the m64n64 fragment), exchanged between the two
 // warpgroups' threads of the same rank, which hold the same fragment layout
@@ -979,80 +979,6 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// rows [r0, r0 + 64) of a (seq, DH) slice into a slab tile by 16-byte
-// copies from NT threads, zeros from row `len` of the slice on
-template <int DH, int NT>
-__device__ __forceinline__ void cp_slabs(unsigned char* dst, const __nv_bfloat16* src,
-                                         long long ss, int r0, int len) {
-  constexpr int CH = DH / 8;
-  for (int c = threadIdx.x; c < 64 * CH; c += NT) {
-    const int r = c / CH, pc = c % CH, i = r0 + r;
-    tc::cp_async16(dst + (pc >> 3) * SLAB_BYTES + tc::swz128(r, pc & 7),
-                   src + (long long)min(i, len - 1) * ss + 8 * pc, i < len);
-  }
-}
-
-// d += A B with N = 128, 192 or 256 columns: A (64 x 16) from registers as
-// in tc::wgmma_rs_tb, B (16 x N) from shared memory, MN-major, as 64-column
-// slabs (sw128_desc_slabs); d[j] holds columns 8 j .. 8 j + 7 as
-// tc::wgmma_rs_tb's d does, so a [NS][8][4] array of slab accumulators is
-// its d for N = 64 NS
-template <int N>
-__device__ __forceinline__ void wgmma_rs_tb_n(float (&d)[N / 8][4], const uint32_t (&a)[4],
-                                              uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_rs_tb_n<128>(float (&d)[16][4], const uint32_t (&a)[4],
-                                                  uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs_tb_n<192>(float (&d)[24][4], const uint32_t (&a)[4],
-                                                  uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]), "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]), "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]), "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]), "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]), "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]), "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs_tb_n<256>(float (&d)[32][4], const uint32_t (&a)[4],
-                                                  uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]), "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]), "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]), "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]), "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]), "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]), "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]), "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]), "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]), "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]), "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]), "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]), "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]), "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]), "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// descriptor of an MN-major operand stored as 64-column slabs in the
-// 128-byte swizzle: 8-row groups 1024 bytes apart (the stride byte offset)
-// and the slabs, N's 64-column blocks, SLAB_BYTES apart (the leading byte
-// offset)
-__device__ __forceinline__ uint64_t sw128_desc_slabs(const void* smem) {
-  return (tc::sw128_desc(smem) & ~(uint64_t(0x3FFF) << 16)) | (uint64_t(SLAB_BYTES >> 4) << 16);
-}
-
-// x (+)= Y Z^T over KS slabs of depth, Y and Z 64-row slab tiles, both
-// K-major; issued, not waited for
-template <int KS>
-__device__ __forceinline__ void wg_abt_issue(float (&x)[8][4], const unsigned char* y,
-                                             const unsigned char* z) {
-#pragma unroll
-  for (int s = 0; s < KS; ++s) {
-    const uint64_t dy = tc::sw128_desc(y + s * SLAB_BYTES);
-    const uint64_t dz = tc::sw128_desc(z + s * SLAB_BYTES);
-#pragma unroll
-    for (int kd = 0; kd < 4; ++kd) tc::wgmma_ss(x, dy + 2 * kd, dz + 2 * kd, s | kd);
-  }
-}
-
 // acc[n] += X Z[:, 64 n .. 64 n + 63] for the NS slabs of Z's columns, one
 // m64n(64 NW)k16 product a k-step, part and NW slabs: X (64 x 64) an f32
 // fragment as hi + lo register A operands, Z (64 rows, the product's depth)
@@ -1068,11 +994,11 @@ __device__ __forceinline__ void wg_split_ab(float (&acc)[NS][8][4], const float 
 #pragma unroll
   for (int g = 0; g < NS; g += NW) {
     float(&d)[NW * 8][4] = reinterpret_cast<float(&)[NW * 8][4]>(acc[g]);
-    const uint64_t dz = sw128_desc_slabs(z + g * SLAB_BYTES);
+    const uint64_t dz = tc::sw128_desc_slabs(z + g * SLAB_BYTES);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {  // 16 rows of Z a step
-      wgmma_rs_tb_n<64 * NW>(d, hi[kk], dz + (16 * 128 >> 4) * kk);
-      wgmma_rs_tb_n<64 * NW>(d, lo[kk], dz + (16 * 128 >> 4) * kk);
+      tc::wgmma_rs_tb_n<64 * NW>(d, hi[kk], dz + (16 * 128 >> 4) * kk);
+      tc::wgmma_rs_tb_n<64 * NW>(d, lo[kk], dz + (16 * 128 >> 4) * kk);
     }
   }
   tc::wgmma_commit();
@@ -1109,10 +1035,10 @@ __device__ __forceinline__ void dkdv_wide_role(const Params& p, unsigned char* k
   const int G = p.H / p.KV, GS = G / p.n_split, h0 = kvh * G + split * GS;
   const int k_valid = min(p.k_len, p.Sk);
 
-  cp_slabs<DQK, NT>(k_s, static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h, p.sk.s, k0,
-                    p.Sk);
-  cp_slabs<DV, NT>(v_s, static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h, p.sv.s, k0,
-                   p.Sk);
+  tc::cp_slabs<DQK, NT>(k_s, static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h,
+                        p.sk.s, k0, p.Sk);
+  tc::cp_slabs<DV, NT>(v_s, static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h,
+                       p.sv.s, k0, p.Sk);
 
   // the q rows that can see a key of this tile, as in dkdv_mma_body; the
   // CTA walks n_q q tiles for each of its GS q-heads
@@ -1125,11 +1051,12 @@ __device__ __forceinline__ void dkdv_wide_role(const Params& p, unsigned char* k
 
   auto load_q = [&](int it, int stage) {
     const int h = h0 + it / n_q, q0 = q_lo + (it % n_q) * BQ;
-    cp_slabs<DQK, NT>(q_s + stage * TK, static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h,
-                      p.sq.s, q0, p.Sq);
-    cp_slabs<DV, NT>(do_s + stage * TV,
-                     static_cast<const bf16*>(p.dO) + b * p.sdo.b + h * p.sdo.h, p.sdo.s, q0,
-                     p.Sq);
+    tc::cp_slabs<DQK, NT>(q_s + stage * TK,
+                          static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.s, q0,
+                          p.Sq);
+    tc::cp_slabs<DV, NT>(do_s + stage * TV,
+                         static_cast<const bf16*>(p.dO) + b * p.sdo.b + h * p.sdo.h, p.sdo.s, q0,
+                         p.Sq);
     if (threadIdx.x < 2 * BQ) {  // 64 threads the lse, 64 the D
       const int r = threadIdx.x & (BQ - 1), qi = q0 + r;
       const long long at_ = (long long)(b * p.H + h) * p.Sq + min(qi, p.Sq - 1);
@@ -1174,9 +1101,9 @@ __device__ __forceinline__ void dkdv_wide_role(const Params& p, unsigned char* k
       for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
     tc::wgmma_fence();
     if constexpr (ROLE == ROLE_DV)
-      wg_abt_issue<KS>(x, k_s, qs);  // S^T: this warp's 16 keys x 64 q rows
+      tc::wg_abt_issue<KS>(x, k_s, qs);  // S^T: this warp's 16 keys x 64 q rows
     else
-      wg_abt_issue<VS>(x, v_s, ds);  // dP^T
+      tc::wg_abt_issue<VS>(x, v_s, ds);  // dP^T
     tc::wgmma_commit();
     load_next();
     tc::wgmma_wait0();
@@ -1315,10 +1242,11 @@ __global__ void __launch_bounds__(128 * QW, 1) bwd_dq_wg(Params p) {
 
 #pragma unroll
   for (int w = 0; w < QW; ++w) {
-    cp_slabs<DQK, NT>(q_s + w * TQ, static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h,
-                      p.sq.s, q0c + BQ * w, p.Sq);
-    cp_slabs<DV, NT>(do_s + w * TO, static_cast<const bf16*>(p.dO) + b * p.sdo.b + h * p.sdo.h,
-                     p.sdo.s, q0c + BQ * w, p.Sq);
+    tc::cp_slabs<DQK, NT>(q_s + w * TQ, static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h,
+                          p.sq.s, q0c + BQ * w, p.Sq);
+    tc::cp_slabs<DV, NT>(do_s + w * TO,
+                         static_cast<const bf16*>(p.dO) + b * p.sdo.b + h * p.sdo.h, p.sdo.s,
+                         q0c + BQ * w, p.Sq);
   }
   // the keys the CTA's rows see, as bwd_dq_mma walks them
   const int q_last_c = min(q0c + BQ * QW, p.Sq) - 1;
@@ -1327,8 +1255,8 @@ __global__ void __launch_bounds__(128 * QW, 1) bwd_dq_wg(Params p) {
   const bf16* kg = static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h;
   const bf16* vg = static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h;
   auto load_kv = [&](int kt, int stage) {
-    cp_slabs<DQK, NT>(k_s + stage * TQ, kg, p.sk.s, kt, p.Sk);
-    cp_slabs<DV, NT>(v_s + stage * TO, vg, p.sv.s, kt, p.Sk);
+    tc::cp_slabs<DQK, NT>(k_s + stage * TQ, kg, p.sk.s, kt, p.Sk);
+    tc::cp_slabs<DV, NT>(v_s + stage * TO, vg, p.sv.s, kt, p.Sk);
   };
   if (k_lo < k_hi) load_kv(k_lo, 0);
   tc::cp_async_commit();  // with Q and dO
@@ -1380,8 +1308,8 @@ __global__ void __launch_bounds__(128 * QW, 1) bwd_dq_wg(Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
     tc::wgmma_fence();
-    wg_abt_issue<KS>(s, q_s + wg * TQ, ks);    // S: this warp's 16 q rows x 64 keys
-    wg_abt_issue<VS>(dp, do_s + wg * TO, vs);  // dP
+    tc::wg_abt_issue<KS>(s, q_s + wg * TQ, ks);    // S: this warp's 16 q rows x 64 keys
+    tc::wg_abt_issue<VS>(dp, do_s + wg * TO, vs);  // dP
     tc::wgmma_commit();
     load_next();
     tc::wgmma_wait0();

@@ -20,7 +20,7 @@ trained path) runs on the tensor cores and float32 (the parity path) on
 FMA tiles, forward (:func:`design`) and backward (:func:`design_bwd`). The
 bf16 backward splits P and dS into bf16 hi and lo parts for the products
 that take them, so its gradients keep the precision of the f32 formulas to
-within one bf16 rounding. At the wide pairs (:data:`WIDE_BWD_PAIRS`) its
+within one bf16 rounding. At the wide pairs (:data:`WIDE_PAIRS`) its
 dK/dV launch may split a kv-head's q-heads over CTAs
 (:func:`bwd_head_split`), whose f32 partials the wrapper's scratch holds
 until a reduce launch sums them.
@@ -68,21 +68,28 @@ HEAD_DIMS = (32, 64, 128, 256)
 HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128), (192, 128), (256, 256))
 # the backward's: Dqk = Dv in HEAD_DIMS, and MLA's 192/128
 BWD_HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
-# the backward's wide pairs, whose bf16 form is "wgmma-split-2wg"
-WIDE_BWD_PAIRS = ((192, 128), (256, 256))
+# the wide pairs, whose bf16 forward is "wgmma-wide" and backward
+# "wgmma-split-2wg"
+WIDE_PAIRS = ((192, 128), (256, 256))
 
 
 def design(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = None) -> str:
     """The kernel design a launch of this dtype and (query/key, value) head
     dims runs, as ``csrc/flash_attention.cu`` names them: bf16 on ``wgmma``
-    at 64/64, on ``mma.sync`` at 32/32, 128/128, 192/128 (MLA: Q·Kᵀ 192
-    deep, the output fragment 128 wide) and 256/256 (q fragments read from
-    shared memory at each k-step); f32 on FMA tiles."""
+    at 64/64, on ``mma.sync`` at 32/32 and 128/128, and at the wide pairs
+    192/128 (MLA: Q·Kᵀ 192 deep, the output 128 wide) and 256/256
+    (:data:`WIDE_PAIRS`) "wgmma-wide": a producer warpgroup copying Q and
+    64-key K and V tiles by TMA into a ring of 64-column swizzled slabs,
+    and two consumer warpgroups, each owning 64 q rows of the CTA's 128,
+    with Q·Kᵀ as chains of m64n64k16 and P·V one m64n128k16 a k-step per
+    128 columns of V, P from registers; f32 on FMA tiles."""
     v_head_dim = head_dim if v_head_dim is None else v_head_dim
     if (head_dim, v_head_dim) not in HEAD_DIM_PAIRS:
         raise ValueError(f"head dims {(head_dim, v_head_dim)} not in the kernel's {HEAD_DIM_PAIRS}")
     if dtype == torch.float32:
         return "fma-f32"
+    if (head_dim, v_head_dim) in WIDE_PAIRS:
+        return "wgmma-wide"
     return "wgmma" if (head_dim, v_head_dim) == (64, 64) else "mma.sync"
 
 
@@ -91,7 +98,7 @@ def design_bwd(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = No
     dims, as ``csrc/flash_attention_bwd.cu`` names them: bf16 on the tensor
     cores with P and dS split into hi + lo bf16 parts, on ``wgmma`` at head
     dim 64 and ``mma.sync`` at 32 and 128; at the wide pairs 256/256 and
-    MLA's 192/128 (:data:`WIDE_BWD_PAIRS`) "wgmma-split-2wg": a dK/dV CTA of
+    MLA's 192/128 (:data:`WIDE_PAIRS`) "wgmma-split-2wg": a dK/dV CTA of
     two warpgroups on ``wgmma``, one computing Sᵀ once, forming Pᵀ and
     accumulating dV, the other taking Pᵀ through shared memory and
     accumulating dK, with a group's q-heads split over
@@ -103,7 +110,7 @@ def design_bwd(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = No
                          f"{BWD_HEAD_DIM_PAIRS}")
     if dtype == torch.float32:
         return "fma-f32"
-    if (head_dim, v_head_dim) in WIDE_BWD_PAIRS:
+    if (head_dim, v_head_dim) in WIDE_PAIRS:
         return "wgmma-split-2wg"
     return ("wgmma" if head_dim == 64 else "mma.sync") + "-split"
 
@@ -524,7 +531,7 @@ def _launch_bwd(q, k, v, o, lse, do, *, causal, window, k_len, bshd=False, prefi
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     strides = (ctypes.c_longlong * 24)(*_bhs_strides(hd, sd, q, k, v, o, do, dq, dk, dv))
     n_split, part = 1, None
-    if q.dtype == torch.bfloat16 and (Dh, Dv) in WIDE_BWD_PAIRS:
+    if q.dtype == torch.bfloat16 and (Dh, Dv) in WIDE_PAIRS:
         n_split = bwd_head_split(B, KV, -(-Sk // 64), H // KV, _sm_count(q.device))
         if n_split > 1:
             part = torch.empty(n_split * B * KV * Sk * (Dh + Dv), dtype=torch.float32,

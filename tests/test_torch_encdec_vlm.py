@@ -475,7 +475,7 @@ def test_training_on_the_card_takes_256_and_a_prefix_and_refuses_192_128(name, m
 
 
 def test_design_names_the_256_instantiation():
-    assert tfa.design(torch.bfloat16, 256, 256) == "mma.sync"
+    assert tfa.design(torch.bfloat16, 256, 256) == "wgmma-wide"
     assert tfa.design(torch.float32, 256) == "fma-f32"
     assert 256 in tfa.HEAD_DIMS
     assert tfa.design_bwd(torch.bfloat16, 256) == "wgmma-split-2wg"

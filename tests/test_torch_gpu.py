@@ -34,7 +34,11 @@ with the prefix span over the same edges, the span at the other head dims,
 whisper's encoder and cross-attention (Sq=448 over Sk=1500), two launches
 at 256 bit for bit, autograd at 256 and with a span through the kernels
 (and at 192/128 with a span), and a train step of small whisper and
-paligemma at head dim 256 on the card against the CPU. With four cards, the
+paligemma at head dim 256 on the card against the CPU. The forward's
+bf16 design at the wide pairs ("wgmma-wide") over ragged S, k_len, GQA and
+MQA, non-causal and windowed cases and the prefix span's edges, output and
+lse, and two launches bit for bit at deepseek-v2's and paligemma's training
+shapes. With four cards, the
 parallel layer's and the pipeline's group checks over NCCL against the
 CPU."""
 import copy
@@ -186,12 +190,12 @@ def _autograd_at(dev, dqk, dv, prefix_len=None):
 
 
 @pytest.mark.gpu
-def test_flash_attention_at_192_128_refuses_autograd_on_card():
-    """(The name predates the 192/128 backward.) Under autograd on the card,
-    K1 at MLA's 192/128 runs the forward kernel and its own backward
-    instantiation, gradients within 1e-4 of the plain versions'; an unequal
-    pair with no backward instantiation (256/128, which the forward does
-    not take either) raises before any launch and falls back to nothing."""
+def test_flash_attention_at_192_128_trains_through_both_kernels_and_256_128_is_refused_on_card():
+    """Under autograd on the card, K1 at MLA's 192/128 runs the forward
+    kernel and its own backward instantiation, gradients within 1e-4 of the
+    plain versions'; an unequal pair with no backward instantiation
+    (256/128, which the forward does not take either) raises before any
+    launch and falls back to nothing."""
     dev = _cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     assert _autograd_at(dev, 192, 128) == (1, 1)
@@ -224,13 +228,83 @@ def test_flash_kernel_at_256_with_prefix_span_on_card(S, dtype):
 
 
 @pytest.mark.gpu
-def test_flash_attention_at_192_128_with_a_prefix_refuses_autograd_on_card():
-    """(The name predates the 192/128 backward.) With a prefix span too,
-    autograd at 192/128 on the card runs both kernels once, gradients
-    within 1e-4 of the plain versions'."""
+def test_flash_attention_at_192_128_with_a_prefix_trains_through_both_kernels_on_card():
+    """With a prefix span too, autograd at 192/128 on the card runs both
+    kernels once, gradients within 1e-4 of the plain versions'."""
     dev = _cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     assert _autograd_at(dev, 192, 128, prefix_len=20) == (1, 1)
+
+
+# K1's wide pairs in bf16 ("wgmma-wide": two warpgroups a CTA, 64 q rows
+# each, one 64-key K/V ring): ragged S (257, 300, 320), k_len, GQA and MQA,
+# non-causal, a window, and the prefix span at 0, 1, 63, 64, 65 and S
+# (FLASH_256_PREFIXES) at both pairs; (B, H, KV, Sq, Sk, Dqk, causal,
+# window, k_len, Dv[, prefix_len])
+FWD_WIDE = {
+    "192/128 MHA B=2 ragged S=257": (2, 4, 4, 257, 257, 192, True, None, None, 128),
+    "192/128 GQA ragged S=300": (1, 8, 2, 300, 300, 192, True, None, None, 128),
+    "192/128 MQA S=320 k_len 200": (1, 8, 1, 320, 320, 192, True, None, 200, 128),
+    "192/128 GQA non-causal Sq=100 Sk=333": (1, 4, 2, 100, 333, 192, False, None, None, 128),
+    "192/128 GQA window 70 S=300": (1, 8, 2, 300, 300, 192, True, 70, None, 128),
+    "256 GQA ragged S=257": (1, 4, 2, 257, 257, 256, True, None, None, 256),
+    "256 MQA B=2 non-causal S=320 k_len 250": (2, 8, 1, 320, 320, 256, False, None, 250, 256),
+    "256 MHA window 33 S=300": (1, 4, 4, 300, 300, 256, True, 33, None, 256),
+    **{f"{dqk}/{dv} MQA S=320 prefix {'S' if span is None else span}":
+       (1, 8, 1, 320, 320, dqk, True, None, None, dv, 320 if span is None else span)
+       for dqk, dv in ((192, 128), (256, 256)) for span in FLASH_256_PREFIXES},
+}
+
+
+def _fwd_lse_errors(dev, rng, case) -> tuple:
+    """The bf16 forward and its lse (model layout) against the plain
+    versions: (max abs error of the output, lse's error scaled by
+    max(1, max |lse|))."""
+    (q, k, v, _o, lse, _do), mask = _bwd_inputs(dev, rng, torch.bfloat16, case)
+    o = tfa.flash_attention(q, k, v, **mask)
+    o_want, lse_want = tfa.flash_attention_lse_ref(*(t.transpose(1, 2) for t in (q, k, v)),
+                                                   **mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    o_err = (o.float() - o_want.transpose(1, 2).float()).abs().max().item()
+    lse_err = (lse - lse_want).abs().max().item() / max(1.0, lse_want.abs().max().item())
+    return o_err, lse_err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(FWD_WIDE))
+def test_flash_wide_forward_matches_plain_version_on_card(name):
+    """The wide pairs' bf16 forward ("wgmma-wide"; f32 keeps "fma-f32")
+    against the plain version: the output within 2e-2 and the lse within
+    1e-4 scaled, chip_smoke.py's tolerances, each launch counted."""
+    dev = _cuda()
+    case = FWD_WIDE[name]
+    assert tfa.design(torch.bfloat16, case[5], case[9]) == "wgmma-wide"
+    assert tfa.design(torch.float32, case[5], case[9]) == "fma-f32"
+    before = tfa.flash_attention_bhsd.launches
+    o_err, lse_err = _fwd_lse_errors(dev, np.random.default_rng(44), case)
+    assert tfa.flash_attention_bhsd.launches == before + 2  # the lse's launch and the output's
+    assert o_err <= 2e-2, (name, o_err)
+    assert lse_err <= 1e-4, (name, lse_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dqk,dv", [(192, 128), (256, 256)])
+def test_flash_wide_forward_is_bitwise_repeatable_at_the_train_shapes_on_card(dqk, dv):
+    """At the train cells' own shapes (deepseek-v2's B=1 H=KV=128 S=2048
+    causal; paligemma's B=4 H=8 KV=1 S=512 under its 256-token prefix
+    span), two forward launches give the same output and lse bit for bit,
+    the output within 2e-2 of the plain version."""
+    dev = _cuda()
+    case = ((1, 128, 128, 2048, 2048, 192, True, None, None, 128) if dqk == 192
+            else (4, 8, 1, 512, 512, 256, True, None, None, 256, 256))
+    (q, k, v, o, lse, _do), mask = _bwd_inputs(dev, np.random.default_rng(45), torch.bfloat16,
+                                               case)
+    with torch.no_grad():
+        o2, lse2 = tfa.flash_attention_lse(q, k, v, bshd=True, **mask)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    want = tfa.flash_attention_ref(*(t.transpose(1, 2) for t in (q, k, v)), **mask)
+    assert (o.float() - want.transpose(1, 2).float()).abs().max().item() <= 2e-2
 
 
 @pytest.mark.gpu
