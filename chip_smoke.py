@@ -72,9 +72,16 @@ paligemma 256 patches and 256 text tokens from the cells' data source
 ``EncDecVLMTokens``; checking every kernel's launches a step, the losses
 and the MoE aux loss, that every leaf took a gradient, its master moved
 and every bf16 leaf is its master rounded, the AdamW state and the final
-checkpoint, saved into ``build/`` and deleted), and holds each model's
-full-width f32 gradients through the kernels against those through the
-plain versions. Then deepseek-v2-236b (MLA and MoE) trains at full width on
+checkpoint, saved into ``build/`` and deleted). The Trainer runs each
+step as one CUDA graph (``repro_torch.runtime.graph``: an eager warm-up
+step, then a captured step replayed), held against the same steps run
+eagerly on a fresh state first: every step's metrics and every leaf of
+the state equal bit for bit (a ``train_graph`` line a cell: capture
+seconds, replays, the launches captured by kernel, and graph beside
+eager: step s, traced busy ms, idle share, host launches a step, peak
+allocated and reserved bytes); the launch check counts the warm-up's
+launches plus replays x captured. It holds each model's full-width f32
+gradients through the kernels against those through the plain versions. Then deepseek-v2-236b (MLA and MoE) trains at full width on
 the card (``deepseek_train``): its depth and sequence from the dry run
 (``repro_torch.launch.dryrun``, run on the host in a process of its own
 beside the card's phases: the deepest depth, at least its dense layer 0
@@ -82,7 +89,8 @@ and one MoE layer, whose predicted peak leaves 10 GB of the card free,
 then the longest of S=2048, 1024 and 512 that does), B=1, AdamW's moments
 in bf16 (the reference's rule over 1e11 parameters), a few bf16 steps of
 ``Trainer``'s step with the train cells' gates, tokens/s, the model-FLOP
-share, the peak beside the prediction and a traced step, then its f32
+share, the peak beside the prediction and a traced step, through the
+train graph held against the eager steps as the train cells are, then its f32
 gradients at depth 2, S=256 through the kernels against the plain
 versions'. The ``dryrun`` phase prints the dry run's predicted peak of
 every train cell beside the peak its phase measured, and one full-width
@@ -2205,12 +2213,124 @@ def _stale_leaves(params, opt, init) -> dict:
     return out
 
 
+# a leaf's bits are digested in pieces of this many elements
+DIGEST_PIECE = 1 << 24
+
+
+def _state_digests(state: dict):
+    """One int64 digest a leaf of the train state (params, moments, masters,
+    the counter), on the device: the leaf's bits as integers times their
+    positions' odd weights, summed modulo 2**64 (any order gives the same
+    sum). Equal leaves give equal digests; a leaf that differs in any bit
+    changes its digest but by a coincidence of weights, so two runs'
+    digests hold them bit for bit without a second copy of the state
+    beside the first (deepseek-v2's would not fit)."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for t in tree_leaves({"params": state["params"].tree(), "opt": state["opt"]}):
+        flat = t.detach().reshape(-1).view(ints[t.element_size()])
+        total = torch.zeros((), dtype=torch.int64, device=t.device)
+        for i in range(0, flat.numel(), DIGEST_PIECE):
+            x = flat[i:i + DIGEST_PIECE].to(torch.int64)
+            w = torch.arange(i, i + x.numel(), dtype=torch.int64, device=t.device)
+            total += (x * (w * 2654435761 + 1)).sum()
+        out.append(total)
+    return torch.stack(out).cpu()
+
+
+def _eager_reference(tr, steps: int) -> dict:
+    """The eager loop the train graph is held against: ``steps`` eager
+    ``Trainer.train_step``s of a fresh state on the run's batches (the
+    device drained before and after each, for its step time), one more
+    under the profiler, and the state's digests after it; the state is
+    freed before the graph's run takes the card."""
+    import torch
+
+    from repro_torch.data import to_device
+
+    torch.cuda.reset_peak_memory_stats()
+    state = tr.init_state()
+    rows, steps_s = [], []
+    for step in range(steps):
+        batch = to_device(tr.data.batch(step), tr.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = tr.train_step(state, batch, step)
+        rows.append({k: float(v) for k, v in met.items()})  # waits for the device
+        steps_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    batch = to_device(tr.data.batch(steps), tr.device)
+    trace = _traced(lambda: tr.train_step(state, batch, steps), top=6)
+    digests = _state_digests(state)
+    del state, batch
+    _release_device_memory()
+    return {"rows": rows, "step_s": steps_s, "step_s_median_after_first":
+            float(np.median(steps_s[1:])), "peak_mem_bytes": peak,
+            "peak_reserved_bytes": peak_reserved, "trace": trace, "digests": digests}
+
+
+def _graph_launches(ran: dict, graph: dict) -> dict:
+    """Each kernel's launches in a run through the train graph: the eager
+    warm-ups' (``ran``: the wrappers count the launches they run) plus each
+    replay's captured ones (a replay runs them without the wrappers)."""
+    return {name: n + graph["replays"] * graph["captured_launches"].get(name, 0)
+            for name, n in ran.items()}
+
+
+def _graph_line(arch: str, eager: dict, rows: list, steps_s: list, state: dict, trace: dict,
+                graph: dict, per_step: dict, peaks: dict) -> dict:
+    """The train graph against the eager loop on one cell, emitted as the
+    ``train_graph`` line: every step's metrics and every leaf's digest
+    after the traced step equal (else the phase fails), the capture, the
+    launches captured by kernel, and graph beside eager: step s, traced
+    busy ms, idle share, host launches a step, peak memory."""
+    digests = _state_digests(state)
+    differ = (digests != eager["digests"]).nonzero().flatten().tolist()
+    metrics = [{k: v for k, v in r.items() if k not in ("step", "step_s")} for r in rows]
+    keys = ("traced_ms", "device_busy_ms", "device_idle_share", "host_launches",
+            "kernel_launches", "k1_device_ms", "k1_bwd_device_ms", "k2_device_ms",
+            "k2_bwd_device_ms", "gemm_device_ms")
+    line = {
+        "arch": arch, "metrics_equal": metrics == eager["rows"], "leaves": len(digests),
+        "leaves_differing": differ[:20], "bit_for_bit": not differ and metrics == eager["rows"],
+        "eager_steps": graph["eager_steps"], "replays": graph["replays"],
+        "capture_s": graph["capture_s"], "captured_launches": graph["captured_launches"],
+        "captured_launches_want": {k: n for k, n in per_step.items() if n},
+        # the replays' own rows: the warm-up runs eagerly and the next step
+        # is captured before its replay
+        "step_s": {"graph": float(np.median(steps_s[1 + graph["eager_steps"]:])),
+                   "eager": eager["step_s_median_after_first"]},
+        "step_s_rows": {"graph": steps_s, "eager": eager["step_s"]},
+        **{k: {"graph": trace[k], "eager": eager["trace"][k]} for k in keys},
+        "peak_mem_bytes": {"graph": peaks["allocated"], "eager": eager["peak_mem_bytes"]},
+        "peak_reserved_bytes": {"graph": peaks["reserved"], "eager": eager["peak_reserved_bytes"]},
+        "pool_reserved_bytes": graph["pool_reserved_bytes"],
+    }
+    emit("train_graph", **line)
+    check(line["metrics_equal"], f"{arch}: the graph's metrics {metrics} against the eager "
+          f"loop's {eager['rows']}")
+    check(not differ, f"{arch}: {len(differ)} of {len(digests)} state leaves differ from the "
+          f"eager loop's (first {differ[:20]})")
+    check(line["captured_launches"] == line["captured_launches_want"],
+          f"{arch}: captured launches {graph['captured_launches']}, want "
+          f"{line['captured_launches_want']} a step")
+    return line
+
+
 def phase_train(arch: str, steps: int) -> dict:
     """Train full-width ``arch`` for ``steps`` bf16 steps through
     ``repro_torch.runtime.Trainer`` (prefetched synthetic batches, the loss
     with remat, autograd through the kernels forward and backward, AdamW,
     the final checkpoint saved on the pool into ``build/`` and deleted at
-    the end), checking every kernel's launches a step."""
+    the end), its step one CUDA graph after an eager warm-up, checking
+    every kernel's launches a step (eager plus replayed); first the same
+    steps eagerly on a fresh state, which the graph's states and metrics
+    must equal bit for bit (the ``train_graph`` line)."""
     import shutil
 
     import torch
@@ -2239,18 +2359,23 @@ def phase_train(arch: str, steps: int) -> dict:
     tr = Trainer(cfg, tcfg, str(ckpt_dir), device="cuda:0", data_source=data)
     try:
         counters = _train_counters()
+        eager = _eager_reference(tr, steps)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
         out = tr.run(resume=False)
-        launches = {name: fn.launches for name, fn in counters.items()}
+        graph = tr.graph.stats()
+        ran = {name: fn.launches for name, fn in counters.items()}
+        launches = _graph_launches(ran, graph)
+        peaks = {"allocated": torch.cuda.max_memory_allocated(),
+                 "reserved": torch.cuda.max_memory_reserved()}
         # each logged row's step_s: the step's wall time, the device drained
         # at both ends (log_every=1); the save's record from the manager
         steps_s = [r["step_s"] for r in out["metrics"]]
         check(len(tr.ckpt.saves) == 1, f"saves recorded: {tr.ckpt.saves}")
         save = tr.ckpt.saves[0]
-        peak = torch.cuda.max_memory_allocated()
+        peak = peaks["allocated"]
         saved = sorted(p.name for p in ckpt_dir.iterdir())
         check(saved == [f"step_{steps:08d}"], f"checkpoints after the run: {saved}")
         on_disk = sum(f.stat().st_size for f in (ckpt_dir / saved[0]).iterdir())
@@ -2286,16 +2411,17 @@ def phase_train(arch: str, steps: int) -> dict:
                   f"{arch}: {name} launched {launches[name]} times in {steps} steps, "
                   f"want {n} a step")
 
-        # one more step, under the profiler
+        # one more step, under the profiler: a replay
         state = {"params": params, "opt": opt}
         batch = to_device(tr.data.batch(steps), tr.device)
-        trace = _traced(lambda: tr.train_step(state, batch, steps), top=6)
+        trace = _traced(lambda: tr.graph(batch, steps), top=6)
+        line = _graph_line(arch, eager, rows, steps_s, state, trace, graph, per_step, peaks)
         S = TRAIN_TEXT.get(arch, TRAIN_KW["seq_len"])
         # the positions a sample runs through the decoder-side layers, and
         # the encoder's
         positions = S + (cfg.num_image_tokens if cfg.family == "vlm" else 0)
         frames = cfg.encoder_seq if cfg.is_encdec else 0
-        step_s = float(np.median(steps_s[1:]))
+        step_s = line["step_s"]["graph"]  # the replays' rows, as the train_graph line
         flops, formula, n_pos = step_model_flops(cfg, params, B, S)
         res = {
             "arch": arch, "dtype": "bfloat16", "steps": steps, "batch": B,
@@ -2304,12 +2430,16 @@ def phase_train(arch: str, steps: int) -> dict:
             "loss": [r["loss"] for r in rows], "aux": [r["aux"] for r in rows],
             "grad_norm": [r["grad_norm"] for r in rows],
             "lr": [r["lr"] for r in rows],
-            "step_s": steps_s, "step_s_median_after_first": step_s,
+            "step_s": steps_s, "step_s_median_of_replays": step_s,
             "tokens_per_s": B * S / step_s,
             "positions_per_s": B * (positions + frames) / step_s,
             "peak_mem_bytes": peak,
             "launches": launches,
             "launches_per_step": {k: v / steps for k, v in launches.items()},
+            "launches_eager": ran,
+            "graph": graph, "eager": {k: line[k]["eager"] for k in (
+                "step_s", "device_busy_ms", "device_idle_share", "host_launches",
+                "peak_mem_bytes")},
             "model_flops_per_step": flops, "model_flops_formula": formula,
             "model_flops_param_positions": n_pos,
             "model_flop_share_of_989_tflops": flops / step_s / PEAK_BF16_FLOPS,
@@ -2592,8 +2722,10 @@ class DryRuns:
 
 def phase_deepseek_train(plan: dict) -> dict:
     """deepseek-v2-236b at full width on one card, its depth and S from the
-    dry run's ``plan``: ``DEEPSEEK_STEPS`` bf16 steps of ``Trainer``'s
-    train step (no checkpoint: the state is some 64 GB), with the train
+    dry run's ``plan``: ``DEEPSEEK_STEPS`` bf16 steps through ``Trainer``'s
+    train graph (``Trainer.step_graph``, what ``Trainer.run`` steps
+    through; no checkpoint: the state is some 64 GB), after the same steps
+    eagerly, which they equal bit for bit (the ``train_graph`` line), with the train
     cells' gates (finite loss, grad norm and aux loss; every leaf a
     gradient, its master moved and its bf16 copy the master rounded; K1 and
     K1-bwd launches a step exact), tokens/s, the model-FLOP share, the peak
@@ -2619,22 +2751,37 @@ def phase_deepseek_train(plan: dict) -> dict:
     tr = Trainer(cfg, tcfg, str(ROOT / "build" / "chip_smoke_deepseek_ckpt"), device="cuda:0")
     try:
         counters = _train_counters()
+        eager = _eager_reference(tr, DEEPSEEK_STEPS)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         state = tr.init_state()
         init_host = [t.detach().cpu() for t in tree_leaves(state["params"].tree())]
         for fn in counters.values():
             fn.launches = 0
+        step_fn = tr.step_graph(state)  # what Trainer.run steps through
         rows, steps_s = [], []
         for step in range(DEEPSEEK_STEPS):
             batch = to_device(tr.data.batch(step), tr.device)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            metrics = tr.train_step(state, batch, step)
+            metrics = step_fn(batch, step)
             rows.append({k: float(v) for k, v in metrics.items()})  # waits for the device
             steps_s.append(time.perf_counter() - t0)
-        launches = {name: fn.launches for name, fn in counters.items()}
-        peak = torch.cuda.max_memory_allocated()
+        graph = tr.graph.stats()
+        ran = {name: fn.launches for name, fn in counters.items()}
+        launches = _graph_launches(ran, graph)
+        peaks = {"allocated": torch.cuda.max_memory_allocated(),
+                 "reserved": torch.cuda.max_memory_reserved()}
+        peak = peaks["allocated"]
+        per_step = _launches_per_step(cfg)
+        batch = to_device(tr.data.batch(DEEPSEEK_STEPS), tr.device)
+        trace = _traced(lambda: step_fn(batch, DEEPSEEK_STEPS), top=6)
+        line = _graph_line(DEEPSEEK, eager, rows, steps_s, state, trace, graph, per_step, peaks)
+        # the graph's pool, which general allocations cannot use, goes before
+        # the gates' temporaries (an expert leaf's f32 copy is 5 GB)
+        del metrics, step_fn
+        tr.release_graph()
+        _release_device_memory()
         params, opt = state["params"], state["opt"]
         check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows),
               f"{DEEPSEEK}: a non-finite loss or grad norm: {rows}")
@@ -2648,14 +2795,11 @@ def phase_deepseek_train(plan: dict) -> dict:
                   for part in ("m", "v", "master")}
         check(dtypes == {"m": ["torch.bfloat16"], "v": ["torch.bfloat16"],
                          "master": ["torch.float32"]}, f"{DEEPSEEK}: state dtypes {dtypes}")
-        per_step = _launches_per_step(cfg)
         for name, n in per_step.items():
             check(launches[name] == n * DEEPSEEK_STEPS,
                   f"{DEEPSEEK}: {name} launched {launches[name]} times in {DEEPSEEK_STEPS} "
                   f"steps, want {n} a step")
-        batch = to_device(tr.data.batch(DEEPSEEK_STEPS), tr.device)
-        trace = _traced(lambda: tr.train_step(state, batch, DEEPSEEK_STEPS), top=6)
-        step_s = float(np.median(steps_s[1:]))
+        step_s = line["step_s"]["graph"]  # the replays' rows, as the train_graph line
         flops, _formula, _n_pos = step_model_flops(cfg, params, B, S)
         n_params = sum(p.numel() for p in params.parameters())
         res = {
@@ -2663,13 +2807,17 @@ def phase_deepseek_train(plan: dict) -> dict:
             "moments": plan["moments"], "params": n_params, "steps": DEEPSEEK_STEPS,
             "loss": [r["loss"] for r in rows], "aux": [r["aux"] for r in rows],
             "grad_norm": [r["grad_norm"] for r in rows],
-            "step_s": steps_s, "step_s_median_after_first": step_s,
+            "step_s": steps_s, "step_s_median_of_replays": step_s,
             "tokens_per_s": B * S / step_s, "model_flops_per_step": flops,
             "model_flop_share_of_989_tflops": flops / step_s / PEAK_BF16_FLOPS,
             "peak_mem_bytes": peak, "predicted_peak_bytes": plan["predicted_peak_bytes"],
             "peak_over_predicted": peak / plan["predicted_peak_bytes"],
             "launches": launches, "launches_per_step": {k: v / DEEPSEEK_STEPS
                                                         for k, v in launches.items()},
+            "launches_eager": ran, "graph": graph,
+            "eager": {k: line[k]["eager"] for k in ("step_s", "device_busy_ms",
+                                                     "device_idle_share", "host_launches",
+                                                     "peak_mem_bytes")},
             "bf16_leaves_at_init": len(stale["at_init"]),
         }
         res.update({f"step_{k}": v for k, v in trace.items()})
@@ -2860,8 +3008,8 @@ def _parallel_train(single_cell: dict) -> dict:
             "batch": TRAIN_KW["global_batch"], "seq_len": TRAIN_KW["seq_len"],
             "loss": [r["loss"] for r in rows], "step_s": steps_s,
             "step_s_median_after_first": step_s,
-            "single_device_train_cell_step_s_median_after_first":
-                single_cell["step_s_median_after_first"],
+            "single_device_train_cell_step_s_median_of_replays":
+                single_cell["step_s_median_of_replays"],
             "tokens_per_s": TRAIN_KW["global_batch"] * TRAIN_KW["seq_len"] / step_s,
             "peak_mem_bytes": peak, "launches": launches,
             "launches_per_step": {k: v / steps for k, v in launches.items()},
@@ -3191,7 +3339,7 @@ def _family_bf16(arch: str, mesh, single_cell: dict) -> dict:
            "launches_per_step": {k: v / FAMILY_STEPS for k, v in launches.items()},
            # the family's single-device train cell of this run, at full depth
            "single_device_train_cell": {
-               k: single_cell[k] for k in ("step_s_median_after_first", "step_device_busy_ms",
+               k: single_cell[k] for k in ("step_s_median_of_replays", "step_device_busy_ms",
                                            "step_device_idle_share", "step_host_launches",
                                            "launches_per_step")},
            "single_device_train_cell_num_layers": get_config(arch).num_layers,

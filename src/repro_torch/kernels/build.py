@@ -48,7 +48,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
-_tally = threading.local()
+_stream_tallies: dict = {}  # a capture stream's handle -> its launch tally
 _name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, dict] = {}
@@ -124,29 +124,34 @@ def capturing() -> bool:
 
 def count_launch(wrapper, name: str) -> None:
     """Records one launch of a kernel through ``wrapper``: adds one to
-    ``wrapper.launches`` where the kernel runs now, and to ``name``'s entry
-    of the calling thread's open :func:`launch_tally`. A launch into a CUDA
-    graph being captured runs nothing yet, so it counts in the tally only:
-    each replay of the graph runs it, without the wrapper."""
-    counts = getattr(_tally, "counts", None)
-    if counts is not None:
-        counts[name] = counts.get(name, 0) + 1
+    ``wrapper.launches`` where the kernel runs now. A launch into a CUDA
+    graph being captured runs nothing yet: it counts instead in the capture
+    stream's open :func:`launch_tally`, from any thread, and each replay of
+    the graph runs it, without the wrapper."""
     if not capturing():
         with _count_lock:
             wrapper.launches += 1
+    elif _stream_tallies:
+        with _count_lock:
+            counts = _stream_tallies.get(torch.cuda.current_stream().cuda_stream)
+            if counts is not None:
+                counts[name] = counts.get(name, 0) + 1
 
 
 @contextlib.contextmanager
-def launch_tally():
-    """Counts, by kernel name, the launches the calling thread's kernel
-    wrappers record inside the block (:func:`count_launch`), captured ones
-    included; other threads' launches are not counted."""
-    outer = getattr(_tally, "counts", None)
-    _tally.counts = counts = {}
+def launch_tally(stream):
+    """Counts, by kernel name, the launches that the kernel wrappers of any
+    thread capture into ``stream`` (a CUDA stream about to capture a graph)
+    inside the block (:func:`count_launch`): a captured backward launches
+    from autograd's own thread."""
+    key = stream.cuda_stream
+    with _count_lock:
+        _stream_tallies[key] = counts = {}
     try:
         yield counts
     finally:
-        _tally.counts = outer
+        with _count_lock:
+            del _stream_tallies[key]
 
 
 def needs_grad(*tensors) -> bool:

@@ -136,7 +136,7 @@ def cross_entropy(
     ll = torch.gather(lf, -1, targets[..., None].long())[..., 0]
     ce = lse - ll
     if mask is None:
-        return ce.mean(), torch.tensor(float(ce.numel()), device=ce.device)
+        return ce.mean(), torch.full((), float(ce.numel()), device=ce.device)
     m = mask.float()
     n = torch.clamp(m.sum(), min=1.0)
     return (ce * m).sum() / n, n
@@ -288,7 +288,9 @@ class Model:
         MoE aux losses in place of the caches and, when ``cfg.remat`` is not
         "none" and grad is on, runs each layer under
         ``torch.utils.checkpoint`` (its activations recomputed in the
-        backward, as the reference's ``jax.checkpoint``). ``encoder`` runs
+        backward, as the reference's ``jax.checkpoint``; no layer draws
+        random numbers, so no RNG state is saved for the recompute, which a
+        CUDA graph's capture could not read). ``encoder`` runs
         the encoder's layers (bidirectional, forward only); ``prefix_len``
         and ``enc_out`` reach every decoder layer. ``ctx`` (a mesh) reaches
         every layer, with ``x`` this rank's block of the residual stream."""
@@ -304,7 +306,8 @@ class Model:
                     run = lambda xx, lp=lp, w=window: block_apply(  # noqa: E731
                         self.cfg, lp, xx, positions, window=w, **kw
                     )[::2]
-                    x, aux = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+                    x, aux = (checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+                              if remat else run(x))
                     if aux is not None:
                         total_aux = total_aux + aux
             return x, total_aux
@@ -396,7 +399,8 @@ class Model:
         for c in range(nc):
             sl = slice(c * chunk, (c + 1) * chunk)
             mm = mask[:, sl].float()
-            part = (checkpoint(one, x[:, sl], targets[:, sl], mm, use_reentrant=False)
+            part = (checkpoint(one, x[:, sl], targets[:, sl], mm, use_reentrant=False,
+                               preserve_rng_state=False)
                     if torch.is_grad_enabled() else one(x[:, sl], targets[:, sl], mm))
             sums.append(part)
             ns.append(mm.sum())
@@ -484,7 +488,7 @@ class Model:
         for c in range(0, x.shape[1], step):
             sl = slice(c, c + step)
             args = (x[:, sl], targets[:, sl], m[:, sl])
-            parts.append(checkpoint(one, *args, use_reentrant=False)
+            parts.append(checkpoint(one, *args, use_reentrant=False, preserve_rng_state=False)
                          if chunked and torch.is_grad_enabled() else one(*args))
         ce_share = torch.stack(parts).sum() / n / copies
         share = ce_share + aux / ctx.world

@@ -173,8 +173,21 @@ def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32 (a 0-d tensor)."""
     leaves = tree_leaves(tree)
     with torch.no_grad():
-        sq = [torch.sum(torch.square(x.float())) for x in leaves]
+        sq = [_sum_squares(x) for x in leaves]
         return torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros(())
+
+
+def _sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x``'s squares in f32; a contiguous leaf over
+    :data:`PIECE` elements in pieces (their sums then summed), so its
+    f32 copy and square never exist whole: 10 GB for one of deepseek-v2's
+    expert leaves, which a CUDA graph's capture cannot place beside the
+    step's other temporaries."""
+    if x.numel() <= PIECE or not x.is_contiguous():
+        return torch.sum(torch.square(x.float()))
+    flat = x.view(-1)
+    return torch.stack([torch.sum(torch.square(flat[i:i + PIECE].float()))
+                        for i in range(0, flat.numel(), PIECE)]).sum()
 
 
 def adamw_update(
@@ -222,22 +235,24 @@ def adamw_update(
 # elements: the update is elementwise, so the pieces give the whole leaf's
 # result bit for bit, and its f32 temporaries stay at a few pieces' size
 # (whole, those of one of deepseek-v2's 1.26e9-element expert leaves would
-# take some 30 GB beside its bf16 moments)
-UPDATE_PIECE = 1 << 26
+# take some 30 GB beside its bf16 moments). The global norm sums a larger
+# leaf's squares in pieces of this many too (the pieces' sums, in another
+# order than the whole leaf's, round apart).
+PIECE = 1 << 26
 
 
 def _update_leaf(cfg, lr, p, g, m, v, master, decay, scale, c1, c2, ctx) -> None:
     """One param's update, in place: on its ZeRO block under a mesh (the
-    whole param on one device, in pieces of :data:`UPDATE_PIECE`), the new
+    whole param on one device, in pieces of :data:`PIECE`), the new
     block then all-gathered over the data axes into the param shard.
     ``master`` is None without masters."""
     state = (p, m, v) if master is None else (p, m, v, master)
-    if ctx is None and p.numel() > UPDATE_PIECE and all(t.is_contiguous() for t in state):
+    if ctx is None and p.numel() > PIECE and all(t.is_contiguous() for t in state):
         flat = [t.view(-1) for t in state] + [None] * (4 - len(state))
         pf, mf, vf, mstf = flat
         gf = g.reshape(-1)
-        for i in range(0, pf.numel(), UPDATE_PIECE):
-            piece = slice(i, i + UPDATE_PIECE)
+        for i in range(0, pf.numel(), PIECE):
+            piece = slice(i, i + PIECE)
             _update_block(cfg, lr, pf[piece], gf[piece], mf[piece], vf[piece],
                           None if mstf is None else mstf[piece], decay, scale, c1, c2, None)
         return

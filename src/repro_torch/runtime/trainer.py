@@ -2,9 +2,12 @@
 ``repro/runtime/trainer.py``.
 
 Composition of the port's substrates, on one device or a mesh:
-  * the train step: ``Model.loss`` through autograd, then AdamW in place;
-    with ``mesh=``, ``parallel.steps.build_train_step`` (this rank's param
-    shards and ZeRO state)
+  * the train step: ``Model.loss`` through autograd, then AdamW in place,
+    run by ``run`` as one CUDA graph a step on the card
+    (``runtime/graph.py``, the reference's ``jax.jit(step_fn)``; on the CPU
+    the same body runs eagerly through the graph's static buffers); with
+    ``mesh=``, ``parallel.steps.build_train_step`` (this rank's param
+    shards and ZeRO state), eagerly
   * ThreadPool-prefetched data pipeline (repro_torch.data)
   * async atomic checkpoints + resume (repro_torch.checkpoint)
   * watchdog heartbeat + failure injection for fault-tolerance tests
@@ -41,6 +44,7 @@ from ..models import build_model
 from ..models.common import resolve_device
 from ..optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
 from ..tree import tree_leaves, tree_map, tree_unflatten
+from .graph import GraphError, TrainGraph
 
 
 def _synchronize(device: torch.device) -> None:
@@ -105,6 +109,7 @@ class Trainer:
             model_cfg.vocab_size, tcfg.seq_len, tcfg.global_batch, seed=tcfg.seed
         )
         self._failed_once = False
+        self.graph: Optional[TrainGraph] = None  # the last single-device run's
         self.metrics_log: list[dict] = []
         self._heartbeat = time.monotonic()
 
@@ -160,28 +165,61 @@ class Trainer:
         return int(meta["step"])
 
     def train_step(self, state: dict, batch: dict, step: int) -> dict:
-        """Loss and gradients by autograd, then one AdamW update of the
-        params and the optimizer state in place. Returns the step's metrics
-        as 0-d tensors (nothing is read to the host here). Under a mesh,
-        the sharded step's global metrics."""
-        params = state["params"]
+        """One eager step: :meth:`step_body` at ``step``'s lr. Returns the
+        step's metrics as 0-d tensors (nothing is read to the host here).
+        Under a mesh, the sharded step's global metrics."""
         if self.mesh is not None:
-            return self._sharded_step(params, state["opt"], batch, step)[2]
+            return self._sharded_step(state["params"], state["opt"], batch, step)[2]
+        lr = torch.full((), float(self.lr_fn(step)), dtype=torch.float32, device=self.device)
+        return self.step_body(state, batch, lr)
+
+    def step_body(self, state: dict, batch: dict, lr: torch.Tensor) -> dict:
+        """Loss and gradients by autograd, then one AdamW update of the
+        params and the optimizer state in place, at ``lr`` (a 0-d f32
+        tensor on the device): the body the train graph captures, with no
+        host read or host value of its own."""
+        params = state["params"]
         tree = params.tree()
         leaves = tree_leaves(tree)
         loss, metrics = self.model.loss(params, batch)
         grads = tree_unflatten(tree, torch.autograd.grad(loss, leaves))
-        lr = float(self.lr_fn(step))
         _, _, om = adamw_update(self.ocfg, lr, tree, grads, state["opt"])
         return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}, **om}
+
+    def _build_step(self, state: dict):
+        """The step :meth:`run` calls as ``step_fn(batch, step)``, built
+        where the reference builds its jit: on one device
+        :meth:`step_graph`, under a mesh the sharded step, eagerly."""
+        if self.mesh is not None:
+            return lambda batch, step: self.train_step(state, batch, step)
+        return self.step_graph(state)
+
+    def step_graph(self, state: dict) -> TrainGraph:
+        """``state``'s train step as a graph (:class:`TrainGraph`), called
+        as ``graph(batch, step)``; it replaces (and releases) the last one."""
+        self.release_graph()
+        self.graph = TrainGraph(self.step_body, self.lr_fn, state, self.device)
+        return self.graph
+
+    def release_graph(self) -> None:
+        """Drop the last graph and its memory pool."""
+        if self.graph is not None:
+            self.graph.close()
+            self.graph = None
 
     # -- run -----------------------------------------------------------------------
 
     def run(self, *, resume: bool = True) -> dict:
+        """Train from step 0, or from the latest checkpoint with ``resume``.
+        On one device the steps run through a graph of this run's state,
+        built after the restore (the last run's released first); under a
+        mesh, eagerly."""
+        self.release_graph()
         state = self.init_state()
         start_step = 0
         if resume and self.ckpt.latest_step() is not None:
             start_step = self._restore(state)
+        step_fn = self._build_step(state)
         prefetch = Prefetcher(
             self.data, pool=self.pool, depth=self.tcfg.prefetch_depth, start_step=start_step,
             device=self.device,
@@ -199,7 +237,7 @@ class Trainer:
                     self._failed_once = True
                     raise RuntimeError(f"injected failure at step {step}")
                 batch = prefetch.get()
-                metrics = self.train_step(state, batch, step)
+                metrics = step_fn(batch, step)
                 unlogged += 1
                 self._heartbeat = time.monotonic()
                 if step % self.tcfg.log_every == 0 or step == self.tcfg.num_steps - 1:
@@ -230,11 +268,15 @@ class Trainer:
             prefetch.close()
 
     def run_with_restarts(self, max_restarts: int = 3) -> dict:
-        """The preemption loop, in-process: crash -> restore -> continue."""
+        """The preemption loop, in-process: crash -> restore -> continue. A
+        failed capture or a moved state (:class:`GraphError`) is raised at
+        once: a restart would meet it again."""
         attempts = 0
         while True:
             try:
                 return self.run(resume=True)
+            except GraphError:
+                raise
             except RuntimeError as e:
                 attempts += 1
                 if attempts > max_restarts:
@@ -249,6 +291,7 @@ class Trainer:
             raise TimeoutError("watchdog: no step completed within heartbeat window")
 
     def close(self) -> None:
+        self.release_graph()
         try:
             self.ckpt.wait(60)
         finally:

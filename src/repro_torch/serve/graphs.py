@@ -5,9 +5,10 @@ port's counterpart of the reference's ``jax.jit`` of the tick and of
 Eager PyTorch issues every kernel of a decode step from Python, one launch
 at a time: thousands a tick, while the card idles. A graph is captured
 once, with every shape fixed, and its replay issues all of them with one
-host call. Its inputs and outputs live at fixed addresses, so each call
-copies its host arrays into static input buffers (from pinned staging on
-the card), replays, and reads the static outputs.
+host call (:class:`repro_torch.cuda_graph.Graph`). Its inputs and outputs
+live at fixed addresses, so each call copies its host arrays into static
+input buffers (from pinned staging on the card), replays, and reads the
+static outputs.
 
 * :class:`DecodeGraph` holds one tick: ``kv.gather`` -> ``decode_step`` ->
   ``kv.scatter`` -> argmax (the flat layout decodes ``kv.buffers`` in
@@ -24,34 +25,16 @@ as a graph's are.
 """
 from __future__ import annotations
 
-import gc
 import threading
-import time
 
 import numpy as np
 import torch
 
-from ..kernels import build
+from ..cuda_graph import Graph
 from ..tree import tree_leaves, tree_map
 from .kv import PagedKVCache, lane_view
 
 __all__ = ["DecodeGraph", "PrefillGraphs", "read_back"]
-
-_streams = threading.local()
-
-
-def _capture_stream(device: torch.device) -> torch.cuda.Stream:
-    """The calling thread's capture stream on ``device``. One thread's
-    captures follow one another, so they share it, and the cuBLAS workspace
-    bound to it, which its graphs keep (their replays run on one stream, one
-    after another); captures on two threads take two streams and may
-    overlap."""
-    by_device = getattr(_streams, "by_device", None)
-    if by_device is None:
-        by_device = _streams.by_device = {}
-    if device not in by_device:
-        by_device[device] = torch.cuda.Stream(device)
-    return by_device[device]
 
 
 def read_back(t: torch.Tensor) -> torch.Tensor:
@@ -69,79 +52,6 @@ def read_back(t: torch.Tensor) -> torch.Tensor:
     done.record(torch.cuda.current_stream(t.device))
     done.synchronize()
     return host
-
-
-class _Graph:
-    """One body with static inputs (the tensors it reads) and static
-    outputs (the tree it returns, :attr:`outputs`).
-
-    On a CUDA device the body runs ``WARMUP`` times eagerly (a kernel's first
-    launch in the process checks it against its plain version, which a
-    capture forbids; the libraries load and the cuBLAS handles bind), then
-    once under capture on a side stream, in ``thread_local`` error mode, so
-    the work of the process's other threads (another engine's prefill, with
-    its allocations and synchronisations) does not abort it. The collector
-    is held off during the capture (in every thread: it is one switch). A
-    failed capture raises: there is no eager path to fall back to.
-    ``captured_launches`` is what the port's kernel wrappers recorded during
-    the capture, by kernel (:func:`build.launch_tally`); each replay runs
-    those kernels again without the wrappers. A replay runs on the caller's
-    current stream: the engine's threads all use the default stream, so its
-    replays run one after another on the device.
-    """
-
-    WARMUP = 2
-
-    def __init__(self, body, device: torch.device) -> None:
-        self.body = body
-        self.replays = 0
-        self.captured_launches: dict = {}
-        t0 = time.perf_counter()
-        if device.type == "cuda":
-            # the warm-ups run on the caller's stream, in order with the
-            # process's other engines there: on the capture stream they would
-            # run beside those engines' replays, whose cuBLAS calls use the
-            # workspace bound to that same stream
-            for _ in range(self.WARMUP):
-                body()
-            stream = _capture_stream(device)
-            stream.wait_stream(torch.cuda.current_stream(device))
-            self.graph = torch.cuda.CUDAGraph()
-            # a graph that the collector frees during the capture (a closed
-            # engine's, in a reference cycle) destroys it with a call the
-            # capture forbids, and aborts it: collect first, and not during
-            gc.collect()
-            collecting = gc.isenabled()
-            gc.disable()
-            try:
-                with build.launch_tally() as tally, torch.cuda.graph(
-                    self.graph, stream=stream, capture_error_mode="thread_local"
-                ):
-                    self.outputs = body()
-            finally:
-                if collecting:
-                    gc.enable()
-            self.captured_launches = dict(tally)
-        else:
-            self.graph = None
-            self.outputs = body()
-        self.capture_s = time.perf_counter() - t0
-
-    def replay(self):
-        """Run the body once more; returns the static outputs."""
-        if self.graph is not None:
-            self.graph.replay()
-        else:
-            tree_map(lambda s, n: s.copy_(n), self.outputs, self.body())
-        self.replays += 1
-        return self.outputs
-
-    def stats(self) -> dict:
-        return {
-            "replays": self.replays,
-            "captured_launches": dict(self.captured_launches),
-            "capture_s": self.capture_s,
-        }
 
 
 class _StaticInputs:
@@ -188,7 +98,7 @@ class DecodeGraph:
         self.inputs = _StaticInputs(dev, **shapes)
         self._addresses = self._pool_addresses()
         with torch.inference_mode():
-            self._graph = _Graph(self.body, dev)
+            self._graph = Graph(self.body, dev)
 
     def _pools(self) -> dict:
         return self.kv.pools if self._paged else self.kv.buffers
@@ -243,7 +153,7 @@ class PrefillGraphs:
         with torch.inference_mode():
             for b in buckets:
                 inputs = _StaticInputs(dev, tokens=((1, b), 0), last_pos=((1,), b - 1))
-                graph = _Graph(lambda s=inputs.device: self._body(s["tokens"], s["last_pos"]),
+                graph = Graph(lambda s=inputs.device: self._body(s["tokens"], s["last_pos"]),
                                dev)
                 self._buckets[b] = (threading.Lock(), inputs, graph)
 

@@ -1,4 +1,4 @@
-"""AdamW's single-device update in flat pieces (``optim.adamw.UPDATE_PIECE``,
+"""AdamW's single-device update in flat pieces (``optim.adamw.PIECE``,
 which keeps deepseek-v2's expert leaves' f32 temporaries small): the
 update is elementwise, so a leaf updated in pieces equals the leaf updated
 whole bit for bit, the params, both moments and the f32 master, with f32 or
@@ -30,7 +30,7 @@ def _state(dtype, moments):
 def test_an_update_in_pieces_equals_the_whole_update_bit_for_bit(dtype, moments, monkeypatch):
     out = []
     for piece in (1 << 40, 7):  # whole leaves, then pieces of 7 elements
-        monkeypatch.setattr(adamw_mod, "UPDATE_PIECE", piece)
+        monkeypatch.setattr(adamw_mod, "PIECE", piece)
         ocfg, params, grads, state = _state(dtype, moments)
         for step in range(3):
             adamw_update(ocfg, 1e-2, params, grads, state)
@@ -39,3 +39,24 @@ def test_an_update_in_pieces_equals_the_whole_update_bit_for_bit(dtype, moments,
     assert len(whole) == len(pieces)
     for a, b in zip(whole, pieces):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_global_norm_in_pieces_equals_the_whole_leaf_norm(dtype, monkeypatch):
+    """A leaf over ``PIECE`` elements has its squares summed in pieces
+    (its f32 square never exists whole): the norm equals the whole leaf's
+    within f32 rounding, a non-contiguous leaf is summed whole, and the
+    update still takes it."""
+    from repro_torch.optim import global_norm
+
+    _, params, grads, _ = _state(dtype, "float32")
+    norms = []
+    for piece in (1 << 40, 7):
+        monkeypatch.setattr(adamw_mod, "PIECE", piece)
+        norms.append(global_norm(grads))
+    whole, pieces = norms
+    want = torch.sqrt(sum(torch.sum(g.double() ** 2) for g in tree_leaves(grads)))
+    torch.testing.assert_close(pieces, whole, rtol=1e-6, atol=0)
+    torch.testing.assert_close(pieces.double(), want, rtol=1e-6, atol=0)
+    assert not grads["w"].is_contiguous()
+    assert adamw_mod._sum_squares(grads["w"]).dtype == torch.float32

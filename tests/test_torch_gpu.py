@@ -13,7 +13,11 @@ SSD scan's backward the same way (at mamba2's training shape beside a
 control that rounds the bf16 design's split operands once); a train step
 of each small model (tinyllama, mamba2, hymba) on the card against the
 same step on the CPU; and a restarted training run against an
-uninterrupted one, bit for bit. The serve engine's CUDA graphs: a captured
+uninterrupted one, bit for bit. The trainer's CUDA graph: four bf16
+``Trainer.run`` steps of one reduced model a family (dense, SSM, hybrid,
+MoE, MLA, enc-dec, VLM) against four eager steps bit for bit, K1, K1-bwd,
+K2 and K2-bwd captured at their launches a step, and a step that cannot
+be captured raising (in a process of its own). The serve engine's CUDA graphs: a captured
 decode tick against eager ``decode_step`` bit for bit (three families, both
 cache layouts, f32 and bf16), an engine whose ticks and bucketed prefills
 all replay graphs, a capture beside another engine's work on other threads,
@@ -1069,8 +1073,11 @@ def test_deepseek_trains_two_bf16_steps_on_card(tmp_path):
     fwd0, bwd0 = tfa.flash_attention_bhsd.launches, tfa.flash_attention_bwd.launches
     with Trainer(cfg, tcfg, str(tmp_path / "ckpt"), device=dev) as tr:
         out = tr.run(resume=False)
-    assert tfa.flash_attention_bhsd.launches - fwd0 == 2 * 2 * 2
-    assert tfa.flash_attention_bwd.launches - bwd0 == 2 * 2
+        graph = tr.graph.stats()
+    # the eager warm-up's launches, and the captured ones each replay runs
+    replayed = {k: graph["replays"] * n for k, n in graph["captured_launches"].items()}
+    assert tfa.flash_attention_bhsd.launches - fwd0 + replayed["flash_attention"] == 2 * 2 * 2
+    assert tfa.flash_attention_bwd.launches - bwd0 + replayed["flash_attention_bwd"] == 2 * 2
     rows = out["metrics"]
     assert len(rows) == 2 and all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
                                   and r["aux"] > 0 for r in rows)
@@ -1098,6 +1105,130 @@ def test_restart_resumes_bit_exactly_on_card(tmp_path):
     for tree_a, tree_b in pairs:
         for a, b in zip(tree_leaves(tree_a), tree_leaves(tree_b)):
             assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+# -- the train step's CUDA graph ---------------------------------------------------------
+
+# one reduced model a family, at head dims the bf16 kernels take: (arch, head_dim)
+TRAIN_GRAPH_FAMILIES = {
+    "dense": ("tinyllama-1.1b", 32), "ssm": ("mamba2-1.3b", 32), "hybrid": ("hymba-1.5b", 32),
+    "moe": ("granite-moe-1b-a400m", 32), "mla": ("deepseek-v2-236b", 192),
+    "encdec": ("whisper-medium", 64), "vlm": ("paligemma-3b", 256),
+}
+
+
+class _TrainSource:
+    """Tokens and targets from ``SyntheticTokens``, with frames or patches
+    from ``default_rng((seed, step))``: a function of the step."""
+
+    def __init__(self, cfg, S, B, seed=0):
+        from repro_torch.data import SyntheticTokens
+
+        self.cfg, self.S, self.B, self.seed = cfg, S, B, seed
+        self.tokens = SyntheticTokens(cfg.vocab_size, S, B, seed=seed)
+
+    def batch(self, step):
+        out = self.tokens.batch(step)
+        extra = _encdec_vlm_inputs(self.cfg, np.random.default_rng((self.seed, step)), self.B,
+                                   self.S)
+        out.update({k: v for k, v in extra.items() if k != "tokens"})
+        return out
+
+
+def _graph_against_eager(cfg, tmp_path, steps, S=64, B=2):
+    """``steps`` of ``Trainer.run`` (the graph) and as many eager
+    ``train_step``s of a fresh state on the same batches: both runs'
+    metric rows and state leaves, and the graph's stats."""
+    from repro_torch.data import to_device
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    tcfg = TrainerConfig(num_steps=steps, checkpoint_every=100, log_every=1, seq_len=S,
+                         global_batch=B, lr=1e-3, warmup=1)
+    with Trainer(cfg, tcfg, str(tmp_path / "ckpt"), device=_cuda(),
+                 data_source=_TrainSource(cfg, S, B)) as tr:
+        out = tr.run(resume=False)
+        stats = tr.graph.stats()
+        graph = ([{k: v for k, v in r.items() if k not in ("step", "step_s")}
+                  for r in out["metrics"]],
+                 tree_leaves({"params": out["params"].tree(), "opt": out["opt"]}))
+        tr.release_graph()
+        state = tr.init_state()
+        rows = []
+        for step in range(steps):
+            met = tr.train_step(state, to_device(tr.data.batch(step), tr.device), step)
+            rows.append({k: float(v) for k, v in met.items()})
+        eager = rows, tree_leaves({"params": state["params"].tree(), "opt": state["opt"]})
+    return graph, eager, stats
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", list(TRAIN_GRAPH_FAMILIES))
+def test_train_graph_equals_eager_steps_bit_for_bit_on_card(family, tmp_path):
+    """Four bf16 steps of ``Trainer.run`` at reduced width, one eager
+    warm-up then a captured step replayed three times, against four eager
+    ``train_step``s on the same batches: every metric, param, master,
+    moment and the counter equal bit for bit; the capture holds each of
+    the family's kernels (K1 and K1-bwd, K2 and K2-bwd) at its launches a
+    step (remat: each forward twice)."""
+    arch, head_dim = TRAIN_GRAPH_FAMILIES[family]
+    cfg = _train_cfg(arch, head_dim).replace(dtype="bfloat16")
+    (g_rows, g_leaves), (e_rows, e_leaves), stats = _graph_against_eager(cfg, tmp_path, 4)
+    assert stats["eager_steps"] == 1 and stats["replays"] == 3
+    attn = (cfg.attention != "none") * (cfg.num_layers
+                                        + (cfg.encoder_layers + cfg.num_layers) * cfg.is_encdec)
+    ssm = cfg.num_layers * (cfg.family in ("ssm", "hybrid"))
+    want = {"flash_attention": 2 * attn, "flash_attention_bwd": attn, "ssd": 2 * ssm,
+            "ssd_bwd": ssm}
+    assert stats["captured_launches"] == {k: n for k, n in want.items() if n}
+    assert g_rows == e_rows
+    assert len(g_leaves) == len(e_leaves)
+    for a, b in zip(g_leaves, e_leaves):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+_BROKEN_CAPTURE = """
+import sys, tempfile
+from repro_torch.configs import get_reduced
+from repro_torch.runtime import Trainer, TrainerConfig
+
+class HostReadTrainer(Trainer):
+    def step_body(self, state, batch, lr):
+        out = super().step_body(state, batch, lr)
+        float(out["loss"])  # a synchronisation, which a capture forbids
+        return out
+
+cfg = get_reduced("tinyllama-1.1b").replace(dtype="float32", head_dim=32)
+tcfg = TrainerConfig(num_steps=3, checkpoint_every=100, log_every=1, seq_len=32,
+                     global_batch=2, lr=1e-3)
+with tempfile.TemporaryDirectory() as d, HostReadTrainer(cfg, tcfg, d, device="cuda:0") as tr:
+    try:
+        tr.run(resume=False)
+    except RuntimeError as e:
+        print("raised", tr.graph.eager_steps, tr.graph.stats()["replays"], len(tr.metrics_log))
+        sys.exit(0)
+print("ran", len(tr.metrics_log))
+sys.exit(1)
+"""
+
+
+@pytest.mark.gpu
+def test_broken_train_capture_raises():
+    """A step body that reads a value to the host cannot be captured: the
+    capture fails and the run raises, with no eager step in its place
+    (after the one warm-up). In a process of its own: a failed capture
+    leaves that process's capture stream behind."""
+    import os
+    import subprocess
+    import sys
+
+    _cuda()
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", _BROKEN_CAPTURE], cwd=root, capture_output=True,
+                          text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert proc.returncode == 0 and proc.stdout.split() == ["raised", "1", "0", "1"], (
+        proc.stdout + proc.stderr[-3000:])
 
 
 # -- the serve engine's CUDA graphs --------------------------------------------------------

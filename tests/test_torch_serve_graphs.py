@@ -322,24 +322,29 @@ def test_first_launch_guard_raises_inside_a_capture(monkeypatch):
 
 def test_launch_tally_counts_this_threads_launches_and_captures_count_in_it_only(monkeypatch):
     """``count_launch`` adds to the wrapper's count where the kernel runs,
-    and to the calling thread's tally also while capturing (the launches a
-    graph's replays repeat); another thread's launches stay out of it."""
+    and to the capture stream's tally while this thread captures into it
+    (the launches a graph's replays repeat); a launch captured into another
+    stream (another engine's capture) stays out of it."""
+
+    class Stream:
+        def __init__(self, handle):
+            self.cuda_stream = handle
 
     def wrapper():
         pass
 
     wrapper.launches = 0
     capturing = {"on": False}
+    current = {"stream": Stream(1)}
     monkeypatch.setattr(build, "capturing", lambda: capturing["on"])
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: current["stream"])
     build.count_launch(wrapper, "k")  # outside any tally
-    with build.launch_tally() as tally:
-        build.count_launch(wrapper, "k")
-        other = threading.Thread(target=build.count_launch, args=(wrapper, "k"))
-        other.start()
-        other.join(10)
-        assert not other.is_alive()
+    with build.launch_tally(Stream(1)) as tally:
+        build.count_launch(wrapper, "k")  # runs now: not captured
         capturing["on"] = True
         build.count_launch(wrapper, "k")
         build.count_launch(wrapper, "j")
-    assert tally == {"k": 2, "j": 1}
-    assert wrapper.launches == 3  # the three outside the capture
+        current["stream"] = Stream(2)
+        build.count_launch(wrapper, "k")  # captured into another stream
+    assert tally == {"k": 1, "j": 1}
+    assert wrapper.launches == 2  # the two outside the capture
