@@ -35,19 +35,26 @@ instantiation, S=320 under a prefix-LM span over the first 256 positions;
 the build fails if K1's instantiations at 192/128 or 256/256 spill),
 and at the two wide pairs' training shapes (deepseek-v2 S=2048,
 paligemma S=512 under its prefix span; two launches bit for bit, timed
-beside the plain version, SDPA and the bound), whisper's encoder (H=KV=16,
+beside the plain version, SDPA and the bound), at 128/128 (the dense
+configs' "wgmma-wide" and "wgmma-split-2wg" forms; the build fails if one
+of their instantiations spills) at phi4-mini's and qwen1.5's training
+shapes (K1 and K1-bwd, S=2048, B=4) and the three head-dim-128 configs'
+S=512 prefills, whisper's encoder (H=KV=16,
 Dh=64, S=1500, non-causal), decoder self-attention (causal, S=32, one ragged
 tile) and cross-attention (Sq=32 over Sk=1500), beside SDPA (with the
 boolean causal or prefix-LM mask where the case has one).
 
-It then serves five full-width models (random weights from seed 0) through
+It then serves eight full-width models (random weights from seed 0) through
 ``repro_torch.ServeEngine``, one after another: tinyllama-1.1b (flash
 attention prefill), mamba2-1.3b (SSD prefill), hymba-1.5b (both),
-granite-moe-1b-a400m (MoE, KV heads zero-padded to 16) and deepseek-v2-236b
+granite-moe-1b-a400m (MoE, KV heads zero-padded to 16), deepseek-v2-236b
 (MLA and MoE, its depth cut to 2 layers in f32 and 9 in bf16, printed as
-``reduced``). The engine runs every decode tick, and the bucketed prefills
-of tinyllama, granite-moe and deepseek-v2, by replaying CUDA graphs it
-captured when it was built. Each model is served once in float32 against
+``reduced``), phi4-mini-3.8b and qwen1.5-4b (K1 at 128/128, full depth)
+and deepseek-coder-33b (2 layers in f32, in bf16 the depth of the dry
+run's serve plan: the deepest whose predicted peak, a B=4 prefill at 512
+beside the engine's caches, leaves 10 GB of the card free). The engine
+runs every decode tick, and the bucketed prefills of all but mamba2 and
+hymba, by replaying CUDA graphs it captured when it was built. Each model is served once in float32 against
 the port's own sequential batch-1 decode and once in bfloat16 as its
 measured main path, with every kernel's launch counter set to 0 just before
 that run and read just after (a graph's replays count the launches its
@@ -92,8 +99,12 @@ in bf16 (the reference's rule over 1e11 parameters), a few bf16 steps of
 share, the peak beside the prediction and a traced step, through the
 train graph held against the eager steps as the train cells are, then its f32
 gradients at depth 2, S=256 through the kernels against the plain
-versions'. The ``dryrun`` phase prints the dry run's predicted peak of
-every train cell beside the peak its phase measured, and one full-width
+versions'. Then phi4-mini-3.8b and qwen1.5-4b (``dense_train``) the same
+way at the train cells' B=4, S=2048, each at the deepest depth, walked
+down from its full depth, whose predicted peak leaves 10 GB of the card
+free, f32 moments, their f32 gradient gate at full depth, B=1, S=256. The
+``dryrun`` phase prints the dry run's predicted peak of every train cell
+and every plan beside the peak its phase measured, and one full-width
 cell on a fake world of 256 ranks (tinyllama ``train_4k`` on 16x16).
 Last, the parallelism layer (``repro_torch.parallel``) on
 an NCCL process group of one rank and its (data=1, model=1) mesh: the
@@ -123,13 +134,15 @@ one's. Each phase prints one JSON line; any failure exits non-zero. The last thr
 the kernels line, the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": ...}``.
 
-``python3 chip_smoke.py --k1-wide`` runs only K1 at the wide pairs' four
+``python3 chip_smoke.py --k1-wide`` runs only K1 at the wide pairs'
 main-path shapes (deepseek-v2's MLA prefill S=512 and training S=2048,
-paligemma's prefill S=320 and training S=512 under the prefix span) with
-the kernels phase's inputs, gates and timings. Copied into the root of
-another checkout (a parent commit, or a trial, unpacked under ``build/``)
-it reads that checkout's kernel the same way, so that two forms compare
-within one chip call.
+paligemma's prefill S=320 and training S=512 under the prefix span, the
+head-dim-128 configs' training S=2048 and prefill S=512: :data:`K1_128`)
+and K1-bwd at 128/128's two training shapes, with the kernels phases'
+inputs, gates and timings and the ptxas registers and spills. Copied into
+the root of another checkout (a parent commit, or a trial, unpacked under
+``build/``) it reads that checkout's kernels the same way, so that two
+forms compare within one chip call.
 
 It imports nothing of JAX or of the reference package.
 """
@@ -163,7 +176,12 @@ PEAK_BYTES = 3.35e12
 # in depth: at 2 layers (the dense layer 0, one MoE layer of 160 experts;
 # 5.36 B parameters, 21.4 GB) in f32, at 9 (33.2 B, 66.3 GB) in bf16, which
 # peaks at 67.6 GB with the graphs' pools: each further layer adds 7.9 GB,
-# and 9 is the deepest that keeps 10 GB of the card's 85 GB free
+# and 9 is the deepest that keeps 10 GB of the card's 85 GB free. The head
+# dim 128 dense configs run K1 at 128/128 with their KV heads zero-padded
+# (kv_pad_to): phi4-mini-3.8b (48/16 heads, tied head) and qwen1.5-4b
+# (32/32, QKV biases) at full depth, deepseek-coder-33b (112/16) in f32 at
+# 2 layers and in bf16 at the dry run's depth (SERVE_PLANNED: its 62
+# layers' weights alone are 81.25 GB)
 BUCKETED = dict(max_slots=4, max_len=1024, page_size=64, prefill_buckets=(128, 256, 512))
 PATHS = (
     ("tinyllama-1.1b", BUCKETED, ("flash_attention",), None),
@@ -172,6 +190,10 @@ PATHS = (
      None),
     ("granite-moe-1b-a400m", BUCKETED, ("flash_attention",), None),
     ("deepseek-v2-236b", BUCKETED, ("flash_attention",), {"float32": 2, "bfloat16": 9}),
+    ("phi4-mini-3.8b", BUCKETED, ("flash_attention",), None),
+    ("qwen1.5-4b", BUCKETED, ("flash_attention",), None),
+    # the bf16 depth from the dry run's serve plan (SERVE_PLANNED)
+    ("deepseek-coder-33b", BUCKETED, ("flash_attention",), {"float32": 2, "bfloat16": None}),
 )
 N_REQUESTS, NEW_TOKENS, PROMPT_RANGE = 8, 32, (64, 512)
 TIE_GAP = 1e-3  # a token mismatch at a top-2 logit gap below this is a near-tie
@@ -239,6 +261,13 @@ def phase_build() -> None:
           and all(v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0
                   for res in wide.values() for v in res.values()),
           f"K1's or K1-bwd's wide instantiations spill or are missing: {wide}")
+    # and at 128/128, the head-dim-128 configs' pair: 64 output (or dK, dV,
+    # dQ) accumulators a thread beside the score fragment
+    dh128 = _dh128_resources(build)
+    check(len(dh128["flash_attention"]) == 2 and len(dh128["flash_attention_bwd"]) == 7
+          and all(v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0
+                  for res in dh128.values() for v in res.values()),
+          f"K1's or K1-bwd's 128/128 instantiations spill or are missing: {dh128}")
     version = subprocess.run([build.nvcc(), "--version"], capture_output=True, text=True,
                              timeout=60, check=True).stdout.strip().splitlines()[-1]
     cudart = _mapped_cudart()
@@ -258,6 +287,20 @@ def _wide_resources(build) -> dict:
     return {"flash_attention": _wide_resources_of(build.build_log["flash_attention"]["ptxas"]),
             "flash_attention_bwd": {k: v for k, v in bwd.items()
                                     if re.search(r"<(?:(?:\w+,)?256|192,128)(?:,|>)", k)}}
+
+
+def _dh128_resources(build) -> dict:
+    """ptxas registers and spills of K1's and K1-bwd's instantiations at
+    128/128, per library: K1's bf16 ``flash_fwd_wide`` and f32
+    ``flash_fwd_f32`` (2); K1-bwd's preprocess in both dtypes (192/128's
+    too: it is templated on Dv), f32 dK/dV and dQ, bf16 ``bwd_dkdv_wg2``,
+    ``bwd_dkdv_reduce`` and ``bwd_dq_wg`` (7)."""
+    fwd = ptxas_resources(build.build_log["flash_attention"]["ptxas"])
+    bwd = ptxas_resources(build.build_log["flash_attention_bwd"]["ptxas"])
+    return {"flash_attention": {k: v for k, v in fwd.items() if re.search(r"<128,128>", k)},
+            "flash_attention_bwd": {k: v for k, v in bwd.items()
+                                    if re.search(r"<(?:bf16,128|float,128|128,128(?:,\d+)?)>",
+                                                 k)}}
 
 
 def _wide_resources_of(ptxas: list) -> dict:
@@ -453,6 +496,12 @@ def _flash_cases() -> list:
             ("MQA KV=1", 1, 8, 1, 256, 256, 64, True, None, None, False, dt),
             ("Dh=32", 2, 4, 2, 200, 200, 32, True, None, None, False, dt),
             ("Dh=128", 1, 8, 2, 300, 300, 128, True, None, None, True, dt),
+            # the dense head-dim-128 configs' head layouts (GQA groups of 3,
+            # 1 and 7, as kv_pad_to leaves them), ragged
+            ("Dh=128 G=3 ragged S=445", 1, 6, 2, 445, 445, 128, True, None, None, True, dt),
+            ("Dh=128 G=1 B=2 S=257 k_len=200", 2, 4, 4, 257, 257, 128, True, None, 200, True,
+             dt),
+            ("Dh=128 G=7 window 77 S=300", 1, 14, 2, 300, 300, 128, True, 77, None, True, dt),
             # hymba's prefill: H=25 KV=5 (a group of 5), global and window layers
             ("hymba global S=300", 1, 25, 5, 300, 300, 64, True, None, None, True, dt),
             ("hymba window=1024 S=300", 1, 25, 5, 300, 300, 64, True, 1024, None, True, dt),
@@ -564,7 +613,8 @@ def phase_kernels() -> dict:
     timings.update(_encdec_vlm_timings())
     train = _wide_train_timings()
     return {"flash_attention": {"max_abs_err": worst, "timings": timings, "train": train,
-                                "mla_max_abs_err": mla_errs, "dh256_max_abs_err": dh256_errs}}
+                                "dh128": _k1_128_timings(), "mla_max_abs_err": mla_errs,
+                                "dh256_max_abs_err": dh256_errs}}
 
 
 # the wide pairs' training attention, as the train cells run K1 there
@@ -629,6 +679,115 @@ def _wide_train_timings() -> dict:
              timing=f"{label} bf16 causal B={B} H={H} KV={KV} Dqk={Dh} Dv={Dv}", **r)
         out[label] = r
         del q, k, v, qt, kt, vt, qc, kc, vc, mask
+        torch.cuda.empty_cache()
+    return out
+
+
+# the head-dim-128 configs' attention at full width, as their paths give it
+# to K1 (model layout, bf16, causal; the KV heads zero-padded by kv_pad_to,
+# so H and KV are the counts the kernel is given: phi4-mini 48/16, qwen1.5
+# 32/32, deepseek-coder 112/16): both trained models' S=2048 at B=4 and
+# the three served models' prefill at S=512, the engine's largest bucket;
+# K1-bwd at the two training shapes: (label, B, H, KV, S)
+K1_128 = (
+    ("phi4 train S=2048", 4, 48, 16, 2048),
+    ("qwen train S=2048", 4, 32, 32, 2048),
+    ("phi4 prefill S=512", 1, 48, 16, 512),
+    ("qwen prefill S=512", 1, 32, 32, 512),
+    ("deepseek-coder prefill S=512", 1, 112, 16, 512),
+)
+K1_BWD_128 = K1_128[:2]
+
+
+def _k1_128_timings() -> dict:
+    """K1 at :data:`K1_128` (bf16, causal, with the lse where the autograd
+    Function asks for it, at the training shapes): the output against the
+    plain version, two launches' output and lse equal bit for bit (gated),
+    then timed beside the plain version and SDPA (``is_causal``), which
+    the port never calls, with the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    for i, (label, B, H, KV, S) in enumerate(K1_128):
+        q, k, v = _qkv(B, H, KV, S, S, 128, torch.bfloat16, seed=1400 + i, model_layout=True)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        with torch.no_grad():
+            first = fa.flash_attention_lse(q, k, v, bshd=True, causal=True)
+            again = fa.flash_attention_lse(q, k, v, bshd=True, causal=True)
+        want = fa.flash_attention_ref(qt, kt, vt, causal=True)
+        torch.cuda.synchronize()
+        err = (first[0].transpose(1, 2).float() - want.float()).abs().max().item()
+        bitwise = all(torch.equal(a, b) for a, b in zip(first, again))
+        del first, again, want
+        check(err <= FWD_TOL["bfloat16"], f"flash_attention {label}: max_abs_err {err}")
+        check(bitwise, f"flash_attention {label}: two launches differ")
+        qc, kc, vc = (t.contiguous() for t in (qt, kt, vt))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                                  enable_gqa=KV != H)
+
+        train = "train" in label
+        r = _times(lambda: fa.flash_attention_lse(q, k, v, bshd=True, causal=True) if train
+                   else fa.flash_attention(q, k, v, causal=True),
+                   lambda: fa.flash_attention_ref(qt, kt, vt, causal=True), sdpa,
+                   iters=10 if train else 20)
+        bound_ms, bound_by = _attention_bound(B, H, KV, S, S, 128, 2, True, PEAK_BF16_FLOPS)
+        r.update(max_abs_err=err, bitwise_repeat=bitwise, bound_ms=bound_ms, bound_by=bound_by,
+                 library_note="F.scaled_dot_product_attention, is_causal",
+                 design=fa.design(torch.bfloat16, 128))
+        emit("kernels", kernel="flash_attention",
+             timing=f"{label} bf16 causal B={B} H={H} KV={KV} Dh=128", **r)
+        out[label] = r
+        del q, k, v, qt, kt, vt, qc, kc, vc
+        torch.cuda.empty_cache()
+    return out
+
+
+def _k1_bwd_128() -> dict:
+    """K1-bwd at :data:`K1_BWD_128` (bf16, causal, Dh=128): against the
+    plain version, in ulps beside the lower-precision control (which must
+    read above the gate) and SDPA's autograd backward (read, not gated),
+    two launches equal bit for bit, then timed beside the plain version,
+    SDPA's backward and the bound."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    kw = dict(causal=True, window=None, k_len=None)
+    for i, (label, B, H, KV, S) in enumerate(K1_BWD_128):
+        q, k, v = _qkv(B, H, KV, S, S, 128, torch.bfloat16, seed=1500 + i, model_layout=True)
+        do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1510 + i),
+                         device=q.device).to(torch.bfloat16)
+        sdpa, _ = _sdpa_bwd(q, k, v, do, causal=True)
+        o, lse, r = _bwd_case(q, k, v, do, kw, True, library=None if sdpa is None else (
+            lambda: [g.transpose(1, 2) for g in sdpa()]))
+        del sdpa
+        with torch.no_grad():
+            first = fa.flash_attention_bwd(q, k, v, o, lse, do, bshd=True, **kw)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, bshd=True, **kw)
+        r["bitwise_repeat"] = all(torch.equal(a, b) for a, b in zip(first, again))
+        del first, again
+        full = f"{label} bf16 causal B={B} H={H} KV={KV} Dh=128"
+        emit("kernels", kernel="flash_attention_bwd", case=full, dtype="bfloat16",
+             shape=[B, H, KV, S, S, 128], **r)
+        check(r["ok"], f"flash_attention_bwd {full}: {r}")
+        check(r["bitwise_repeat"], f"flash_attention_bwd {full}: two launches differ")
+        check(max(r["control_ulp_err"].values()) > BWD_ULP_TOL,
+              f"the bf16 control passes the ulp tolerance at {full}: {r['control_ulp_err']}")
+        r.update(_bwd_timing(q, k, v, o, lse, do, kw, B, H, KV, S, S, 128),
+                 design=fa.design_bwd(torch.bfloat16, 128))
+        emit("kernels", kernel="flash_attention_bwd", timing=full,
+             **{k_: r[k_] for k_ in ("design", "ms", "plain_ms", "device_ms",
+                                     "kernel_profiled_ms", "kernel_profiled_by_launch",
+                                     "library_ms", "library_device_ms", "library_note",
+                                     "bound_ms", "bound_by")})
+        out[label] = r
+        del q, k, v, o, lse, do
         torch.cuda.empty_cache()
     return out
 
@@ -1007,9 +1166,10 @@ def phase_flash_bwd(deepseek_seq: int) -> dict:
     and lse checked too, then the same in bf16 at the train paths' own
     shapes, each timed beside the plain version, the autograd backward of
     PyTorch's SDPA and its bound: tinyllama's, hymba's two masks, the
-    enc-dec and VLM cells' four (:data:`ENCDEC_VLM_BWD`) and, in both
-    dtypes, deepseek-v2's at the ``deepseek_train`` phase's sequence
-    (:func:`_deepseek_bwd`)."""
+    enc-dec and VLM cells' four (:data:`ENCDEC_VLM_BWD`), in both
+    dtypes deepseek-v2's at the ``deepseek_train`` phase's sequence
+    (:func:`_deepseek_bwd`), and phi4-mini's and qwen1.5's at 128/128
+    (:func:`_k1_bwd_128`)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -1112,11 +1272,14 @@ def phase_flash_bwd(deepseek_seq: int) -> dict:
     for name in ("bfloat16", "float32"):
         record(deepseek[name])
         mla[name] = max(mla.get(name, 0.0), *deepseek[name]["scaled_err"].values())
+    dh128 = _k1_bwd_128()
+    for r in dh128.values():
+        record(r)
     return {"flash_attention_bwd": {"max_scaled_err": worst, "max_abs_err": worst_abs,
                                     "max_ulp_err": worst_ulp, "dh256_max_scaled_err": dh256,
                                     "mla_max_scaled_err": mla, "timing": t,
                                     "train_shape": r_train, "train_shapes": at_shapes,
-                                    "deepseek": deepseek}}
+                                    "deepseek": deepseek, "dh128": dh128}}
 
 
 def _ssd_inputs(B, S, H, P, N, dtype, seed, laws="wide"):
@@ -2599,17 +2762,32 @@ def phase_train_parity(arch: str, B: int, S: int, depth=None) -> dict:
 
 # deepseek-v2-236b trained on one card at full width: the depth and S from
 # the dry run (the deepest depth, at least the dense layer 0 and one MoE
-# layer, whose predicted peak leaves DEEPSEEK_FREE_BYTES of the card free,
-# then the longest of DEEPSEEK_SEQS that does at that depth), B=1, AdamW's
-# moments in bf16 (the reference's rule for a config over 1e11 parameters,
-# applied to the full config) and moe_dense, as the single-device reference
-# runs it; its f32 gradient gate at depth 2, B=1, S=256
+# layer, whose predicted peak leaves FREE_BYTES of the card free, then the
+# longest of DEEPSEEK_SEQS that does at that depth), B=1, AdamW's moments
+# in bf16 (the reference's rule for a config over 1e11 parameters, applied
+# to the full config) and moe_dense, as the single-device reference runs
+# it; its f32 gradient gate at depth 2, B=1, S=256
 DEEPSEEK = "deepseek-v2-236b"
 DEEPSEEK_MIN_DEPTH = 2
 DEEPSEEK_SEQS = (2048, 1024, 512)
-DEEPSEEK_FREE_BYTES = 10e9
-DEEPSEEK_STEPS = 4
-DEEPSEEK_PARITY = (1, 256)
+FREE_BYTES = 10e9
+PLANNED_STEPS = 4
+DEEPSEEK_PARITY = (1, 256, DEEPSEEK_MIN_DEPTH)
+# the head-dim-128 dense configs trained at the train cells' shape (B=4,
+# S=2048, bf16, remat "full", AdamW's moments f32), each at the deepest
+# depth, walked down from its full depth, whose predicted peak leaves
+# FREE_BYTES of the card free (phi4-mini 29 of 32 layers, qwen1.5 all 40);
+# no checkpoint, as deepseek-v2's cell; their f32 gradient gate at full
+# depth, B=1, S=256 (15 and 16 GB of f32 weights, three such sets with
+# both runs' gradients)
+DENSE_TRAIN = ("phi4-mini-3.8b", "qwen1.5-4b")
+DENSE_PARITY = (1, 256, None)
+# the served config that does not fit the card at full depth, and the
+# shape its depth is planned at: four prompts of the engine's largest
+# bucket at once (deepseek-coder's 62 layers are 81.25 GB of bf16 weights),
+# beside the caches the engine keeps (_engine_cache_bytes)
+SERVE_PLANNED = "deepseek-coder-33b"
+SERVE_PLAN_SPEC = {"kind": "prefill", "seq_len": 512, "global_batch": 4}
 DRYRUN_LOG = ROOT / "build" / "chip_smoke_dryrun.jsonl"
 # the fake-world cell the dryrun phase runs beside the single-device ones
 DRYRUN_MESH_CELL = ("tinyllama-1.1b", "train_4k", (16, 16))
@@ -2622,9 +2800,41 @@ def _train_spec(cfg, B: int, S: int) -> dict:
     return {"kind": "train", "seq_len": S + extra, "global_batch": B}
 
 
+def _engine_cache_bytes(cfg, serve_kw: dict) -> int:
+    """The KV caches a ``ServeEngine`` with ``serve_kw`` keeps on the card
+    beside the weights and a prefill's activations, which the dry run's
+    prefill does not hold: its paged pool and the decode graph's gathered
+    caches (``max_slots`` lanes of ``max_len`` positions each) and each
+    prefill bucket's graph's static cache (one prompt of the bucket)."""
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
+    model = build_model(cfg, device="cpu")
+
+    def nbytes(batch, seq):
+        return sum(t.numel() * t.element_size()
+                   for t in tree_leaves(model.cache_shapes(batch, seq)))
+
+    return (2 * nbytes(serve_kw["max_slots"], serve_kw["max_len"])
+            + sum(nbytes(1, b) for b in serve_kw.get("prefill_buckets", ())))
+
+
+def _deepest(peak, full_depth: int, limit: float) -> tuple:
+    """The deepest depth from ``full_depth`` down whose ``peak(depth)`` is
+    at most ``limit`` (1 if none is), and each depth's peak on the way."""
+    preds = {}
+    depth = full_depth
+    while True:
+        preds[depth] = peak(depth)
+        if preds[depth] <= limit or depth == 1:
+            return depth, preds
+        depth -= 1
+
+
 def _dryrun_child(total_bytes: int, path: str) -> None:
     """The dry run's predictions, in a process of their own on the host (it
-    touches no card): deepseek-v2's plan, then each train cell's
+    touches no card): deepseek-v2's train plan, deepseek-coder's serve
+    plan, the dense head-dim-128 train cells' plans, then each train cell's
     single-device peak at its shape (AdamW's moments in f32, as ``Trainer``
     keeps them and the reference's rule gives them under 1e11 parameters),
     then one cell on a fake world of 256 ranks.
@@ -2643,8 +2853,8 @@ def _dryrun_child(total_bytes: int, path: str) -> None:
         with open(path, "a") as f:
             f.write(json.dumps(fields, default=float) + "\n")
 
+    limit = total_bytes - FREE_BYTES
     full = get_config(DEEPSEEK)
-    limit = total_bytes - DEEPSEEK_FREE_BYTES
     preds = {}
 
     def peak(depth, S):
@@ -2660,10 +2870,34 @@ def _dryrun_child(total_bytes: int, path: str) -> None:
         depth += 1
     fitting = [S for S in DEEPSEEK_SEQS if peak(depth, S) <= limit]
     seq = fitting[0] if fitting else min(DEEPSEEK_SEQS)
-    write(kind="deepseek_plan", depth=depth, seq=seq, moments=moments_dtype_for(full),
-          limit_bytes=limit,
-          fits=bool(fitting), predicted_peak_bytes=peak(depth, seq),
+    write(kind="deepseek_plan", arch=DEEPSEEK, depth=depth, seq=seq, batch=1,
+          moments=moments_dtype_for(full), limit_bytes=limit, fits=bool(fitting),
+          predicted_peak_bytes=peak(depth, seq), parity=DEEPSEEK_PARITY,
           predictions=[{"depth": d, "seq": S, "peak_bytes": b} for (d, S), b in preds.items()])
+
+    def planned(arch, shape, spec, serve_kw=None):
+        full = get_config(arch)
+
+        def peak_at(depth):
+            cfg = full.replace(num_layers=depth, dtype="bfloat16")
+            peak = run_cell(cfg, shape, spec, None, full_cfg=full,
+                            verbose=False)["memory"]["peak_bytes"]
+            return peak + (_engine_cache_bytes(cfg, serve_kw) if serve_kw else 0)
+
+        depth, by_depth = _deepest(peak_at, full.num_layers, limit)
+        return {"arch": arch, "depth": depth, "full_depth": full.num_layers,
+                "limit_bytes": limit, "fits": by_depth[depth] <= limit,
+                "predicted_peak_bytes": by_depth[depth], "moments": moments_dtype_for(full),
+                "predictions": [{"depth": d, "peak_bytes": b} for d, b in by_depth.items()]}
+
+    write(kind="serve_plan", seq_len=SERVE_PLAN_SPEC["seq_len"],
+          batch=SERVE_PLAN_SPEC["global_batch"], engine_kw=BUCKETED,
+          **planned(SERVE_PLANNED, "prefill", SERVE_PLAN_SPEC, BUCKETED))
+    B, S = TRAIN_KW["global_batch"], TRAIN_KW["seq_len"]
+    for arch in DENSE_TRAIN:
+        cfg = get_config(arch)
+        write(kind="train_plan", seq=S, batch=B, parity=DENSE_PARITY,
+              **planned(arch, "train", _train_spec(cfg, B, S)))
     for arch, _steps in TRAIN_CELLS:
         cfg = get_config(arch).replace(dtype="bfloat16")
         S = TRAIN_TEXT.get(arch, TRAIN_KW["seq_len"])
@@ -2697,11 +2931,13 @@ class DryRuns:
         return ([json.loads(ln) for ln in DRYRUN_LOG.read_text().splitlines()]
                 if DRYRUN_LOG.exists() else [])
 
-    def wait_for(self, kind: str, timeout: float = 600.0) -> dict:
-        """The first line of ``kind``, waiting for the process to write it."""
+    def wait_for(self, kind: str, arch=None, timeout: float = 600.0) -> dict:
+        """The first line of ``kind`` (and ``arch``, if given), waiting for
+        the process to write it."""
         end = time.perf_counter() + timeout
         while True:
-            found = [ln for ln in self.lines() if ln["kind"] == kind]
+            found = [ln for ln in self.lines()
+                     if ln["kind"] == kind and arch in (None, ln.get("arch"))]
             if found:
                 return found[0]
             check(self.proc.is_alive() or self.proc.exitcode == 0,
@@ -2720,17 +2956,20 @@ class DryRuns:
             self.proc.join(30)
 
 
-def phase_deepseek_train(plan: dict) -> dict:
-    """deepseek-v2-236b at full width on one card, its depth and S from the
-    dry run's ``plan``: ``DEEPSEEK_STEPS`` bf16 steps through ``Trainer``'s
+def phase_planned_train(plan: dict) -> dict:
+    """A config trained at full width on one card, its depth, S, B and
+    AdamW's moments from the dry run's ``plan`` (deepseek-v2's, as the
+    ``deepseek_train`` phase, and the dense head-dim-128 cells', as
+    ``dense_train``): ``PLANNED_STEPS`` bf16 steps through ``Trainer``'s
     train graph (``Trainer.step_graph``, what ``Trainer.run`` steps
-    through; no checkpoint: the state is some 64 GB), after the same steps
-    eagerly, which they equal bit for bit (the ``train_graph`` line), with the train
-    cells' gates (finite loss, grad norm and aux loss; every leaf a
-    gradient, its master moved and its bf16 copy the master rounded; K1 and
-    K1-bwd launches a step exact), tokens/s, the model-FLOP share, the peak
-    beside the dry run's prediction and a traced step; then the f32
-    gradient gate at depth 2 (``phase_train_parity``)."""
+    through; no checkpoint), after the same steps eagerly, which they equal
+    bit for bit (the ``train_graph`` line), with the train cells' gates
+    (finite loss, grad norm and aux loss, the aux loss > 0 exactly for MoE;
+    every leaf a gradient, its master moved and its bf16 copy the master
+    rounded; every kernel's launches a step exact), tokens/s, the
+    model-FLOP share, the peak beside the dry run's prediction and a traced
+    step; then the f32 gradient gate (``phase_train_parity``) at the plan's
+    ``parity`` (B, S, depth)."""
     import torch
 
     from repro_torch.analysis.roofline import step_model_flops
@@ -2742,16 +2981,23 @@ def phase_deepseek_train(plan: dict) -> dict:
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     allocated = _release_device_memory()
-    depth, S, B = plan["depth"], plan["seq"], 1
-    cfg = get_config(DEEPSEEK).replace(dtype="bfloat16", num_layers=depth)
-    check(cfg.remat == "full", f"{DEEPSEEK} trains with remat {cfg.remat!r}")
-    emit("deepseek_train", depth=depth, seq_len=S, batch=B, moments=plan["moments"], **allocated)
-    tcfg = TrainerConfig(num_steps=DEEPSEEK_STEPS, seq_len=S, global_batch=B, lr=TRAIN_KW["lr"],
+    arch, depth, S, B, steps = plan["arch"], plan["depth"], plan["seq"], plan["batch"], PLANNED_STEPS
+    phase = "deepseek_train" if arch == DEEPSEEK else "dense_train"
+    full = get_config(arch)
+    cfg = full.replace(dtype="bfloat16", num_layers=depth)
+    check(cfg.remat == "full", f"{arch} trains with remat {cfg.remat!r}")
+    reduced = ({} if depth == full.num_layers else {"num_layers": {
+        "full": full.num_layers, "run": depth,
+        "why": f"the deepest depth whose predicted peak leaves {FREE_BYTES:.0f} bytes of the "
+               "card free"}})
+    emit(phase, arch=arch, depth=depth, seq_len=S, batch=B, moments=plan["moments"],
+         reduced=reduced, **allocated)
+    tcfg = TrainerConfig(num_steps=steps, seq_len=S, global_batch=B, lr=TRAIN_KW["lr"],
                          warmup=TRAIN_KW["warmup"], moments_dtype=plan["moments"])
-    tr = Trainer(cfg, tcfg, str(ROOT / "build" / "chip_smoke_deepseek_ckpt"), device="cuda:0")
+    tr = Trainer(cfg, tcfg, str(ROOT / "build" / "chip_smoke_planned_ckpt"), device="cuda:0")
     try:
         counters = _train_counters()
-        eager = _eager_reference(tr, DEEPSEEK_STEPS)
+        eager = _eager_reference(tr, steps)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         state = tr.init_state()
@@ -2760,7 +3006,7 @@ def phase_deepseek_train(plan: dict) -> dict:
             fn.launches = 0
         step_fn = tr.step_graph(state)  # what Trainer.run steps through
         rows, steps_s = [], []
-        for step in range(DEEPSEEK_STEPS):
+        for step in range(steps):
             batch = to_device(tr.data.batch(step), tr.device)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2774,37 +3020,38 @@ def phase_deepseek_train(plan: dict) -> dict:
                  "reserved": torch.cuda.max_memory_reserved()}
         peak = peaks["allocated"]
         per_step = _launches_per_step(cfg)
-        batch = to_device(tr.data.batch(DEEPSEEK_STEPS), tr.device)
-        trace = _traced(lambda: step_fn(batch, DEEPSEEK_STEPS), top=6)
-        line = _graph_line(DEEPSEEK, eager, rows, steps_s, state, trace, graph, per_step, peaks)
+        batch = to_device(tr.data.batch(steps), tr.device)
+        trace = _traced(lambda: step_fn(batch, steps), top=6)
+        line = _graph_line(arch, eager, rows, steps_s, state, trace, graph, per_step, peaks)
         # the graph's pool, which general allocations cannot use, goes before
-        # the gates' temporaries (an expert leaf's f32 copy is 5 GB)
+        # the gates' temporaries (a deepseek-v2 expert leaf's f32 copy is 5 GB)
         del metrics, step_fn
         tr.release_graph()
         _release_device_memory()
         params, opt = state["params"], state["opt"]
         check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows),
-              f"{DEEPSEEK}: a non-finite loss or grad norm: {rows}")
-        check(all(np.isfinite(r["aux"]) and r["aux"] > 0 for r in rows),
-              f"{DEEPSEEK}: aux losses {[r['aux'] for r in rows]}")
+              f"{arch}: a non-finite loss or grad norm: {rows}")
+        check(all(np.isfinite(r["aux"]) and (r["aux"] > 0) == cfg.is_moe for r in rows),
+              f"{arch}: aux losses {[r['aux'] for r in rows]}")
         stale = _stale_leaves(params, opt, init_host)
-        check(not stale["no_grad"], f"{DEEPSEEK}: leaves took no gradient: {stale}")
-        check(not stale["unchanged"], f"{DEEPSEEK}: master leaves unchanged: {stale}")
-        check(not stale["off_master"], f"{DEEPSEEK}: leaves differ from their master: {stale}")
+        check(not stale["no_grad"], f"{arch}: leaves took no gradient: {stale}")
+        check(not stale["unchanged"], f"{arch}: master leaves unchanged: {stale}")
+        check(not stale["off_master"], f"{arch}: leaves differ from their master: {stale}")
         dtypes = {part: sorted({str(t.dtype) for t in tree_leaves(opt[part])})
                   for part in ("m", "v", "master")}
-        check(dtypes == {"m": ["torch.bfloat16"], "v": ["torch.bfloat16"],
-                         "master": ["torch.float32"]}, f"{DEEPSEEK}: state dtypes {dtypes}")
+        moments = [f"torch.{plan['moments']}"]
+        check(dtypes == {"m": moments, "v": moments, "master": ["torch.float32"]},
+              f"{arch}: state dtypes {dtypes}")
         for name, n in per_step.items():
-            check(launches[name] == n * DEEPSEEK_STEPS,
-                  f"{DEEPSEEK}: {name} launched {launches[name]} times in {DEEPSEEK_STEPS} "
-                  f"steps, want {n} a step")
+            check(launches[name] == n * steps,
+                  f"{arch}: {name} launched {launches[name]} times in {steps} steps, want {n} "
+                  "a step")
         step_s = line["step_s"]["graph"]  # the replays' rows, as the train_graph line
         flops, _formula, _n_pos = step_model_flops(cfg, params, B, S)
         n_params = sum(p.numel() for p in params.parameters())
         res = {
-            "arch": DEEPSEEK, "dtype": "bfloat16", "layers": depth, "batch": B, "seq_len": S,
-            "moments": plan["moments"], "params": n_params, "steps": DEEPSEEK_STEPS,
+            "arch": arch, "dtype": "bfloat16", "layers": depth, "reduced": reduced, "batch": B,
+            "seq_len": S, "moments": plan["moments"], "params": n_params, "steps": steps,
             "loss": [r["loss"] for r in rows], "aux": [r["aux"] for r in rows],
             "grad_norm": [r["grad_norm"] for r in rows],
             "step_s": steps_s, "step_s_median_of_replays": step_s,
@@ -2812,8 +3059,7 @@ def phase_deepseek_train(plan: dict) -> dict:
             "model_flop_share_of_989_tflops": flops / step_s / PEAK_BF16_FLOPS,
             "peak_mem_bytes": peak, "predicted_peak_bytes": plan["predicted_peak_bytes"],
             "peak_over_predicted": peak / plan["predicted_peak_bytes"],
-            "launches": launches, "launches_per_step": {k: v / DEEPSEEK_STEPS
-                                                        for k, v in launches.items()},
+            "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
             "launches_eager": ran, "graph": graph,
             "eager": {k: line[k]["eager"] for k in ("step_s", "device_busy_ms",
                                                      "device_idle_share", "host_launches",
@@ -2821,26 +3067,30 @@ def phase_deepseek_train(plan: dict) -> dict:
             "bf16_leaves_at_init": len(stale["at_init"]),
         }
         res.update({f"step_{k}": v for k, v in trace.items()})
-        emit("deepseek_train", **res)
+        emit(phase, **res)
     finally:
         tr.close()
     del tr, state, params, opt, init_host
     gc.collect()
     torch.cuda.empty_cache()
-    res["parity"] = phase_train_parity(DEEPSEEK, *DEEPSEEK_PARITY, depth=DEEPSEEK_MIN_DEPTH)
+    B_p, S_p, depth_p = plan["parity"]
+    res["parity"] = phase_train_parity(arch, B_p, S_p, depth=depth_p)
     res["phase_s"] = time.perf_counter() - t_start
-    emit("deepseek_train", phase_s=res["phase_s"])
+    emit(phase, arch=arch, phase_s=res["phase_s"])
     return res
 
 
-def phase_dryrun(dry: DryRuns, trains: list) -> dict:
+def phase_dryrun(dry: DryRuns, trains: list, serves: list) -> dict:
     """The dry run's predicted peak (``launch/dryrun.py --single-device``) of
     each train cell beside the peak its train phase measured
-    (``torch.cuda.max_memory_allocated``), deepseek-v2's beside its phase's,
-    and the fake-world cell: a comparison, not a gate."""
+    (``torch.cuda.max_memory_allocated``), each plan's beside its phase's
+    (deepseek-v2's and the dense cells' training, deepseek-coder's serving
+    at its planned prefill shape against the engine's run), and the
+    fake-world cell: a comparison, not a gate."""
     lines = dry.join()
     measured = {t["arch"]: t["peak_mem_bytes"] for t in trains if "peak_mem_bytes" in t}
-    out = {"wall_s": time.perf_counter() - dry.t0, "cells": {}}
+    served = {s["arch"]: s["peak_mem_bytes"] for s in serves if "peak_mem_bytes" in s}
+    out = {"wall_s": time.perf_counter() - dry.t0, "cells": {}, "plans": {}}
     for ln in lines:
         if ln["kind"] == "train_cell":
             r = ln["result"]
@@ -2853,10 +3103,10 @@ def phase_dryrun(dry: DryRuns, trains: list) -> dict:
                     "dominant": r["roofline"]["dominant"], "run_s": r["run_s"]}
             out["cells"][ln["arch"]] = cell
             emit("dryrun", arch=ln["arch"], batch=r["global_batch"], seq_len=r["seq_len"], **cell)
-        elif ln["kind"] == "deepseek_plan":
-            got = measured.get(DEEPSEEK)
-            out["deepseek"] = {**ln, "measured_peak_bytes": got}
-            emit("dryrun", arch=DEEPSEEK, plan=ln, measured_peak_bytes=got,
+        elif ln["kind"] in ("deepseek_plan", "train_plan", "serve_plan"):
+            got = (served if ln["kind"] == "serve_plan" else measured).get(ln["arch"])
+            out["plans"][ln["arch"]] = {**ln, "measured_peak_bytes": got}
+            emit("dryrun", arch=ln["arch"], plan=ln, measured_peak_bytes=got,
                  measured_over_predicted=None if got is None
                  else got / ln["predicted_peak_bytes"])
         elif ln["kind"] == "mesh_cell":
@@ -2865,7 +3115,8 @@ def phase_dryrun(dry: DryRuns, trains: list) -> dict:
                                                   "flops_per_device", "bytes_per_device",
                                                   "collectives", "memory", "roofline")}
             emit("dryrun", **out["mesh_cell"])
-    check("mesh_cell" in out and len(out["cells"]) == len(TRAIN_CELLS),
+    check("mesh_cell" in out and len(out["cells"]) == len(TRAIN_CELLS)
+          and len(out["plans"]) == 2 + len(DENSE_TRAIN),
           f"the dry run's lines: {[ln['kind'] for ln in lines]}")
     emit("dryrun", wall_s=out["wall_s"])
     return out
@@ -3892,6 +4143,17 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                     "train": {"at": WIDE_TRAIN_K1[1][0] + " B=4 H=8 KV=1 bf16",
                               **fa["train"][WIDE_TRAIN_K1[1][0]]},
                 },
+                # the head-dim-128 dense configs' training and prefill
+                # attention (phi4-mini, qwen1.5, deepseek-coder; padded KV heads)
+                "dqk_128_dv_128": {
+                    "design": fa_design(torch.bfloat16, 128),
+                    "max_abs_err": max(r["max_abs_err"] for r in fa["dh128"].values()),
+                    "ptxas": _dh128_resources(build)["flash_attention"],
+                    "shapes": {label: {"at": f"B={B} H={H} KV={KV} Dh=128 Sq=Sk={S} bf16 causal",
+                                       **{k: fa["dh128"][label][k]
+                                          for k in timing_keys + ("bitwise_repeat",)}}
+                               for label, B, H, KV, S in K1_128},
+                },
                 "whisper": {
                     label: {"at": f"B={B} H={H} KV={KV} Dh={Dh} Sq={Sq} Sk={Sk} bf16 "
                                   + ("causal" if causal else "non-causal"),
@@ -3986,6 +4248,24 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                                  "library_device_ms", "library_note", "bound_ms", "bound_by",
                                  "ulp_err", "control_ulp_err")},
                 },
+                # the head-dim-128 dense configs' training attention
+                "dqk_128_dv_128": {
+                    "design": design_bwd(torch.bfloat16, 128),
+                    "ptxas": _dh128_resources(build)["flash_attention_bwd"],
+                    "shapes": {label: {
+                        "at": f"B={B} H={H} KV={KV} Dh=128 Sq=Sk={S} bf16 causal; library: "
+                              "SDPA's autograd backward",
+                        "head_split": bwd_head_split(
+                            B, KV, -(-S // 64), H // KV,
+                            torch.cuda.get_device_properties(0).multi_processor_count),
+                        **{k: bwd["dh128"][label][k]
+                           for k in ("ms", "plain_ms", "device_ms", "kernel_profiled_ms",
+                                     "kernel_profiled_by_launch", "library_ms",
+                                     "library_device_ms", "library_note", "bound_ms",
+                                     "bound_by", "ulp_err", "control_ulp_err", "scaled_err",
+                                     "bitwise_repeat")}}
+                        for label, B, H, KV, S in K1_BWD_128},
+                },
                 # hymba's two masks and the enc-dec and VLM cells' shapes
                 "train_shapes": {
                     label: {k: r[k] for k in ("ms", "plain_ms", "device_ms", "kernel_profiled_ms",
@@ -4056,33 +4336,51 @@ def main(argv: list) -> int:
 
 
 def k1_wide(dev: dict) -> int:
-    """K1 at the wide pairs' four main-path shapes, as the kernels phase
-    holds and times them: deepseek-v2's MLA prefill, paligemma's prefill
-    and both models' training attention (:func:`_mla_timing`,
-    :func:`_encdec_vlm_timings`, :func:`_wide_train_timings`), each output
-    within the bf16 tolerance of the plain version. The last line is
-    ``{"ok": true, "k1_wide": {shape: {design, ms, device_ms, ...}}}``."""
+    """K1 at the wide pairs' main-path shapes, as the kernels phases hold
+    and time them: deepseek-v2's MLA prefill, paligemma's prefill, both
+    models' training attention (:func:`_mla_timing`,
+    :func:`_encdec_vlm_timings`, :func:`_wide_train_timings`) and the
+    head-dim-128 configs' training and prefill attention
+    (:func:`_k1_128_timings`), each output within the bf16 tolerance of the
+    plain version; then K1-bwd at 128/128's training shapes
+    (:func:`_k1_bwd_128`); with the ptxas registers and spills of both
+    libraries' wide instantiations. The last line is ``{"ok": true,
+    "k1_wide": {shape: {design, ms, device_ms, ...}}}``."""
     import torch
 
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
 
-    build.library("flash_attention")
-    emit("build", source="src/repro_torch/csrc/flash_attention.cu",
-         resources=_wide_resources_of(build.build_log["flash_attention"]["ptxas"]))
+    for name in ("flash_attention", "flash_attention_bwd"):
+        build.library(name)
+    emit("build", resources={**_wide_resources(build), "dh128": _dh128_resources(build)})
     got = {"deepseek MLA S=512": _mla_timing(), **_encdec_vlm_timings(ENCDEC_VLM_K1[:1]),
-           **_wide_train_timings()}
+           **_wide_train_timings(), **_k1_128_timings()}
     for label, r in got.items():
         check(r["max_abs_err"] <= FWD_TOL["bfloat16"],
               f"flash_attention {label}: max_abs_err {r['max_abs_err']}")
+    got.update({f"{label} bwd": r for label, r in _k1_bwd_128().items()})
     keys = ("ms", "device_ms", "plain_ms", "library_device_ms", "bound_ms", "bound_by",
-            "max_abs_err")
+            "max_abs_err", "kernel_profiled_by_launch", "ulp_err", "control_ulp_err")
     print(dev["nvidia_smi"])
     print(json.dumps({"ok": True, "k1_wide": {
-        label: {"design": fa.design(torch.bfloat16, 192 if "deepseek" in label else 256,
-                                    128 if "deepseek" in label else 256),
+        label: {"design": r.get("design") or fa.design(
+                    torch.bfloat16, 192 if "deepseek" in label else 256,
+                    128 if "deepseek" in label else 256),
                 **{k: r.get(k) for k in keys}} for label, r in got.items()}}))
     return 0
+
+
+def _planned_paths(dry: DryRuns, paths):
+    """The served paths, :data:`SERVE_PLANNED`'s bf16 depth taken from the
+    dry run's serve plan when its turn comes."""
+    for arch, serve_kw, path_kernels, depth in paths:
+        if arch == SERVE_PLANNED:
+            plan = dry.wait_for("serve_plan")
+            emit("dryrun", serve_plan=plan, waited_s=time.perf_counter() - dry.t0)
+            check(plan["fits"], f"{arch}: no depth fits the card: {plan}")
+            depth = {**depth, "bfloat16": plan["depth"]}
+        yield arch, serve_kw, path_kernels, depth
 
 
 def _run(t0: float, dev: dict, dry: DryRuns) -> int:
@@ -4095,7 +4393,7 @@ def _run(t0: float, dev: dict, dry: DryRuns) -> int:
     kern.update(phase_ssd_bwd())
     emit("timing", kernels_phases_s=time.perf_counter() - t0)
     phase_readback()
-    serves = [phase_serve(*path) for path in PATHS]
+    serves = [phase_serve(*path) for path in _planned_paths(dry, PATHS)]
     emit("timing", serve_phases_s=time.perf_counter() - t0)
     serves += [phase_encdec_vlm(*path) for path in ENCDEC_VLM_PATHS]
     emit("timing", encdec_vlm_phases_s=time.perf_counter() - t0)
@@ -4103,9 +4401,14 @@ def _run(t0: float, dev: dict, dry: DryRuns) -> int:
     emit("timing", train_phases_s=time.perf_counter() - t0)
     for arch, B, S in PARITY_CELLS:
         phase_train_parity(arch, B, S)
-    trains.append(phase_deepseek_train(plan))
+    trains.append(phase_planned_train(plan))
     emit("timing", deepseek_train_phase_s=time.perf_counter() - t0)
-    phase_dryrun(dry, trains)
+    for arch in DENSE_TRAIN:
+        dense_plan = dry.wait_for("train_plan", arch)
+        check(dense_plan["fits"], f"{arch}: no depth fits the card: {dense_plan}")
+        trains.append(phase_planned_train(dense_plan))
+    emit("timing", dense_train_phases_s=time.perf_counter() - t0)
+    phase_dryrun(dry, trains, serves)
     par = phase_parallel(trains[0])
     # the sharded bf16 training run's launches count on the kernels line
     trains.append({"arch": "tinyllama-1.1b on the (1, 1) mesh",

@@ -19,26 +19,26 @@
 // Sq = Sk = 660 for causal attention). At batch 1 and S <= 1024 the grid is a
 // few hundred CTAs, so latency and occupancy, not either peak, decide.
 //
-// bf16 at Dqk = Dv = 32, 64 (the served tinyllama, hymba, granite-moe and
-// whisper) and 128: one CTA of 8 warps per (batch * q-head, 64-row q
-// tile); the grid dispatches every head's last q tile first, since on the
-// causal diagonal it sees the most keys. K and V stay bf16 in a two-stage
-// shared-memory ring of 128-key tiles (64 at Dh = 128) filled by 16-byte
-// cp.async copies, so the next tile loads while this one computes. Two
-// groups of 4 warps (two warpgroups) split each tile's keys in halves: at
-// prefill batch 1 the card holds too few CTAs to hide the latency of one
-// group walking every key tile, and the split halves each group's walk. The
-// online softmax (running max, denominator, rescale, all f32, -1e30 masking
-// before the max) runs on the score fragments in registers, and P is
-// rounded to bf16 in registers and fed straight back as the A operand of
-// P V; only key halves on the diagonal, at the window's edge or at the valid
-// length evaluate the mask. At the end the groups merge (max, sum, output)
+// bf16 at Dqk = Dv = 32 and 64 (the served tinyllama, hymba, granite-moe
+// and whisper): one CTA of 8 warps per (batch * q-head, 64-row q tile); the
+// grid dispatches every head's last q tile first, since on the causal
+// diagonal it sees the most keys. K and V stay bf16 in a two-stage
+// shared-memory ring of 128-key tiles filled by 16-byte cp.async copies,
+// so the next tile loads while this one computes. Two groups of 4 warps
+// (two warpgroups) split each tile's keys in halves: at prefill batch 1 the
+// card holds too few CTAs to hide the latency of one group walking every
+// key tile, and the split halves each group's walk. The online softmax
+// (running max, denominator, rescale, all f32, -1e30 masking before the
+// max) runs on the score fragments in registers, and P is rounded to bf16
+// in registers and fed straight back as the A operand of P V; only key
+// halves on the diagonal, at the window's edge or at the valid length
+// evaluate the mask. At the end the groups merge (max, sum, output)
 // per row through shared memory, exactly: both rescale to the common max.
 //  - Dh = 64, the served head dim (flash_fwd_wgmma): each group is one
 //    warpgroup issuing wgmma.m64n64k16 (bf16 operands, f32 accumulators):
 //    Q K^T with Q and K read by the tensor cores from 128-byte-swizzled
 //    shared memory, P V with P from registers and V from shared memory.
-//  - Dh = 32 and 128 (flash_fwd_mma): each warp of a group owns 16 q rows
+//  - Dh = 32 (flash_fwd_mma): each warp of a group owns 16 q rows
 //    and runs mma.sync.m16n8k16 fed by ldmatrix from rows padded by 16
 //    bytes. Each warp re-reads K and V fragments for only 16 rows, the
 //    shared-memory traffic that wgmma's direct B reads remove.
@@ -48,20 +48,23 @@
 // the same warps rather than TMA from a producer warp. The wrapper requires
 // 16-byte aligned base pointers and strides and raises otherwise.
 //
-// bf16 at the wide pairs (flash_fwd_wide): Dqk = 192, Dv = 128, MLA's
+// bf16 at the wide pairs (flash_fwd_wide): Dqk = Dv = 128, the dense
+// configs' (phi4-mini, qwen1.5 and deepseek-coder, their KV heads
+// zero-padded: 48/16, 32/32 and 112/16 heads), Dqk = 192, Dv = 128, MLA's
 // expanded prefill and training (deepseek-v2: 128 nope + 64 rope dims of
 // q and k, 128 of v, H = KV = 128), and Dqk = Dv = 256, gemma's (paligemma:
 // MQA, 8 q-heads on one kv-head, a prefix-LM span over 256 image tokens).
 // The work per head is 2 (Dqk + Dv) FLOPs a visible (q, k) pair against
-// q, k, v and o moved once: deepseek-v2's training attention (S=2048,
-// causal) is bounded by operations (0.174 ms at 989 TFLOP/s), its prefill
-// (S=512) and paligemma's by bytes. What the pre-Hopper form
+// q, k, v and o moved once: the training attention (S=2048, causal) is
+// bounded by operations (phi4-mini's 0.209 ms, deepseek-v2's 0.174 at 989
+// TFLOP/s), the prefills (S=512) by bytes. What the pre-Hopper form
 // (flash_fwd_mma at these pairs) lost there: mma.sync warps re-reading K
 // and V fragments for 16 rows each, and a K/V byte read into shared memory
 // feeding only the CTA's 64 q rows.
 //  - CTA: three warpgroups. Warpgroup 0 is the producer: it gives its
 //    registers up (setmaxnreg) and one thread copies Q and each 64-key K/V
-//    tile by TMA into a ring of four stages at 192/128 and two at 256/256,
+//    tile by TMA into a ring of four stages at 128/128 and 192/128 and two
+//    at 256/256,
 //    each stage's bytes counted on an mbarrier. Warpgroups 1 and 2 own q
 //    rows 0 .. 63 and 64 .. 127 of the CTA's 128: a K/V byte feeds 128
 //    rows. Each waits for a stage, computes, and releases it on a second
@@ -70,19 +73,19 @@
 //    the copy writes. The tensor maps follow the (B, S, H, D) views'
 //    strides, built for each launch on the host. Grid: (batch * q-head,
 //    128-row tile), last rows first.
-//  - S = Q K^T: a chain of wgmma.m64n64k16 over the slabs of the depth (12
-//    k-steps at 192, 16 at 256), K K-major from shared memory. At 192 each
-//    warp keeps its 16 q rows' A operands (48 registers) and the product
-//    reads only K; at 256 they would not fit beside the 128 output
-//    accumulators, and Q is read from its slab tile.
+//  - S = Q K^T: a chain of wgmma.m64n64k16 over the slabs of the depth (8
+//    k-steps at 128, 12 at 192, 16 at 256), K K-major from shared memory.
+//    At 128 and 192 each warp keeps its 16 q rows' A operands (32 or 48
+//    registers) and the product reads only K; at 256 they would not fit
+//    beside the 128 output accumulators, and Q is read from its slab tile.
 //  - O += P V: P rounded to bf16 in registers, V MN-major as one
 //    m64n128k16 a k-step over two slabs (the slab stride as the leading
 //    byte offset), two of them at 256 (one m64n256 spilled in K1-bwd's dQ).
 //  - The softmax: row maxima and sums as trees over a thread's 16 values,
 //    the scale folded into the exponent (one FFMA) outside the tiles that
 //    evaluate the mask.
-//  - Shared memory 210 KiB at 192/128 and 194 KiB at 256/256, one CTA an
-//    SM; the kernel is built for 168 registers a thread (384 threads), the
+//  - Shared memory 162 KiB at 128/128, 210 KiB at 192/128 and 194 KiB at
+//    256/256, one CTA an SM; the kernel is built for 168 registers a thread (384 threads), the
 //    consumers raise theirs to 240 and the producer lowers its to 24; no
 //    spill.
 //  Trials (chip calls, each building a variant of this source beside the
@@ -135,9 +138,24 @@
 //    packing) unchanged. No grid of 128-row CTAs fills the 132 SMs there
 //    (S=320's 10 240 rows make 80), and in both forms the CTAs that see 5
 //    key tiles set the time; packed, both of their consumers work.
+//  Trials at 128/128 (one chip call, each form built from its own copy of
+//  this source and run in turns, two runs each; bf16 device ms by CUDA-graph
+//  replay at phi4-mini's training shape B=4 H=48 KV=16 S=2048 / qwen1.5's
+//  H=KV=32 S=2048 / the prefills at S=512 B=1 of phi4-mini / qwen1.5 /
+//  deepseek-coder H=112 KV=16; H100 80GB HBM3 at 700 W): this form 0.5586 /
+//  0.4303 / 0.01904 / 0.01528 / 0.04149 and 0.5565 / 0.4305 / 0.01959 /
+//  0.01498 / 0.04097; six ring stages in place of four 0.5616 / 0.4325 /
+//  0.01956 / 0.01516 / 0.04138 and 0.5521 / 0.4315 / 0.01934 / 0.01519 /
+//  0.04105 (within the spread: four kept); the Dh = 64 form
+//  (flash_fwd_wgmma) widened to two slabs, one CTA an SM, 1.192 / 0.8507 /
+//  0.03453 / 0.02309 / 0.07460 and 1.190 / 0.8518 / 0.03442 / 0.02330 /
+//  0.07390; the replaced flash_fwd_mma 1.593 / 1.070 / 0.03817 / 0.02582 /
+//  0.08280 and 1.591 / 1.068 / 0.03844 / 0.02608 / 0.08214; SDPA (cuDNN,
+//  is_causal) 0.3785 / 0.2587 / 0.01774 / 0.01320 / 0.02853.
 // What bounds it next: at S=2048 the kept form reaches a third of the
-// tensor cores' peak. Each consumer still waits for its Q K^T before its
-// softmax and for its P V before the next tile, and the two trials that
+// tensor cores' peak at 192/128 and 37 % at 128/128 (phi4-mini), where
+// SDPA reads 1.5x faster. Each consumer still waits for its Q K^T before
+// its softmax and for its P V before the next tile, and the two trials that
 // overlap those read no faster; no profiler here counts the stalls.
 //
 // f32, the parity path (flash_fwd_f32): FMA tiles on the FP32 pipes; the
@@ -211,23 +229,15 @@ __device__ __forceinline__ bool visible(const Params& p, int k_valid, int qi, in
 constexpr int MMA_WARPS = 8;  // two groups of 4; a group's warp owns 16 q rows
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
 
-// Keys per shared-memory tile, half of them to each warp group: 128 where
-// a warp's score and output fragments fit 128 registers (Dqk <= 64, two
-// CTAs an SM), 64 at Dqk = 128 (one CTA an SM).
-template <int DQK>
-__host__ __device__ constexpr int mma_bk() {
-  return DQK <= 64 ? 128 : 64;
-}
-template <int DQK>
-__host__ __device__ constexpr int mma_min_blocks() {
-  return DQK <= 64 ? 2 : 1;
-}
+// Keys per shared-memory tile, half of them to each warp group: a warp's
+// score and output fragments fit 128 registers at Dqk = 32, two CTAs an SM
+constexpr int MMA_BK = 128;
 
 template <int DQK, int DV>
 constexpr int mma_smem_bytes() {
   // the q tile and two stages of k, rows of Dqk + 8; two stages of v, rows
   // of Dv + 8; the groups' merge reuses it
-  return ((BQ + 2 * mma_bk<DQK>()) * (DQK + 8) + 2 * mma_bk<DQK>() * (DV + 8)) * 2;
+  return ((BQ + 2 * MMA_BK) * (DQK + 8) + 2 * MMA_BK * (DV + 8)) * 2;
 }
 
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -237,9 +247,9 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 }
 
 template <int DQK, int DV>
-__global__ void __launch_bounds__(MMA_THREADS, mma_min_blocks<DQK>()) flash_fwd_mma(Params p) {
+__global__ void __launch_bounds__(MMA_THREADS, 2) flash_fwd_mma(Params p) {
   using bf16 = __nv_bfloat16;
-  constexpr int BK = mma_bk<DQK>();
+  constexpr int BK = MMA_BK;
   constexpr int HK = BK / 2;    // keys of a tile for one warp group
   constexpr int LD = DQK + 8;   // padded q and k row, in elements
   constexpr int LDV = DV + 8;   // padded v row
@@ -1110,10 +1120,9 @@ cudaError_t launch(const Params& p, bool bf16, int device, cudaStream_t stream) 
     cudaError_t err = opt_in_smem(flash_fwd_f32<DQK, DV>, smem, device, set_f32);
     if (err != cudaSuccess) return err;
     flash_fwd_f32<DQK, DV><<<dim3(q_tiles, p.B * p.H), F32_THREADS, smem, stream>>>(p);
-  } else if constexpr (DQK == 192 && DV == 128) {
-    return launch_wide<192, 128>(p, device, set_bf16, stream);
-  } else if constexpr (DQK == 256 && DV == 256) {
-    return launch_wide<256, 256>(p, device, set_bf16, stream);
+  } else if constexpr ((DQK == 128 && DV == 128) || (DQK == 192 && DV == 128) ||
+                       (DQK == 256 && DV == 256)) {
+    return launch_wide<DQK, DV>(p, device, set_bf16, stream);
   } else {
     if (q_tiles > 65535) return cudaErrorInvalidValue;
     if constexpr (DQK == 64 && DV == 64) {

@@ -20,7 +20,7 @@
 // addressed through strides, so the model's (B, S, H, Dh) views need no
 // copy. A row that sees no key gets zero gradient.
 //
-// Three launches (four in bf16 at 192/128 and 256/256 with a head split),
+// Three launches (four in bf16 at the wide pairs with a head split),
 // no float atomics, so the result is the same bit for bit from run to run:
 //  - bwd_preprocess: D, one warp per row.
 //  - bwd_dkdv: one CTA per (batch * kv-head, key tile), heaviest causal
@@ -56,28 +56,27 @@
 //    bf16 hi part and a bf16 lo part (lo = bf16(x - hi)) and each product
 //    that takes P or dS (dV, dK, dQ) is issued twice into the same f32 sum:
 //    10 tensor-core products a (q, key) tile pair where the bound counts 5.
-//  - Head dims 32, 64 and 128 (bwd_dkdv_mma, bwd_dq_mma): 4 warps (one
+//  - Head dims 32 and 64 (bwd_dkdv_mma, bwd_dq_mma): 4 warps (one
 //    warpgroup) a CTA, warp w owning rows 16 w .. 16 w + 15 of the CTA's
-//    64-row tile (keys in bwd_dkdv, q rows in bwd_dq). At 64 (the trained
-//    one) wgmma.m64n64k16 from tiles in the 128-byte swizzle: the score
-//    products read both operands from shared memory (K-major), the
-//    gradient products take P^T, dS^T or dS from registers and dO, Q or K
-//    from shared memory (MN-major). At 32 and 128 mma.sync.m16n8k16 fed by
-//    ldmatrix from rows padded by 16 bytes; at 128 the streamed tiles hold
-//    32 rows, so a warp's dK and dV (or dQ) accumulators fit beside the
-//    score fragments.
-//  - The wide pairs, 256/256 (gemma's, in paligemma: MQA, a prefix-LM
-//    span) and 192/128 (deepseek-v2's expanded MLA: Q, K, dQ, dK 192 wide,
-//    V, O, dO, dV 128; S^T runs 192 deep, dP^T 128): one warpgroup cannot
-//    hold a key tile's dK and dV beside the score fragments (256 f32
-//    registers a thread at 256/256, 160 at 192/128), so bwd_dkdv_wg2 gives
+//    64-row tile (keys in bwd_dkdv, q rows in bwd_dq), 64-row streamed
+//    tiles. At 64 (tinyllama's, hymba's, whisper's) wgmma.m64n64k16 from
+//    tiles in the 128-byte swizzle: the score products read both operands
+//    from shared memory (K-major), the gradient products take P^T, dS^T or
+//    dS from registers and dO, Q or K from shared memory (MN-major). At 32
+//    mma.sync.m16n8k16 fed by ldmatrix from rows padded by 16 bytes.
+//  - The wide pairs, 128/128 (the dense configs': phi4-mini, qwen1.5),
+//    256/256 (gemma's, in paligemma: MQA, a prefix-LM span) and 192/128
+//    (deepseek-v2's expanded MLA: Q, K, dQ, dK 192 wide, V, O, dO, dV 128;
+//    S^T runs 192 deep, dP^T 128): one warpgroup cannot hold a key tile's
+//    dK and dV beside the score fragments (128 f32 registers a thread at
+//    128/128, 160 at 192/128, 256 at 256/256), so bwd_dkdv_wg2 gives
 //    each 64-key tile two warpgroups on wgmma. Warpgroup 0 computes S^T =
 //    K Q^T once, forms P^T, writes it to shared memory (32 f32 a thread, in
 //    the fragment layout the other warpgroup's thread of the same rank
 //    holds, so the exchange is one conflict-free store and load each) and
 //    accumulates dV += P^T dO (64 or 128 f32 a thread); warpgroup 1
 //    computes dP^T = V dO^T, takes P^T across a named barrier, forms dS^T
-//    and accumulates dK += dS^T Q (96 or 128). Six products a tile pair
+//    and accumulates dK += dS^T Q (64, 96 or 128). Six products a tile pair
 //    (S^T, dP^T, dV and dK twice), where the earlier dV and dK passes
 //    issued S^T twice. Every tile is 64 rows, stored as 64-column slabs of
 //    8 KiB in the 128-byte swizzle. The score products are chains of
@@ -87,19 +86,21 @@
 //    two of N = 128, as one of 256 spills), the slabs one descriptor's
 //    leading byte offset apart. Shared memory: K, V, two
 //    stages of Q, dO and their lse and D, the exchange (215 040 bytes at
-//    256/256, 141 312 at 192/128); no instantiation spills.
+//    256/256, 141 312 at 192/128, 115 712 at 128/128); no instantiation
+//    spills.
 //  - Head split: with MQA or few heads, B * KV * key tiles CTAs leave most
 //    of the card idle (paligemma's training shape: 4 * 1 * 8 = 32 on 132
 //    SMs), so a group's G q-heads are split over n_split CTAs (the wrapper's
 //    bwd_head_split: the largest divisor of G that keeps the grid within
-//    the SM count; 4 there, 1 at deepseek-v2's 128 * 32 CTAs). A split CTA
-//    writes f32 partials to a scratch the wrapper allocates, and
-//    bwd_dkdv_reduce sums them in split order: no atomics, fixed bits.
-//  - bwd_dq_wg: dQ on wgmma over Dqk / 64 slabs of accumulators (96 or 128
-//    f32 a thread), one warpgroup per 64 q rows; at 192/128 two warpgroups
-//    (128 q rows) share a CTA's K/V ring, at 256/256 the tiles leave room
-//    for one (197 632 bytes). A warpgroup skips the key tiles none of its
-//    rows sees.
+//    the SM count; 4 there, 1 at deepseek-v2's 128 * 32 CTAs and at the
+//    dense configs' 2048 or more). A split CTA writes f32 partials to a
+//    scratch the wrapper allocates, and bwd_dkdv_reduce sums them in split
+//    order: no atomics, fixed bits.
+//  - bwd_dq_wg: dQ on wgmma over Dqk / 64 slabs of accumulators (64, 96 or
+//    128 f32 a thread), one warpgroup per 64 q rows; at 128/128 and 192/128
+//    two warpgroups (128 q rows) share a CTA's K/V ring, at 256/256 the
+//    tiles leave room for one (197 632 bytes). A warpgroup skips the key
+//    tiles none of its rows sees.
 //  - Design choices the card settled, in trials at deepseek-v2's shape:
 //    the two dK/dV warpgroups run in lockstep, one CTA-wide barrier
 //    opening each ring stage; letting them run an iteration apart
@@ -128,6 +129,19 @@
 // its softmax, with nothing of its own to overlap them, and the shared
 // memory the m64n64 score products read; a TMA producer with mbarriers
 // and a second score fragment in flight a warpgroup are the next trials.
+//
+// At 128/128 (one chip call, in turns with the replaced mma.sync form, whose
+// streamed tiles held 32 rows so a warp's dK and dV fitted beside its
+// score fragments; device ms at phi4-mini's B=4 H=48 KV=16 S=2048 causal /
+// qwen1.5's H=KV=32, H100 80GB HBM3 at 700 W): this form 3.588 / 2.474
+// (dK/dV 2.319 / 1.597, dQ 1.259 / 0.823), six runs within 1 %;
+// mma.sync 3.681 / 2.502 (dK/dV 2.225 / 1.505, dQ 1.432 / 0.941) and
+// 3.681 / 2.502; SDPA's backward, which rounds P and dS once, 1.349 /
+// 0.861. The gain is dQ's (wgmma over 128 q rows a CTA); the dK/dV launch
+// reads 4-6 % slower than mma.sync's, at 27 % of peak on the products it
+// issues (S^T, dP^T, dV and dK twice: 6.2e11 FLOP at phi4-mini's shape):
+// the two warpgroups' products are a third smaller than at 192/128 while
+// the exchange, barriers and waits a tile pair stay.
 //
 // f32 (the parity path; bwd_dkdv, bwd_dq): FMA tiles on the FP32 pipes, as
 // the forward's f32 form: the tensor cores take no f32 operand that holds a
@@ -516,12 +530,6 @@ __global__ void __launch_bounds__(THREADS) bwd_dq(Params p) {
 constexpr int MMA_THREADS = 128;  // 4 warps (one warpgroup), each 16 rows of the CTA's tile
 constexpr float LOG2E = 1.4426950408889634f;
 
-// rows of a streamed tile: q rows in bwd_dkdv, keys in bwd_dq
-template <int DQK, int DV>
-__host__ __device__ constexpr int stream_rows() {
-  return DQK <= 64 && DV <= 64 ? 64 : 32;
-}
-
 // A bf16 tile's layout in shared memory. For mma.sync (WG false): rows
 // padded by 16 bytes, so each ldmatrix phase reads 8 rows from 8 distinct
 // bank groups. For wgmma (WG, Dh = 64 only): 128-byte rows in the 128-byte
@@ -545,15 +553,14 @@ __device__ __forceinline__ const __nv_bfloat16* at(const unsigned char* tile, in
   return reinterpret_cast<const __nv_bfloat16*>(tile) + r * (DH + 8) + c;
 }
 
-// the fixed 64-row tiles and two stages of the two streamed tiles, one of
-// each pair DQK wide (Q, K) and one DV wide (dO, V); bwd_dkdv adds two
-// stages of the streamed q rows' lse and D, and the swizzled layout 1 KiB
-// of alignment slack
+// the fixed 64-row tiles and two stages of the two streamed 64-row tiles,
+// one of each pair DQK wide (Q, K) and one DV wide (dO, V); bwd_dkdv adds
+// two stages of the streamed q rows' lse and D, and the swizzled layout 1
+// KiB of alignment slack
 template <int DQK, int DV, bool WG>
 constexpr int tc_smem_bytes(bool stats) {
-  constexpr int SR = stream_rows<DQK, DV>();
-  return tile_bytes<DQK, WG>(64) + tile_bytes<DV, WG>(64) + 2 * tile_bytes<DQK, WG>(SR) +
-         2 * tile_bytes<DV, WG>(SR) + (stats ? 4 * SR * 4 : 0) + (WG ? 1024 : 0);
+  return 3 * tile_bytes<DQK, WG>(64) + 3 * tile_bytes<DV, WG>(64) + (stats ? 4 * 64 * 4 : 0) +
+         (WG ? 1024 : 0);
 }
 
 template <bool WG>
@@ -663,18 +670,12 @@ __device__ __forceinline__ void wgmma_split_ab(float (&acc)[8][4], const float (
   tc::wgmma_wait0();
 }
 
-// what a dK/dV CTA computes: dV and dK together (the one form launched;
-// the single-part forms served the wide pairs before bwd_dkdv_wg2)
-constexpr int DKDV_DV = 1, DKDV_DK = 2, DKDV_BOTH = 3;
-
 // Q and K rows are DQK wide, dO and V rows DV wide; S^T and dK take the
 // DQK dims, dP^T and dV the DV dims
-template <int DQK, int DV, bool WG, int PART>
-__device__ __forceinline__ void dkdv_mma_body(const Params& p) {
+template <int DQK, int DV, bool WG>
+__global__ void __launch_bounds__(MMA_THREADS) bwd_dkdv_mma(Params p) {
   using bf16 = __nv_bfloat16;
-  constexpr bool DO_DV = PART & DKDV_DV, DO_DK = PART & DKDV_DK;
-  static_assert(!WG || PART == DKDV_BOTH, "the wgmma form computes dV and dK together");
-  constexpr int QN = stream_rows<DQK, DV>();  // q rows of a streamed tile
+  constexpr int QN = BQ;                      // q rows of a streamed tile
   constexpr int NQ = QN / 8;                  // n-tiles of S^T (q columns)
   constexpr int NK = DQK / 8, NV = DV / 8;    // n-tiles of dK and of dV
   constexpr int TK = tile_bytes<DQK, WG>(BK), TV = tile_bytes<DV, WG>(BK);
@@ -695,9 +696,8 @@ __device__ __forceinline__ void dkdv_mma_body(const Params& p) {
 
   cp_rows<DQK, WG>(k_s, static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h, p.sk.s, k0,
                    BK, p.Sk);
-  if constexpr (DO_DK)  // dV's pass reads no V
-    cp_rows<DV, WG>(v_s, static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h, p.sv.s, k0,
-                    BK, p.Sk);
+  cp_rows<DV, WG>(v_s, static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h, p.sv.s, k0,
+                  BK, p.Sk);
 
   // the q rows that can see a key of this tile: causal q >= k0, every q
   // from 0 when the tile starts inside the prefix span; window q < k_last +
@@ -722,7 +722,7 @@ __device__ __forceinline__ void dkdv_mma_body(const Params& p) {
       const int qi = q0 + r;
       const long long at_ = row + min(qi, p.Sq - 1);
       tc::cp_async4(lse_s + stage * QN + r, p.lse + at_, qi < p.Sq);
-      if constexpr (DO_DK) tc::cp_async4(dl_s + stage * QN + r, p.delta + at_, qi < p.Sq);
+      tc::cp_async4(dl_s + stage * QN + r, p.delta + at_, qi < p.Sq);
     }
   };
   if (n_it > 0) load_q(0, 0);
@@ -730,14 +730,13 @@ __device__ __forceinline__ void dkdv_mma_body(const Params& p) {
 
   const float sl2 = p.scale * LOG2E;  // P = 2^(S * scale * log2(e) - lse * log2(e))
   const int kr = k0 + 16 * warp + (lane >> 2);  // this lane's keys: kr and kr + 8
-  // a pass's unused accumulator shrinks to one n-tile, zeroed and never read
-  float dk[DO_DK ? NK : 1][4], dv[DO_DV ? NV : 1][4];
+  float dk[NK][4], dv[NV][4];
 #pragma unroll
-  for (int n = 0; n < (DO_DK ? NK : 1); ++n)
+  for (int n = 0; n < NK; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = 0.f;
 #pragma unroll
-  for (int n = 0; n < (DO_DV ? NV : 1); ++n)
+  for (int n = 0; n < NV; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dv[n][e] = 0.f;
 
@@ -761,7 +760,7 @@ __device__ __forceinline__ void dkdv_mma_body(const Params& p) {
                  tc::sw128_desc(ds));
     } else {
       mma_abt<DQK, QN>(s, k_s, 16 * warp, qs, lane);
-      if constexpr (DO_DK) mma_abt<DV, QN>(dp, v_s, 16 * warp, ds, lane);
+      mma_abt<DV, QN>(dp, v_s, 16 * warp, ds, lane);
     }
 
     // P^T and dS^T in place, f32; only tiles at the diagonal (past the
@@ -780,7 +779,7 @@ __device__ __forceinline__ void dkdv_mma_body(const Params& p) {
         float pr = exp2_ftz(s[n][e] * sl2 - ((e & 1) ? l.y : l.x) * LOG2E);
         if (edge && !(qi < p.Sq && visible(p, k_valid, qi, kj))) pr = 0.f;
         s[n][e] = pr;
-        if constexpr (DO_DK) dp[n][e] = pr * (dp[n][e] - ((e & 1) ? d.y : d.x));
+        dp[n][e] = pr * (dp[n][e] - ((e & 1) ? d.y : d.x));
       }
     }
 
@@ -789,8 +788,8 @@ __device__ __forceinline__ void dkdv_mma_body(const Params& p) {
       wgmma_split_ab(dv, s, tc::sw128_desc(ds));
       wgmma_split_ab(dk, dp, tc::sw128_desc(qs));
     } else {
-      if constexpr (DO_DV) mma_split_ab<DV, QN>(dv, s, ds, lane);
-      if constexpr (DO_DK) mma_split_ab<DQK, QN>(dk, dp, qs, lane);
+      mma_split_ab<DV, QN>(dv, s, ds, lane);
+      mma_split_ab<DQK, QN>(dk, dp, qs, lane);
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
@@ -802,30 +801,21 @@ __device__ __forceinline__ void dkdv_mma_body(const Params& p) {
   for (int i = 0; i < 2; ++i) {
     const int kj = kr + 8 * i;
     if (kj >= p.Sk) continue;
-    if constexpr (DO_DK) {
 #pragma unroll
-      for (int n = 0; n < NK; ++n)
-        *reinterpret_cast<uint32_t*>(dkg + kj * p.sdk.s + 8 * n + 2 * t) =
-            tc::pack_bf16(dk[n][2 * i] * p.scale, dk[n][2 * i + 1] * p.scale);
-    }
-    if constexpr (DO_DV) {
+    for (int n = 0; n < NK; ++n)
+      *reinterpret_cast<uint32_t*>(dkg + kj * p.sdk.s + 8 * n + 2 * t) =
+          tc::pack_bf16(dk[n][2 * i] * p.scale, dk[n][2 * i + 1] * p.scale);
 #pragma unroll
-      for (int n = 0; n < NV; ++n)
-        *reinterpret_cast<uint32_t*>(dvg + kj * p.sdv.s + 8 * n + 2 * t) =
-            tc::pack_bf16(dv[n][2 * i], dv[n][2 * i + 1]);
-    }
+    for (int n = 0; n < NV; ++n)
+      *reinterpret_cast<uint32_t*>(dvg + kj * p.sdv.s + 8 * n + 2 * t) =
+          tc::pack_bf16(dv[n][2 * i], dv[n][2 * i + 1]);
   }
-}
-
-template <int DQK, int DV, bool WG>
-__global__ void __launch_bounds__(MMA_THREADS) bwd_dkdv_mma(Params p) {
-  dkdv_mma_body<DQK, DV, WG, DKDV_BOTH>(p);
 }
 
 template <int DQK, int DV, bool WG>
 __global__ void __launch_bounds__(MMA_THREADS) bwd_dq_mma(Params p) {
   using bf16 = __nv_bfloat16;
-  constexpr int KN = stream_rows<DQK, DV>();  // keys of a streamed tile
+  constexpr int KN = BK;                      // keys of a streamed tile
   constexpr int NK = KN / 8;                  // n-tiles of S (keys)
   constexpr int ND = DQK / 8;                 // n-tiles of dQ
   constexpr int TQ = tile_bytes<DQK, WG>(BQ), TO = tile_bytes<DV, WG>(BQ);
@@ -1040,7 +1030,7 @@ __device__ __forceinline__ void dkdv_wide_role(const Params& p, unsigned char* k
   tc::cp_slabs<DV, NT>(v_s, static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h,
                        p.sv.s, k0, p.Sk);
 
-  // the q rows that can see a key of this tile, as in dkdv_mma_body; the
+  // the q rows that can see a key of this tile, as in bwd_dkdv_mma; the
   // CTA walks n_q q tiles for each of its GS q-heads
   const int q_lo = p.causal && k0 >= p.prefix_len ? k0 : 0;
   int q_hi = p.Sq;
@@ -1384,10 +1374,10 @@ cudaError_t launch(const Params& p, int device, cudaStream_t stream) {
     err = launch_one(bwd_dkdv<DQK, DV>, dkdv_grid, THREADS, smem, device, set_dkdv, stream, p);
     if (err != cudaSuccess) return err;
     return launch_one(bwd_dq<DQK, DV>, dq_grid, THREADS, smem, device, set_dq, stream, p);
-  } else if constexpr (DQK == 256 || DQK != DV) {
-    // 256/256 and 192/128: two warpgroups a dK/dV CTA sharing S^T, the
-    // group's q-heads split over n_split CTAs (then a reduce launch), and
-    // dQ on QW warpgroups
+  } else if constexpr (DQK >= 128) {
+    // 128/128, 192/128 and 256/256: two warpgroups a dK/dV CTA sharing S^T,
+    // the group's q-heads split over n_split CTAs (then a reduce launch),
+    // and dQ on QW warpgroups
     constexpr int QW = wide_dq_warpgroups<DQK, DV>();
     err = launch_one(bwd_dkdv_wg2<DQK, DV>, dim3(p.B * p.KV * p.n_split, k_tiles),
                      WIDE_DKDV_THREADS, wide_dkdv_smem<DQK, DV>(), device, set_dkdv, stream, p);
@@ -1400,8 +1390,8 @@ cudaError_t launch(const Params& p, int device, cudaStream_t stream) {
     return launch_one(bwd_dq_wg<DQK, DV, QW>, dim3(p.B * p.H, (p.Sq + BQ * QW - 1) / (BQ * QW)),
                       128 * QW, wide_dq_smem<DQK, DV, QW>(), device, set_dq, stream, p);
   } else {
-    // wgmma at head dim 64, mma.sync at 32 and 128
-    constexpr bool WG = DQK == 64 && DV == 64;
+    // wgmma at head dim 64, mma.sync at 32
+    constexpr bool WG = DQK == 64;
     constexpr int smem_kv = tc_smem_bytes<DQK, DV, WG>(true);
     constexpr int smem_q = tc_smem_bytes<DQK, DV, WG>(false);
     err = launch_one(bwd_dkdv_mma<DQK, DV, WG>, dkdv_grid, MMA_THREADS, smem_kv, device, set_dkdv,
@@ -1450,10 +1440,11 @@ struct DeviceScope {
 // contiguous. lse is the
 // forward's (B, H, Sq) f32 output and delta a (B, H, Sq) f32 scratch. With
 // `causal`, keys at positions below `prefix_len` (0: none) are visible to
-// every query, as in the forward. `n_split`: in bf16 at (192, 128) and
-// (256, 256), the CTAs each kv-head's H / KV q-heads are split over (a
-// divisor of H / KV), and with n_split > 1 `part` an f32 scratch of
-// n_split * B * KV * Sk * (Dqk + Dv) values; elsewhere 1. Launches the
+// every query, as in the forward. `n_split`: in bf16 at (128, 128),
+// (192, 128) and (256, 256), the CTAs each kv-head's H / KV q-heads are
+// split over (a divisor of H / KV), and with n_split > 1 `part` an f32
+// scratch of n_split * B * KV * Sk * (Dqk + Dv) values; elsewhere 1.
+// Launches the
 // kernels (preprocess, dK/dV, the reduce with n_split > 1, dQ) on `stream`
 // of `device` (made the thread's current device for the call, then
 // restored). Returns the first launch's error that is not cudaSuccess.
@@ -1466,7 +1457,7 @@ extern "C" int flash_attention_bwd(
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Sk < 1 || prefix_len < 0 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const bool wide = dtype == 1 && ((Dqk == 192 && Dv == 128) || (Dqk == 256 && Dv == 256));
+  const bool wide = dtype == 1 && Dqk >= 128;
   if (n_split < 1 || (H / KV) % n_split != 0 || (n_split > 1 && (!wide || !part)))
     return (int)cudaErrorInvalidValue;
   if (device < 0 || device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;

@@ -69,14 +69,14 @@ HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128), (192, 128), (256, 256))
 # the backward's: Dqk = Dv in HEAD_DIMS, and MLA's 192/128
 BWD_HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 # the wide pairs, whose bf16 forward is "wgmma-wide" and backward
-# "wgmma-split-2wg"
-WIDE_PAIRS = ((192, 128), (256, 256))
+# "wgmma-split-2wg": every pair with a head dim of 128 or more
+WIDE_PAIRS = ((128, 128), (192, 128), (256, 256))
 
 
 def design(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = None) -> str:
     """The kernel design a launch of this dtype and (query/key, value) head
     dims runs, as ``csrc/flash_attention.cu`` names them: bf16 on ``wgmma``
-    at 64/64, on ``mma.sync`` at 32/32 and 128/128, and at the wide pairs
+    at 64/64, on ``mma.sync`` at 32/32, and at the wide pairs 128/128,
     192/128 (MLA: Q·Kᵀ 192 deep, the output 128 wide) and 256/256
     (:data:`WIDE_PAIRS`) "wgmma-wide": a producer warpgroup copying Q and
     64-key K and V tiles by TMA into a ring of 64-column swizzled slabs,
@@ -97,7 +97,7 @@ def design_bwd(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = No
     """The backward's design for this dtype and (query/key, value) head
     dims, as ``csrc/flash_attention_bwd.cu`` names them: bf16 on the tensor
     cores with P and dS split into hi + lo bf16 parts, on ``wgmma`` at head
-    dim 64 and ``mma.sync`` at 32 and 128; at the wide pairs 256/256 and
+    dim 64 and ``mma.sync`` at 32; at the wide pairs 128/128, 256/256 and
     MLA's 192/128 (:data:`WIDE_PAIRS`) "wgmma-split-2wg": a dK/dV CTA of
     two warpgroups on ``wgmma``, one computing Sᵀ once, forming Pᵀ and
     accumulating dV, the other taking Pᵀ through shared memory and

@@ -110,3 +110,49 @@ def test_the_build_gate_reads_k1s_four_wide_instantiations(monkeypatch):
         "flash_fwd_f32<256,256>": {"registers": 128, "spill_stores": 0, "spill_loads": 0},
     }
 
+
+
+def _report(namespace: str, kernels) -> list:
+    prefix = f"_ZN{len(namespace)}{namespace}"
+    lines = ["ptxas info    : 0 bytes gmem"]
+    for name, regs, spill in kernels:
+        lines += [f"ptxas info    : Compiling entry function '{prefix}{name}' for 'sm_90a'",
+                  f"0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads",
+                  f"ptxas info    : Used {regs} registers, used 1 barriers"]
+    return lines
+
+
+def test_the_build_gate_reads_the_128_128_instantiations(monkeypatch):
+    """``chip_smoke.py``'s build gate at 128/128 takes K1's ``flash_fwd_wide``
+    and ``flash_fwd_f32`` there and K1-bwd's seven (the preprocess, which
+    192/128 shares, in both dtypes; f32 dK/dV and dQ; the bf16 two-warpgroup
+    dK/dV, its reduce and dQ), and none at another pair."""
+    fwd = (("14flash_fwd_wideILi128ELi128EEEvNS_8WideMapsENS_6ParamsE", 200, 0),
+           ("13flash_fwd_f32ILi128ELi128EEEvNS_6ParamsE", 128, 0),
+           ("14flash_fwd_wideILi192ELi128EEEvNS_8WideMapsENS_6ParamsE", 230, 0),
+           ("15flash_fwd_wgmmaILi64EEEvNS_6ParamsE", 126, 0))
+    bwd = (("14bwd_preprocessI13__nv_bfloat16Li128EEEvNS_6ParamsE", 30, 0),
+           ("14bwd_preprocessIfLi128EEEvNS_6ParamsE", 30, 0),
+           ("14bwd_preprocessIfLi64EEEvNS_6ParamsE", 30, 0),
+           ("8bwd_dkdvILi128ELi128EEEvNS_6ParamsE", 128, 0),
+           ("6bwd_dqILi128ELi128EEEvNS_6ParamsE", 128, 0),
+           ("12bwd_dkdv_wg2ILi128ELi128EEEvNS_6ParamsE", 200, 0),
+           ("15bwd_dkdv_reduceILi128ELi128EEEvNS_6ParamsE", 32, 0),
+           ("9bwd_dq_wgILi128ELi128ELi2EEEvNS_6ParamsE", 180, 4),
+           ("12bwd_dkdv_wg2ILi192ELi128EEEvNS_6ParamsE", 190, 0),
+           ("12bwd_dkdv_mmaILi64ELi64ELb1EEEvNS_6ParamsE", 150, 0))
+    monkeypatch.setattr(build, "build_log", {
+        "flash_attention": {"ptxas": _report("_GLOBAL__N__04cf38d3_18_flash_attention_cu_2c138979",
+                                             fwd)},
+        "flash_attention_bwd": {"ptxas": _report(
+            "_GLOBAL__N__5e1f7a20_22_flash_attention_bwd_cu_9d0b4c11", bwd)}})
+    got = _chip_smoke()._dh128_resources(build)
+    assert got["flash_attention"] == {
+        "flash_fwd_wide<128,128>": {"registers": 200, "spill_stores": 0, "spill_loads": 0},
+        "flash_fwd_f32<128,128>": {"registers": 128, "spill_stores": 0, "spill_loads": 0},
+    }
+    assert sorted(got["flash_attention_bwd"]) == sorted([
+        "bwd_preprocess<bf16,128>", "bwd_preprocess<float,128>", "bwd_dkdv<128,128>",
+        "bwd_dq<128,128>", "bwd_dkdv_wg2<128,128>", "bwd_dkdv_reduce<128,128>",
+        "bwd_dq_wg<128,128,2>"])
+    assert got["flash_attention_bwd"]["bwd_dq_wg<128,128,2>"]["spill_stores"] == 4

@@ -334,13 +334,27 @@ def test_split_parts_carry_sixteen_bits():
 
 def test_backward_design_names():
     assert tfa.design_bwd(torch.float32, 64) == "fma-f32"
+    assert tfa.design_bwd(torch.float32, 128) == "fma-f32"
     assert tfa.design_bwd(torch.bfloat16, 64) == "wgmma-split"
-    for dh in (32, 128):
-        assert tfa.design_bwd(torch.bfloat16, dh) == "mma.sync-split"
-    assert tfa.design_bwd(torch.bfloat16, 256) == "wgmma-split-2wg"
-    assert tfa.design_bwd(torch.bfloat16, 192, 128) == "wgmma-split-2wg"
+    assert tfa.design_bwd(torch.bfloat16, 32) == "mma.sync-split"
+    for dqk, dv in ((128, 128), (256, 256), (192, 128)):
+        assert tfa.design_bwd(torch.bfloat16, dqk, dv) == "wgmma-split-2wg"
     with pytest.raises(ValueError, match="head_dim"):
         tfa.design_bwd(torch.bfloat16, 96)
+
+
+def test_forward_design_names():
+    """bf16 on wgmma at 64/64, on mma.sync at 32/32, "wgmma-wide" at every
+    pair of head dim 128 or more (the wide pairs); f32 on FMA tiles."""
+    assert tfa.design(torch.bfloat16, 64) == "wgmma"
+    assert tfa.design(torch.bfloat16, 32) == "mma.sync"
+    assert tfa.WIDE_PAIRS == ((128, 128), (192, 128), (256, 256))
+    for dqk, dv in tfa.WIDE_PAIRS:
+        assert tfa.design(torch.bfloat16, dqk, dv) == "wgmma-wide"
+    for dqk, dv in tfa.HEAD_DIM_PAIRS:
+        assert tfa.design(torch.float32, dqk, dv) == "fma-f32"
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.design(torch.bfloat16, 128, 192)
 
 
 def test_rows_16_byte_aligned_reads_address_and_strides():

@@ -241,11 +241,17 @@ def test_flash_attention_at_192_128_with_a_prefix_trains_through_both_kernels_on
 
 
 # K1's wide pairs in bf16 ("wgmma-wide": two warpgroups a CTA, 64 q rows
-# each, one 64-key K/V ring): ragged S (257, 300, 320), k_len, GQA and MQA,
-# non-causal, a window, and the prefix span at 0, 1, 63, 64, 65 and S
-# (FLASH_256_PREFIXES) at both pairs; (B, H, KV, Sq, Sk, Dqk, causal,
-# window, k_len, Dv[, prefix_len])
+# each, one 64-key K/V ring): ragged S (257, 300, 320, 445), k_len, GQA and
+# MQA, non-causal, a window, and the prefix span at 0, 1, 63, 64, 65 and S
+# (FLASH_256_PREFIXES) at each pair; at 128/128 the head layouts of
+# phi4-mini, qwen1.5 and deepseek-coder (GQA groups 3, 1 and 7); (B, H, KV,
+# Sq, Sk, Dqk, causal, window, k_len, Dv[, prefix_len])
 FWD_WIDE = {
+    "128/128 G=3 ragged S=445": (1, 6, 2, 445, 445, 128, True, None, None, 128),
+    "128/128 G=1 B=2 S=257 k_len 200": (2, 4, 4, 257, 257, 128, True, None, 200, 128),
+    "128/128 G=7 ragged S=300": (1, 14, 2, 300, 300, 128, True, None, None, 128),
+    "128/128 G=3 window 33 S=161": (1, 6, 2, 161, 161, 128, True, 33, None, 128),
+    "128/128 G=1 non-causal Sq=100 Sk=333": (1, 4, 4, 100, 333, 128, False, None, None, 128),
     "192/128 MHA B=2 ragged S=257": (2, 4, 4, 257, 257, 192, True, None, None, 128),
     "192/128 GQA ragged S=300": (1, 8, 2, 300, 300, 192, True, None, None, 128),
     "192/128 MQA S=320 k_len 200": (1, 8, 1, 320, 320, 192, True, None, 200, 128),
@@ -256,7 +262,15 @@ FWD_WIDE = {
     "256 MHA window 33 S=300": (1, 4, 4, 300, 300, 256, True, 33, None, 256),
     **{f"{dqk}/{dv} MQA S=320 prefix {'S' if span is None else span}":
        (1, 8, 1, 320, 320, dqk, True, None, None, dv, 320 if span is None else span)
-       for dqk, dv in ((192, 128), (256, 256)) for span in FLASH_256_PREFIXES},
+       for dqk, dv in ((192, 128), (256, 256), (128, 128)) for span in FLASH_256_PREFIXES},
+}
+# the wide pairs' train cells' shapes: deepseek-v2's B=1 H=KV=128 S=2048,
+# paligemma's B=4 H=8 KV=1 S=512 under its 256-token prefix span, and
+# phi4-mini's B=4 H=48 KV=16 S=2048 (its KV heads padded 8 -> 16)
+WIDE_TRAIN = {
+    (192, 128): (1, 128, 128, 2048, 2048, 192, True, None, None, 128),
+    (256, 256): (4, 8, 1, 512, 512, 256, True, None, None, 256, 256),
+    (128, 128): (4, 48, 16, 2048, 2048, 128, True, None, None, 128),
 }
 
 
@@ -293,15 +307,13 @@ def test_flash_wide_forward_matches_plain_version_on_card(name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dqk,dv", [(192, 128), (256, 256)])
+@pytest.mark.parametrize("dqk,dv", [(192, 128), (256, 256), (128, 128)])
 def test_flash_wide_forward_is_bitwise_repeatable_at_the_train_shapes_on_card(dqk, dv):
-    """At the train cells' own shapes (deepseek-v2's B=1 H=KV=128 S=2048
-    causal; paligemma's B=4 H=8 KV=1 S=512 under its 256-token prefix
-    span), two forward launches give the same output and lse bit for bit,
-    the output within 2e-2 of the plain version."""
+    """At the train cells' own shapes (:data:`WIDE_TRAIN`), two forward
+    launches give the same output and lse bit for bit, the output within
+    2e-2 of the plain version."""
     dev = _cuda()
-    case = ((1, 128, 128, 2048, 2048, 192, True, None, None, 128) if dqk == 192
-            else (4, 8, 1, 512, 512, 256, True, None, None, 256, 256))
+    case = WIDE_TRAIN[(dqk, dv)]
     (q, k, v, o, lse, _do), mask = _bwd_inputs(dev, np.random.default_rng(45), torch.bfloat16,
                                                case)
     with torch.no_grad():
@@ -723,7 +735,7 @@ def test_flash_bwd_bf16_design_holds_the_ulp_gate_on_card():
     dev = _cuda()
     rng = np.random.default_rng(13)
     for name, case in {**SWEEP, **FLASH_EDGES, **BWD_EDGES}.items():
-        assert tfa.design_bwd(torch.bfloat16, case[5]).endswith("-split")
+        assert "-split" in tfa.design_bwd(torch.bfloat16, case[5])
         args, mask = _bwd_inputs(dev, rng, torch.bfloat16, case)
         got = tfa.flash_attention_bwd(*args, bshd=True, **mask)
         q, k, v, o, lse, do = args
@@ -880,10 +892,18 @@ def test_flash_bwd_at_256_is_bitwise_repeatable_on_card(dtype):
 
 # K1-bwd's wide pairs in bf16 ("wgmma-split-2wg"), the q-head split
 # engaged (paligemma's training shape, B=1 MQA, GQA) and not (many
-# kv-heads), with ragged Sq and Sk, a prefix span that ends inside a key
-# tile, a window and k_len; (B, H, KV, Sq, Sk, Dqk, causal, window, k_len,
-# Dv, prefix_len)
+# kv-heads, or one q-head a kv-head), with ragged Sq and Sk, a prefix span
+# that ends inside a key tile, a window and k_len; at 128/128 the head
+# layouts of phi4-mini, qwen1.5 and deepseek-coder (GQA groups 3, 1, 7);
+# (B, H, KV, Sq, Sk, Dqk, causal, window, k_len, Dv, prefix_len)
 BWD_WIDE = {
+    "128/128 G=3 ragged S=445": (1, 6, 2, 445, 445, 128, True, None, None, 128),
+    "128/128 unsplit G=1 B=2 S=257 k_len 200": (2, 4, 4, 257, 257, 128, True, None, 200, 128),
+    "128/128 G=7 window 77 S=300": (1, 14, 2, 300, 300, 128, True, 77, None, 128),
+    "128/128 unsplit phi4 heads H=48 KV=16 S=512": (1, 48, 16, 512, 512, 128, True, None, None,
+                                                    128),
+    "128/128 G=3 prefix 100 S=257": (1, 6, 2, 257, 257, 128, True, None, None, 128, 100),
+    "128/128 MQA Sq=100 Sk=333 bidirectional": (1, 4, 1, 100, 333, 128, False, None, None, 128),
     "paligemma train B=4 MQA S=512 prefix 256": (4, 8, 1, 512, 512, 256, True, None, None, 256,
                                                  256),
     "256 B=1 MQA S=300 prefix 100": (1, 8, 1, 300, 300, 256, True, None, None, 256, 100),
@@ -930,14 +950,13 @@ def test_flash_bwd_wide_pairs_with_and_without_the_head_split_on_card(name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dqk,dv", [(192, 128), (256, 256)])
+@pytest.mark.parametrize("dqk,dv", [(192, 128), (256, 256), (128, 128)])
 def test_flash_bwd_wide_pairs_are_bitwise_repeatable_at_the_train_shapes_on_card(dqk, dv):
-    """At the train cells' own shapes (deepseek-v2's B=1 H=KV=128 S=2048,
-    unsplit; paligemma's B=4 H=8 KV=1 S=512 under its prefix span, split),
-    two launches give the same gradients bit for bit."""
+    """At the train cells' own shapes (:data:`WIDE_TRAIN`: deepseek-v2's
+    and phi4-mini's unsplit, paligemma's split), two launches give the
+    same gradients bit for bit."""
     dev = _cuda()
-    case = ((1, 128, 128, 2048, 2048, 192, True, None, None, 128) if dqk == 192
-            else (4, 8, 1, 512, 512, 256, True, None, None, 256, 256))
+    case = WIDE_TRAIN[(dqk, dv)]
     args, mask = _bwd_inputs(dev, np.random.default_rng(43), torch.bfloat16, case)
     first = tfa.flash_attention_bwd(*args, bshd=True, **mask)
     again = tfa.flash_attention_bwd(*args, bshd=True, **mask)

@@ -60,7 +60,7 @@ def test_the_backward_design_at_192_128():
     assert tfa.design_bwd(torch.bfloat16, 192, 128) == "wgmma-split-2wg"
     assert tfa.design_bwd(torch.float32, 192, 128) == "fma-f32"
     assert tfa.design_bwd(torch.bfloat16, 256) == "wgmma-split-2wg"
-    assert tfa.WIDE_PAIRS == ((192, 128), (256, 256))
+    assert tfa.WIDE_PAIRS == ((128, 128), (192, 128), (256, 256))
     with pytest.raises(ValueError, match="head_dim"):
         tfa.design_bwd(torch.bfloat16, 128, 192)
     # deepseek-v2's training attention (B=1, 128 kv-heads of one q-head,
