@@ -49,8 +49,9 @@ It then serves eight full-width models (random weights from seed 0) through
 attention prefill), mamba2-1.3b (SSD prefill), hymba-1.5b (both),
 granite-moe-1b-a400m (MoE, KV heads zero-padded to 16), deepseek-v2-236b
 (MLA and MoE, its depth cut to 2 layers in f32 and 9 in bf16, printed as
-``reduced``), phi4-mini-3.8b and qwen1.5-4b (K1 at 128/128, full depth)
-and deepseek-coder-33b (2 layers in f32, in bf16 the depth of the dry
+``reduced``), phi4-mini-3.8b and qwen1.5-4b (K1 at 128/128, full depth
+in bf16; their f32 gates, and granite-moe's, at 8 layers, printed as
+``reduced``) and deepseek-coder-33b (2 layers in f32, in bf16 the depth of the dry
 run's serve plan: the deepest whose predicted peak, a B=4 prefill at 512
 beside the engine's caches, leaves 10 GB of the card free). The engine
 runs every decode tick, and the bucketed prefills of all but mamba2 and
@@ -112,9 +113,14 @@ sharded f32 train step of tinyllama (B=1, S=256) against the single-device
 Trainer step (1e-5 scaled), granite-moe's expert-parallel step at capacity
 E/K against ``moe_dense``'s (1e-4), tinyllama trained in bf16 at the train
 cell's shape through ``Trainer(mesh=)`` (K1 44 and K1-bwd 22 launches a
-step, as on one device; a traced sharded step beside a traced
-single-device one) and 16 greedy tokens through the sharded prefill and
-decode step, equal to ``Model.prefill``/``decode_step``'s. Then the
+step, as on one device), its steps one CUDA graph (the sharded step's,
+``parallel.steps``) held bit for bit against the eager sharded body on a
+fresh state, with at most 6 host launches a replayed step (a
+``train_graph`` line, as the train cells'), and 16 greedy tokens through
+the sharded prefill and decode step, by their eager bodies and by their
+graphs (bit for bit), equal to ``Model.prefill``/``decode_step``'s. The
+families (``parallel_families``) the same way on the mesh of one, depth
+cut. Then the
 pipeline (``repro_torch.parallel.pipeline``, its tick table simulated by
 the paper's scheduler) on a ("pod",) mesh of one rank over NCCL:
 tinyllama's 22 decoder layers as the stage, the embedding before it and
@@ -181,17 +187,24 @@ PEAK_BYTES = 3.35e12
 # (kv_pad_to): phi4-mini-3.8b (48/16 heads, tied head) and qwen1.5-4b
 # (32/32, QKV biases) at full depth, deepseek-coder-33b (112/16) in f32 at
 # 2 layers and in bf16 at the dry run's depth (SERVE_PLANNED: its 62
-# layers' weights alone are 81.25 GB)
+# layers' weights alone are 81.25 GB). granite-moe's, phi4-mini's and
+# qwen1.5's f32 gates (engine tokens against sequential decode) run at
+# F32_GATE_LAYERS of their repeated layers, to keep the script inside its
+# time limit; their bf16 runs keep the full depth
+F32_GATE_LAYERS = 8
 BUCKETED = dict(max_slots=4, max_len=1024, page_size=64, prefill_buckets=(128, 256, 512))
 PATHS = (
     ("tinyllama-1.1b", BUCKETED, ("flash_attention",), None),
     ("mamba2-1.3b", dict(max_slots=4, max_len=1024, page_size=64), ("ssd",), None),
     ("hymba-1.5b", dict(max_slots=4, max_len=2048, page_size=64), ("flash_attention", "ssd"),
      None),
-    ("granite-moe-1b-a400m", BUCKETED, ("flash_attention",), None),
+    ("granite-moe-1b-a400m", BUCKETED, ("flash_attention",),
+     {"float32": F32_GATE_LAYERS, "bfloat16": None}),
     ("deepseek-v2-236b", BUCKETED, ("flash_attention",), {"float32": 2, "bfloat16": 9}),
-    ("phi4-mini-3.8b", BUCKETED, ("flash_attention",), None),
-    ("qwen1.5-4b", BUCKETED, ("flash_attention",), None),
+    ("phi4-mini-3.8b", BUCKETED, ("flash_attention",),
+     {"float32": F32_GATE_LAYERS, "bfloat16": None}),
+    ("qwen1.5-4b", BUCKETED, ("flash_attention",),
+     {"float32": F32_GATE_LAYERS, "bfloat16": None}),
     # the bf16 depth from the dry run's serve plan (SERVE_PLANNED)
     ("deepseek-coder-33b", BUCKETED, ("flash_attention",), {"float32": 2, "bfloat16": None}),
 )
@@ -1371,10 +1384,13 @@ def phase_ssd_kernels() -> dict:
             worst, worst_scaled = max(worst, *errs), max(worst_scaled, *scaled)
 
     timings = {}
+    # the prefill shapes, and the training ones (SSD_TRAIN) the train
+    # steps launch K2 at
     for label, B, S, H, P, N, chunk in (
         ("mamba2 S=512", 1, 512, 64, 64, 128, 256),
         ("mamba2 S=1024", 1, 1024, 64, 64, 128, 256),
         ("hymba S=512", 1, 512, 25, 64, 16, 64),
+        *SSD_TRAIN,
     ):
         x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, bf16, 300 + S)
         kw = dict(chunk=chunk, return_final_state=True)
@@ -1931,13 +1947,16 @@ def _check_graph_replays(arch: str, dtype: str, stats: dict, requests: int,
 
 def _reduced(arch: str, depth, dtype: str) -> dict:
     """What a serve run cut from the full config, for its lines: {} at full
-    depth."""
-    if depth is None:
+    depth (no ``depth``, or None for ``dtype``)."""
+    run = (depth or {}).get(dtype)
+    if run is None:
         return {}
     from repro_torch.configs import get_config
 
-    return {"num_layers": {"full": get_config(arch).num_layers, "run": depth[dtype],
-                           "why": "the depth one 80 GB card holds at full width"}}
+    why = ("the f32 gate's depth, cut to keep the script inside its time limit"
+           if dtype == "float32" and run == F32_GATE_LAYERS
+           else "the depth one 80 GB card holds at full width")
+    return {"num_layers": {"full": get_config(arch).num_layers, "run": run, "why": why}}
 
 
 def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple, depth=None) -> dict:
@@ -1952,8 +1971,8 @@ def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple, depth=None) -> d
     full = get_config(arch)
 
     def config(dtype):
-        cut = {} if depth is None else {"num_layers": depth[dtype]}
-        return full.replace(dtype=dtype, **cut)
+        layers = (depth or {}).get(dtype)
+        return full.replace(dtype=dtype, **({} if layers is None else {"num_layers": layers}))
 
     prompts = _prompts(full.vocab_size)
     emit("serve", arch=arch, **_release_device_memory())
@@ -2405,30 +2424,37 @@ def _state_digests(state: dict):
     return torch.stack(out).cpu()
 
 
-def _eager_reference(tr, steps: int) -> dict:
-    """The eager loop the train graph is held against: ``steps`` eager
-    ``Trainer.train_step``s of a fresh state on the run's batches (the
-    device drained before and after each, for its step time), one more
-    under the profiler, and the state's digests after it; the state is
-    freed before the graph's run takes the card."""
-    import torch
-
+def _trainer_steps(tr) -> tuple:
+    """A Trainer's (init, step, batch) for :func:`_eager_reference`: a fresh
+    state, its eager ``train_step`` and the run's batch of a step."""
     from repro_torch.data import to_device
 
+    return tr.init_state, tr.train_step, lambda step: to_device(tr.data.batch(step), tr.device)
+
+
+def _eager_reference(steps: int, init, train_step, batch_of) -> dict:
+    """The eager loop a train graph is held against: ``steps`` eager steps
+    (``train_step(state, batch, step)``, its metrics) of a fresh state
+    (``init()``) on the run's batches (``batch_of(step)``; the device
+    drained before and after each, for its step time), one more under the
+    profiler, and the state's digests after it; the state is freed before
+    the graph's run takes the card."""
+    import torch
+
     torch.cuda.reset_peak_memory_stats()
-    state = tr.init_state()
+    state = init()
     rows, steps_s = [], []
     for step in range(steps):
-        batch = to_device(tr.data.batch(step), tr.device)
+        batch = batch_of(step)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        met = tr.train_step(state, batch, step)
+        met = train_step(state, batch, step)
         rows.append({k: float(v) for k, v in met.items()})  # waits for the device
         steps_s.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
     peak_reserved = torch.cuda.max_memory_reserved()
-    batch = to_device(tr.data.batch(steps), tr.device)
-    trace = _traced(lambda: tr.train_step(state, batch, steps), top=6)
+    batch = batch_of(steps)
+    trace = _traced(lambda: train_step(state, batch, steps), top=6)
     digests = _state_digests(state)
     del state, batch
     _release_device_memory()
@@ -2522,7 +2548,7 @@ def phase_train(arch: str, steps: int) -> dict:
     tr = Trainer(cfg, tcfg, str(ckpt_dir), device="cuda:0", data_source=data)
     try:
         counters = _train_counters()
-        eager = _eager_reference(tr, steps)
+        eager = _eager_reference(steps, *_trainer_steps(tr))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
@@ -2997,7 +3023,7 @@ def phase_planned_train(plan: dict) -> dict:
     tr = Trainer(cfg, tcfg, str(ROOT / "build" / "chip_smoke_planned_ckpt"), device="cuda:0")
     try:
         counters = _train_counters()
-        eager = _eager_reference(tr, steps)
+        eager = _eager_reference(steps, *_trainer_steps(tr))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         state = tr.init_state()
@@ -3128,9 +3154,12 @@ def phase_dryrun(dry: DryRuns, trains: list, serves: list) -> dict:
 # bitwise is expected at world 1) and granite-moe's expert-parallel step at
 # a capacity where nothing drops (E/K) against moe_dense's (PARITY_TOL); it
 # trains tinyllama in bf16 at the train cell's shape through Trainer(mesh=)
-# and decodes greedily through the sharded prefill and decode step
+# and decodes greedily through the sharded prefill and decode step, the
+# bf16 steps, the prefill and the decode steps through their CUDA graphs,
+# each held bit for bit against its eager body
 PARALLEL_TOL = 1e-5
 PARALLEL_STEPS = 4
+MAX_STEP_HOST_LAUNCHES = 6  # a replayed sharded train step
 PARALLEL_PROMPT, PARALLEL_NEW, PARALLEL_B = 64, 16, 4
 
 
@@ -3206,11 +3235,17 @@ def _parallel_parity(arch: str, S: int, tol: float, data=None, **overrides) -> d
 
 
 def _parallel_train(single_cell: dict) -> dict:
-    """tinyllama in bf16 at the train cell's shape through Trainer(mesh=):
-    step times, K1 and K1-bwd launches a step (gated: exactly the
-    single-device path's), one traced sharded step beside one traced
-    single-device step on the same state (the host ms the sharded path
-    adds), and the final checkpoint gathered and saved."""
+    """tinyllama in bf16 at the train cell's shape through Trainer(mesh=),
+    whose steps run through the sharded step's graph (an eager warm-up,
+    then the captured step replayed), held against the sharded step's
+    eager body on a fresh state over the same batches first: every step's
+    metrics and every state leaf bit for bit (a ``train_graph`` line, as
+    the train cells': capture s, replays, launches captured by kernel, and
+    graph beside eager: step s, traced busy ms, idle share, host launches
+    a step, pool and peak bytes). Gated: K1 and K1-bwd launches a step
+    (warm-up plus replays x captured) exactly the single-device step's, at
+    most MAX_STEP_HOST_LAUNCHES host launches a replayed step, and the
+    final checkpoint gathered and saved."""
     import shutil
 
     import torch
@@ -3226,18 +3261,20 @@ def _parallel_train(single_cell: dict) -> dict:
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     tcfg = TrainerConfig(num_steps=steps, checkpoint_every=10 * steps, log_every=1, **TRAIN_KW)
     tr = Trainer(cfg, tcfg, str(ckpt_dir), mesh=_MESH[0], device="cuda:0")
-    plain = Trainer(cfg, tcfg, str(ckpt_dir / "single"), device="cuda:0")
     try:
         counters = _train_counters()
+        eager = _eager_reference(steps, *_trainer_steps(tr))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
         out = tr.run(resume=False)
-        launches = {name: fn.launches for name, fn in counters.items()}
+        graph = tr.graph.stats()
+        launches = _graph_launches({name: fn.launches for name, fn in counters.items()}, graph)
+        peaks = {"allocated": torch.cuda.max_memory_allocated(),
+                 "reserved": torch.cuda.max_memory_reserved()}
         rows = out["metrics"]
         steps_s = [r["step_s"] for r in rows]
-        peak = torch.cuda.max_memory_allocated()
         check(len(rows) == steps and all(np.isfinite(r["loss"]) for r in rows),
               f"parallel train rows {rows}")
         per_step = _launches_per_step(cfg)
@@ -3249,54 +3286,144 @@ def _parallel_train(single_cell: dict) -> dict:
         save = tr.ckpt.saves[0]
         state = {"params": out["params"], "opt": out["opt"]}
         batch = to_device(tr.data.batch(steps), tr.device)
-        traced = {}
-        for name, trainer in (("mesh", tr), ("single", plain)):
-            trainer.train_step(state, batch, steps)  # warm
-            traced[name] = _traced(lambda t=trainer: t.train_step(state, batch, steps), top=4)
-        step_s = float(np.median(steps_s[1:]))
+        trace = _traced(lambda: tr.graph(batch, steps), top=4)
+        line = _graph_line(f"{arch} on the (1, 1) mesh", eager, rows, steps_s, state, trace,
+                           graph, per_step, peaks)
+        _check_step_host_launches(arch, line)
+        step_s = line["step_s"]["graph"]
         res = {
             "arch": arch, "dtype": "bfloat16", "mesh": "(data=1, model=1)", "steps": steps,
             "batch": TRAIN_KW["global_batch"], "seq_len": TRAIN_KW["seq_len"],
             "loss": [r["loss"] for r in rows], "step_s": steps_s,
-            "step_s_median_after_first": step_s,
+            "step_s_median_of_replays": step_s,
+            "step_s_eager_median_after_first": line["step_s"]["eager"],
             "single_device_train_cell_step_s_median_of_replays":
                 single_cell["step_s_median_of_replays"],
             "tokens_per_s": TRAIN_KW["global_batch"] * TRAIN_KW["seq_len"] / step_s,
-            "peak_mem_bytes": peak, "launches": launches,
+            "peak_mem_bytes": peaks["allocated"], "launches": launches,
             "launches_per_step": {k: v / steps for k, v in launches.items()},
+            "graph": graph, "bit_for_bit": line["bit_for_bit"],
             "ckpt": {"bytes": save["bytes"], "seconds": save["seconds"],
                      "snapshot_s": save["snapshot_s"]},
-            # both steps traced on the same state in this call: the traced
-            # ms the sharded path adds (the profiler slows each host op, so
-            # this bounds the host cost from above) and its extra launches
-            "host_ms_added": traced["mesh"]["traced_ms"] - traced["single"]["traced_ms"],
-            "host_launches_added": (traced["mesh"]["host_launches"]
-                                    - traced["single"]["host_launches"]),
             **allocated,
         }
-        for name in ("mesh", "single"):
-            res.update({f"step_{name}_{k}": traced[name][k] for k in
+        for name in ("graph", "eager"):
+            res.update({f"step_{name}_{k}": line[k][name] for k in
                         ("traced_ms", "device_busy_ms", "device_idle_share", "kernel_launches",
                          "host_launches", "k1_device_ms", "k1_bwd_device_ms")})
     finally:
         tr.close()
-        plain.close()
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    del tr, plain, out, state
+    del tr, out, state
     return res
+
+
+def _check_step_host_launches(arch: str, line: dict) -> None:
+    """A replayed sharded step issues at most MAX_STEP_HOST_LAUNCHES host
+    launches: the batch's copies into the static inputs, the lr's fill and
+    the graph's launch (the single-device graph reads 4 to 5)."""
+    n = line["host_launches"]["graph"]
+    check(n <= MAX_STEP_HOST_LAUNCHES,
+          f"parallel {arch}: a replayed sharded step issues {n} host launches")
+
+
+def _greedy_run(model, prefill, decode, batch: dict, S: int, new: int, feed=None) -> dict:
+    """``new`` greedy tokens: ``prefill(batch)``, then ``new - 1`` steps of
+    ``decode(tokens, caches, index)`` over the caches padded by ``new``
+    positions, each step fed its own argmax or ``feed``'s column (teacher
+    forcing). The tokens, each step's last-position logits (f32) and their
+    top-2 gaps, and the kernel launches the wrappers counted."""
+    import torch
+
+    from repro_torch.models.lm import extend_caches
+
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    logits, caches = prefill(batch)
+    caches = extend_caches(caches, new, window=model.cfg.window)
+    B = logits.shape[0]
+    toks, seen, gaps = [], [], []
+    for i in range(new):
+        last = logits[:, -1].float()
+        seen.append(last)
+        top = torch.topk(last, 2, dim=-1).values
+        gaps.append(top[:, 0] - top[:, 1])
+        toks.append(last.argmax(-1))
+        if i + 1 < new:
+            fed = toks[-1] if feed is None else feed[:, i]
+            logits, caches = decode(fed[:, None], caches,
+                                    torch.full((B,), S + i, device=model.device))
+    return {"tokens": torch.stack(toks, 1), "logits": torch.stack(seen, 1),
+            "gaps": torch.stack(gaps, 1),
+            "launches": {k: fn.launches for k, fn in counters.items()}}
+
+
+def _sharded_greedy(model, sharded, mesh, batch: dict, S: int, new: int, feed=None) -> dict:
+    """:func:`_greedy_run` through ``build_prefill`` and
+    ``build_decode_step`` on the mesh, by their eager bodies (``mesh``) and
+    by their graphs (``graph``: the prefill's eager warm-up first, then its
+    capture and replay; the decode step's warm-up, capture and replays),
+    from the same shards: the graphs' logits and tokens gated equal to the
+    bodies' bit for bit, their launches (the wrappers' counts plus replays
+    x captured) equal. Returns both runs, the graph run with the graphs'
+    stats."""
+    import torch
+
+    from repro_torch.parallel.steps import build_decode_step, build_prefill
+
+    B = batch["tokens"].shape[0]
+    prefill, _ = build_prefill(model, mesh, model.input_specs(
+        "prefill", {"seq_len": S, "global_batch": B, "kind": "prefill"}))
+    meta = torch.device("meta")
+    decode, _ = build_decode_step(model, mesh, {
+        "tokens": torch.empty((B, 1), device=meta), "caches": model.cache_shapes(B, S + new),
+        "index": torch.empty((B,), device=meta)})
+
+    def run(pre, dec):
+        return _greedy_run(model, lambda b: pre(sharded, b),
+                           lambda t, c, i: dec(sharded, t, c, i), batch, S, new, feed)
+
+    runs = {"mesh": run(prefill.body, decode.body)}
+    prefill(sharded, batch)  # the prefill graph's eager warm-up
+    graph = run(prefill, decode)
+    stats = {"prefill": prefill.stats(), "decode": decode.stats()}
+    graph["launches"] = {k: n + sum(g["replays"] * g["captured_launches"].get(k, 0)
+                                    for g in stats.values())
+                         for k, n in graph["launches"].items()}
+    graph["graphs"] = stats
+    runs["graph"] = graph
+    prefill.release()
+    decode.release()
+    arch = model.cfg.name
+    check(stats["prefill"]["replays"] == 1 and stats["decode"]["replays"] == new - 2,
+          f"parallel {arch}: the greedy graphs' stats {stats}")
+    check(torch.equal(graph["logits"], runs["mesh"]["logits"])
+          and torch.equal(graph["tokens"], runs["mesh"]["tokens"]),
+          f"parallel {arch}: greedy logits or tokens through the graphs differ from the "
+          f"eager bodies'")
+    check(graph["launches"] == runs["mesh"]["launches"],
+          f"parallel {arch}: greedy launches, graph {graph['launches']} against eager "
+          f"{runs['mesh']['launches']}")
+    return runs
+
+
+def _greedy_stats(run: dict) -> dict:
+    """A greedy run's graphs: replays, captured launches, capture s."""
+    return {kind: {k: g[k] for k in ("eager_steps", "replays", "captured_launches",
+                                     "capture_s", "pool_reserved_bytes")}
+            for kind, g in run["graphs"].items()}
 
 
 def _parallel_greedy() -> dict:
     """tinyllama in f32: B=4 prompts of PARALLEL_PROMPT tokens and
     PARALLEL_NEW greedy tokens through build_prefill and build_decode_step
-    on the mesh against Model.prefill and decode_step; the tokens must be
-    equal."""
-    import torch
-
+    on the mesh, by their eager bodies and by their graphs
+    (:func:`_sharded_greedy`), against Model.prefill and decode_step; the
+    tokens must be equal."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.models.lm import extend_caches
-    from repro_torch.parallel.steps import build_decode_step, build_prefill, shard_params
+    from repro_torch.parallel.steps import shard_params
 
     _release_device_memory()
     cfg = get_config("tinyllama-1.1b").replace(dtype="float32")
@@ -3305,39 +3432,20 @@ def _parallel_greedy() -> dict:
     mesh = _MESH[0]
     sharded = shard_params(model, params, mesh)
     B, S, new = PARALLEL_B, PARALLEL_PROMPT, PARALLEL_NEW
-    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, S)).astype(np.int64)
-    counters = _train_counters()
-    out = {}
-    for name in ("single", "mesh"):
-        for fn in counters.values():
-            fn.launches = 0
-        if name == "single":
-            logits, caches = model.prefill(params, {"tokens": toks})
-            step = lambda t, c, i: model.decode_step(params, t, c, i)  # noqa: E731
-        else:
-            prefill, _ = build_prefill(model, mesh, model.input_specs(
-                "prefill", {"seq_len": S, "global_batch": B, "kind": "prefill"}))
-            logits, caches = prefill(sharded, {"tokens": toks})
-        caches = extend_caches(caches, new)
-        if name == "mesh":
-            meta = torch.device("meta")
-            decode, _ = build_decode_step(model, mesh, {
-                "tokens": torch.empty((B, 1), device=meta), "caches": caches,
-                "index": torch.empty((B,), device=meta)})
-            step = lambda t, c, i: decode(sharded, t, c, i)  # noqa: E731
-        got = []
-        tok = logits[:, -1].argmax(-1)
-        for i in range(new):
-            got.append(tok)
-            logits, caches = step(tok[:, None], caches, torch.full((B,), S + i, device="cuda:0"))
-            tok = logits[:, -1].argmax(-1)
-        out[name] = {"tokens": torch.stack(got, 1).cpu().tolist(),
-                     "launches": {k: fn.launches for k, fn in counters.items()}}
+    batch = {"tokens": np.random.default_rng(7).integers(0, cfg.vocab_size, (B, S))}
+    runs = {"single": _greedy_run(model, lambda b: model.prefill(params, b),
+                                  lambda t, c, i: model.decode_step(params, t, c, i), batch,
+                                  S, new)}
+    runs.update(_sharded_greedy(model, sharded, mesh, batch, S, new))
+    out = {name: {"tokens": r["tokens"].cpu().tolist(), "launches": r["launches"]}
+           for name, r in runs.items()}
+    out["graph"]["graphs"] = _greedy_stats(runs["graph"])
     check(out["mesh"]["tokens"] == out["single"]["tokens"],
           f"parallel greedy tokens differ: {out}")
     check(out["mesh"]["launches"] == out["single"]["launches"], f"parallel greedy {out}")
-    del model, params, sharded, caches
-    return {"batch": B, "prompt": S, "new_tokens": new, **out}
+    del model, params, sharded, runs
+    return {"batch": B, "prompt": S, "new_tokens": new, "graph_bit_for_bit_with_eager": True,
+            **out}
 
 
 _MESH: list = []  # the phase's mesh, for its helpers
@@ -3397,12 +3505,14 @@ def phase_parallel(single_cell: dict) -> dict:
 # single-device step (FAMILY_TOL scaled, their kernels' launches equal), and
 # greedy tokens of all five through the sharded prefill and decode step
 # against Model.prefill and decode_step (teacher-forced, so each step's
-# logits compare; a token may differ only at a top-2 gap below TIE_GAP).
+# logits compare; a token may differ only at a top-2 gap below TIE_GAP),
+# the prefill and decode graphs bit for bit with their eager bodies.
 # deepseek-v2 keeps its expert_mlp rule on data (its experts' hidden dim
 # is gathered over a data group of one). bf16: FAMILY_STEPS sharded steps
-# at the family's train cell shape, timed, two of them traced beside a
-# single-device step on the same state, and K1, K1-bwd, K2 and K2-bwd
-# launched a step exactly as the single-device step launches them.
+# at the family's train cell shape through the step's graph, held bit for
+# bit against as many eager steps of its body, timed and traced beside
+# them, and K1, K1-bwd, K2 and K2-bwd launched a step exactly as the
+# single-device step launches them.
 FAMILY_CUTS = {
     "mamba2-1.3b": dict(num_layers=2),
     "hymba-1.5b": dict(num_layers=3, global_layers=(0,)),
@@ -3432,17 +3542,16 @@ def _family_source(cfg, S: int, B: int):
 
 def _family_greedy(arch: str, mesh) -> dict:
     """f32 greedy decoding through ``build_prefill`` and
-    ``build_decode_step`` on the mesh against ``Model.prefill`` and
-    ``decode_step`` from the same weights: the single-device run's own
-    argmax, then the sharded run fed those tokens; each step's logits
-    scaled and the tokens, a mismatch allowed only at a near-tie."""
-    import torch
-
+    ``build_decode_step`` on the mesh, by their eager bodies and by their
+    graphs (:func:`_sharded_greedy`: the graphs bit for bit with the
+    bodies), against ``Model.prefill`` and ``decode_step`` from the same
+    weights: the single-device run's own argmax, then the sharded runs fed
+    those tokens; each step's logits scaled and the tokens, a mismatch
+    allowed only at a near-tie."""
     from repro_torch.configs import get_config
     from repro_torch.data import to_device
     from repro_torch.models import build_model
-    from repro_torch.models.lm import extend_caches
-    from repro_torch.parallel.steps import build_decode_step, build_prefill, shard_params
+    from repro_torch.parallel.steps import shard_params
 
     allocated = _release_device_memory()
     cfg = get_config(arch).replace(dtype="float32", **FAMILY_CUTS[arch])
@@ -3452,55 +3561,28 @@ def _family_greedy(arch: str, mesh) -> dict:
     batch = to_device(_family_source(cfg, FAMILY_PROMPT, B).batch(0), model.device)
     batch.pop("targets")
     S = FAMILY_PROMPT + (cfg.num_image_tokens if cfg.family == "vlm" else 0)
-    counters = _train_counters()
-    runs = {}
-    for name in ("single", "mesh"):
-        for fn in counters.values():
-            fn.launches = 0
-        if name == "single":
-            logits, caches = model.prefill(params, batch)
-            step = lambda t, c, i: model.decode_step(params, t, c, i)  # noqa: E731
-        else:
-            sharded = shard_params(model, params, mesh)
-            del params  # one copy of the weights at a time (deepseek-v2's are 21 GB)
-            prefill, _ = build_prefill(model, mesh, model.input_specs(
-                "prefill", {"seq_len": S, "global_batch": B, "kind": "prefill"}))
-            logits, caches = prefill(sharded, batch)
-        caches = extend_caches(caches, new, window=cfg.window)
-        if name == "mesh":
-            meta = torch.device("meta")
-            decode, _ = build_decode_step(model, mesh, {
-                "tokens": torch.empty((B, 1), device=meta), "caches": caches,
-                "index": torch.empty((B,), device=meta)})
-            step = lambda t, c, i: decode(sharded, t, c, i)  # noqa: E731
-        toks, steps_logits, gaps = [], [], []
-        for i in range(new):
-            last = logits[:, -1].float()
-            steps_logits.append(last)
-            top = torch.topk(last, 2, dim=-1).values
-            gaps.append(top[:, 0] - top[:, 1])
-            toks.append(last.argmax(-1))
-            feed = toks[-1] if name == "single" else runs["single"]["tokens"][:, i]
-            if i + 1 < new:
-                logits, caches = step(feed[:, None], caches,
-                                      torch.full((B,), S + i, device=model.device))
-        runs[name] = {"tokens": torch.stack(toks, 1), "logits": torch.stack(steps_logits, 1),
-                      "gaps": torch.stack(gaps, 1),
-                      "launches": {k: fn.launches for k, fn in counters.items()}}
-    single, mesh_run = runs["single"], runs["mesh"]
+    single = _greedy_run(model, lambda b: model.prefill(params, b),
+                         lambda t, c, i: model.decode_step(params, t, c, i), batch, S, new)
+    sharded = shard_params(model, params, mesh)
+    del params  # one copy of the weights at a time (deepseek-v2's are 21 GB)
+    runs = _sharded_greedy(model, sharded, mesh, batch, S, new, feed=single["tokens"])
+    mesh_run = runs["mesh"]
     err = _scaled(mesh_run["logits"], single["logits"])
     differ = (mesh_run["tokens"] != single["tokens"]).nonzero().tolist()
     near = [single["gaps"][b, i].item() for b, i in differ]
+    launches = {"single": single["launches"], "mesh": mesh_run["launches"],
+                "graph": runs["graph"]["launches"]}
     out = {"arch": arch, "dtype": "float32", **_family_cut(arch), "batch": B,
            "prompt": FAMILY_PROMPT, "positions": S, "new_tokens": new,
            "logits_scaled_err": err, "token_mismatches": len(differ),
            "mismatch_top2_gaps": near, "tokens": single["tokens"].cpu().tolist(),
-           "launches": {k: r["launches"] for k, r in runs.items()}, **allocated}
+           "launches": launches, "graph_bit_for_bit_with_eager": True,
+           "graphs": _greedy_stats(runs["graph"]), **allocated}
     check(err <= FAMILY_TOL, f"parallel {arch}: greedy logits off by {err} scaled")
     check(all(g < TIE_GAP for g in near), f"parallel {arch}: tokens differ at gaps {near}")
     check(mesh_run["launches"] == single["launches"],
-          f"parallel {arch}: greedy launches {out['launches']}")
-    del model, sharded, caches, runs
+          f"parallel {arch}: greedy launches {launches}")
+    del model, sharded, runs, single
     return out
 
 
@@ -3516,19 +3598,24 @@ def _family_cut(arch: str) -> dict:
 
 def _family_bf16(arch: str, mesh, single_cell: dict) -> dict:
     """bf16 sharded steps at the family's train cell shape (B=4, S=2048 or
-    its enc-dec/VLM text) through ``build_train_step``: each step's wall
-    time (the device drained at both ends), its kernel launches (gated:
-    the single-device step's), one traced sharded step beside one traced
-    single-device step on the same state, and the family's full-depth
-    single-device train cell from this run, as the phase received it."""
+    its enc-dec/VLM text) through ``build_train_step``'s graph (an eager
+    warm-up, then the captured step replayed), held against its eager body
+    (``step.body``) on a fresh state over the same batches first: every
+    step's metrics and every state leaf bit for bit (a ``train_graph``
+    line: capture s, replays, launches captured by kernel, and graph beside
+    eager: step s, the device drained at both ends, traced busy ms, idle
+    share, host launches a step, pool and peak bytes). Gated: its kernel
+    launches (warm-up plus replays x captured) the single-device step's,
+    at most MAX_STEP_HOST_LAUNCHES host launches a replayed step. With the
+    family's full-depth single-device train cell from this run, as the
+    phase received it."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data import to_device
     from repro_torch.models import build_model
-    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
     from repro_torch.parallel.steps import build_train_step, make_ctx, shard_params
-    from repro_torch.tree import tree_leaves, tree_unflatten
 
     allocated = _release_device_memory()
     cfg = get_config(arch).replace(dtype="bfloat16", **FAMILY_CUTS[arch])
@@ -3539,71 +3626,74 @@ def _family_bf16(arch: str, mesh, single_cell: dict) -> dict:
     lr_fn = cosine_schedule(TRAIN_KW["lr"], TRAIN_KW["warmup"], FAMILY_STEPS + 2)
     step, _, _ = build_train_step(model, mesh, ocfg, lr_fn, model.input_specs(
         "train", {"seq_len": positions, "global_batch": B, "kind": "train"}))
-    params = shard_params(model, model.init(0), mesh)
-    opt = adamw_init(ocfg, params.tree(), ctx=make_ctx(mesh))
     source = _family_source(cfg, S, B)
+
+    def init():
+        params = shard_params(model, model.init(0), mesh)
+        return {"params": params, "opt": adamw_init(ocfg, params.tree(), ctx=make_ctx(mesh))}
+
+    def eager_step(state, batch, i):
+        lr = torch.full((), float(lr_fn(i)), dtype=torch.float32, device=model.device)
+        return step.body(state["params"], state["opt"], batch, lr)[2]
+
+    def batch_of(i):
+        return to_device(source.batch(i), model.device)
+
+    eager = _eager_reference(FAMILY_STEPS, init, eager_step, batch_of)
+    state = init()
     counters = _train_counters()
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    steps_s, losses = [], []
+    rows, steps_s = [], []
     for i in range(FAMILY_STEPS):
-        batch = to_device(source.batch(i), model.device)
+        batch = batch_of(i)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        m = step(params, opt, batch, i)[2]
-        losses.append(float(m["loss"]))  # waits for the device
+        m = step(state["params"], state["opt"], batch, i)[2]
+        rows.append({k: float(v) for k, v in m.items()})  # waits for the device
         steps_s.append(time.perf_counter() - t0)
-    launches = {name: fn.launches for name, fn in counters.items()}
-    peak = torch.cuda.max_memory_allocated()
+    graph = step.stats()
+    launches = _graph_launches({name: fn.launches for name, fn in counters.items()}, graph)
+    peaks = {"allocated": torch.cuda.max_memory_allocated(),
+             "reserved": torch.cuda.max_memory_reserved()}
+    losses = [r["loss"] for r in rows]
     check(all(np.isfinite(x) for x in losses), f"parallel {arch} bf16 losses {losses}")
     per_step = _launches_per_step(cfg)
     for name, n in per_step.items():
         check(launches[name] == n * FAMILY_STEPS,
               f"parallel {arch}: {name} launched {launches[name]} times in {FAMILY_STEPS} "
               f"steps, want {n} a step")
-
-    def single_step(batch, i):
-        tree = params.tree()
-        loss, _ = model.loss(params, batch)
-        grads = tree_unflatten(tree, torch.autograd.grad(loss, tree_leaves(tree)))
-        adamw_update(ocfg, float(lr_fn(i)), tree, grads, opt)
-
-    batch = to_device(source.batch(FAMILY_STEPS), model.device)
-    traced = {}
-    for name, fn in (("mesh", lambda: step(params, opt, batch, FAMILY_STEPS)),
-                     ("single", lambda: single_step(batch, FAMILY_STEPS))):
-        fn()  # warm
-        for c in counters.values():
-            c.launches = 0
-        traced[name] = _traced(fn, top=4)
-        traced[name]["launches"] = {k: c.launches for k, c in counters.items()}
-    check(traced["mesh"]["launches"] == traced["single"]["launches"] == per_step,
-          f"parallel {arch}: traced launches {traced['mesh']['launches']} against "
-          f"{traced['single']['launches']}")
-    step_s = float(np.median(steps_s[1:]))
+    batch = batch_of(FAMILY_STEPS)
+    trace = _traced(lambda: step(state["params"], state["opt"], batch, FAMILY_STEPS), top=4)
+    line = _graph_line(f"{arch} on the (1, 1) mesh", eager, rows, steps_s, state, trace, graph,
+                       per_step, peaks)
+    _check_step_host_launches(arch, line)
+    step_s = line["step_s"]["graph"]
     res = {"arch": arch, "dtype": "bfloat16", "mesh": "(data=1, model=1)", **_family_cut(arch),
            "steps": FAMILY_STEPS, "batch": B, "seq_len": S, "decoder_positions": positions,
            "encoder_frames": cfg.encoder_seq if cfg.is_encdec else 0, "loss": losses,
-           "step_s": steps_s, "step_s_median_after_first": step_s,
-           "tokens_per_s": B * S / step_s, "peak_mem_bytes": peak, "launches": launches,
+           "step_s": steps_s, "step_s_median_of_replays": step_s,
+           "step_s_eager_median_after_first": line["step_s"]["eager"],
+           "tokens_per_s": B * S / step_s, "peak_mem_bytes": peaks["allocated"],
+           "launches": launches,
            "launches_per_step": {k: v / FAMILY_STEPS for k, v in launches.items()},
+           "graph": graph, "bit_for_bit": line["bit_for_bit"],
            # the family's single-device train cell of this run, at full depth
            "single_device_train_cell": {
                k: single_cell[k] for k in ("step_s_median_of_replays", "step_device_busy_ms",
                                            "step_device_idle_share", "step_host_launches",
                                            "launches_per_step")},
            "single_device_train_cell_num_layers": get_config(arch).num_layers,
-           "host_ms_added": traced["mesh"]["traced_ms"] - traced["single"]["traced_ms"],
-           "host_launches_added": (traced["mesh"]["host_launches"]
-                                   - traced["single"]["host_launches"]),
            **allocated}
-    for name in ("mesh", "single"):
-        res.update({f"step_{name}_{k}": traced[name][k] for k in
+    for name in ("graph", "eager"):
+        res.update({f"step_{name}_{k}": line[k][name] for k in
                     ("traced_ms", "device_busy_ms", "device_idle_share", "kernel_launches",
                      "host_launches", "k1_device_ms", "k1_bwd_device_ms", "k2_device_ms",
                      "k2_bwd_device_ms")})
-    del model, params, opt
+    step.release()
+    del model, state, step
     return res
 
 
@@ -3614,8 +3704,9 @@ def phase_parallel_families(single_cells: dict) -> dict:
     the f32 sharded train step against the single-device step (the four
     trainable families: deepseek-v2's attention has no K1-bwd at
     Dqk=192/Dv=128 yet, so its training raises on the card), f32 greedy
-    tokens through the sharded prefill and decode step, and the bf16
-    sharded step timed and traced beside the single-device step.
+    tokens through the sharded prefill and decode step (eager and by their
+    graphs), and the bf16 sharded step's graph held against its eager body,
+    timed and traced beside it.
     ``single_cells`` are this run's train cells by arch. One
     ``parallel_families`` line."""
     import datetime

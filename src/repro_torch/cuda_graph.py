@@ -1,6 +1,7 @@
 """One body captured as a CUDA graph and replayed: what the serve engine's
-graphs (``serve/graphs.py``) and the trainer's step (``runtime/graph.py``)
-share, the port's counterpart of the reference's ``jax.jit``.
+graphs (``serve/graphs.py``), the trainer's step and the sharded train,
+prefill and decode steps (``runtime/graph.py``) share, the port's
+counterpart of the reference's ``jax.jit``.
 
 Eager PyTorch launches every kernel of a body from Python, one at a
 time. A graph is captured once, with every shape and address fixed, and its

@@ -400,9 +400,10 @@ def run_cell(cfg, shape_name: str, spec: dict, mesh_shape: Optional[tuple], *,
 
 
 def _step_fn(model, mesh, ocfg, lr_fn, babs, kind, state, batch):
-    """The cell's step as a thunk: the sharded step of ``parallel.steps``
-    under a mesh, else what ``runtime.Trainer.train_step`` (or serving) runs
-    on one device."""
+    """The cell's step as a thunk: the eager body of the sharded step of
+    ``parallel.steps`` under a mesh (its graph's static-input copies are no
+    part of the step), else what ``runtime.Trainer.train_step`` (or
+    serving) runs on one device."""
     from ..optim import adamw_update
     from ..tree import tree_unflatten
 
@@ -412,7 +413,7 @@ def _step_fn(model, mesh, ocfg, lr_fn, babs, kind, state, batch):
             from ..parallel.steps import build_train_step
 
             step, _, _ = build_train_step(model, mesh, ocfg, lr_fn, babs)
-            return lambda: step(params, state["opt"], batch, 1000)
+            return lambda: step.body(params, state["opt"], batch, float(lr_fn(1000)))
 
         def single():
             tree = params.tree()
@@ -426,13 +427,13 @@ def _step_fn(model, mesh, ocfg, lr_fn, babs, kind, state, batch):
             from ..parallel.steps import build_prefill
 
             fn, _ = build_prefill(model, mesh, babs)
-            return lambda: fn(params, batch)
+            return lambda: fn.body(params, batch)
         return lambda: model.prefill(params, batch)
     if mesh is not None:
         from ..parallel.steps import build_decode_step
 
         fn, _ = build_decode_step(model, mesh, babs)
-        return lambda: fn(params, batch["tokens"], state["caches"], batch["index"])
+        return lambda: fn.body(params, batch["tokens"], state["caches"], batch["index"])
     return lambda: model.decode_step(params, batch["tokens"], state["caches"], batch["index"])
 
 

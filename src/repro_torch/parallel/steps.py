@@ -9,6 +9,16 @@ the optimizer state from ``adamw_init(..., ctx=)``, caches from the
 prefill): the model takes this rank's rows and runs its share
 (``parallel.ctx``). The returned spec trees say which block of each global
 array a rank holds; :func:`full_tensor` assembles one.
+
+Each builder returns its step as a CUDA graph on the card
+(``runtime/graph.py``), the counterpart of the reference's ``jax.jit``: the
+first call on a state runs eagerly (the kernels' first-launch checks and
+the NCCL communicators' start), the next is captured and every later call
+replays it. A call on another state (other params, optimizer state or
+caches) releases the graph and captures anew; a leaf of the state that
+moves raises ``GraphError``. On the CPU the same body runs eagerly through
+the same static buffers. The eager body stays as ``.body`` (the dry run
+traces it).
 """
 from __future__ import annotations
 
@@ -22,6 +32,7 @@ from ..models.attention import kv_cache_split
 from ..models.common import ParamTree
 from ..optim import AdamWConfig, adamw_update
 from ..optim.adamw import adamw_abstract_state
+from ..runtime.graph import StateGraph, TrainGraph
 from ..tree import tree_flatten_with_keys, tree_leaves, tree_map, tree_unflatten
 from .ctx import ParallelCtx, batch_group_of
 from .sharding import mesh_shape, param_specs, placements, rules_for, zero_specs
@@ -152,6 +163,89 @@ def shard_params(model, params, mesh) -> ParamTree:
 # -- step builders ---------------------------------------------------------------
 
 
+class _StepGraphs:
+    """A step's graph of the state it was last called on (``runtime.graph``):
+    a call on other state objects releases it and makes one anew."""
+
+    def __init__(self, body: Callable, device) -> None:
+        self.body = body  # the eager step
+        self.device = torch.device(device)
+        self.graph = None
+
+    def _graph_of(self, state: dict, make: Callable) -> StateGraph:
+        g = self.graph
+        if g is None or any(g.state[k] is not v for k, v in state.items()):
+            self.release()
+            self.graph = make(state)
+        return self.graph
+
+    def stats(self) -> dict:
+        """The current graph's ``stats()`` (empty before the first call)."""
+        return {} if self.graph is None else self.graph.stats()
+
+    def release(self) -> None:
+        """Drop the graph and its memory pool."""
+        if self.graph is not None:
+            self.graph.close()
+            self.graph = None
+
+
+class ShardedTrainStep(_StepGraphs):
+    """``step(params, opt, batch, step) -> (params, opt, metrics)``:
+    :func:`build_train_step`'s step, a :class:`TrainGraph` of the state it
+    is called on. ``body(params, opt, batch, lr)`` is the eager step at
+    ``lr`` (a float or a 0-d f32 tensor on the device)."""
+
+    def __init__(self, body: Callable, lr_fn: Callable, device) -> None:
+        super().__init__(body, device)
+        self.lr_fn = lr_fn
+
+    def _graph_body(self, state: dict, batch: dict, lr) -> dict:
+        return self.body(state["params"], state["opt"], batch, lr)[2]
+
+    def __call__(self, params, opt_state, batch: dict, step: int):
+        graph = self._graph_of({"params": params, "opt": opt_state}, lambda st: TrainGraph(
+            self._graph_body, self.lr_fn, st, self.device))
+        return params, opt_state, graph(batch, step)
+
+
+class ShardedPrefill(_StepGraphs):
+    """``prefill(params, batch) -> (logits, caches)``: :func:`build_prefill`'s
+    step, a :class:`StateGraph` of the params it is called on, each batch
+    key a static input. A replay's logits and caches are cloned out of the
+    static outputs (the caller's decode updates the caches in place)."""
+
+    def _graph_body(self, state: dict, batch: dict) -> list:
+        return list(self.body(state["params"], batch))
+
+    @torch.inference_mode()
+    def __call__(self, params, batch: dict):
+        graph = self._graph_of({"params": params}, lambda st: StateGraph(
+            self._graph_body, st, self.device))
+        logits, caches = graph(batch)
+        if graph.captured:
+            logits, caches = logits.clone(), tree_map(torch.clone, caches)
+        return logits, caches
+
+
+class ShardedDecode(_StepGraphs):
+    """``decode(params, tokens, caches, index) -> (logits, caches)``:
+    :func:`build_decode_step`'s step, a :class:`StateGraph` of the params and
+    caches it is called on, which it updates in place (the reference donates
+    them); ``tokens`` and ``index`` are static inputs. A replay's logits are
+    cloned out of the static output."""
+
+    def _graph_body(self, state: dict, inputs: dict):
+        return self.body(state["params"], inputs["tokens"], state["caches"], inputs["index"])[0]
+
+    @torch.inference_mode()
+    def __call__(self, params, tokens, caches, index):
+        graph = self._graph_of({"params": params, "caches": caches}, lambda st: StateGraph(
+            self._graph_body, st, self.device))
+        logits = graph({"tokens": tokens, "index": index})
+        return (logits.clone() if graph.captured else logits), caches
+
+
 def build_train_step(
     model,
     mesh,
@@ -160,21 +254,22 @@ def build_train_step(
     batch_abstract: dict,
 ):
     """Returns (step, specs, abstract state). ``step(params, opt, batch,
-    step)`` takes this rank's param shards and ZeRO state, updates them in
-    place (where the reference donates its buffers) and returns them with
-    the step's global metrics; ``batch`` is the global batch (with an
-    encoder-decoder's ``frames`` or a VLM's ``patches``)."""
+    step)`` (a :class:`ShardedTrainStep`) takes this rank's param shards and
+    ZeRO state, updates them in place (where the reference donates its
+    buffers) and returns them with the step's global metrics; ``batch`` is
+    the global batch (with an encoder-decoder's ``frames`` or a VLM's
+    ``patches``). ``step.body`` is the eager step, which reads no host
+    value at a tensor lr."""
     ctx = make_ctx(mesh)
     batch_axes = ctx.batch_axes
     pspecs = model_param_specs(model, mesh)
     ospecs = opt_state_specs(model, ocfg, mesh, pspecs, batch_axes)
     bspecs = batch_specs(model, batch_abstract, batch_axes, mesh)
 
-    def step_fn(params, opt_state, batch, step):
+    def step_fn(params, opt_state, batch, lr):
         tree = params.tree()
         share, metrics = model.loss(params, batch, ctx)
         grads = tree_unflatten(tree, torch.autograd.grad(share, tree_leaves(tree)))
-        lr = float(lr_fn(step))
         _, _, om = adamw_update(ocfg, lr, tree, grads, opt_state, ctx=ctx)
         loss = ctx.world_sum(share.detach())
         return params, opt_state, {"loss": loss, **metrics, **om}
@@ -183,7 +278,8 @@ def build_train_step(
         "params": model.abstract_params(),
         "opt": adamw_abstract_state(ocfg, model.abstract_params()),
     }
-    return step_fn, {"params": pspecs, "opt": ospecs, "batch": bspecs}, abstract
+    return (ShardedTrainStep(step_fn, lr_fn, model.device),
+            {"params": pspecs, "opt": ospecs, "batch": bspecs}, abstract)
 
 
 def _logits_spec(model, ctx: ParallelCtx, B: int) -> tuple:
@@ -192,12 +288,12 @@ def _logits_spec(model, ctx: ParallelCtx, B: int) -> tuple:
 
 
 def build_prefill(model, mesh, batch_abstract: dict):
-    """Returns (prefill, specs): ``prefill(params, batch)`` gives this
-    rank's logits and caches, laid out by ``specs["logits"]`` and
-    ``specs["caches"]``. ``batch`` holds ``tokens`` and, for an
-    encoder-decoder, ``frames`` or, for a VLM, ``patches``, each split over
-    the batch axes as the tokens are; a VLM's sequence counts its image
-    tokens before its text."""
+    """Returns (prefill, specs): ``prefill(params, batch)`` (a
+    :class:`ShardedPrefill`) gives this rank's logits and caches, laid out
+    by ``specs["logits"]`` and ``specs["caches"]``. ``batch`` holds
+    ``tokens`` and, for an encoder-decoder, ``frames`` or, for a VLM,
+    ``patches``, each split over the batch axes as the tokens are; a VLM's
+    sequence counts its image tokens before its text."""
     ctx = make_ctx(mesh)
     batch_axes = ctx.batch_axes
     pspecs = model_param_specs(model, mesh)
@@ -212,17 +308,18 @@ def build_prefill(model, mesh, batch_abstract: dict):
 
     specs = {"params": pspecs, "batch": bspecs, "caches": cspecs,
              "logits": _logits_spec(model, ctx, B)}
-    return prefill_fn, specs
+    return ShardedPrefill(prefill_fn, model.device), specs
 
 
 def build_decode_step(model, mesh, batch_abstract: dict):
     """decode: one token for every sequence, the caches (this rank's
-    shards) updated in place. ``batch_abstract`` holds ``tokens`` (B, 1),
-    ``caches`` (the global caches, or meta tensors of their shapes) and
-    ``index`` (B,); an encoder-decoder's ``frames`` or a VLM's ``patches``
-    may ride beside them (decode reads neither: the cross cache holds the
-    encoded frames, the caches the patches). MLA's latents are split over
-    the sequence, so the step is told their global length."""
+    shards) updated in place (a :class:`ShardedDecode`). ``batch_abstract``
+    holds ``tokens`` (B, 1), ``caches`` (the global caches, or meta tensors
+    of their shapes) and ``index`` (B,); an encoder-decoder's ``frames`` or
+    a VLM's ``patches`` may ride beside them (decode reads neither: the
+    cross cache holds the encoded frames, the caches the patches). MLA's
+    latents are split over the sequence, so the step is told their global
+    length."""
     ctx = make_ctx(mesh)
     batch_axes = ctx.batch_axes
     pspecs = model_param_specs(model, mesh)
@@ -238,4 +335,4 @@ def build_decode_step(model, mesh, batch_abstract: dict):
 
     specs = {"params": pspecs, "caches": cspecs,
              "logits": _logits_spec(model, ctx, Bt)}
-    return decode_fn, specs
+    return ShardedDecode(decode_fn, model.device), specs

@@ -6,8 +6,8 @@ Composition of the port's substrates, on one device or a mesh:
     run by ``run`` as one CUDA graph a step on the card
     (``runtime/graph.py``, the reference's ``jax.jit(step_fn)``; on the CPU
     the same body runs eagerly through the graph's static buffers); with
-    ``mesh=``, ``parallel.steps.build_train_step`` (this rank's param
-    shards and ZeRO state), eagerly
+    ``mesh=``, the body of ``parallel.steps.build_train_step`` (this rank's
+    param shards and ZeRO state, the collectives inside the graph)
   * ThreadPool-prefetched data pipeline (repro_torch.data)
   * async atomic checkpoints + resume (repro_torch.checkpoint)
   * watchdog heartbeat + failure injection for fault-tolerance tests
@@ -109,7 +109,7 @@ class Trainer:
             model_cfg.vocab_size, tcfg.seq_len, tcfg.global_batch, seed=tcfg.seed
         )
         self._failed_once = False
-        self.graph: Optional[TrainGraph] = None  # the last single-device run's
+        self.graph: Optional[TrainGraph] = None  # the last run's
         self.metrics_log: list[dict] = []
         self._heartbeat = time.monotonic()
 
@@ -168,8 +168,6 @@ class Trainer:
         """One eager step: :meth:`step_body` at ``step``'s lr. Returns the
         step's metrics as 0-d tensors (nothing is read to the host here).
         Under a mesh, the sharded step's global metrics."""
-        if self.mesh is not None:
-            return self._sharded_step(state["params"], state["opt"], batch, step)[2]
         lr = torch.full((), float(self.lr_fn(step)), dtype=torch.float32, device=self.device)
         return self.step_body(state, batch, lr)
 
@@ -177,7 +175,10 @@ class Trainer:
         """Loss and gradients by autograd, then one AdamW update of the
         params and the optimizer state in place, at ``lr`` (a 0-d f32
         tensor on the device): the body the train graph captures, with no
-        host read or host value of its own."""
+        host read or host value of its own. Under a mesh, the sharded
+        step's body (``ShardedTrainStep.body``) on this rank's shards."""
+        if self.mesh is not None:
+            return self._sharded_step.body(state["params"], state["opt"], batch, lr)[2]
         params = state["params"]
         tree = params.tree()
         leaves = tree_leaves(tree)
@@ -186,12 +187,10 @@ class Trainer:
         _, _, om = adamw_update(self.ocfg, lr, tree, grads, state["opt"])
         return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}, **om}
 
-    def _build_step(self, state: dict):
+    def _build_step(self, state: dict) -> TrainGraph:
         """The step :meth:`run` calls as ``step_fn(batch, step)``, built
-        where the reference builds its jit: on one device
-        :meth:`step_graph`, under a mesh the sharded step, eagerly."""
-        if self.mesh is not None:
-            return lambda batch, step: self.train_step(state, batch, step)
+        where the reference builds its jit: :meth:`step_graph`, on one
+        device or, of the sharded step, under a mesh."""
         return self.step_graph(state)
 
     def step_graph(self, state: dict) -> TrainGraph:
@@ -211,9 +210,11 @@ class Trainer:
 
     def run(self, *, resume: bool = True) -> dict:
         """Train from step 0, or from the latest checkpoint with ``resume``.
-        On one device the steps run through a graph of this run's state,
-        built after the restore (the last run's released first); under a
-        mesh, eagerly."""
+        The steps run through a graph of this run's state, built after the
+        restore (which replaces the optimizer state: a graph built before it
+        would hold stale addresses), the last run's released first; under a
+        mesh, the sharded step's graph, which every rank replays
+        together."""
         self.release_graph()
         state = self.init_state()
         start_step = 0

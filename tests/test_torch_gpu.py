@@ -42,9 +42,11 @@ paligemma at head dim 256 on the card against the CPU. The forward's
 bf16 design at the wide pairs ("wgmma-wide") over ragged S, k_len, GQA and
 MQA, non-causal and windowed cases and the prefix span's edges, output and
 lse, and two launches bit for bit at deepseek-v2's and paligemma's training
-shapes. With four cards, the
-parallel layer's and the pipeline's group checks over NCCL against the
-CPU."""
+shapes. The sharded train step's graph on an NCCL world of one against
+its eager body bit for bit, at most 6 host launches a replay. With four
+cards, the parallel layer's and the pipeline's group checks over NCCL
+against the CPU, and the sharded train, prefill and decode graphs against
+their eager bodies bit for bit, every rank capturing the same launches."""
 import copy
 import importlib.util
 import json
@@ -1154,17 +1156,18 @@ class _TrainSource:
         return out
 
 
-def _graph_against_eager(cfg, tmp_path, steps, S=64, B=2):
-    """``steps`` of ``Trainer.run`` (the graph) and as many eager
-    ``train_step``s of a fresh state on the same batches: both runs'
-    metric rows and state leaves, and the graph's stats."""
+def _graph_against_eager(cfg, tmp_path, steps, S=64, B=2, mesh=None):
+    """``steps`` of ``Trainer.run`` (the graph; under ``mesh``, the sharded
+    step's) and as many eager ``train_step``s of a fresh state on the same
+    batches: both runs' metric rows and state leaves, and the graph's
+    stats."""
     from repro_torch.data import to_device
     from repro_torch.runtime import Trainer, TrainerConfig
     from repro_torch.tree import tree_leaves
 
     tcfg = TrainerConfig(num_steps=steps, checkpoint_every=100, log_every=1, seq_len=S,
                          global_batch=B, lr=1e-3, warmup=1)
-    with Trainer(cfg, tcfg, str(tmp_path / "ckpt"), device=_cuda(),
+    with Trainer(cfg, tcfg, str(tmp_path / "ckpt"), device=_cuda(), mesh=mesh,
                  data_source=_TrainSource(cfg, S, B)) as tr:
         out = tr.run(resume=False)
         stats = tr.graph.stats()
@@ -1194,16 +1197,91 @@ def test_train_graph_equals_eager_steps_bit_for_bit_on_card(family, tmp_path):
     cfg = _train_cfg(arch, head_dim).replace(dtype="bfloat16")
     (g_rows, g_leaves), (e_rows, e_leaves), stats = _graph_against_eager(cfg, tmp_path, 4)
     assert stats["eager_steps"] == 1 and stats["replays"] == 3
+    assert stats["captured_launches"] == _captured_want(cfg)
+    assert g_rows == e_rows
+    assert len(g_leaves) == len(e_leaves)
+    for a, b in zip(g_leaves, e_leaves):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+def _captured_want(cfg) -> dict:
+    """The kernels a train step's capture holds, by name, at their
+    launches a step (remat: each forward twice)."""
     attn = (cfg.attention != "none") * (cfg.num_layers
                                         + (cfg.encoder_layers + cfg.num_layers) * cfg.is_encdec)
     ssm = cfg.num_layers * (cfg.family in ("ssm", "hybrid"))
     want = {"flash_attention": 2 * attn, "flash_attention_bwd": attn, "ssd": 2 * ssm,
             "ssd_bwd": ssm}
-    assert stats["captured_launches"] == {k: n for k, n in want.items() if n}
-    assert g_rows == e_rows
-    assert len(g_leaves) == len(e_leaves)
-    for a, b in zip(g_leaves, e_leaves):
-        assert a.device.type == "cuda" and torch.equal(a, b)
+    return {k: n for k, n in want.items() if n}
+
+
+# the profiler's names of the host's calls that put work on the card
+# (chip_smoke.HOST_LAUNCH)
+HOST_LAUNCH = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync")
+
+
+def _host_launches(fn) -> int:
+    """The host's launches and async copies in one call of ``fn``."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.name.startswith(HOST_LAUNCH) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CPU)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["dense", "ssm", "moe", "encdec"])
+def test_sharded_train_graph_on_a_world_of_one_equals_its_eager_body(family, tmp_path):
+    """On an NCCL world of one rank and its (1, 1) mesh: four bf16 steps of
+    ``Trainer(mesh=).run`` through the sharded step's graph against four
+    eager sharded steps bit for bit, each kernel captured at its launches
+    a step; and a replay of ``build_train_step``'s graph issuing at most 6
+    host launches (the batch's copies, the lr's fill, the graph)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
+    from repro_torch.parallel.steps import build_train_step, make_ctx, shard_params
+
+    dev = _cuda()
+    arch, head_dim = TRAIN_GRAPH_FAMILIES[family]
+    cfg = _train_cfg(arch, head_dim).replace(dtype="bfloat16")
+    S, B = 64, 2
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "store"), 1),
+                            timeout=datetime.timedelta(seconds=120), device_id=dev)
+    try:
+        mesh = make_host_mesh(1, device_type="cuda")
+        (g_rows, g_leaves), (e_rows, e_leaves), stats = _graph_against_eager(
+            cfg, tmp_path, 4, S=S, B=B, mesh=mesh)
+        assert stats["eager_steps"] == 1 and stats["replays"] == 3
+        assert stats["captured_launches"] == _captured_want(cfg)
+        assert g_rows == e_rows
+        assert len(g_leaves) == len(e_leaves)
+        for a, b in zip(g_leaves, e_leaves):
+            assert a.device.type == "cuda" and torch.equal(a, b)
+        model = build_model(cfg, device=dev)
+        ocfg = AdamWConfig(lr=1e-3)
+        step, _, _ = build_train_step(model, mesh, ocfg, cosine_schedule(1e-3, 1, 8),
+                                      model.input_specs("train", {"seq_len": S,
+                                                                  "global_batch": B,
+                                                                  "kind": "train"}))
+        params = shard_params(model, model.init(0), mesh)
+        opt = adamw_init(ocfg, params.tree(), ctx=make_ctx(mesh))
+        source = _TrainSource(cfg, S, B)
+        batches = [{k: torch.as_tensor(v, device=dev) for k, v in source.batch(i).items()}
+                   for i in range(3)]
+        for i in range(2):  # the warm-up, then the capture and its replay
+            step(params, opt, batches[i], i)
+        host = _host_launches(lambda: step(params, opt, batches[2], 2))
+        assert step.stats()["replays"] == 2
+        assert host <= 6, host
+        step.release()
+    finally:
+        dist.destroy_process_group()
 
 
 _BROKEN_CAPTURE = """
@@ -1583,8 +1661,15 @@ def test_sharded_steps_on_four_cards_match_one_cpu(mesh, tmp_path):
     over NCCL (the flash kernel on the local heads), held against the
     port's single-device results on the CPU: the train step, ``moe_ep``,
     the prefill, the decode steps, the ZeRO blocks and, on (2, 2), the
-    elastic restore; and three ``Trainer(mesh=)`` steps against the
-    single-device Trainer on one card."""
+    elastic restore; and three ``Trainer(mesh=)`` steps (through the
+    sharded step's graph: an eager warm-up, then the captured step with
+    its collectives replayed) against the single-device Trainer on one
+    card. Then ``tests/test_torch_sharded_graph.py``'s group on the four
+    cards: ``Trainer(mesh=)`` through the graph against the eager sharded
+    body bit for bit for dense, GQA-MoE, SSM and enc-dec, every rank
+    capturing the same launches (each kernel at its launches a step), a
+    moved leaf refused, and the prefill and greedy decode graphs bit for
+    bit with their eager bodies."""
     import pickle
     import sys
 
@@ -1648,6 +1733,16 @@ def test_sharded_steps_on_four_cards_match_one_cpu(mesh, tmp_path):
         writer, *others = save["peak_growth_bytes"]
         assert writer >= save["tree_bytes"], save
         assert max(others) <= save["tree_bytes"] // 2, save
+    import test_torch_sharded_graph as sg
+
+    (tmp_path / "graphs").mkdir()
+    ranks = sg.spawn(mesh, tmp_path / "graphs", device_type="cuda")
+    for arch in sg.ARCHS:
+        sg.check_trainer(ranks, arch)
+        assert ranks[0]["trainer"][arch]["stats"]["captured_launches"] == _captured_want(
+            sg._cfg(arch)), arch
+        sg.check_serve(ranks, arch)
+    sg.check_moved(ranks)
 
 
 # the families' four-card overrides: head dim 32 where K1 runs at the
