@@ -209,6 +209,14 @@ PATHS = (
     ("deepseek-coder-33b", BUCKETED, ("flash_attention",), {"float32": 2, "bfloat16": None}),
 )
 N_REQUESTS, NEW_TOKENS, PROMPT_RANGE = 8, 32, (64, 512)
+# the rounds a path without prompt buckets serves its prompts on one engine:
+# the first prefills each length eagerly, the second captures each length's
+# graph and replays it, the third replays only. In bf16, DRAWN_ROUNDS more
+# rounds then serve N_REQUESTS prompts each of lengths drawn anew from
+# PROMPT_RANGE, which rarely repeat: the traffic that pays for first sights
+# and captures without the replays, each round comparable to the first
+REPEAT_ROUNDS = 3
+DRAWN_ROUNDS = 3
 TIE_GAP = 1e-3  # a token mismatch at a top-2 logit gap below this is a near-tie
 # the host's calls that put work on the card, as the profiler names them
 HOST_LAUNCH = re.compile(r"^(cudaLaunchKernel|cuLaunchKernel|cudaGraphLaunch|cudaMemcpyAsync)")
@@ -1674,9 +1682,9 @@ def phase_ssd_bwd() -> dict:
 # -- serve ----------------------------------------------------------------------
 
 
-def _prompts(vocab: int) -> list:
-    rng = np.random.default_rng(0)
-    lens = rng.integers(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1, size=N_REQUESTS)
+def _prompts(vocab: int, n: int = N_REQUESTS, seed: int = 0) -> list:
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1, size=n)
     return [rng.integers(0, vocab, size=int(n)).astype(np.int32) for n in lens]
 
 
@@ -1700,26 +1708,69 @@ def _sequential(model, params, prompt, budget, width):
     return toks, gaps
 
 
-def _serve(model, params, prompts, serve_kw):
+def _serve(model, params, rounds: list, serve_kw) -> list:
+    """Serve each round's prompts (``rounds``, a list of prompt lists) on one
+    engine, each round once the last has finished: per round its tokens,
+    each request's TTFT marks, its wall s, the engine's stats after it
+    (cumulative) and the bytes the exact-length prefill graphs hold then."""
     import torch
 
     from repro_torch.serve import ServeEngine
 
+    runs = []
     with ServeEngine(model, params, **serve_kw) as engine:
-        t0 = time.perf_counter()
-        handles = [engine.submit(p, NEW_TOKENS) for p in prompts]
-        outs = [list(map(int, h.result(600))) for h in handles]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        stats = engine.stats()
-    # handles keep the engine (and its weights) alive through their cancellers
-    marks = [
-        {"ttft": h.ttft, "admit": h.prefill_start_t - h.submit_t,
-         "prefill": h.prefill_done_t - h.prefill_start_t,
-         "slot_wait": h.first_token_t - h.prefill_done_t}
-        for h in handles
-    ]
-    return outs, marks, wall, stats
+        for prompts in rounds:
+            t0 = time.perf_counter()
+            handles = [engine.submit(p, NEW_TOKENS) for p in prompts]
+            outs = [list(map(int, h.result(600))) for h in handles]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs.append({"outs": outs, "wall": wall, "stats": engine.stats(),
+                         "exact_held_bytes": engine._exact_graphs.held_bytes(),
+                         # handles keep the engine (and its weights) alive
+                         # through their cancellers
+                         "marks": [{"ttft": h.ttft, "admit": h.prefill_start_t - h.submit_t,
+                                    "prefill": h.prefill_done_t - h.prefill_start_t,
+                                    "slot_wait": h.first_token_t - h.prefill_done_t}
+                                   for h in handles]})
+    return runs
+
+
+def _round_line(run: dict, before) -> dict:
+    """One round's serving metrics: tokens/s, TTFT p50 / p99 and its parts'
+    shares, and its graph replays, exact-length graphs by length (eager
+    runs, replays, captured this round, capture ms), ``before`` being the
+    previous round's stats or None."""
+    marks, stats = run["marks"], run["stats"]
+    ttft = [m["ttft"] for m in marks]
+    prev = before["graphs"] if before else {}
+
+    def grew(k, g, key):
+        return g[key] - prev.get(k, {}).get(key, 0)
+
+    exact = {k[len("exact_"):]: {"eager": grew(k, g, "eager_steps"),
+                                 "replays": grew(k, g, "replays"),
+                                 "captured": g["capture_s"] is not None
+                                 and prev.get(k, {}).get("capture_s") is None,
+                                 "capture_ms": None if g["capture_s"] is None
+                                 else 1e3 * g["capture_s"]}
+             for k, g in stats["graphs"].items() if k.startswith("exact_")}
+    return {
+        "wall_s": run["wall"],
+        "tokens_per_s": sum(len(o) for o in run["outs"]) / run["wall"],
+        "ttft_p50_s": float(np.percentile(ttft, 50)),
+        "ttft_p99_s": float(np.percentile(ttft, 99)),
+        "ttft_parts_s": {k: [m[k] for m in marks] for k in ("admit", "prefill", "slot_wait")},
+        "ttft_sum_s": sum(ttft),
+        "ttft_share": {k: sum(m[k] for m in marks) / sum(ttft)
+                       for k in ("admit", "prefill", "slot_wait")},
+        "ticks": stats["ticks"] - (before["ticks"] if before else 0),
+        "preemptions": stats["preemptions"] - (before["preemptions"] if before else 0),
+        "graph_replays": {k: grew(k, g, "replays") for k, g in stats["graphs"].items()},
+        "exact_by_length": exact,
+        "exact_graph_evictions": stats["exact_graph_evictions"],
+        "exact_held_bytes": run["exact_held_bytes"],
+    }
 
 
 def _traced(fn, top: int = 3) -> dict:
@@ -1791,11 +1842,20 @@ def _layer_times(model, params, serve_kw) -> dict:
     captured graph (``tick_eager_*``, ``tick_graph_*``; the graph's time
     includes the copies in and out). For a family that buckets its prompts,
     also the S=300 prefill by replay of the 512 bucket's graph, with the
-    copy of its static cache (``prefill_graph_*``, ``prefill_clone_*``)."""
+    copy of its static cache (``prefill_graph_*``, ``prefill_clone_*``);
+    for one that does not, the S=300 prefill by its length's graph, as the
+    engine runs it from the length's second prefill (the copy in, the
+    replay, the clone out and the first token's read-back;
+    ``prefill_graph_*``), its first token and every cache leaf held equal
+    to the eager body's bit for bit, beside that eager body under
+    ``inference_mode`` as the length's first prefill runs it
+    (``prefill_inference_*``). Then the host ms of one ``kv.write`` of the
+    S=300 cache into a slot, as a join runs it (reported, not gated)."""
     import torch
 
     from repro_torch.serve import PagedKVCache, ServeEngine
-    from repro_torch.serve.graphs import DecodeGraph, PrefillGraphs
+    from repro_torch.serve.graphs import DecodeGraph, ExactPrefillGraphs, PrefillGraphs
+    from repro_torch.serve.graphs import prefill_first
     from repro_torch.tree import tree_leaves, tree_map
 
     cfg = model.cfg
@@ -1851,6 +1911,55 @@ def _layer_times(model, params, serve_kw) -> dict:
             "prefill_clone_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(static)),
         })
         out.update({f"prefill_graph_{k}": v for k, v in _traced(prefill_graph).items()})
+    else:
+        toks = tokens.astype(np.int32)
+        graphs = ExactPrefillGraphs(model, params)
+
+        def prefill_inference():
+            with torch.inference_mode():
+                return prefill_first(model, params, torch.as_tensor(toks, device=model.device))
+
+        def prefill_graph():
+            return graphs.run(toks)
+
+        want = prefill_inference()
+        prefill_graph()  # the length's first sight: eager
+        t0 = time.perf_counter()
+        cache, first = prefill_graph()  # captured, then replayed
+        capture_ms = 1e3 * (time.perf_counter() - t0)
+        runs = [(cache, first), prefill_graph()]
+        bitwise = all(
+            got_first == int(want["first"]) and all(
+                a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+                for a, b in zip(tree_leaves(got), tree_leaves(want["cache"]), strict=True))
+            for got, got_first in runs)
+        check(bitwise, f"{cfg.name}: a replayed S={S} prefill's first token or cache differs "
+                       "from the eager body's")
+        out.update({
+            "prefill_inference_ms_S300": _host_ms(prefill_inference, 5),
+            "prefill_graph_ms_S300": _host_ms(prefill_graph, 5),
+            "prefill_graph_length": S,
+            "prefill_graph_first_call_ms": capture_ms,
+            "prefill_graph_capture_s": graphs.stats()[f"exact_{S}"]["capture_s"],
+            "prefill_graph_pool_bytes": graphs.stats()[f"exact_{S}"]["pool_bytes"],
+            "prefill_graph_bitwise_with_eager": bitwise,
+        })
+        # a length served k times costs e + c + (k - 2) r by its graph (first
+        # sight eager, the capture's call, replays) against k e eagerly
+        e, r = out["prefill_inference_ms_S300"], out["prefill_graph_ms_S300"]
+        uses = 2 + (capture_ms - e) / (e - r) if e > r else None
+        out["prefill_graph_break_even_uses"] = uses
+        out["prefill_graph_break_even_repeat_share"] = 1 - 1 / uses if uses else None
+        out.update({f"prefill_inference_{k}": v for k, v in _traced(prefill_inference).items()})
+        out.update({f"prefill_graph_{k}": v for k, v in _traced(prefill_graph).items()})
+        graphs.close()
+        del runs, cache, want
+    # one join's kv.write: the S=300 cache into a slot's pages
+    slot = kv.alloc(kv.pages_for(S))
+    with torch.inference_mode():
+        cache = model.prefill(params, {"tokens": tokens})[1]
+        out["kv_write_ms_S300"] = _host_ms(lambda: kv.write(slot, cache, S), 10)
+    kv.free(slot)
     return out
 
 
@@ -1933,9 +2042,12 @@ def phase_readback() -> dict:
 
 
 def _check_graph_replays(arch: str, dtype: str, stats: dict, requests: int,
-                         serve_kw: dict) -> None:
+                         serve_kw: dict, repeat=None) -> None:
     """Every decode tick replayed the decode graph, and with prompt buckets
-    every first prefill replayed its bucket's graph (a resume runs eagerly)."""
+    every first prefill replayed its bucket's graph (a resume takes its
+    length's graph). ``repeat`` (prompt lengths, the stats before the
+    round): a round of prompts whose lengths were all seen before replays
+    each length's captured graph for every prompt, and runs none eagerly."""
     graphs = stats["graphs"]
     check(graphs["decode"]["replays"] == stats["ticks"] > 0,
           f"{arch} {dtype}: {graphs['decode']['replays']} decode graph replays for "
@@ -1943,6 +2055,16 @@ def _check_graph_replays(arch: str, dtype: str, stats: dict, requests: int,
     if serve_kw.get("prefill_buckets"):
         n = sum(g["replays"] for k, g in graphs.items() if k.startswith("prefill_"))
         check(n == requests, f"{arch} {dtype}: {n} prefill graph replays for {requests} prompts")
+    if repeat is not None:
+        lens, before = repeat
+        prev = before["graphs"]
+        for n in sorted(set(lens)):
+            g, p = graphs.get(f"exact_{n}"), prev.get(f"exact_{n}")
+            check(g is not None and p is not None and g["capture_s"] is not None
+                  and g["eager_steps"] == p["eager_steps"]
+                  and g["replays"] - p["replays"] >= lens.count(n),
+                  f"{arch} {dtype}: the repeated round's prompts of length {n} did not all "
+                  f"replay its captured graph: {p} -> {g}")
 
 
 def _reduced(arch: str, depth, dtype: str) -> dict:
@@ -1960,6 +2082,12 @@ def _reduced(arch: str, depth, dtype: str) -> dict:
 
 
 def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple, depth=None) -> dict:
+    """One served path: the f32 engine against sequential decode, then the
+    measured bf16 run. A family without prompt buckets serves its prompts
+    :data:`REPEAT_ROUNDS` times on one engine in both dtypes: every later
+    round's prefills replay their lengths' graphs, its tokens held to the
+    same gate (f32) or to the first round's exactly (bf16); in bf16
+    :data:`DRAWN_ROUNDS` rounds of drawn lengths follow."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1969,35 +2097,44 @@ def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple, depth=None) -> d
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     full = get_config(arch)
+    rounds = 1 if serve_kw.get("prefill_buckets") else REPEAT_ROUNDS
 
     def config(dtype):
         layers = (depth or {}).get(dtype)
         return full.replace(dtype=dtype, **({} if layers is None else {"num_layers": layers}))
 
     prompts = _prompts(full.vocab_size)
+    lens = [int(p.size) for p in prompts]
     emit("serve", arch=arch, **_release_device_memory())
 
-    # f32, TF32 off: the engine against sequential batch-1 decode
+    # f32, TF32 off: the engine against sequential batch-1 decode, every round
     model = build_model(config("float32"))
     params = model.init(seed=0)
-    outs, _marks, wall, stats = _serve(model, params, prompts, serve_kw)
+    runs = _serve(model, params, [prompts] * rounds, serve_kw)
+    refs = [_sequential(model, params, prompt, NEW_TOKENS, serve_kw["max_len"])
+            for prompt in prompts]
     mismatches = []
-    for r, (prompt, out) in enumerate(zip(prompts, outs)):
-        ref, gaps = _sequential(model, params, prompt, NEW_TOKENS, serve_kw["max_len"])
-        if out != ref:
-            i = next(j for j, (a, b) in enumerate(zip(out, ref)) if a != b)
-            mismatches.append({"request": r, "step": i, "top2_gap": gaps[i]})
+    for i, run in enumerate(runs):
+        for r, (out, (ref, gaps)) in enumerate(zip(run["outs"], refs)):
+            if out != ref:
+                j = next(j for j, (a, b) in enumerate(zip(out, ref)) if a != b)
+                mismatches.append({"round": i + 1, "request": r, "step": j,
+                                   "top2_gap": gaps[j]})
+    stats = runs[-1]["stats"]
     emit("serve", arch=arch, dtype="float32", reduced=_reduced(arch, depth, "float32"),
-         requests=len(prompts), wall_s=wall,
+         requests=len(prompts), rounds=rounds, wall_s=[run["wall"] for run in runs],
          ticks=stats["ticks"], preemptions=stats["preemptions"], mismatches=mismatches,
          graph_replays={k: g["replays"] for k, g in stats["graphs"].items()},
          phase_s=time.perf_counter() - t_start)
-    _check_graph_replays(arch, "float32", stats, len(prompts), serve_kw)
+    _check_graph_replays(arch, "float32", runs[0]["stats"], len(prompts), serve_kw)
+    for before, run in zip(runs, runs[1:]):
+        _check_graph_replays(arch, "float32", run["stats"], len(prompts), serve_kw,
+                             (lens, before["stats"]))
     for m in mismatches:
         check(m["top2_gap"] < TIE_GAP,
               f"{arch} float32 engine tokens differ from sequential decode at a gap of "
-              f"{m['top2_gap']}")
-    del model, params
+              f"{m['top2_gap']} (round {m['round']})")
+    del model, params, runs
     # the closed engine sits in a reference cycle holding the f32 weights
     _release_device_memory()
 
@@ -2007,23 +2144,39 @@ def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple, depth=None) -> d
     base = config("bfloat16")
     model = build_model(base)
     params = model.init(seed=0)
-    _serve(model, params, prompts[:1], serve_kw)
+    _serve(model, params, [prompts[:1]], serve_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
-    outs, marks, wall, stats = _serve(model, params, prompts, serve_kw)
+    drawn = [_prompts(base.vocab_size, seed=2 + i)
+             for i in range(DRAWN_ROUNDS if rounds > 1 else 0)]
+    runs = _serve(model, params, [prompts] * rounds + drawn, serve_kw)
     # the wrappers count the launches they run; a graph's replay runs the
     # launches its capture recorded, without the wrappers
     eager = {name: fn.launches for name, fn in counters.items()}
+    stats = runs[-1]["stats"]
     graphs = stats["graphs"]
     replayed = {name: sum(g["replays"] * g["captured_launches"].get(name, 0)
                           for g in graphs.values()) for name in counters}
     launches = {name: eager[name] + replayed[name] for name in counters}
-    prefills = len(prompts) + stats["preemptions"]
-    n_tok = sum(len(o) for o in outs)
-    ttft = [m["ttft"] for m in marks]
+    prefills = (rounds + len(drawn)) * len(prompts) + stats["preemptions"]
+    outs = runs[0]["outs"]
+    lines = [_round_line(run, before["stats"] if before else None)
+             for run, before in zip(runs, [None] + runs[:-1])]
+    first = lines[0]
+    seen = set(lens)
+    for line, round_prompts in zip(lines[rounds:], drawn):
+        # the drawn lengths: the share the engine had seen before
+        repeats = 0
+        for p in round_prompts:
+            repeats += p.size in seen
+            seen.add(p.size)
+        line.update(lengths="drawn", prompt_lens=[int(p.size) for p in round_prompts],
+                    repeat_share=repeats / len(round_prompts),
+                    ttft_p50_over_round_1=line["ttft_p50_s"] / first["ttft_p50_s"],
+                    ttft_p99_over_round_1=line["ttft_p99_s"] / first["ttft_p99_s"])
     res = {
         "arch": arch,
         "dtype": "bfloat16",
@@ -2031,17 +2184,11 @@ def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple, depth=None) -> d
         "params": sum(t.numel() for t in params.parameters()),
         "serve": serve_kw,
         "requests": len(prompts),
-        "prompt_lens": [int(p.size) for p in prompts],
-        "tokens": n_tok,
-        "wall_s": wall,
-        "tokens_per_s": n_tok / wall,
-        "ttft_p50_s": float(np.percentile(ttft, 50)),
-        "ttft_p99_s": float(np.percentile(ttft, 99)),
-        # TTFT = admission wait + prefill + wait for a slot, per request
-        "ttft_parts_s": {k: [m[k] for m in marks] for k in ("admit", "prefill", "slot_wait")},
-        "ttft_sum_s": sum(ttft),
-        "ttft_share": {k: sum(m[k] for m in marks) / sum(ttft)
-                       for k in ("admit", "prefill", "slot_wait")},
+        "prompt_lens": lens,
+        "tokens": sum(len(o) for o in outs),
+        # the first round's figures, as a one-round path reads them
+        **{k: first[k] for k in ("wall_s", "tokens_per_s", "ttft_p50_s", "ttft_p99_s",
+                                 "ttft_parts_s", "ttft_sum_s", "ttft_share")},
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "ticks": stats["ticks"],
         "preemptions": stats["preemptions"],
@@ -2050,15 +2197,25 @@ def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple, depth=None) -> d
         "launches_replayed": replayed,
         "graphs": graphs,
         "prefills": prefills,
+        "rounds": lines,
     }
     emit("serve", **res)
-    _check_graph_replays(arch, "bfloat16", stats, len(prompts), serve_kw)
+    for i, line in enumerate(lines):
+        emit("serve_round", arch=arch, dtype="bfloat16", round=i + 1, **line)
+    _check_graph_replays(arch, "bfloat16", runs[0]["stats"], len(prompts), serve_kw)
+    for i, (before, run) in enumerate(zip(runs, runs[1:rounds])):
+        _check_graph_replays(arch, "bfloat16", run["stats"], len(prompts), serve_kw,
+                             (lens, before["stats"]))
+        check(run["outs"] == outs,
+              f"{arch} bf16 round {i + 2}: the tokens differ from the first round's at "
+              f"{[r for r, (a, b) in enumerate(zip(run['outs'], outs)) if a != b]}")
     lay = _layer_times(model, params, serve_kw)
     emit("layers", **lay)
     res["layers"] = lay
     emit("serve_graphs", arch=arch, ticks=stats["ticks"],
          graph_replays={k: g["replays"] for k, g in graphs.items()},
-         capture_ms={k: 1e3 * g["capture_s"] for k, g in graphs.items()},
+         capture_ms={k: None if g["capture_s"] is None else 1e3 * g["capture_s"]
+                     for k, g in graphs.items()},
          captured_launches={k: g["captured_launches"] for k, g in graphs.items()},
          peak_mem_bytes=res["peak_mem_bytes"], tokens_per_s=res["tokens_per_s"],
          tick_host_launches={"eager decode_step": lay["decode_host_launches"],
@@ -2069,25 +2226,29 @@ def phase_serve(arch: str, serve_kw: dict, path_kernels: tuple, depth=None) -> d
                               "graph tick": lay["tick_graph_device_busy_ms"]},
          tick_host_ms={"eager decode_step": lay["decode_step_ms_4lanes"],
                        "eager tick": lay["tick_eager_ms_4lanes"],
-                       "graph tick": lay["tick_graph_ms_4lanes"]})
+                       "graph tick": lay["tick_graph_ms_4lanes"]},
+         kv_write_ms_S300=lay["kv_write_ms_S300"])
     check(lay["tick_eager_host_launches"] > MAX_TICK_HOST_LAUNCHES,
           f"{arch}: the trace counts {lay['tick_eager_host_launches']} host launches for an "
           "eager tick: the profiler's runtime calls are not being read")
     check(lay["tick_graph_host_launches"] <= MAX_TICK_HOST_LAUNCHES,
           f"{arch}: a decode tick by graph replay issues {lay['tick_graph_host_launches']} "
           f"host launches ({lay['tick_graph_host_launches_by_call']})")
-    check(all(len(o) == NEW_TOKENS and all(0 <= t < base.vocab_size for t in o) for o in outs),
+    check(all(len(o) == NEW_TOKENS and all(0 <= t < base.vocab_size for t in o)
+              for run in runs for o in run["outs"]),
           f"{arch} bf16 run: a request came back short or with an out-of-vocabulary token")
     for name in path_kernels:
         check(launches[name] >= base.num_layers * prefills,
               f"{arch}: {name} launched {launches[name]} times ({eager[name]} by its wrapper, "
               f"{replayed[name]} by graph replays) for {prefills} prefills of "
               f"{base.num_layers} layers")
-        if serve_kw.get("prefill_buckets"):  # every first prefill replays a captured graph
+        # every bucketed prefill, and every prefill of a repeated round,
+        # replays a captured graph
+        if serve_kw.get("prefill_buckets") or rounds > 1:
             check(replayed[name] >= base.num_layers * len(prompts),
                   f"{arch}: graph replays ran {name} {replayed[name]} times for "
-                  f"{len(prompts)} bucketed prefills of {base.num_layers} layers")
-    del model, params
+                  f"{len(prompts)} prefills by graph of {base.num_layers} layers")
+    del model, params, runs
     gc.collect()
     torch.cuda.empty_cache()
     emit("serve", arch=arch, bf16_phase_s=time.perf_counter() - t_bf16,
@@ -2498,7 +2659,7 @@ def _graph_line(arch: str, eager: dict, rows: list, steps_s: list, state: dict, 
         **{k: {"graph": trace[k], "eager": eager["trace"][k]} for k in keys},
         "peak_mem_bytes": {"graph": peaks["allocated"], "eager": eager["peak_mem_bytes"]},
         "peak_reserved_bytes": {"graph": peaks["reserved"], "eager": eager["peak_reserved_bytes"]},
-        "pool_reserved_bytes": graph["pool_reserved_bytes"],
+        "pool_bytes": graph["pool_bytes"],
     }
     emit("train_graph", **line)
     check(line["metrics_equal"], f"{arch}: the graph's metrics {metrics} against the eager "
@@ -3411,7 +3572,7 @@ def _sharded_greedy(model, sharded, mesh, batch: dict, S: int, new: int, feed=No
 def _greedy_stats(run: dict) -> dict:
     """A greedy run's graphs: replays, captured launches, capture s."""
     return {kind: {k: g[k] for k in ("eager_steps", "replays", "captured_launches",
-                                     "capture_s", "pool_reserved_bytes")}
+                                     "capture_s", "pool_bytes")}
             for kind, g in run["graphs"].items()}
 
 

@@ -3,10 +3,11 @@ from the reference's ``repro/serve/engine.py`` onto ``repro_torch.core``.
 
 The reference touches JAX in three places: the jits built in ``__init__``,
 the prefill task body and the decode tick. Here the jits are CUDA graphs
-captured in ``__init__`` (``serve/graphs.py``): the decode tick, and one
-prefill per prompt bucket; an exact-length prefill (no buckets, or a resume
-after preemption) runs eagerly, as the reference compiles one program per
-length for it. All run on the model's device under
+(``serve/graphs.py``): the decode tick and one prefill per prompt bucket,
+captured in ``__init__``, and one prefill per exact prompt length (no
+buckets, or a resume after preemption), captured on the length's second
+prefill, as the reference compiles one program per length on its first
+use (the first runs eagerly). All run on the model's device under
 ``torch.inference_mode`` entered inside each task body (it is thread-local,
 and the bodies run on pool worker threads). The rest — admission heap,
 deadline bands, preemption, breaker, streaming and ``submit_async`` — is
@@ -108,7 +109,7 @@ from ..core import (
 )
 
 from ..models.common import resolve_device
-from .graphs import DecodeGraph, PrefillGraphs, read_back
+from .graphs import DecodeGraph, ExactPrefillGraphs, PrefillGraphs
 from .kv import PagedKVCache, SlotKVCache
 
 __all__ = [
@@ -398,7 +399,7 @@ class ServeEngine:
     prefill_buckets:
         Optional ascending prompt-length buckets. Prompts are right-padded to
         the smallest fitting bucket so prefill is captured once per bucket
-        (one CUDA graph each) instead of running per length. Only valid for
+        (one CUDA graph each) instead of once per prompt length. Only valid for
         full-attention families (pad tokens are causally invisible and
         masked by ``valid_len`` during decode); SSM/hybrid state and
         sliding-window rings would absorb the pad tokens, so bucketing is
@@ -497,6 +498,8 @@ class ServeEngine:
         self._prefill_graphs = (
             PrefillGraphs(model, params, self._buckets) if self._buckets else None
         )
+        # every other prefill by its length's graph, made on first use
+        self._exact_graphs = ExactPrefillGraphs(model, params)
 
         self._lock = threading.Lock()
         self._idle = threading.Condition(self._lock)
@@ -690,6 +693,7 @@ class ServeEngine:
             tracer.save(self._trace_path, num_workers=self.pool.num_threads)
         if self._own_pool:
             self.pool.close()
+        self._exact_graphs.close()  # gives their pools back
 
     def __enter__(self) -> "ServeEngine":
         return self
@@ -708,14 +712,19 @@ class ServeEngine:
         banded mode on first use. §13 adds ``preemptions`` (page-pressure
         evictions to the admit queue), ``rejected`` (``QueueFull``
         backpressure), ``deadline_misses`` and the live ``waiting`` depth.
-        ``graphs`` has, for the decode graph and each bucket's prefill graph
-        (``prefill_<bucket>``), its ``replays``, the ``captured_launches`` of
+        ``graphs`` has, for the decode graph, each bucket's prefill graph
+        (``prefill_<bucket>``) and each held prompt length's
+        (``exact_<length>``), its ``replays``, the ``captured_launches`` of
         the port's kernels by name (each replay runs them again without their
-        wrappers, which count eager launches only) and ``capture_s``.
+        wrappers, which count eager launches only) and ``capture_s``; a
+        length's also its ``eager_steps`` (its first prefill) and
+        ``pool_bytes``. ``exact_graph_evictions`` counts the lengths given
+        back to keep within ``graphs.EXACT_PREFILL_BYTES``.
         """
         graphs = {"decode": self._decode_graph.stats()}
         if self._prefill_graphs is not None:
             graphs.update(self._prefill_graphs.stats())
+        graphs.update(self._exact_graphs.stats())
         with self._lock:
             occ = self._occupancy_sum / self._ticks if self._ticks else 0.0
             plan = self._tick_graph.replay_plan
@@ -732,6 +741,7 @@ class ServeEngine:
                 "ticks": self._ticks,
                 "tick_replays": plan.replays if plan is not None else 0,
                 "graphs": graphs,
+                "exact_graph_evictions": self._exact_graphs.evictions,
                 "mean_occupancy": occ,
                 "kv": self.kv.stats(),
                 "pool": self.pool.stats(),
@@ -833,14 +843,8 @@ class ServeEngine:
         toks[0, :plen] = seq_toks
         if self._prefill_graphs is not None and not p.tokens:
             cache, first = self._prefill_graphs.run(toks, plen - 1)
-        else:  # an exact-length prefill (no buckets, or a resume) runs eagerly
-            with torch.inference_mode():
-                logits, cache = self.model.prefill(
-                    self.params,
-                    {"tokens": torch.as_tensor(toks, device=self.device)},
-                    last_pos=plen - 1,
-                )
-                first = int(read_back(torch.argmax(logits[0, -1])))  # waits for the device
+        else:  # an exact length (no buckets, or a resume): its length's graph
+            cache, first = self._exact_graphs.run(toks)
         if not p.tokens:
             handle.prefill_done_t = time.monotonic()
         p.joined = (cache, first, pad)

@@ -21,7 +21,11 @@ be captured raising (in a process of its own). The serve engine's CUDA graphs: a
 decode tick against eager ``decode_step`` bit for bit (three families, both
 cache layouts, f32 and bf16), an engine whose ticks and bucketed prefills
 all replay graphs, a capture beside another engine's work on other threads,
-and the first-launch guard refusing to run inside a capture. MLA's flash
+and the first-launch guard refusing to run inside a capture; the
+exact-length prefill graphs: a replayed prefill against its eager body bit
+for bit (mamba2, hymba, both dtypes), a forced preemption whose resume
+replays its length's graph, and captures beside another length's replays
+on another thread. MLA's flash
 attention at Dqk=192, Dv=128 against its plain version, forward and
 backward (causal, with and without ``k_len``, B=1 and B=2 at ragged S, in
 bf16 also in ulps and bit for bit), autograd at 192/128 through both
@@ -1566,6 +1570,224 @@ def test_capture_survives_the_collector_freeing_a_graph():
     with engine:
         out = engine.generate([np.arange(5, dtype=np.int32)], 3, timeout=300)
     assert len(calls) == 3 and len(out[0]) == 3
+
+
+# -- the exact-length prefill graphs --------------------------------------------------
+
+
+def _same_leaves(got, want) -> bool:
+    """Every leaf of two cache trees equal bit for bit, with its shape and
+    dtype."""
+    from repro_torch.tree import tree_leaves
+
+    a, b = tree_leaves(got), tree_leaves(want)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _eager_prefill(model, params, tokens):
+    from repro_torch.serve.graphs import prefill_first
+
+    with torch.inference_mode():
+        want = prefill_first(model, params, torch.as_tensor(tokens, device=model.device))
+    return want["cache"], int(want["first"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b"])
+def test_replayed_exact_prefill_equals_its_eager_body_bit_for_bit(arch, dtype, monkeypatch):
+    """A prompt length's prefill through ``ExactPrefillGraphs`` (the first
+    run eager, the second captured and replayed, the third replayed)
+    against the eager body on the same tokens: the first token and every
+    cache leaf, with its shape and dtype, bit for bit, at a length below
+    hymba's window (its ring leaves as long as the prompt) and one above.
+    Each length's graph captured the SSD kernel (and hymba's flash kernel)
+    once a layer. Each pool holds device memory in the allocator's snapshot
+    until its graph is given back: the older length's when a budget that
+    holds only the newer one evicts it, the newer one's at ``close``; once
+    the allocator's cache is emptied, no segment of either pool is left and
+    the reserved memory fell by at least the pool's bytes."""
+    import gc
+
+    from repro_torch.serve import graphs as serve_graphs
+    from repro_torch.serve.graphs import ExactPrefillGraphs
+
+    def segments(pool):
+        return [seg for seg in torch.cuda.memory_snapshot()
+                if tuple(seg["segment_pool_id"]) == pool]
+
+    def reserved_after_emptying():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(dev)
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _serve_cfg(arch, dtype)
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    graphs = ExactPrefillGraphs(model, params)
+    rng = np.random.default_rng(10)
+    lengths = (5, 77)
+    assert cfg.window is None or lengths[0] < cfg.window < lengths[1]
+    want_launches = {"ssd": cfg.num_layers}
+    if cfg.attention == "gqa":
+        want_launches["flash_attention"] = cfg.num_layers
+    for n in lengths:
+        tokens = rng.integers(0, cfg.vocab_size, (1, n)).astype(np.int32)
+        want_cache, want_first = _eager_prefill(model, params, tokens)
+        for i in range(3):
+            cache, first = graphs.run(tokens)
+            assert first == want_first, (n, i)
+            assert _same_leaves(cache, want_cache), (n, i)
+        stats = graphs.stats()[f"exact_{n}"]
+        assert (stats["eager_steps"], stats["replays"]) == (1, 2)
+        assert stats["captured_launches"] == want_launches
+    del cache, want_cache
+    older, newer = (graphs._graphs[n] for n in lengths)
+    pools = [tuple(g._graph.graph.pool()) for g in (older, newer)]
+    for g, pool in zip((older, newer), pools):
+        assert g.pool_bytes > 0 and sum(seg["total_size"] for seg in segments(pool)) \
+            == g.pool_bytes
+    assert graphs.held_bytes() == older.held_bytes() + newer.held_bytes()
+    monkeypatch.setattr(serve_graphs, "EXACT_PREFILL_BYTES", newer.held_bytes())
+    for g, pool in zip((older, newer), pools):
+        reserved = reserved_after_emptying()
+        if g is older:
+            graphs.run(tokens)  # the newer length's: its budget gives the older back
+            assert list(graphs._graphs) == [lengths[1]] and graphs.evictions == 1
+        else:
+            graphs.close()
+        assert g.state is None and not g.captured
+        assert reserved - reserved_after_emptying() >= g.pool_bytes
+        assert not segments(pool)
+    assert graphs.held_bytes() == 0
+
+
+class _PreemptingEngine(ServeEngine):
+    """``hold``: the next tick waits until that many prefilled sequences wait
+    to join (a round's residents join together); ``preempt_at=t``: before
+    the tick that follows ``t`` ticks, the youngest resident is preempted
+    (once), so its resume's length is the same in every round."""
+
+    def __init__(self, *args, hold=0, preempt_at=None, **kw):
+        super().__init__(*args, **kw)
+        self.hold, self.preempt_at = hold, preempt_at
+
+    def _tick_body(self):
+        import time
+
+        deadline = time.monotonic() + 120
+        while self.hold:
+            with self._lock:
+                if len(self._joinq) >= self.hold:
+                    self.hold = 0
+                    break
+            if time.monotonic() > deadline:
+                raise TimeoutError("the held prefills never arrived")
+            time.sleep(1e-3)
+        with self._lock:
+            if self.preempt_at == self._ticks and self._active:
+                self._preempt_locked(max(self._active.values(), key=lambda s: s.p.order))
+                self.preempt_at = None
+        super()._tick_body()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-1.3b", "hymba-1.5b"])
+def test_forced_preemption_resumes_by_a_replayed_graph_on_card(arch):
+    """Two residents on few pages (tinyllama bucketed); the youngest is
+    preempted after three ticks and resumes by an exact-length prefill of
+    prompt and tokens but the last. Served twice on one engine: in the
+    second round every prompt's length and the resume's replay their
+    captured graphs (the resume's eager the first time). Both rounds'
+    tokens equal the same weights' sequential decode on the CPU (f32)."""
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _serve_cfg(arch)
+    cpu_model = build_model(cfg, device="cpu")
+    params = cpu_model.init(2)
+    model = build_model(cfg, device=dev)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (21, 13)]
+    budgets = [12, 10]
+    refs = [_cpu_decode(cpu_model, params, p, b, 48) for p, b in zip(prompts, budgets)]
+    buckets = (16, 32) if ServeEngine.supports_prefill_buckets(cfg) else None
+    resume = 13 + 4 - 1  # the youngest's prompt and its first token and 3 decoded, but the last
+    rounds = []
+    with _PreemptingEngine(model, params.to(dev), max_slots=2, max_len=48, page_size=8,
+                           num_pages=8, prefill_buckets=buckets, hold=2,
+                           preempt_at=3) as engine:
+        for _ in range(2):
+            outs = engine.generate(prompts, budgets, timeout=300)
+            rounds.append(([list(map(int, o)) for o in outs], engine.stats()))
+            engine.hold, engine.preempt_at = 2, engine._ticks + 3
+    (first, s1), (second, s2) = rounds
+    assert s1["preemptions"] == 1 and s2["preemptions"] == 2
+    g1, g2 = s1["graphs"], s2["graphs"]
+    exact = [resume] + ([] if buckets else [21, 13])
+    for n in exact:
+        assert (g1[f"exact_{n}"]["eager_steps"], g1[f"exact_{n}"]["replays"]) == (1, 0), n
+        assert (g2[f"exact_{n}"]["eager_steps"], g2[f"exact_{n}"]["replays"]) == (1, 1), n
+        assert g2[f"exact_{n}"]["capture_s"] is not None
+    assert first == second == refs
+
+
+@pytest.mark.gpu
+def test_exact_prefill_captures_beside_another_lengths_replays():
+    """One thread replays a captured length's prefill graph again and again
+    while the main thread brings new lengths: each one's first run eager,
+    its second captured (captures take turns in the process, in
+    ``thread_local`` mode) while the other thread's replays, clones and
+    read-backs go on. Every run on either thread gives the eager body's
+    first token and cache leaves bit for bit."""
+    import threading
+    import time
+
+    from repro_torch.serve.graphs import ExactPrefillGraphs
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _serve_cfg("hymba-1.5b")
+    model = build_model(cfg, device=dev)
+    params = model.init(3)
+    graphs = ExactPrefillGraphs(model, params)
+    rng = np.random.default_rng(12)
+    busy = rng.integers(0, cfg.vocab_size, (1, 40)).astype(np.int32)
+    busy_want = _eager_prefill(model, params, busy)
+    graphs.run(busy)
+    graphs.run(busy)  # captured
+    stop, errors, replays = threading.Event(), [], [0]
+
+    def replay():
+        try:
+            while not stop.is_set():
+                cache, first = graphs.run(busy)
+                if first != busy_want[1] or not _same_leaves(cache, busy_want[0]):
+                    errors.append(f"replay {replays[0]} differs from the eager body")
+                replays[0] += 1
+        except BaseException as e:  # noqa: BLE001 - reported below, with the others
+            errors.append(repr(e))
+
+    th = threading.Thread(target=replay)
+    th.start()
+    try:
+        while not replays[0] and th.is_alive():
+            time.sleep(1e-3)
+        for n in (11, 23, 31, 52, 66):
+            tokens = rng.integers(0, cfg.vocab_size, (1, n)).astype(np.int32)
+            want_cache, want_first = _eager_prefill(model, params, tokens)
+            for i in range(3):
+                cache, first = graphs.run(tokens)
+                assert first == want_first and _same_leaves(cache, want_cache), (n, i)
+    finally:
+        stop.set()
+        th.join(300)
+    assert not th.is_alive() and not errors and replays[0] > 0, errors[:3]
+    stats = graphs.stats()
+    assert all(stats[f"exact_{n}"]["capture_s"] is not None for n in (11, 23, 31, 52, 66))
+    graphs.close()
 
 
 # -- the parallelism layer across four cards ------------------------------------------

@@ -1,5 +1,5 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX, ``ml_dtypes`` or anything of the reference
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and not ``examples/serve_lm_torch.py`` imports JAX, ``ml_dtypes`` or anything of the reference
 package, and importing the whole port loads none of them."""
 import ast
 import subprocess
@@ -9,7 +9,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_lm_torch.py"]
 
 
 def _forbidden(name: str) -> bool:

@@ -7,8 +7,14 @@ the buffers and pools stay bound for a whole run, the zero page stays zero,
 the warm-up's writes into free slots are harmless, ``prefill`` with a device
 index for ``last_pos`` equals the int form and the JAX package's, two
 prompts of one bucket keep their own caches, and the first-launch guard
-refuses to run inside a capture. The on-card half is in
-``tests/test_torch_gpu.py``."""
+refuses to run inside a capture. The exact-length prefill graphs: a
+length's first prefill is eager and its later ones replay its graph, bit
+for bit with the eager body; two prompts of one length keep their own
+caches; resumes take their lengths' graphs, with the JAX engine's tokens;
+what the lengths hold stays within the byte budget, the least recently
+run given back; closing the engine gives every graph back. The on-card
+half is in ``tests/test_torch_gpu.py``."""
+import functools
 import threading
 import time
 
@@ -26,7 +32,8 @@ from repro_torch.kernels import build
 from repro_torch.models import build_model
 from repro_torch.models.lm import extend_caches
 from repro_torch.serve import PagedKVCache, ServeEngine, SlotKVCache
-from repro_torch.serve.graphs import DecodeGraph
+from repro_torch.serve import graphs as serve_graphs
+from repro_torch.serve.graphs import DecodeGraph, ExactPrefillGraphs, prefill_first
 from repro_torch.tree import tree_leaves
 
 # the suite runs in several worker processes that share the host's cores:
@@ -42,6 +49,7 @@ def _model(arch, seed=0):
     return cfg, model, model.init(seed)
 
 
+@functools.cache  # the JAX init is slow; no test changes the weights it hands out
 def _jax_pair(arch):
     jcfg = jax_get_reduced(arch).replace(dtype="float32")
     cfg = get_reduced(arch).replace(dtype="float32")
@@ -264,7 +272,8 @@ def test_two_prompts_of_one_bucket_keep_their_own_caches():
 def test_engine_stats_name_every_graph(arch):
     """``stats()["graphs"]``: the decode graph (replays == ticks) and, where
     the family buckets its prompts, one prefill graph per bucket (replays ==
-    bucketed prefills); captured launches are empty on the CPU, where no
+    bucketed prefills), else one per prompt length, each length's one
+    prefill run eagerly; captured launches are empty on the CPU, where no
     kernel launches."""
     cfg, model, params = _model(arch)
     buckets = (8, 16) if ServeEngine.supports_prefill_buckets(cfg) else None
@@ -273,12 +282,17 @@ def test_engine_stats_name_every_graph(arch):
         engine.generate(_prompts(cfg, 4, [3, 10, 6]), 3, timeout=120)
         stats = engine.stats()
     graphs = stats["graphs"]
-    want = {"decode"} | ({"prefill_8", "prefill_16"} if buckets else set())
+    want = {"decode"} | ({"prefill_8", "prefill_16"} if buckets
+                         else {"exact_3", "exact_10", "exact_6"})
     assert set(graphs) == want
     assert graphs["decode"]["replays"] == stats["ticks"] > 0
     if buckets:
         assert graphs["prefill_8"]["replays"] == 2 and graphs["prefill_16"]["replays"] == 1
-    assert all(g["captured_launches"] == {} and g["capture_s"] >= 0 for g in graphs.values())
+    else:  # run once each: eager, nothing captured
+        assert all(graphs[f"exact_{n}"]["eager_steps"] == 1 and graphs[f"exact_{n}"]["replays"]
+                   == 0 and graphs[f"exact_{n}"]["capture_s"] is None for n in (3, 10, 6))
+    assert all(g["captured_launches"] == {} and (g["capture_s"] is None or g["capture_s"] >= 0)
+               for g in graphs.values())
 
 
 def test_slot_pool_graph_decodes_in_place():
@@ -295,6 +309,164 @@ def test_slot_pool_graph_decodes_in_place():
     nxt = graph.run(tok, idx, {slot: 5})
     assert nxt.shape == (2, 1) and 0 <= nxt[0, 0] < cfg.vocab_size
     assert not torch.equal(kv.buffers["s0"]["attn"]["k"][slot, :, 0, 5], before)
+
+
+# -- the exact-length prefill ------------------------------------------------------------
+
+
+def _exact(stats, length):
+    return stats["graphs"][f"exact_{length}"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_a_prompt_length_runs_eagerly_once_then_replays_its_graph(arch):
+    """A prompt length's first prefill runs eagerly, its second is captured
+    and replayed, its third replays (tinyllama unbucketed here): three
+    prompts of one length, one after another, each with the sequential
+    decode's tokens. Its static input and outputs keep their addresses
+    from the capture on. Alone, the class gives the eager body's first
+    token and every cache leaf (shape and dtype too) bit for bit, at every
+    run, and hands out a cache the next run does not overwrite."""
+    cfg, model, params = _model(arch)
+    prompts = _prompts(cfg, 12, [7, 7, 7])
+    refs = [sequential_decode(model, params, p, 4, 24) for p in prompts]
+    addresses = []
+    with ServeEngine(model, params, max_slots=2, max_len=24, page_size=4,
+                     device="cpu") as engine:
+        for i, (prompt, ref) in enumerate(zip(prompts, refs)):
+            assert list(map(int, engine.submit(prompt, 4).result(120))) == ref
+            stats = _exact(engine.stats(), 7)
+            assert (stats["eager_steps"], stats["replays"]) == (1, i)
+            graph = engine._exact_graphs._graphs[7]
+            assert graph.captured == (i > 0)
+            if graph.captured:
+                addresses.append([t.data_ptr() for t in tree_leaves(
+                    [graph.inputs, graph._graph.outputs])])
+    assert len(addresses) == 2 and addresses[0] == addresses[1]
+
+    graphs = ExactPrefillGraphs(model, params)
+    runs = []
+    for prompt in prompts[:1] * 3:
+        want = prefill_first(model, params, torch.as_tensor(prompt[None]))
+        cache, first = graphs.run(prompt[None])
+        assert first == int(want["first"])
+        for got, leaf in zip(tree_leaves(cache), tree_leaves(want["cache"]), strict=True):
+            assert got.dtype == leaf.dtype and torch.equal(got, leaf)
+        runs.append(cache)
+    for cache in runs[1:]:
+        assert not any(a.data_ptr() == b.data_ptr()
+                       for a, b in zip(tree_leaves(cache), tree_leaves(runs[-1]))
+                       if cache is not runs[-1])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_two_prompts_of_one_length_keep_their_own_caches(arch):
+    """Once a length has run, two more prompts of it are prefilled (a
+    capture and a replay, through the same static outputs) before either
+    joins the batch; each gets its own tokens, equal to the sequential
+    decode's. Without the clone out of the static cache the first would
+    decode from the second's."""
+    cfg, model, params = _model(arch)
+    warm, *prompts = _prompts(cfg, 13, [6, 6, 6])
+    budgets = [6, 5]
+    refs = [sequential_decode(model, params, p, b, 24) for p, b in zip(prompts, budgets)]
+    with _HeldEngine(model, params, max_slots=2, max_len=24, page_size=4,
+                     device="cpu") as engine:
+        engine.submit(warm, 2).result(120)
+        engine._hold = 2  # the next tick waits until both are prefilled
+        outs = engine.generate(prompts, budgets, timeout=120)
+        stats = _exact(engine.stats(), 6)
+    assert (stats["eager_steps"], stats["replays"]) == (1, 2)
+    for ref, out in zip(refs, outs):
+        assert list(map(int, out)) == ref
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_resumes_prefill_through_their_lengths_graphs_and_match_jax(arch):
+    """The youngest of two residents is preempted after two decode steps and
+    resumes by a prefill of its prompt and its tokens but the last (length
+    6 + 3 - 1 = 8) through the class: eagerly in the first round, by the
+    length's graph when the same round is served again on the same engine,
+    as every prompt then is. Both rounds' tokens equal the JAX package's
+    engine's on the same weights and prompts exactly (f32)."""
+    cfg, jmodel, jparams, model, params = _jax_pair(arch)
+    prompts = _prompts(cfg, 14, [5, 6])
+    budgets = [9, 8]
+    kw = dict(max_slots=2, max_len=24, page_size=4)
+    rounds = []
+    with _HeldEngine(model, params, device="cpu", hold_first_tick=2, preempt_at=2,
+                     **kw) as engine:
+        for _ in range(2):
+            outs = engine.generate(prompts, budgets, timeout=120)
+            rounds.append((outs, engine.stats()))
+            engine._hold, engine._preempt_at = 2, engine._ticks + 2
+    with JaxServeEngine(jmodel, jparams, **kw) as jengine:
+        want = jengine.generate(prompts, budgets, timeout=300)
+    (first, s1), (second, s2) = rounds
+    assert s1["preemptions"] == 1 and s2["preemptions"] == 2
+    assert {n: (_exact(s1, n)["eager_steps"], _exact(s1, n)["replays"]) for n in (5, 6, 8)} \
+        == {5: (1, 0), 6: (1, 0), 8: (1, 0)}
+    assert {n: _exact(s2, n)["replays"] for n in (5, 6, 8)} == {5: 1, 6: 1, 8: 1}
+    for a, b, w in zip(first, second, want):
+        assert list(map(int, a)) == list(map(int, b)) == list(map(int, w))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_more_lengths_than_the_budget_holds_keep_the_held_bytes_within_it(arch, monkeypatch):
+    """Eight prompt lengths, each served twice (its graph captured), one
+    after another, under ``EXACT_PREFILL_BYTES`` set to three and a half
+    times what the longest captured length holds: after every prefill the
+    lengths hold no more than the budget; the held lengths are the most
+    recently run, at least three and fewer than eight, all captured; the
+    ones given back are closed and counted; and a length given back comes
+    again as a first sight, eager."""
+    cfg, model, params = _model(arch)
+    lens = list(range(3, 11))
+    prompts = _prompts(cfg, 15, lens)
+    kw = dict(max_slots=2, max_len=24, page_size=4, device="cpu")
+    with ServeEngine(model, params, **kw) as engine:
+        for _ in range(2):
+            engine.submit(prompts[-1], 1).result(120)
+        one = engine._exact_graphs.held_bytes()
+    budget = 3 * one + one // 2
+    monkeypatch.setattr(serve_graphs, "EXACT_PREFILL_BYTES", budget)
+    given_back = []
+    with ServeEngine(model, params, **kw) as engine:
+        graphs = engine._exact_graphs
+        for prompt in prompts:
+            for _ in range(2):
+                before = dict(graphs._graphs)
+                engine.submit(prompt, 1).result(120)
+                given_back += [g for n, g in before.items() if n not in graphs._graphs]
+                assert graphs.held_bytes() <= budget
+        held = list(graphs._graphs)
+        assert held == lens[-len(held):] and 3 <= len(held) < len(lens)
+        assert all(graphs._graphs[n].captured for n in held)
+        assert graphs.evictions == len(given_back) == len(lens) - len(held)
+        assert all(g.state is None for g in given_back)
+        engine.submit(prompts[0], 1).result(120)
+        stats = engine.stats()
+    assert stats["exact_graph_evictions"] >= len(given_back)
+    assert (_exact(stats, lens[0])["eager_steps"], _exact(stats, lens[0])["replays"]) == (1, 0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_closing_the_engine_releases_every_prefill_graph(arch):
+    """``close`` gives back every length's graph, the captured ones and
+    those run once: each is closed (its graph, static outputs and the params
+    it held dropped), the engine's stats name none, and the class refuses
+    another prefill."""
+    cfg, model, params = _model(arch)
+    with ServeEngine(model, params, max_slots=2, max_len=24, page_size=4,
+                     device="cpu") as engine:
+        engine.generate(_prompts(cfg, 16, [4, 4, 7]), 2, timeout=120)
+        graphs = engine._exact_graphs
+        held = list(graphs._graphs.values())
+        assert len(held) == 2 and sum(g.captured for g in held) == 1
+    assert all(g.state is None and g.inputs is None and not g.captured for g in held)
+    assert not any(k.startswith("exact_") for k in engine.stats()["graphs"])
+    with pytest.raises(RuntimeError, match="closed"):
+        graphs.run(np.zeros((1, 4), np.int32))
 
 
 # -- the kernel wrappers inside a capture ---------------------------------------------------

@@ -34,7 +34,7 @@ from repro_torch.kernels import build
 from repro_torch.models.lm import encoder_plan, stack_plan
 from repro_torch.optim import adamw_init
 from repro_torch.runtime import GraphError, TrainGraph, Trainer, TrainerConfig
-from repro_torch.runtime import graph as graph_mod
+from repro_torch import cuda_graph
 from repro_torch.tree import tree_leaves, tree_map
 
 # the suite runs in several worker processes that share the host's cores:
@@ -100,7 +100,7 @@ def test_run_through_the_graph_equals_eager_steps_bit_for_bit(family, tmp_path):
             met = tr.train_step(state, to_device(tr.data.batch(step), tr.device), step)
             rows.append({k: float(v) for k, v in met.items()})
     assert stats["eager_steps"] == TrainGraph.WARMUP == 1 and stats["replays"] == 3
-    assert stats["captured_launches"] == {} and stats["pool_reserved_bytes"] is None
+    assert stats["captured_launches"] == {} and stats["pool_bytes"] is None
     assert _metrics(out["metrics"]) == rows
     graph, eager = _state_leaves(out["params"], out["opt"]), _state_leaves(
         state["params"], state["opt"])
@@ -236,7 +236,7 @@ def test_a_failed_capture_escapes_the_restart_loop(monkeypatch, tmp_path):
         def __init__(self, *a, **kw):
             raise RuntimeError("operation not permitted when stream is capturing")
 
-    monkeypatch.setattr(graph_mod, "Graph", FailingGraph)
+    monkeypatch.setattr(cuda_graph, "Graph", FailingGraph)
     with _trainer(_tiny(), tmp_path, checkpoint_every=1) as tr:
         with pytest.raises(GraphError, match="capture failed"):
             tr.run_with_restarts(max_restarts=3)
