@@ -42,7 +42,10 @@ shapes (K1 and K1-bwd, S=2048, B=4) and the three head-dim-128 configs'
 S=512 prefills, whisper's encoder (H=KV=16,
 Dh=64, S=1500, non-causal), decoder self-attention (causal, S=32, one ragged
 tile) and cross-attention (Sq=32 over Sk=1500), beside SDPA (with the
-boolean causal or prefix-LM mask where the case has one).
+boolean causal or prefix-LM mask where the case has one). K1 and K1-bwd
+are held and timed in f32 too at the training tutorial's shape (B=8, H=12,
+KV=4, Dh=64, S=256, causal; the FMA designs), their bound at the f32 peak
+outside the tensor cores (67 TFLOP/s), beside SDPA in f32.
 
 It then serves eight full-width models (random weights from seed 0) through
 ``repro_torch.ServeEngine``, one after another: tinyllama-1.1b (flash
@@ -50,8 +53,8 @@ attention prefill), mamba2-1.3b (SSD prefill), hymba-1.5b (both),
 granite-moe-1b-a400m (MoE, KV heads zero-padded to 16), deepseek-v2-236b
 (MLA and MoE, its depth cut to 2 layers in f32 and 9 in bf16, printed as
 ``reduced``), phi4-mini-3.8b and qwen1.5-4b (K1 at 128/128, full depth
-in bf16; their f32 gates, and granite-moe's, at 8 layers, printed as
-``reduced``) and deepseek-coder-33b (2 layers in f32, in bf16 the depth of the dry
+in bf16; every f32 gate but deepseek-v2's and deepseek-coder's at 8
+layers, printed as ``reduced``) and deepseek-coder-33b (2 layers in f32, in bf16 the depth of the dry
 run's serve plan: the deepest whose predicted peak, a B=4 prefill at 512
 beside the engine's caches, leaves 10 GB of the card free). The engine
 runs every decode tick, and the bucketed prefills of all but mamba2 and
@@ -74,7 +77,7 @@ path (the run's prefill ms, decode ms a step and tokens/s, traced
 device-busy ms with whisper's encoder split out, peak memory, every
 kernel's launches, K1's 72 or 18 a prefill). It then trains tinyllama,
 mamba2, hymba, granite-moe, whisper-medium and paligemma-3b at full width
-and depth for a few bf16 steps each through ``repro_torch.runtime.Trainer``
+and depth (paligemma's cut to 9 of 18 layers) for a few bf16 steps each through ``repro_torch.runtime.Trainer``
 (B=4, S=2048, remat; whisper 448 text tokens over 1500 frames and
 paligemma 256 patches and 256 text tokens from the cells' data source
 ``EncDecVLMTokens``; checking every kernel's launches a step, the losses
@@ -88,7 +91,13 @@ the state equal bit for bit (a ``train_graph`` line a cell: capture
 seconds, replays, the launches captured by kernel, and graph beside
 eager: step s, traced busy ms, idle share, host launches a step, peak
 allocated and reserved bytes); the launch check counts the warm-up's
-launches plus replays x captured. It holds each model's full-width f32
+launches plus replays x captured. Then the port's entry points as a user
+runs them, each a process of its own on the card (``train_lm``): the
+training tutorial ``examples/train_lm_torch.py`` at its defaults with
+``--fail`` (124.6 M parameters, f32, B=8, S=256, 300 steps, restarted
+from its step-150 checkpoint into a new capture; K1 and K1-bwd 12 launches
+a step each), the serving example and ``repro_torch.launch.train`` on
+reduced tinyllama with a restart. It holds each model's full-width f32
 gradients through the kernels against those through the plain versions. Then deepseek-v2-236b (MLA and MoE) trains at full width on
 the card (``deepseek_train``): its depth and sequence from the dry run
 (``repro_torch.launch.dryrun``, run on the host in a process of its own
@@ -123,12 +132,12 @@ families (``parallel_families``) the same way on the mesh of one, depth
 cut. Then the
 pipeline (``repro_torch.parallel.pipeline``, its tick table simulated by
 the paper's scheduler) on a ("pod",) mesh of one rank over NCCL:
-tinyllama's 22 decoder layers as the stage, the embedding before it and
-``Model.head_loss`` as the loss, M=4 microbatches; in f32 (B=1, S=256) the
-pipelined loss and every gradient against the serial ones over the same
+11 of tinyllama's 22 decoder layers as the stage, the embedding before it
+and ``Model.head_loss`` as the loss, M=4 microbatches; in f32 (B=1, S=256)
+the pipelined loss and every gradient against the serial ones over the same
 microbatches (1e-5 scaled, the worst leaf printed), in bf16 at the train
-cell's width (B=1 microbatches at S=2048, remat) K1 at exactly 2 x 22 x M
-launches a step and K1-bwd at 22 x M, the step timed and traced beside the
+cell's width (B=1 microbatches at S=2048, remat) K1 at exactly 2 x 11 x M
+launches a step and K1-bwd at 11 x M, the step timed and traced beside the
 serial step. Last, the pool on the host after the card is in use: one
 graph (a condition loop, a subflow, dataflow edges) through ``Executor``
 on the serial, thread, process and socket backends with equal results, a
@@ -169,8 +178,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bound of every kernel
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bound of every kernel;
+# the f32 kernels run FMA tiles, outside the tensor cores
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 # the served paths, in order: (arch, engine settings, kernels every prefill
@@ -187,24 +198,24 @@ PEAK_BYTES = 3.35e12
 # (kv_pad_to): phi4-mini-3.8b (48/16 heads, tied head) and qwen1.5-4b
 # (32/32, QKV biases) at full depth, deepseek-coder-33b (112/16) in f32 at
 # 2 layers and in bf16 at the dry run's depth (SERVE_PLANNED: its 62
-# layers' weights alone are 81.25 GB). granite-moe's, phi4-mini's and
-# qwen1.5's f32 gates (engine tokens against sequential decode) run at
-# F32_GATE_LAYERS of their repeated layers, to keep the script inside its
-# time limit; their bf16 runs keep the full depth
+# layers' weights alone are 81.25 GB). Every path's f32 gate (engine tokens
+# against sequential decode) but deepseek-v2's and deepseek-coder's runs at
+# F32_GATE_LAYERS of its repeated layers, to keep the script inside its
+# time limit (tinyllama's, mamba2's and hymba's since the train_lm phase
+# came; hymba's then holds one global layer, 0, beside seven window
+# layers); every bf16 run but those two keeps the full depth
 F32_GATE_LAYERS = 8
+F32_GATE = {"float32": F32_GATE_LAYERS, "bfloat16": None}
 BUCKETED = dict(max_slots=4, max_len=1024, page_size=64, prefill_buckets=(128, 256, 512))
 PATHS = (
-    ("tinyllama-1.1b", BUCKETED, ("flash_attention",), None),
-    ("mamba2-1.3b", dict(max_slots=4, max_len=1024, page_size=64), ("ssd",), None),
+    ("tinyllama-1.1b", BUCKETED, ("flash_attention",), F32_GATE),
+    ("mamba2-1.3b", dict(max_slots=4, max_len=1024, page_size=64), ("ssd",), F32_GATE),
     ("hymba-1.5b", dict(max_slots=4, max_len=2048, page_size=64), ("flash_attention", "ssd"),
-     None),
-    ("granite-moe-1b-a400m", BUCKETED, ("flash_attention",),
-     {"float32": F32_GATE_LAYERS, "bfloat16": None}),
+     F32_GATE),
+    ("granite-moe-1b-a400m", BUCKETED, ("flash_attention",), F32_GATE),
     ("deepseek-v2-236b", BUCKETED, ("flash_attention",), {"float32": 2, "bfloat16": 9}),
-    ("phi4-mini-3.8b", BUCKETED, ("flash_attention",),
-     {"float32": F32_GATE_LAYERS, "bfloat16": None}),
-    ("qwen1.5-4b", BUCKETED, ("flash_attention",),
-     {"float32": F32_GATE_LAYERS, "bfloat16": None}),
+    ("phi4-mini-3.8b", BUCKETED, ("flash_attention",), F32_GATE),
+    ("qwen1.5-4b", BUCKETED, ("flash_attention",), F32_GATE),
     # the bf16 depth from the dry run's serve plan (SERVE_PLANNED)
     ("deepseek-coder-33b", BUCKETED, ("flash_attention",), {"float32": 2, "bfloat16": None}),
 )
@@ -635,7 +646,51 @@ def phase_kernels() -> dict:
     train = _wide_train_timings()
     return {"flash_attention": {"max_abs_err": worst, "timings": timings, "train": train,
                                 "dh128": _k1_128_timings(), "mla_max_abs_err": mla_errs,
-                                "dh256_max_abs_err": dh256_errs}}
+                                "dh256_max_abs_err": dh256_errs, "train_lm": _train_lm_k1()}}
+
+
+# the training tutorial's attention (examples/train_lm_torch.py at its
+# defaults: 12 heads in groups of 3, head dim 64, B=8, S=256, causal, f32,
+# so the FMA designs): (B, H, KV, S, Dh)
+TRAIN_LM_ATTN = (8, 12, 4, 256, 64)
+TRAIN_LM_AT = "B={0} H={1} KV={2} Dh={4} Sq=Sk={3} f32 causal".format(*TRAIN_LM_ATTN)
+
+
+def _train_lm_k1() -> dict:
+    """K1 in f32 at :data:`TRAIN_LM_ATTN`, with the lse as the autograd
+    Function asks for it: the output within the f32 tolerance of the plain
+    version and the lse within its own (gated), then timed beside the plain
+    version and SDPA in f32, with the bound at the f32 peak outside the
+    tensor cores."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    B, H, KV, S, Dh = TRAIN_LM_ATTN
+    q, k, v = _qkv(B, H, KV, S, S, Dh, torch.float32, seed=1200, model_layout=True)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    o, lse = fa.flash_attention_lse(q, k, v, causal=True, bshd=True)
+    o_want, lse_want = fa.flash_attention_lse_ref(qt, kt, vt, causal=True)
+    torch.cuda.synchronize()
+    r = {"design": fa.design(torch.float32, Dh),
+         "max_abs_err": (o.transpose(1, 2) - o_want).abs().max().item(),
+         "tol": FWD_TOL["float32"], "lse_scaled_err": _scaled(lse, lse_want),
+         "lse_tol": LSE_TOL["float32"], "finite": bool(torch.isfinite(o).all())}
+    emit("kernels", kernel="flash_attention", case=f"train_lm {TRAIN_LM_AT}", dtype="float32",
+         shape=[B, H, KV, S, S, Dh, Dh], **r)
+    check(r["finite"] and r["max_abs_err"] <= r["tol"] and r["lse_scaled_err"] <= r["lse_tol"],
+          f"flash_attention train_lm {TRAIN_LM_AT}: {r}")
+    qc, kc, vc = (t.contiguous() for t in (qt, kt, vt))
+    r.update(_times(
+        lambda: fa.flash_attention_lse(q, k, v, causal=True, bshd=True),
+        lambda: fa.flash_attention_lse_ref(qt, kt, vt, causal=True),
+        lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True),
+        iters=50))
+    r["bound_ms"], r["bound_by"] = _attention_bound(B, H, KV, S, S, Dh, 4, True, PEAK_F32_FLOPS)
+    r["library_note"] = "F.scaled_dot_product_attention in f32 (TF32 off)"
+    emit("kernels", kernel="flash_attention", timing=f"train_lm {TRAIN_LM_AT}", **r)
+    return r
 
 
 # the wide pairs' training attention, as the train cells run K1 there
@@ -1094,12 +1149,14 @@ def _sdpa_bwd(q, k, v, do, *, causal, window=None, prefix_len=None):
                    + (" with the boolean mask" if masked else ""))
 
 
-def _bwd_timing(q, k, v, o, lse, do, kw, B, H, KV, Sq, Sk, Dh, Dv=None) -> dict:
-    """K1-bwd at one shape (model layout, bf16): eager ms, device ms by
-    graph replay and by profiler (in all, and by launch under the kernel's
-    short name: ``kernel_profiled_by_launch``), the plain version's ms,
-    SDPA's autograd backward (``library_ms``, ``library_device_ms`` from a
-    profiler trace) and the bound."""
+def _bwd_timing(q, k, v, o, lse, do, kw, B, H, KV, Sq, Sk, Dh, Dv=None,
+                peak_flops=PEAK_BF16_FLOPS) -> dict:
+    """K1-bwd at one shape (model layout, bf16 unless the inputs are f32,
+    whose FMA design is bound by ``peak_flops`` = :data:`PEAK_F32_FLOPS`):
+    eager ms, device ms by graph replay and by profiler (in all, and by
+    launch under the kernel's short name: ``kernel_profiled_by_launch``),
+    the plain version's ms, SDPA's autograd backward (``library_ms``,
+    ``library_device_ms`` from a profiler trace) and the bound."""
     from repro_torch.kernels import flash_attention as fa
 
     def kernel():
@@ -1123,7 +1180,7 @@ def _bwd_timing(q, k, v, o, lse, do, kw, B, H, KV, Sq, Sk, Dh, Dv=None) -> dict:
     t["library_ms"] = None if library is None else _time_ms(library, 10)
     t["library_device_ms"] = None if library is None else sum(_profiled_ms(library).values())
     t["bound_ms"], t["bound_by"] = _attention_bwd_bound(
-        B, H, KV, Sq, Sk, Dh, 2, PEAK_BF16_FLOPS, causal=kw["causal"],
+        B, H, KV, Sq, Sk, Dh, q.element_size(), peak_flops, causal=kw["causal"],
         prefix_len=kw.get("prefix_len"), window=kw.get("window"), Dv=Dv)
     return t
 
@@ -1178,6 +1235,36 @@ def _deepseek_bwd(S: int) -> dict:
         del q, k, v, o, lse, do
         torch.cuda.empty_cache()
     return out
+
+
+def _train_lm_k1_bwd() -> dict:
+    """K1-bwd in f32 at :data:`TRAIN_LM_ATTN` (the FMA design): the
+    gradients, the forward's output and lse against the plain versions at
+    the f32 gates (gated), then timed as the bf16 shapes are, with the bound
+    at the f32 peak outside the tensor cores."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    B, H, KV, S, Dh = TRAIN_LM_ATTN
+    f32 = torch.float32
+    q, k, v = _qkv(B, H, KV, S, S, Dh, f32, seed=1300, model_layout=True)
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1301),
+                     device=q.device)
+    kw = dict(causal=True, window=None, k_len=None)
+    o, lse, r = _bwd_case(q, k, v, do, kw, True)
+    emit("kernels", kernel="flash_attention_bwd", case=f"train_lm {TRAIN_LM_AT}",
+         dtype="float32", shape=[B, H, KV, S, S, Dh], **r)
+    check(r["ok"], f"flash_attention_bwd train_lm {TRAIN_LM_AT}: {r}")
+    r.update(design=fa.design_bwd(f32, Dh), **_bwd_timing(
+        q, k, v, o, lse, do, kw, B, H, KV, S, S, Dh, peak_flops=PEAK_F32_FLOPS))
+    emit("kernels", kernel="flash_attention_bwd", timing=f"train_lm {TRAIN_LM_AT}",
+         **{k_: r[k_] for k_ in ("design", "ms", "plain_ms", "device_ms", "kernel_profiled_ms",
+                                 "kernel_profiled_by_launch", "library_ms", "library_device_ms",
+                                 "library_note", "bound_ms", "bound_by")})
+    del q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+    return r
 
 
 def phase_flash_bwd(deepseek_seq: int) -> dict:
@@ -1296,11 +1383,14 @@ def phase_flash_bwd(deepseek_seq: int) -> dict:
     dh128 = _k1_bwd_128()
     for r in dh128.values():
         record(r)
+    train_lm = _train_lm_k1_bwd()
+    record(train_lm)
     return {"flash_attention_bwd": {"max_scaled_err": worst, "max_abs_err": worst_abs,
                                     "max_ulp_err": worst_ulp, "dh256_max_scaled_err": dh256,
                                     "mla_max_scaled_err": mla, "timing": t,
                                     "train_shape": r_train, "train_shapes": at_shapes,
-                                    "deepseek": deepseek, "dh128": dh128}}
+                                    "deepseek": deepseek, "dh128": dh128,
+                                    "train_lm": train_lm}}
 
 
 def _ssd_inputs(B, S, H, P, N, dtype, seed, laws="wide"):
@@ -2449,12 +2539,26 @@ def phase_encdec_vlm(arch: str, prompt: int) -> dict:
     return res
 
 
-# the train cells, each at full width and depth: bf16, remat "full", B=4,
-# S=2048 (the enc-dec and VLM cells: TRAIN_TEXT), AdamW, prefetched
-# synthetic batches, through the unchanged Trainer (which saves one final
-# checkpoint, into build/, deleted after the phase): (arch, steps)
+# the train cells, each at full width and depth but as TRAIN_DEPTH cuts it:
+# bf16, remat "full", B=4, S=2048 (the enc-dec and VLM cells: TRAIN_TEXT),
+# AdamW, prefetched synthetic batches, through the unchanged Trainer (which
+# saves one final checkpoint, into build/, deleted after the phase): (arch,
+# steps)
 TRAIN_CELLS = (("tinyllama-1.1b", 6), ("mamba2-1.3b", 4), ("hymba-1.5b", 4),
                ("granite-moe-1b-a400m", 4), ("whisper-medium", 4), ("paligemma-3b", 4))
+# decoder layers of a train cell cut in depth, to keep the script inside its
+# time limit since the train_lm phase came: paligemma's 18 to 9, which
+# halves its 35 GB final checkpoint's layers (its 257 216-row embedding stays)
+TRAIN_DEPTH = {"paligemma-3b": 9}
+
+
+def _train_cfg(arch: str):
+    """A train cell's bf16 config: the full config, :data:`TRAIN_DEPTH`'s cut."""
+    from repro_torch.configs import get_config
+
+    cut = TRAIN_DEPTH.get(arch)
+    return get_config(arch).replace(dtype="bfloat16",
+                                    **({} if cut is None else {"num_layers": cut}))
 TRAIN_KW = dict(seq_len=2048, global_batch=4, lr=3e-4, warmup=2)
 # the enc-dec and VLM cells' text tokens a sample: whisper's decoder over its
 # published n_text_ctx of 448 (beside its 1500 encoder frames), paligemma's
@@ -2694,7 +2798,7 @@ def phase_train(arch: str, steps: int) -> dict:
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     allocated = _release_device_memory()
-    cfg = get_config(arch).replace(dtype="bfloat16")
+    cfg = _train_cfg(arch)
     check(cfg.remat == "full", f"{arch} trains with remat {cfg.remat!r}")
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -2775,6 +2879,7 @@ def phase_train(arch: str, steps: int) -> dict:
         flops, formula, n_pos = step_model_flops(cfg, params, B, S)
         res = {
             "arch": arch, "dtype": "bfloat16", "steps": steps, "batch": B,
+            "num_layers": {"full": get_config(arch).num_layers, "run": cfg.num_layers},
             "seq_len": S, "decoder_positions": positions, "encoder_frames": frames,
             "remat": cfg.remat, "params": n_params,
             "loss": [r["loss"] for r in rows], "aux": [r["aux"] for r in rows],
@@ -2811,6 +2916,145 @@ def phase_train(arch: str, steps: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     emit("train", arch=arch, ckpt_removed=True, phase_s=time.perf_counter() - t_start)
+    return res
+
+
+# the port's entry points as a user runs them (the train_lm phase): the
+# training tutorial at its defaults with --fail (300 steps, B=8, S=256, f32,
+# 124 649 472 parameters by param_count, a failure injected at step 150,
+# checkpoints every 75 steps), then the serving example at its defaults and
+# the training launcher on reduced tinyllama together, each a process of
+# its own on the card, with a time limit (seconds)
+TRAIN_LM = dict(steps=300, seq=256, batch=8, fail_at=150, every=75, params=124_649_472,
+                layers=12, limit=600)
+TRAIN_LM_LAUNCH = ("--arch", "tinyllama-1.1b", "--reduced", "--steps", "20", "--ckpt-every",
+                   "5", "--fail-at", "10")
+ENTRY_POINT_LIMIT = 300
+
+
+def _entry_points(runs: dict, limit: float) -> dict:
+    """Start ``python argv`` for each ``label: argv`` of ``runs`` at once,
+    from the checkout's root on the card (the visible one),
+    ``PYTHONPATH=src``; emit each one's exit code, seconds (to the reading
+    of its output) and last output lines (a ``train_lm`` line), fail unless
+    each exits 0, and return each one's output lines. Every process still
+    running at ``limit`` seconds is killed."""
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = {label: subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env, text=True,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for label, argv in runs.items()}
+    out = {}
+    try:
+        for label, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=max(1.0, limit - time.perf_counter() + t0))
+            out[label] = stdout.splitlines()
+            emit("train_lm", run=label, argv=runs[label], rc=proc.returncode,
+                 seconds=time.perf_counter() - t0,
+                 stdout=[ln for ln in out[label] if not ln.startswith("summary:")][-40:],
+                 stderr=stderr.splitlines()[-20:])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for label, proc in procs.items():
+        check(proc.returncode == 0, f"{label}: exit code {proc.returncode}")
+    return out
+
+
+def _restarts(lines: list) -> list:
+    return [ln for ln in lines if ln.startswith("[trainer] restart")]
+
+
+def phase_train_lm() -> dict:
+    """The training tutorial ``examples/train_lm_torch.py`` at its defaults
+    with ``--fail`` (:data:`TRAIN_LM`), a fresh checkpoint directory under
+    ``build/`` (``run_with_restarts`` would resume from a stale one):
+    one restart after the failure at step 150, resumed from the step-150
+    checkpoint into a new capture (one eager step and one capture a run,
+    the rest replays), the checkpoints at 75, 150, 225 and 300 committed,
+    every logged loss finite and the last below the first, and K1 and
+    K1-bwd launched once a layer a step (no remat; the tutorial's counters
+    plus replays x captured). Then the serving example at its defaults
+    (reduced tinyllama, 8 requests; it exits non-zero if its streamed
+    tokens and its future's differ) and the training launcher
+    (:data:`TRAIN_LM_LAUNCH`, a fresh directory, one restart), side by
+    side. Returns the tutorial's launches for the kernels line."""
+    import shutil
+
+    t_start = time.perf_counter()
+    allocated = _release_device_memory()
+    ckpt = ROOT / "build" / "chip_smoke_train_lm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    steps, fail_at, layers = TRAIN_LM["steps"], TRAIN_LM["fail_at"], TRAIN_LM["layers"]
+    try:
+        lines = _entry_points({"train_lm": ["examples/train_lm_torch.py", "--fail",
+                                            "--ckpt", str(ckpt)]}, TRAIN_LM["limit"])["train_lm"]
+        run = json.loads(next(ln for ln in lines if ln.startswith("summary:"))[8:])
+        committed = sorted(p.name for p in ckpt.iterdir() if (p / "manifest.json").exists())
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    rows, graphs = run["rows"], run["graphs"]
+    losses = [r["loss"] for r in rows]
+    saves = sorted(run["checkpoints"], key=lambda c: c["step"])
+    check((run["device"], run["params"], run["steps"], run["seq"], run["batch"])
+          == ("cuda:0", TRAIN_LM["params"], steps, TRAIN_LM["seq"], TRAIN_LM["batch"]),
+          f"train_lm ran {run}")
+    check(_restarts(lines) == [f"[trainer] restart 1 after: injected failure at step {fail_at}"]
+          and run["restarts"] == 1, f"train_lm restarts: {_restarts(lines)}")
+    check([g["start_step"] for g in graphs] == [0, fail_at],
+          f"train_lm runs started at {[g['start_step'] for g in graphs]}")
+    check(all(g["eager_steps"] == 1 and g["capture_s"] is not None for g in graphs)
+          and [g["eager_steps"] + g["replays"] for g in graphs] == [fail_at, steps - fail_at],
+          f"train_lm graphs {graphs}")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows)
+          and losses[-1] < losses[0], f"train_lm losses {losses}")
+    want_saves = list(range(TRAIN_LM["every"], steps + 1, TRAIN_LM["every"]))
+    check([c["step"] for c in saves] == want_saves, f"train_lm saves {saves}")
+    check(f"step_{steps:08d}" in committed, f"train_lm: committed checkpoints {committed}")
+    want = {"flash_attention": layers, "flash_attention_bwd": layers}
+    check(all(g["captured_launches"] == want for g in graphs),
+          f"train_lm captured {[g['captured_launches'] for g in graphs]}, want {want}")
+    check(run["launches"] == {k: n * steps for k, n in want.items()},
+          f"train_lm launched {run['launches']} in {steps} steps, want {want} a step")
+    res = {
+        "arch": "train_lm tutorial (lm-100m, f32)",
+        "launches": {name: run["launches"].get(name, 0) for name in _train_counters()},
+    }
+    tutorial = {
+        "model": run["model"], "params": run["params"], "card": run["card"], "steps": steps,
+        "batch": run["batch"], "seq_len": run["seq"], "restarts": run["restarts"],
+        "resumed_from": graphs[1]["start_step"], "wall_s": run["wall_s"],
+        "tokens_per_s_wall": run["tokens_per_s"], "step_s_median": run["step_s_median"],
+        "tokens_per_s_median_step": run["seq"] * run["batch"] / run["step_s_median"],
+        "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+        "step_s_rows": [r["step_s"] for r in rows],
+        "peak_mem_bytes": run["peak_mem_bytes"], "capture_s": [g["capture_s"] for g in graphs],
+        "replays": [g["replays"] for g in graphs],
+        "launches_per_step": {k: n / steps for k, n in run["launches"].items()},
+        "checkpoints": saves, "committed": committed, **allocated,
+    }
+    emit("train_lm", **tutorial)
+
+    launch_ckpt = ROOT / "build" / "chip_smoke_launch_train"
+    shutil.rmtree(launch_ckpt, ignore_errors=True)
+    try:
+        out = _entry_points({
+            "launch_train": ["-m", "repro_torch.launch.train", *TRAIN_LM_LAUNCH,
+                             "--ckpt", str(launch_ckpt)],
+            "serve_lm": ["examples/serve_lm_torch.py"]}, ENTRY_POINT_LIMIT)
+    finally:
+        shutil.rmtree(launch_ckpt, ignore_errors=True)
+    check(any(ln.startswith("streamed token ids") for ln in out["serve_lm"]),
+          "serve_lm streamed nothing")
+    lines = out["launch_train"]
+    logged = [ln for ln in lines if ln.startswith("step ")]
+    check(_restarts(lines) == ["[trainer] restart 1 after: injected failure at step 10"]
+          and len(logged) == 20 and all(np.isfinite(float(ln.split()[3])) for ln in logged),
+          f"launch_train: {lines[-25:]}")
+    res["phase_s"] = time.perf_counter() - t_start
+    emit("train_lm", phase_s=res["phase_s"])
     return res
 
 
@@ -3086,7 +3330,7 @@ def _dryrun_child(total_bytes: int, path: str) -> None:
         write(kind="train_plan", seq=S, batch=B, parity=DENSE_PARITY,
               **planned(arch, "train", _train_spec(cfg, B, S)))
     for arch, _steps in TRAIN_CELLS:
-        cfg = get_config(arch).replace(dtype="bfloat16")
+        cfg = _train_cfg(arch)
         S = TRAIN_TEXT.get(arch, TRAIN_KW["seq_len"])
         r = run_cell(cfg, "train", _train_spec(cfg, TRAIN_KW["global_batch"], S), None,
                      verbose=False)
@@ -3841,12 +4085,12 @@ def _family_bf16(arch: str, mesh, single_cell: dict) -> dict:
            "launches": launches,
            "launches_per_step": {k: v / FAMILY_STEPS for k, v in launches.items()},
            "graph": graph, "bit_for_bit": line["bit_for_bit"],
-           # the family's single-device train cell of this run, at full depth
+           # the family's single-device train cell of this run, at its depth
            "single_device_train_cell": {
                k: single_cell[k] for k in ("step_s_median_of_replays", "step_device_busy_ms",
                                            "step_device_idle_share", "step_host_launches",
                                            "launches_per_step")},
-           "single_device_train_cell_num_layers": get_config(arch).num_layers,
+           "single_device_train_cell_num_layers": _train_cfg(arch).num_layers,
            **allocated}
     for name in ("graph", "eager"):
         res.update({f"step_{name}_{k}": line[k][name] for k in
@@ -3906,18 +4150,21 @@ def phase_parallel_families(single_cells: dict) -> dict:
     return res
 
 
-# the pipeline phase: tinyllama's 22 decoder layers as the stage function of
-# repro_torch.parallel.pipeline on a ("pod",) mesh of one rank over NCCL.
+# the pipeline phase: tinyllama's decoder layers, cut to PIPE_LAYERS of 22
+# (to keep the script inside its time limit since the train_lm phase came),
+# as the stage function of repro_torch.parallel.pipeline on a ("pod",) mesh
+# of one rank over NCCL.
 # The embedding runs on the inputs before stage 0 and Model.head_loss (the
 # final norm, the head and the CE) is loss_fn. In f32 (B=1, S=256, M=4) the
 # pipelined loss and every gradient are held to the serial loss over the
 # same microbatches (PIPE_TOL scaled); in bf16 at the train cell's width
 # (M=4 microbatches of B=1 at S=2048, remat on) K1 must launch exactly
-# 2 x 22 x M times a step and K1-bwd 22 x M, the step's loss and every
-# gradient must equal the serial step's bit for bit (one rank: the same
-# kernels on the same inputs in the same order), and the step is timed and
-# traced beside the serial step of the same microbatches
+# 2 x PIPE_LAYERS x M times a step and K1-bwd PIPE_LAYERS x M, the step's
+# loss and every gradient must equal the serial step's bit for bit (one
+# rank: the same kernels on the same inputs in the same order), and the
+# step is timed and traced beside the serial step of the same microbatches
 PIPE_ARCH = "tinyllama-1.1b"
+PIPE_LAYERS = 11
 PIPE_M = 4
 PIPE_F32 = (1, 256)  # microbatch size and sequence, f32
 PIPE_BF16 = (1, 2048)
@@ -3988,7 +4235,7 @@ def _pipeline_f32(mesh, device) -> dict:
     from repro_torch.tree import tree_flatten_with_keys
 
     _release_device_memory()
-    cfg = get_config(PIPE_ARCH).replace(dtype="float32")
+    cfg = get_config(PIPE_ARCH).replace(dtype="float32", num_layers=PIPE_LAYERS)
     model = build_model(cfg, device=device)
     tree = model.init(0).tree()
     keys, leaves = zip(*tree_flatten_with_keys(tree))
@@ -4005,7 +4252,8 @@ def _pipeline_f32(mesh, device) -> dict:
         err = _scaled(a, b)
         if err >= worst:
             worst, worst_leaf = err, key
-    out = {"arch": PIPE_ARCH, "dtype": "float32", "microbatches": PIPE_M, "microbatch": mb,
+    out = {"arch": PIPE_ARCH, "num_layers": cfg.num_layers, "dtype": "float32",
+           "microbatches": PIPE_M, "microbatch": mb,
            "seq_len": S, "table": table.tolist(),
            "loss": float(runs["pipelined"][0]), "serial_loss": float(runs["serial"][0]),
            "loss_scaled_err": loss_err, "worst_leaf_scaled_err": worst,
@@ -4030,7 +4278,7 @@ def _pipeline_bf16(mesh, device) -> dict:
     from repro_torch.tree import tree_flatten_with_keys
 
     allocated = _release_device_memory()
-    cfg = get_config(PIPE_ARCH).replace(dtype="bfloat16")
+    cfg = get_config(PIPE_ARCH).replace(dtype="bfloat16", num_layers=PIPE_LAYERS)
     model = build_model(cfg, device=device)
     tree = model.init(0).tree()
     keys, leaves = zip(*tree_flatten_with_keys(tree))
@@ -4091,7 +4339,8 @@ def _pipeline_bf16(mesh, device) -> dict:
     traced = {name: _traced(lambda fn=fn: step(fn), top=4)
               for name, fn in (("pipelined", pipelined), ("serial", serial))}
     res = {
-        "arch": PIPE_ARCH, "dtype": "bfloat16", "microbatches": PIPE_M, "microbatch": mb,
+        "arch": PIPE_ARCH, "num_layers": cfg.num_layers, "dtype": "bfloat16",
+        "microbatches": PIPE_M, "microbatch": mb,
         "seq_len": S, "remat": True, "loss": losses["pipelined"],
         "serial_loss": losses["serial"], "bitwise": True, "leaves": len(keys),
         "launches": launches["pipelined"],
@@ -4412,6 +4661,13 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                             **{k: fa["timings"][label][k] for k in timing_keys}}
                     for label, B, H, KV, Sq, Sk, Dh, causal, _prefix in ENCDEC_VLM_K1[1:]
                 },
+                # the training tutorial's attention, the f32 FMA design
+                "train_lm_f32": {
+                    "at": TRAIN_LM_AT + " (examples/train_lm_torch.py), with the lse; bound "
+                                        "at the f32 peak outside the tensor cores, 67 TFLOP/s",
+                    **{k: fa["train_lm"][k] for k in ("design", "max_abs_err", "lse_scaled_err")
+                       + timing_keys},
+                },
             },
             {
                 "name": "ssd",
@@ -4517,6 +4773,16 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                                      "bound_by", "ulp_err", "control_ulp_err", "scaled_err",
                                      "bitwise_repeat")}}
                         for label, B, H, KV, S in K1_BWD_128},
+                },
+                # the training tutorial's attention, the f32 FMA design
+                "train_lm_f32": {
+                    "at": TRAIN_LM_AT + " (examples/train_lm_torch.py); bound at the f32 peak "
+                                        "outside the tensor cores, 67 TFLOP/s; library: SDPA's "
+                                        "autograd backward in f32",
+                    **{k: bwd["train_lm"][k] for k in (
+                        "design", "scaled_err", "max_abs_err", "ms", "plain_ms", "device_ms",
+                        "kernel_profiled_ms", "kernel_profiled_by_launch", "library_ms",
+                        "library_device_ms", "library_note", "bound_ms", "bound_by")},
                 },
                 # hymba's two masks and the enc-dec and VLM cells' shapes
                 "train_shapes": {
@@ -4651,6 +4917,9 @@ def _run(t0: float, dev: dict, dry: DryRuns) -> int:
     emit("timing", encdec_vlm_phases_s=time.perf_counter() - t0)
     trains = [phase_train(arch, steps) for arch, steps in TRAIN_CELLS]
     emit("timing", train_phases_s=time.perf_counter() - t0)
+    trains.append(phase_train_lm())
+    emit("timing", train_lm_phases_s=time.perf_counter() - t0,
+         train_lm_phase_s=trains[-1]["phase_s"])
     for arch, B, S in PARITY_CELLS:
         phase_train_parity(arch, B, S)
     trains.append(phase_planned_train(plan))

@@ -18,7 +18,9 @@ graph counts are printed at the end.
 
 The engine runs on ``cuda:0`` unless ``--device`` says otherwise (without a
 GPU, pass ``--device cpu``). Uses the arch's REDUCED config, random weights
-from seed 0, so it runs in seconds; ``--full`` builds the real config.
+from seed 0, so it runs in seconds; ``--full`` builds the real config. On
+the card a reduced config's attention head dim (16, or 24) is raised to
+32, the flash kernel's smallest (``kernels.flash_attention.fit_head_dims``).
 """
 import argparse
 import time
@@ -26,6 +28,7 @@ import time
 import numpy as np
 
 from repro_torch.configs import ARCH_NAMES, get_config, get_reduced
+from repro_torch.kernels.flash_attention import fit_head_dims
 from repro_torch.models import build_model
 from repro_torch.models.common import resolve_device
 from repro_torch.serve import QueueFull, ServeEngine
@@ -54,6 +57,8 @@ def main() -> None:
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
+    if device.type == "cuda":  # a reduced config's head dim is below the kernel's
+        cfg = fit_head_dims(cfg)
     model = build_model(cfg, device=device)
     print(f"arch={cfg.name} family={cfg.family} device={device}")
     params = model.init(seed=0)

@@ -73,6 +73,28 @@ BWD_HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 WIDE_PAIRS = ((128, 128), (192, 128), (256, 256))
 
 
+def fit_head_dims(cfg):
+    """``cfg`` with its attention's head dims raised, where the kernels take
+    no pair of its own, to the smallest pair of :data:`HEAD_DIM_PAIRS` that
+    holds them (MLA's rope part kept): the reduced configs' 16 and 24 and
+    MLA's 24/16 become 32/32. A config whose pair the kernels take (every
+    full config) comes back as it is. The entry points run their config
+    this way on the card; on the CPU the plain versions take any head dim."""
+    if cfg.attention == "mla":
+        dims = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim)
+    elif cfg.attention == "gqa":
+        dims = (cfg.head_dim, cfg.head_dim)
+    else:
+        return cfg
+    if dims in HEAD_DIM_PAIRS:
+        return cfg
+    dqk, dv = min(p for p in HEAD_DIM_PAIRS if p[0] >= dims[0] and p[1] >= dims[1]
+                  and (cfg.attention == "mla" or p[0] == p[1]))
+    if cfg.attention == "mla":
+        return cfg.replace(qk_nope_head_dim=dqk - cfg.qk_rope_head_dim, v_head_dim=dv)
+    return cfg.replace(head_dim=dqk)
+
+
 def design(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = None) -> str:
     """The kernel design a launch of this dtype and (query/key, value) head
     dims runs, as ``csrc/flash_attention.cu`` names them: bf16 on ``wgmma``

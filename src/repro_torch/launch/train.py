@@ -5,16 +5,19 @@ from the reference's ``repro/launch/train.py``. It trains on ``--device``
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
         --device cpu --reduced --steps 20 --ckpt build/ckpt
 
-``--depth`` cuts the decoder's layers (a full-width model that does not fit
-the card whole, as deepseek-v2's); AdamW's moments are bf16 where the
+``--depth`` cuts the decoder's layers (a full-width model that does not
+fit the card whole, as deepseek-v2's); AdamW's moments are bf16 where the
 arch's full config has over 1e11 parameters (the reference's rule,
-``launch.dryrun.moments_dtype_for``), whatever the depth.
+``launch.dryrun.moments_dtype_for``), whatever the depth. On the card a
+``--reduced`` config's attention head dims (16, or 24) are raised to 32,
+the flash kernel's smallest (``kernels.flash_attention.fit_head_dims``).
 """
 from __future__ import annotations
 
 import argparse
 
 from repro_torch.configs import ARCH_NAMES, get_config, get_reduced
+from repro_torch.kernels.flash_attention import fit_head_dims
 from repro_torch.launch.dryrun import moments_dtype_for
 from repro_torch.runtime import Trainer, TrainerConfig
 
@@ -38,6 +41,8 @@ def main(argv=None) -> None:
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     if args.depth is not None:
         cfg = cfg.replace(num_layers=args.depth)
+    if args.device.startswith("cuda"):  # a reduced config's head dim is below the kernel's
+        cfg = fit_head_dims(cfg)
     tcfg = TrainerConfig(
         num_steps=args.steps,
         checkpoint_every=args.ckpt_every,

@@ -111,6 +111,9 @@ class Trainer:
         self._failed_once = False
         self.graph: Optional[TrainGraph] = None  # the last run's
         self.metrics_log: list[dict] = []
+        # one row a `run`, a restart's too: the step it started from (0, or
+        # the restored checkpoint's) and its graph's stats at its end
+        self.runs: list[dict] = []
         self._heartbeat = time.monotonic()
 
     # -- state --------------------------------------------------------------------
@@ -267,6 +270,7 @@ class Trainer:
             return {"params": state["params"], "opt": state["opt"], "metrics": self.metrics_log}
         finally:
             prefetch.close()
+            self.runs.append({"start_step": start_step, "graph": step_fn.stats()})
 
     def run_with_restarts(self, max_restarts: int = 3) -> dict:
         """The preemption loop, in-process: crash -> restore -> continue. A

@@ -1,9 +1,12 @@
 """The port's flash attention (``repro_torch.kernels.flash_attention``)
 against the reference: its plain version is held to the Pallas kernel run
 in interpret mode and to ``kernels/ref.attention_ref`` over the sweep of
-``tests/kernels/test_flash_attention.py``, and the wrapper's CPU dispatch.
+``tests/kernels/test_flash_attention.py``, the wrapper's CPU dispatch, and
+the head dims the entry points run each config at on the card.
 The CUDA kernel itself is held against the plain version on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,6 +14,7 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention_bhsd as jax_flash
 from repro.kernels.ref import attention_ref as jax_attention_ref
+from repro_torch.configs import ARCH_NAMES, get_config, get_reduced
 from repro_torch.kernels import flash_attention as tfa
 
 # the suite runs in several worker processes that share the host's cores:
@@ -368,3 +372,27 @@ def test_rows_16_byte_aligned_reads_address_and_strides():
     assert not build.rows_16_byte_aligned(base[: 32 * 60].view(32, 60))  # 120-byte rows
     # a broadcast dimension (stride 0) reads one row again: aligned
     assert build.rows_16_byte_aligned(base[:64].expand(8, 64))
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_NAMES if get_config(a).attention != "none"])
+def test_fit_head_dims_gives_each_config_a_pair_the_kernels_take(arch):
+    """The entry points' config on the card: a reduced config's head dims
+    raised to the smallest pair both kernels take (MLA's rope part kept,
+    nothing else changed), a full config's left as it is."""
+    full, reduced = get_config(arch), get_reduced(arch)
+    assert tfa.fit_head_dims(full) is full
+    fitted = tfa.fit_head_dims(reduced)
+    if fitted.attention == "mla":
+        dims = (fitted.qk_nope_head_dim + fitted.qk_rope_head_dim, fitted.v_head_dim)
+        assert fitted.qk_rope_head_dim == reduced.qk_rope_head_dim
+        changed = {"qk_nope_head_dim", "v_head_dim"}
+    else:
+        dims = (fitted.head_dim, fitted.head_dim)
+        changed = {"head_dim"}
+    assert dims == (32, 32) and dims in tfa.BWD_HEAD_DIM_PAIRS
+    before, after = dataclasses.asdict(reduced), dataclasses.asdict(fitted)
+    assert {k for k in before if before[k] != after[k]} == changed
+    H, KV = fitted.num_heads, fitted.num_kv_heads
+    q, k, v = (torch.empty((1, 40, n, d), device="meta")
+               for n, d in ((H, dims[0]), (KV, dims[0]), (KV, dims[1])))
+    assert tfa.check_inputs(q, k, v, bshd=True) == 40

@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py`` and not ``examples/serve_lm_torch.py`` imports JAX, ``ml_dtypes`` or anything of the reference
-package, and importing the whole port loads none of them."""
+``chip_smoke.py`` and neither of the port's examples
+(``examples/serve_lm_torch.py``, ``examples/train_lm_torch.py``) imports
+JAX, ``ml_dtypes`` or anything of the reference package, and importing the
+whole port loads none of them."""
 import ast
 import subprocess
 import sys
@@ -10,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_lm_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_lm_torch.py",
+    ROOT / "examples" / "train_lm_torch.py"]
 
 
 def _forbidden(name: str) -> bool:
