@@ -43,9 +43,13 @@ S=512 prefills, whisper's encoder (H=KV=16,
 Dh=64, S=1500, non-causal), decoder self-attention (causal, S=32, one ragged
 tile) and cross-attention (Sq=32 over Sk=1500), beside SDPA (with the
 boolean causal or prefix-LM mask where the case has one). K1 and K1-bwd
-are held and timed in f32 too at the training tutorial's shape (B=8, H=12,
-KV=4, Dh=64, S=256, causal; the FMA designs), their bound at the f32 peak
-outside the tensor cores (67 TFLOP/s), beside SDPA in f32.
+are held and timed in f32 too (their split-TF32 forms, "tf32x3") at the
+training tutorial's shape (B=8, H=12, KV=4, Dh=64, S=256, causal) and at
+128/128's f32-gate shape (B=1, H=48, KV=16, S=256), two backward launches
+bit for bit and each output's error against a float64 control beside the
+plain f32 version's, their bound at a third of the TF32 peak (165 TFLOP/s)
+beside the FMA peak's (67 TFLOP/s), beside SDPA in f32; K2 and K2-bwd in
+f32 (FMA tiles) are timed at mamba2's f32-gate shape (B=1, S=1024).
 
 It then serves eight full-width models (random weights from seed 0) through
 ``repro_torch.ServeEngine``, one after another: tinyllama-1.1b (flash
@@ -149,6 +153,12 @@ one's. Each phase prints one JSON line; any failure exits non-zero. The last thr
 the kernels line, the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": ...}``.
 
+``python3 chip_smoke.py --k1-f32`` runs only K1's and K1-bwd's f32 forms
+at the training tutorial's shape and at 128/128's f32-gate shape, and K2's
+and K2-bwd's f32 forms at mamba2's f32-gate shape, as the kernels phases
+hold and time them; like ``--k1-wide`` below it reads another checkout's
+kernels when copied into its root.
+
 ``python3 chip_smoke.py --k1-wide`` runs only K1 at the wide pairs'
 main-path shapes (deepseek-v2's MLA prefill S=512 and training S=2048,
 paligemma's prefill S=320 and training S=512 under the prefix span, the
@@ -178,10 +188,15 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bound of every kernel;
-# the f32 kernels run FMA tiles, outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bound of every kernel.
+# K2's f32 forms and K1-bwd's at 192/128 and 256/256 run FMA tiles, outside
+# the tensor cores (PEAK_F32_FLOPS); K1's and K1-bwd's other f32 forms
+# ("tf32x3") issue each f32-accurate product as three TF32 products (split
+# TF32), so their bound is a third of the TF32 peak, the FMA bound beside it
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_TF32X3_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12
 
 # the served paths, in order: (arch, engine settings, kernels every prefill
@@ -311,7 +326,7 @@ def phase_build() -> None:
 def _wide_resources(build) -> dict:
     """ptxas registers and spills of K1's and K1-bwd's instantiations at
     256/256 and 192/128, per library: K1's bf16 ``flash_fwd_wide`` and f32
-    ``flash_fwd_f32`` at each (4); K1-bwd's at 256 the preprocess in both
+    ``flash_fwd_tf32`` at each (4); K1-bwd's at 256 the preprocess in both
     dtypes, f32 dK/dV and dQ, bf16 ``bwd_dkdv_wg2``, ``bwd_dkdv_reduce``
     and ``bwd_dq_wg`` (7), at 192/128 the same but the preprocess, which is
     128/128's (5)."""
@@ -324,8 +339,9 @@ def _wide_resources(build) -> dict:
 def _dh128_resources(build) -> dict:
     """ptxas registers and spills of K1's and K1-bwd's instantiations at
     128/128, per library: K1's bf16 ``flash_fwd_wide`` and f32
-    ``flash_fwd_f32`` (2); K1-bwd's preprocess in both dtypes (192/128's
-    too: it is templated on Dv), f32 dK/dV and dQ, bf16 ``bwd_dkdv_wg2``,
+    ``flash_fwd_tf32`` (2); K1-bwd's preprocess in both dtypes (192/128's
+    too: it is templated on Dv), f32 ``bwd_dkdv_tf32`` and ``bwd_dq_tf32``,
+    bf16 ``bwd_dkdv_wg2``,
     ``bwd_dkdv_reduce`` and ``bwd_dq_wg`` (7)."""
     fwd = ptxas_resources(build.build_log["flash_attention"]["ptxas"])
     bwd = ptxas_resources(build.build_log["flash_attention_bwd"]["ptxas"])
@@ -651,45 +667,89 @@ def phase_kernels() -> dict:
 
 # the training tutorial's attention (examples/train_lm_torch.py at its
 # defaults: 12 heads in groups of 3, head dim 64, B=8, S=256, causal, f32,
-# so the FMA designs): (B, H, KV, S, Dh)
+# so the f32 forms): (B, H, KV, S, Dh)
 TRAIN_LM_ATTN = (8, 12, 4, 256, 64)
 TRAIN_LM_AT = "B={0} H={1} KV={2} Dh={4} Sq=Sk={3} f32 causal".format(*TRAIN_LM_ATTN)
+# the f32 gates' attention at 128/128: phi4-mini's heads (48/16 with its KV
+# heads padded) at B=1 S=256, the parity and engine gates' shape
+F32_GATE_128 = (1, 48, 16, 256, 128)
 
 
-def _train_lm_k1() -> dict:
-    """K1 in f32 at :data:`TRAIN_LM_ATTN`, with the lse as the autograd
-    Function asks for it: the output within the f32 tolerance of the plain
-    version and the lse within its own (gated), then timed beside the plain
-    version and SDPA in f32, with the bound at the f32 peak outside the
-    tensor cores."""
+def _f32_peak(design: str) -> float:
+    """The f32 bound's peak for a design: a third of the TF32 peak for
+    split TF32 ("tf32x3"), else the FMA peak."""
+    return PEAK_TF32X3_FLOPS if design == "tf32x3" else PEAK_F32_FLOPS
+
+
+def _attention_f64(q, k, v, do=None):
+    """The float64 control of K1 (with ``do``, of K1-bwd too) on causal (B,
+    H, S, D) inputs: dense softmax attention in float64, each kv-head
+    repeated over its q-heads, the gradients by autograd. Returns (o, lse)
+    or (o, lse, dq, dk, dv)."""
+    import torch
+
+    G, S = q.shape[1] // k.shape[1], q.shape[2]
+    q64, k64, v64 = (t.detach().double().requires_grad_(do is not None) for t in (q, k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q64, k64.repeat_interleave(G, dim=1)) * q.shape[-1]**-0.5
+    s = s.masked_fill(torch.ones(S, S, dtype=torch.bool, device=q.device).triu(1), float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", torch.exp(s - lse[..., None]),
+                     v64.repeat_interleave(G, dim=1))
+    if do is None:
+        return o.detach(), lse.detach()
+    return (o.detach(), lse.detach(), *torch.autograd.grad(o, (q64, k64, v64), do.double()))
+
+
+def _f64_errs(got, plain, want64) -> dict:
+    """The kernel's and the plain f32 version's error against a float64
+    control on the same inputs, each scaled by max(1, max |control|)."""
+    scale = max(1.0, want64.abs().max().item())
+    return {"kernel": (got.double() - want64).abs().max().item() / scale,
+            "plain_f32": (plain.double() - want64).abs().max().item() / scale}
+
+
+def _train_lm_k1(shape=TRAIN_LM_ATTN, label=f"train_lm {TRAIN_LM_AT}") -> dict:
+    """K1 in f32 at ``shape`` (B, H, KV, S, Dh; :data:`TRAIN_LM_ATTN`), with
+    the lse as the autograd Function asks for it: the output within the f32
+    tolerance of the plain version and the lse within its own (gated), the
+    output's and lse's error against a float64 control beside the plain f32
+    version's, then timed beside the plain version and SDPA in f32, with
+    the bound at the design's peak (:func:`_f32_peak`) and at the FMA peak
+    beside it."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
-    B, H, KV, S, Dh = TRAIN_LM_ATTN
+    B, H, KV, S, Dh = shape
     q, k, v = _qkv(B, H, KV, S, S, Dh, torch.float32, seed=1200, model_layout=True)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     o, lse = fa.flash_attention_lse(q, k, v, causal=True, bshd=True)
     o_want, lse_want = fa.flash_attention_lse_ref(qt, kt, vt, causal=True)
+    o64, lse64 = _attention_f64(qt, kt, vt)
     torch.cuda.synchronize()
     r = {"design": fa.design(torch.float32, Dh),
          "max_abs_err": (o.transpose(1, 2) - o_want).abs().max().item(),
          "tol": FWD_TOL["float32"], "lse_scaled_err": _scaled(lse, lse_want),
-         "lse_tol": LSE_TOL["float32"], "finite": bool(torch.isfinite(o).all())}
-    emit("kernels", kernel="flash_attention", case=f"train_lm {TRAIN_LM_AT}", dtype="float32",
+         "lse_tol": LSE_TOL["float32"], "finite": bool(torch.isfinite(o).all()),
+         "f64_err": {"o": _f64_errs(o.transpose(1, 2), o_want, o64),
+                     "lse": _f64_errs(lse, lse_want, lse64)}}
+    del o64, lse64
+    emit("kernels", kernel="flash_attention", case=label, dtype="float32",
          shape=[B, H, KV, S, S, Dh, Dh], **r)
     check(r["finite"] and r["max_abs_err"] <= r["tol"] and r["lse_scaled_err"] <= r["lse_tol"],
-          f"flash_attention train_lm {TRAIN_LM_AT}: {r}")
+          f"flash_attention {label}: {r}")
     qc, kc, vc = (t.contiguous() for t in (qt, kt, vt))
     r.update(_times(
         lambda: fa.flash_attention_lse(q, k, v, causal=True, bshd=True),
         lambda: fa.flash_attention_lse_ref(qt, kt, vt, causal=True),
         lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True),
         iters=50))
-    r["bound_ms"], r["bound_by"] = _attention_bound(B, H, KV, S, S, Dh, 4, True, PEAK_F32_FLOPS)
+    r["bound_ms"], r["bound_by"] = _attention_bound(B, H, KV, S, S, Dh, 4, True,
+                                                    _f32_peak(r["design"]))
+    r["bound_fma_ms"], _ = _attention_bound(B, H, KV, S, S, Dh, 4, True, PEAK_F32_FLOPS)
     r["library_note"] = "F.scaled_dot_product_attention in f32 (TF32 off)"
-    emit("kernels", kernel="flash_attention", timing=f"train_lm {TRAIN_LM_AT}", **r)
+    emit("kernels", kernel="flash_attention", timing=label, **r)
     return r
 
 
@@ -1152,7 +1212,7 @@ def _sdpa_bwd(q, k, v, do, *, causal, window=None, prefix_len=None):
 def _bwd_timing(q, k, v, o, lse, do, kw, B, H, KV, Sq, Sk, Dh, Dv=None,
                 peak_flops=PEAK_BF16_FLOPS) -> dict:
     """K1-bwd at one shape (model layout, bf16 unless the inputs are f32,
-    whose FMA design is bound by ``peak_flops`` = :data:`PEAK_F32_FLOPS`):
+    whose design's bound ``peak_flops`` gives: :func:`_f32_peak`):
     eager ms, device ms by graph replay and by profiler (in all, and by
     launch under the kernel's short name: ``kernel_profiled_by_launch``),
     the plain version's ms, SDPA's autograd backward (``library_ms``,
@@ -1237,34 +1297,61 @@ def _deepseek_bwd(S: int) -> dict:
     return out
 
 
-def _train_lm_k1_bwd() -> dict:
-    """K1-bwd in f32 at :data:`TRAIN_LM_ATTN` (the FMA design): the
-    gradients, the forward's output and lse against the plain versions at
-    the f32 gates (gated), then timed as the bf16 shapes are, with the bound
-    at the f32 peak outside the tensor cores."""
+def _train_lm_k1_bwd(shape=TRAIN_LM_ATTN, label=f"train_lm {TRAIN_LM_AT}") -> dict:
+    """K1-bwd in f32 at ``shape`` (B, H, KV, S, Dh; :data:`TRAIN_LM_ATTN`):
+    the gradients, the forward's output and lse against the plain versions
+    at the f32 gates (gated), two launches equal bit for bit (gated), each
+    gradient's error against a float64 control beside the plain f32
+    version's, then timed as the bf16 shapes are, with the bound at the
+    design's peak (:func:`_f32_peak`) and at the FMA peak beside it."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
-    B, H, KV, S, Dh = TRAIN_LM_ATTN
+    B, H, KV, S, Dh = shape
     f32 = torch.float32
     q, k, v = _qkv(B, H, KV, S, S, Dh, f32, seed=1300, model_layout=True)
     do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1301),
                      device=q.device)
     kw = dict(causal=True, window=None, k_len=None)
     o, lse, r = _bwd_case(q, k, v, do, kw, True)
-    emit("kernels", kernel="flash_attention_bwd", case=f"train_lm {TRAIN_LM_AT}",
-         dtype="float32", shape=[B, H, KV, S, S, Dh], **r)
-    check(r["ok"], f"flash_attention_bwd train_lm {TRAIN_LM_AT}: {r}")
-    r.update(design=fa.design_bwd(f32, Dh), **_bwd_timing(
-        q, k, v, o, lse, do, kw, B, H, KV, S, S, Dh, peak_flops=PEAK_F32_FLOPS))
-    emit("kernels", kernel="flash_attention_bwd", timing=f"train_lm {TRAIN_LM_AT}",
+    with torch.no_grad():
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, bshd=True, **kw)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, bshd=True, **kw)
+    r["bitwise_repeat"] = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    # the float64 control: its own forward's o and lse; the plain f32
+    # version from its own f32 forward, the kernel from the kernel's
+    args = [t.transpose(1, 2) for t in (q, k, v, do)]
+    o32, lse32 = fa.flash_attention_lse_ref(*args[:3], **kw)
+    plain = fa.flash_attention_bwd_ref(*args[:3], o32, lse32, args[3], **kw)
+    want64 = _attention_f64(*args)[2:]
+    r["f64_err"] = {n: _f64_errs(g.transpose(1, 2), p_, w) for n, g, p_, w
+                    in zip(("dq", "dk", "dv"), got, plain, want64)}
+    del got, plain, o32, lse32, want64
+    emit("kernels", kernel="flash_attention_bwd", case=label, dtype="float32",
+         shape=[B, H, KV, S, S, Dh], **r)
+    check(r["ok"], f"flash_attention_bwd {label}: {r}")
+    check(r["bitwise_repeat"], f"flash_attention_bwd {label}: two launches differ")
+    design = fa.design_bwd(f32, Dh)
+    r.update(design=design, **_bwd_timing(
+        q, k, v, o, lse, do, kw, B, H, KV, S, S, Dh, peak_flops=_f32_peak(design)))
+    r["bound_fma_ms"], _ = _attention_bwd_bound(B, H, KV, S, S, Dh, 4, PEAK_F32_FLOPS)
+    emit("kernels", kernel="flash_attention_bwd", timing=label,
          **{k_: r[k_] for k_ in ("design", "ms", "plain_ms", "device_ms", "kernel_profiled_ms",
                                  "kernel_profiled_by_launch", "library_ms", "library_device_ms",
-                                 "library_note", "bound_ms", "bound_by")})
+                                 "library_note", "bound_ms", "bound_by", "bound_fma_ms")})
     del q, k, v, o, lse, do
     torch.cuda.empty_cache()
     return r
+
+
+def _f32_gate_128() -> dict:
+    """K1 and K1-bwd in f32 at 128/128, :data:`F32_GATE_128`, as
+    :func:`_train_lm_k1` and :func:`_train_lm_k1_bwd` hold and time them."""
+    label = "f32 gate B={0} H={1} KV={2} Dh={4} Sq=Sk={3} f32 causal".format(*F32_GATE_128)
+    return {"at": label, "fwd": _train_lm_k1(F32_GATE_128, label),
+            "bwd": _train_lm_k1_bwd(F32_GATE_128, label)}
 
 
 def phase_flash_bwd(deepseek_seq: int) -> dict:
@@ -1385,12 +1472,14 @@ def phase_flash_bwd(deepseek_seq: int) -> dict:
         record(r)
     train_lm = _train_lm_k1_bwd()
     record(train_lm)
+    gate_128 = _f32_gate_128()
+    record(gate_128["bwd"])
     return {"flash_attention_bwd": {"max_scaled_err": worst, "max_abs_err": worst_abs,
                                     "max_ulp_err": worst_ulp, "dh256_max_scaled_err": dh256,
                                     "mla_max_scaled_err": mla, "timing": t,
                                     "train_shape": r_train, "train_shapes": at_shapes,
                                     "deepseek": deepseek, "dh128": dh128,
-                                    "train_lm": train_lm}}
+                                    "train_lm": train_lm, "f32_gate_128": gate_128}}
 
 
 def _ssd_inputs(B, S, H, P, N, dtype, seed, laws="wide"):
@@ -1766,7 +1855,59 @@ def phase_ssd_bwd() -> dict:
         del x, dt, A, Bm, Cm, dy
         torch.cuda.empty_cache()
     return {"ssd_bwd": {"max_scaled_err": worst, "max_abs_err": worst_abs,
-                        "max_ulp_err": worst_ulp, "timings": timings}}
+                        "max_ulp_err": worst_ulp, "timings": timings,
+                        "f32_gate": _ssd_f32_gate()}}
+
+
+# mamba2's f32 gate (the parity cell's S=1024 at B=1, full width): (label,
+# B, S, H, P, N, chunk)
+SSD_F32_GATE = ("mamba2 f32 gate", 1, 1024, 64, 64, 128, 256)
+
+
+def _ssd_f32_gate() -> dict:
+    """K2 and K2-bwd in f32 at :data:`SSD_F32_GATE` with the model's dt/A
+    laws, each against its plain version (gated) and timed beside it, with
+    the bound at the f32 peak outside the tensor cores (their FMA designs);
+    no single PyTorch call computes the scan or its gradient."""
+    import torch
+
+    from repro_torch.kernels import ssd as tssd
+
+    f32 = torch.float32
+    label, B, S, H, P, N, chunk = SSD_F32_GATE
+    case = f"{label} B={B} S={S} H={H} P={P} N={N} chunk={chunk} f32"
+    x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, f32, 600, "model")
+    dy = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(601),
+                     device=x.device)
+    kw = dict(chunk=chunk, return_final_state=True)
+    got = tssd.ssd_bshp(x, dt, A, Bm, Cm, **kw)
+    want = tssd.ssd_ref(x, dt, A, Bm, Cm, **kw)
+    fwd = {"design": tssd.DESIGNS[f32],
+           "scaled_err": max(tssd.scaled_error(g, w) for g, w in zip(got, want))}
+    del got, want
+    check(fwd["scaled_err"] <= 1e-4, f"ssd {case}: {fwd}")
+    fwd.update(_times(lambda: tssd.ssd_bshp(x, dt, A, Bm, Cm, **kw),
+                      lambda: tssd.ssd_ref(x, dt, A, Bm, Cm, **kw), None, iters=20))
+    fwd["bound_ms"], fwd["bound_by"] = _ssd_bound(B, S, H, P, N, chunk, 4, PEAK_F32_FLOPS)
+    emit("kernels", kernel="ssd", timing=case, **fwd)
+    got, bwd = _ssd_bwd_case(x, dt, A, Bm, Cm, dy, None, chunk)
+    del got
+    check(bwd["ok"], f"ssd_bwd {case}: {bwd}")
+
+    def kernel():
+        tssd.ssd_bwd(x, dt, A, Bm, Cm, dy, chunk=chunk)
+
+    bwd.update(design=tssd.DESIGN_BWD[f32], ms=_time_ms(kernel, 5, 2),
+               plain_ms=_time_ms(lambda: tssd.ssd_bwd_ref(x, dt, A, Bm, Cm, dy, chunk=chunk),
+                                 2, 1),
+               library_ms=None, device_ms=_graph_ms(kernel, calls=3, replays=3))
+    launches = ((re.search(r"ssd_bwd_\w+", k), ms) for k, ms in _profiled_ms(kernel, 3).items())
+    bwd["kernel_profiled_ms"] = {m.group(0): ms for m, ms in launches if m}
+    bwd["bound_ms"], bwd["bound_by"] = _ssd_bwd_bound(B, S, H, P, N, chunk, 4, PEAK_F32_FLOPS)
+    emit("kernels", kernel="ssd_bwd", timing=case, **bwd)
+    del x, dt, A, Bm, Cm, dy
+    torch.cuda.empty_cache()
+    return {"at": case, "fwd": fwd, "bwd": bwd}
 
 
 # -- serve ----------------------------------------------------------------------
@@ -4661,12 +4802,21 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                             **{k: fa["timings"][label][k] for k in timing_keys}}
                     for label, B, H, KV, Sq, Sk, Dh, causal, _prefix in ENCDEC_VLM_K1[1:]
                 },
-                # the training tutorial's attention, the f32 FMA design
+                # the training tutorial's attention and the f32 gates' at
+                # 128/128, the f32 form ("tf32x3")
                 "train_lm_f32": {
                     "at": TRAIN_LM_AT + " (examples/train_lm_torch.py), with the lse; bound "
-                                        "at the f32 peak outside the tensor cores, 67 TFLOP/s",
-                    **{k: fa["train_lm"][k] for k in ("design", "max_abs_err", "lse_scaled_err")
+                                        "at a third of the TF32 peak (split TF32), the FMA "
+                                        "peak's (67 TFLOP/s) beside it",
+                    **{k: fa["train_lm"][k] for k in ("design", "max_abs_err", "lse_scaled_err",
+                                                      "f64_err", "bound_fma_ms")
                        + timing_keys},
+                },
+                "f32_gate_128": {
+                    "at": kern["flash_attention_bwd"]["f32_gate_128"]["at"] + ", with the lse",
+                    **{k: kern["flash_attention_bwd"]["f32_gate_128"]["fwd"][k]
+                       for k in ("design", "max_abs_err", "lse_scaled_err", "f64_err",
+                                 "bound_fma_ms") + timing_keys},
                 },
             },
             {
@@ -4687,6 +4837,9 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                 "library_device_ms": t_ssd["library_device_ms"],
                 "design": SSD_DESIGNS[torch.bfloat16],
                 "at": "B=1 S=512 H=64 P=64 N=128 chunk 256 bf16, with the final state",
+                # mamba2's f32 gate, the f32 form (FMA tiles)
+                "f32_gate": {"at": kern["ssd_bwd"]["f32_gate"]["at"] + ", with the final state",
+                             **kern["ssd_bwd"]["f32_gate"]["fwd"]},
             },
             {
                 "name": "flash_attention_bwd",
@@ -4774,16 +4927,21 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                                      "bitwise_repeat")}}
                         for label, B, H, KV, S in K1_BWD_128},
                 },
-                # the training tutorial's attention, the f32 FMA design
-                "train_lm_f32": {
-                    "at": TRAIN_LM_AT + " (examples/train_lm_torch.py); bound at the f32 peak "
-                                        "outside the tensor cores, 67 TFLOP/s; library: SDPA's "
-                                        "autograd backward in f32",
-                    **{k: bwd["train_lm"][k] for k in (
-                        "design", "scaled_err", "max_abs_err", "ms", "plain_ms", "device_ms",
-                        "kernel_profiled_ms", "kernel_profiled_by_launch", "library_ms",
-                        "library_device_ms", "library_note", "bound_ms", "bound_by")},
-                },
+                # the training tutorial's attention and the f32 gates' at
+                # 128/128, the f32 form ("tf32x3")
+                **{key: {
+                    "at": at + "; bound at a third of the TF32 peak (split TF32), the FMA "
+                               "peak's (67 TFLOP/s) beside it; library: SDPA's autograd "
+                               "backward in f32",
+                    **{k: r[k] for k in (
+                        "design", "scaled_err", "max_abs_err", "f64_err", "bitwise_repeat",
+                        "ms", "plain_ms", "device_ms", "kernel_profiled_ms",
+                        "kernel_profiled_by_launch", "library_ms", "library_device_ms",
+                        "library_note", "bound_ms", "bound_by", "bound_fma_ms")},
+                } for key, at, r in (
+                    ("train_lm_f32", TRAIN_LM_AT + " (examples/train_lm_torch.py)",
+                     bwd["train_lm"]),
+                    ("f32_gate_128", bwd["f32_gate_128"]["at"], bwd["f32_gate_128"]["bwd"]))},
                 # hymba's two masks and the enc-dec and VLM cells' shapes
                 "train_shapes": {
                     label: {k: r[k] for k in ("ms", "plain_ms", "device_ms", "kernel_profiled_ms",
@@ -4823,6 +4981,10 @@ def _kernel_line(kern: dict, serves: list, trains: list) -> dict:
                                                 "bound_by", "kernel_profiled_ms", "ulp_err",
                                                 "control_ulp_err")},
                 "at": t_sbwd["case"] + ", the model's dt/A laws",
+                # mamba2's f32 gate, the f32 form (FMA tiles)
+                "f32_gate": {"at": kern["ssd_bwd"]["f32_gate"]["at"],
+                             **{k: v for k, v in kern["ssd_bwd"]["f32_gate"]["bwd"].items()
+                                if k not in ("ulp_err", "tol", "ulp_tol")}},
             },
         ]
     }
@@ -4833,9 +4995,9 @@ def main(argv: list) -> int:
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
     import torch
 
-    if argv not in ([], ["--k1-wide"]):
-        print(f"chip_smoke: unknown arguments {argv}; the only one is --k1-wide",
-              file=sys.stderr)
+    if argv not in ([], ["--k1-wide"], ["--k1-f32"]):
+        print(f"chip_smoke: unknown arguments {argv}; the only ones are --k1-wide and "
+              "--k1-f32", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4845,7 +5007,7 @@ def main(argv: list) -> int:
     t0 = time.perf_counter()
     dev = phase_device()
     if argv:
-        return k1_wide(dev)
+        return k1_wide(dev) if argv == ["--k1-wide"] else k1_f32(dev)
     dry = DryRuns()  # on the host, beside the card's phases
     try:
         return _run(t0, dev, dry)
@@ -4886,6 +5048,42 @@ def k1_wide(dev: dict) -> int:
                     torch.bfloat16, 192 if "deepseek" in label else 256,
                     128 if "deepseek" in label else 256),
                 **{k: r.get(k) for k in keys}} for label, r in got.items()}}))
+    return 0
+
+
+def k1_f32(dev: dict) -> int:
+    """K1's and K1-bwd's f32 forms as the kernels phases hold and time
+    them: at the training tutorial's shape (:func:`_train_lm_k1`,
+    :func:`_train_lm_k1_bwd`) and at 128/128's f32-gate shape
+    (:func:`_f32_gate_128`), each against its plain version and a float64
+    control, beside SDPA in f32, the bound and the FMA bound; then K2's and
+    K2-bwd's f32 forms at mamba2's f32-gate shape (:func:`_ssd_f32_gate`);
+    with the ptxas registers and spills of the libraries' f32
+    instantiations. The last line is ``{"ok": true, "k1_f32": {shape:
+    {design, ms, device_ms, ...}}}``."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with ThreadPoolExecutor(len(build.SOURCES)) as ex:  # one nvcc per source, together
+        list(ex.map(build.library, build.SOURCES))
+    emit("build", resources={
+        name: {k: v for k, v in ptxas_resources(build.build_log[name]["ptxas"]).items()
+               if re.search(r"f32|tf32|float", k)}
+        for name in ("flash_attention", "flash_attention_bwd")})
+    gate = _f32_gate_128()
+    ssd = _ssd_f32_gate()
+    got = {f"K1 {TRAIN_LM_AT}": _train_lm_k1(), f"K1-bwd {TRAIN_LM_AT}": _train_lm_k1_bwd(),
+           f"K1 {gate['at']}": gate["fwd"], f"K1-bwd {gate['at']}": gate["bwd"],
+           f"K2 {ssd['at']}": ssd["fwd"], f"K2-bwd {ssd['at']}": ssd["bwd"]}
+    keys = ("design", "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms", "bound_by", "bound_fma_ms", "max_abs_err", "scaled_err", "f64_err",
+            "kernel_profiled_ms", "kernel_profiled_by_launch")
+    print(dev["nvidia_smi"])
+    print(json.dumps({"ok": True, "k1_f32": {
+        label: {k: r[k] for k in keys if k in r} for label, r in got.items()}}))
     return 0
 
 

@@ -158,12 +158,60 @@
 // its softmax and for its P V before the next tile, and the two trials that
 // overlap those read no faster; no profiler here counts the stalls.
 //
-// f32, the parity path (flash_fwd_f32): FMA tiles on the FP32 pipes; the
-// tensor cores take no f32 operand that holds a 1e-4 tolerance. One CTA per
-// (batch * q-head, 64-row q tile), 256 threads, each thread owning a 4 x 4
-// micro-tile of the 64 x 64 score tile and 4 rows x Dv/16 columns of the
-// output, K/V staged in shared memory as f32 (146 KiB at 192/128, 209.5 KiB
-// at 256/256, under the 227 KiB a CTA may opt in to).
+// f32, the parity path and the training tutorial's (flash_fwd_tf32,
+// "tf32x3"): every product on the tensor cores as split TF32. It replaces
+// flash_fwd_f32's FMA tiles on the FP32 pipes, which read 16 % of their
+// bound at the tutorial's shape. The tensor cores take an f32 operand as
+// TF32, 11 significant bits; each operand x is split on the fly into hi =
+// tf32(x) and lo = tf32(x - hi), rounded as cvt.rna.tf32.f32 rounds, and each
+// product is issued as lo hi + hi lo + hi hi into one f32 sum (lo lo
+// dropped): about 2^-21 of relative error a product where one TF32 product
+// has 2^-11 (tensor_core.cuh). The softmax and the masks stay in f32
+// registers.
+//  What bounds it: three TF32 products an f32-accurate one, so the work's
+//  bound is its FLOPs at a third of the TF32 peak (165 TFLOP/s) or its
+//  bytes at 3.35 TB/s: 0.0050 ms at the tutorial's shape (B=8 H=12 KV=4
+//  Dh=64 S=256 causal), by bytes.
+//  - Both products on mma.sync.m16n8k8 with tf32 operands, fed from
+//    shared-memory tiles of rows D + 4 floats (every fragment load reads 32
+//    banks), split as they are loaded; P from registers as the A operand of
+//    P V, its depth permuted as the accumulator holds it, V's rows read in
+//    the same order.
+//  - CTA: two groups of 4 warps over one 64-row q tile (grid: batch *
+//    q-head, q tiles last first); warp w of a group owns rows 16 w .. + 15,
+//    the groups take the two halves of each K/V tile's keys, each with its
+//    own online softmax, and merge (max, sum, output) exactly at the end,
+//    as flash_fwd_mma does. K and V in a two-stage ring of 64-key tiles (32
+//    at Dqk = 256) filled by 16-byte cp.async; the wrapper copies an f32
+//    view whose rows are off 16 bytes first. Shared memory 85 KiB at 64/64
+//    (two CTAs an SM), 165 KiB at 128/128, 213 KiB at 192/128, 195 KiB at
+//    256/256; no spill.
+//  Trials (python3 chip_smoke.py --k1-f32 in each form's checkout, device ms
+//  by CUDA-graph replay at the tutorial's shape / at 128/128's f32-gate
+//  shape B=1 H=48 KV=16 S=256, on an H100 80GB HBM3 at 700 W; the losing
+//  forms' code is gone):
+//  - the FMA form 0.0774 / 0.0949; split TF32 rounded by cvt.rna.tf32.f32
+//    0.0425 / 0.0447, rounded by two integer instructions (kept) 0.0325 /
+//    0.0366 (one call).
+//  - on that form: Q split once into shared memory (hi in place, lo beside
+//    it) 0.0333 / 0.0387 against 0.0327 / 0.0370; one K/V ring stage 0.0354
+//    / 0.0522; 32-key tiles 0.0373 / 0.0473 against 0.0325 / 0.0367; the
+//    8-key n-tiles past a warp's diagonal skipped by a branch in the
+//    unrolled loops 0.0480 against 0.0326.
+//  - S = Q K^T on wgmma.m64n64k8 (TF32 takes only K-major B, which K is;
+//    Q's hi and lo A operands in registers, each K tile split once into
+//    128-byte-swizzled hi and lo tiles, three wgmma a k-step; P V left on
+//    mma.sync) 0.0339 / 0.0339 against 0.0328 / 0.0329: mma.sync kept for
+//    both products.
+//  - the two key groups (kept) 0.0316 / 0.0315 against one group 0.0382 /
+//    0.0365 in one call (one group read 0.0324 to 0.0333 in the others).
+//  The kept form against the FMA form in one call, two runs each: 0.0313 /
+//  0.0313 against 0.0779 / 0.0777 at the tutorial's shape (SDPA in f32,
+//  TF32 off, 0.168), 0.0350 / 0.0350 against 0.0952 / 0.0952 at 128/128.
+//  What bounds it next: 0.0313 ms is 16 % of its bound. The wgmma trial and
+//  the shared-memory splits, which took issue slots away, read no faster,
+//  so neither the tensor pipe nor the split instructions are the limit; no
+//  profiler here reads the stalls.
 //
 // Both: tiles wholly above the causal diagonal (and past the prefix span),
 // left of the window or past the valid length are skipped; ragged Sq and Sk are masked (zero-filled
@@ -182,7 +230,6 @@
 namespace {
 
 constexpr int BQ = 64;
-constexpr int BK = 64;
 constexpr float NEG_INF = -1e30f;  // finite: (-inf) - (-inf) would be NaN
 constexpr int MAX_DEVICES = 64;
 
@@ -889,142 +936,197 @@ __global__ void __launch_bounds__(3 * 128, 1)
   }
 }
 
-// -- f32: FMA tiles -----------------------------------------------------------
+// -- f32: split TF32 on the tensor cores ---------------------------------------------
 
-constexpr int F32_THREADS = 256;
+constexpr int TF_THREADS = 128;  // 4 warps; warp w owns q rows 16 w .. 16 w + 15 of the CTA's 64
+constexpr float LOG2E = 1.4426950408889634f;
+
+// the f32 form's shared memory: Q, and two stages of BKT-key K and V tiles,
+// rows of D + 4 floats (tensor_core.cuh); 32-key tiles at Dqk = 256
+template <int DQK, int DV>
+struct Tf32Fwd {
+  static constexpr int BKT = DQK == 256 ? 32 : 64;
+  static constexpr int LQ = DQK + 4, LV = DV + 4;
+  static constexpr int SMEM = (BQ * LQ + 2 * BKT * (LQ + LV)) * 4;
+  static_assert(SMEM <= 232448, "the tiles fit the 227 KiB a CTA may opt in to");
+};
+
+constexpr int FG = 2;  // warp groups, each taking half of every K/V tile's keys
+constexpr int FWD_THREADS = TF_THREADS * FG;
 
 template <int DQK, int DV>
-constexpr int f32_smem_bytes() {
-  // q and k tiles padded to DQK + 1 (conflict-free column walks), v tile,
-  // p tile padded to BK + 4 (the two row groups of a warp hit disjoint banks)
-  return (BQ * (DQK + 1) + BK * (DQK + 1) + BK * DV + BQ * (BK + 4)) * 4;
-}
+__global__ void __launch_bounds__(FWD_THREADS) flash_fwd_tf32(Params p) {
+  using F = Tf32Fwd<DQK, DV>;
+  constexpr int BKT = F::BKT, LQ = F::LQ, LV = F::LV, NT = FWD_THREADS;
+  constexpr int HK = BKT / FG;              // keys of a tile for one group
+  constexpr int NS = HK / 8, ND = DV / 8;  // n-tiles of a warp's S and O
+  extern __shared__ __align__(16) float smem_f[];
+  float* q_s = smem_f;
+  float* k_s = q_s + BQ * LQ;       // [stage][BKT][LQ]
+  float* v_s = k_s + 2 * BKT * LQ;  // [stage][BKT][LV]
 
-template <int DQK, int DV>
-__global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32(Params p) {
-  constexpr int QS = DQK + 1;
-  constexpr int PS = BK + 4;
-  constexpr int DC = DV / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + BQ * QS;
-  float* v_s = k_s + BK * QS;
-  float* p_s = v_s + BK * DV;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // score columns tx + 16 j, output columns tx + 16 j
-  const int ty = tid >> 4;  // rows 4 ty .. 4 ty + 3
-  const int bh = blockIdx.y;
+  const int warp = (threadIdx.x >> 5) & 3, grp = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int kvh = h / (p.H / p.KV);
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last (heaviest causal) tiles first
 
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
   float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const KeyRange kr(p, q0, BKT);
 
-  for (int i = tid; i < BQ * DQK; i += F32_THREADS) {
-    const int r = i / DQK, d = i % DQK, qi = q0 + r;
-    q_s[r * QS + d] = qi < p.Sq ? qg[qi * p.q_ss + d] * p.scale : 0.f;
-  }
-  const KeyRange kr(p, q0, BK);
+  tc::cp_rows_f32<DQK, NT>(q_s, qg, p.q_ss, q0, BQ, p.Sq);
+  auto load_kv = [&](int k0, int stage) {
+    tc::cp_rows_f32<DQK, NT>(k_s + stage * BKT * LQ, kg, p.k_ss, k0, BKT, p.Sk);
+    tc::cp_rows_f32<DV, NT>(v_s + stage * BKT * LV, vg, p.v_ss, k0, BKT, p.Sk);
+  };
+  if (kr.k_lo < kr.k_hi) load_kv(kr.k_lo, 0);
+  tc::cp_async_commit();
 
-  float m[4], l[4], acc[4][DC];
+  const float sl2 = p.scale * LOG2E;  // log2 domain: p = 2^(s * scale * log2(e) - m)
+  const int r0 = 16 * warp;
+  const int row0 = q0 + r0 + (lane >> 2);          // this lane's rows: row0 and row0 + 8
+  const int w_last = min(q0 + r0 + 15, p.Sq - 1);  // this warp's last row
+  float o[ND][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
-  for (int k0 = kr.k_lo; k0 < kr.k_hi; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done (and q_s is in)
-    for (int i = tid; i < BK * DQK; i += F32_THREADS) {
-      const int r = i / DQK, d = i % DQK, kj = k0 + r;
-      k_s[r * QS + d] = kj < p.Sk ? kg[kj * p.k_ss + d] : 0.f;
-    }
-    for (int i = tid; i < BK * DV; i += F32_THREADS) {
-      const int r = i / DV, d = i % DV, kj = k0 + r;
-      v_s[r * DV + d] = kj < p.Sk ? vg[kj * p.v_ss + d] : 0.f;
-    }
+  int stage = 0;
+  for (int k0 = kr.k_lo; k0 < kr.k_hi; k0 += BKT, stage ^= 1) {
+    if (k0 + BKT < kr.k_hi) load_kv(k0 + BKT, stage ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // this tile (and, the first time, Q) has landed
     __syncthreads();
+    // a warp none of whose rows sees a key of the tile skips it: rows past
+    // Sq, keys after its last row (past the prefix span), or keys before
+    // its first row's window
+    const int kh = k0 + HK * grp;  // this group's first key
+    const bool sees = q0 + r0 < p.Sq && kh < kr.k_valid &&
+                      !(p.causal && kh > w_last && kh >= p.prefix_len) &&
+                      !(p.window > 0 && kh + HK - 1 <= q0 + r0 - p.window);
+    if (sees) {
+      const float* ks = k_s + (stage * BKT + HK * grp) * LQ;
+      const float* vs = v_s + (stage * BKT + HK * grp) * LV;
 
-    float s[4][4];
+      // S = Q K^T: this warp's 16 rows x BKT keys
+      float s[NS][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DQK; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = q_s[(4 * ty + i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = k_s[(tx + 16 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    // mask, then the online softmax update; a row's 16 threads are one
-    // half-warp, so xor-shuffles over offsets 8..1 reduce a row
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + 4 * ty + i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (!visible(p, kr.k_valid, qi, k0 + tx + 16 * j)) s[i][j] = NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) p_s[(4 * ty + i) * PS + tx + 16 * j] = s[i][j];
-    }
-    __syncthreads();
-
+      for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[4];
+      for (int kd = 0; kd < DQK / 8; ++kd) {
+        const tc::FragA a = tc::ld_a<LQ>(q_s, r0, 8 * kd, lane);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = p_s[(4 * ty + i) * PS + kk];
+        for (int n = 0; n < NS; ++n) tc::mma3(s[n], a, tc::ld_b_nk<LQ>(ks, 8 * n, 8 * kd, lane));
+      }
+
+      // the online softmax on the fragments; only tiles at the diagonal,
+      // the window's edge or the valid length evaluate the mask
+      const bool edge = kh + HK > kr.k_valid ||
+                        (p.causal && kh + HK - 1 > q0 + r0 && kh + HK > p.prefix_len) ||
+                        (p.window > 0 && kh <= w_last - p.window);
+      float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float vv = v_s[kk * DV + tx + 16 * c];
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * sl2;
+          if (edge && !visible(p, kr.k_valid, row0 + (e >> 1) * 8, kh + 8 * n + 2 * t + (e & 1)))
+            x = NEG_INF;
+          s[n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // a row's 4 lanes are one quad
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        alpha[i] = exp2_ftz(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= alpha[i];  // this lane's share of the row sum; quads add up at the end
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = exp2_ftz(s[n][e] - m[e >> 1]);
+          l[e >> 1] += s[n][e];
+        }
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+
+      // O += P V, P from registers: 8 keys (one n-tile of S) a k-step
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        const tc::FragA a = tc::a_from_c(s[kk]);
+#pragma unroll
+        for (int n = 0; n < ND; ++n) tc::mma3(o[n], a, tc::ld_b_kn<LV>(vs, 8 * kk, 8 * n, lane));
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  tc::cp_async_wait<0>();  // with no key tile at all, Q's copy may still be in flight
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  {
+    // the groups' (max, sum, output) per row merged: group 1 leaves its
+    // state in shared memory ([slot][value][lane]), group 0 rescales both
+    // to the common max, exactly
+    constexpr int VALS = 4 * ND + 4;
+    __syncthreads();
+    float* red = smem_f + warp * VALS * 32 + lane;
+    if (grp == 1) {
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[(4 * n + e) * 32] = o[n][e];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        red[(4 * ND + i) * 32] = m[i];
+        red[(4 * ND + 2 + i) * 32] = l[i];
+      }
+    }
+    __syncthreads();
+    if (grp == 1) return;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m1 = red[(4 * ND + i) * 32], mm = fmaxf(m[i], m1);
+      const float a0 = exp2_ftz(m[i] - mm), a1 = exp2_ftz(m1 - mm);
+      l[i] = l[i] * a0 + red[(4 * ND + 2 + i) * 32] * a1;
+      m[i] = mm;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][2 * i] = o[n][2 * i] * a0 + red[(4 * n + 2 * i) * 32] * a1;
+        o[n][2 * i + 1] = o[n][2 * i + 1] * a0 + red[(4 * n + 2 * i + 1) * 32] * a1;
       }
     }
   }
-
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * ty + i;
+  for (int i = 0; i < 2; ++i) {
+    const int qi = row0 + 8 * i;
     if (qi >= p.Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float lsum = fmaxf(l[i], 1e-30f);
+    // the row statistics for the backward, natural log: (m + log2 l) ln 2
+    if (p.lse != nullptr && t == 0)
+      p.lse[(long long)bh * p.Sq + qi] = (m[i] + log2f(lsum)) * 0.6931471805599453f;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) og[qi * p.o_ss + tx + 16 * c] = acc[i][c] / denom;
-    if (p.lse != nullptr && tx == 0) p.lse[(long long)bh * p.Sq + qi] = m[i] + logf(denom);
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<float2*>(og + qi * p.o_ss + 8 * n + 2 * t) =
+          make_float2(o[n][2 * i] / lsum, o[n][2 * i + 1] / lsum);
   }
 }
 
@@ -1116,10 +1218,11 @@ cudaError_t launch(const Params& p, bool bf16, int device, cudaStream_t stream) 
   static std::atomic<bool> set_bf16[MAX_DEVICES], set_f32[MAX_DEVICES];
   const int q_tiles = (p.Sq + BQ - 1) / BQ;
   if (!bf16) {
-    constexpr int smem = f32_smem_bytes<DQK, DV>();
-    cudaError_t err = opt_in_smem(flash_fwd_f32<DQK, DV>, smem, device, set_f32);
+    if (q_tiles > 65535) return cudaErrorInvalidValue;
+    constexpr int smem = Tf32Fwd<DQK, DV>::SMEM;
+    cudaError_t err = opt_in_smem(flash_fwd_tf32<DQK, DV>, smem, device, set_f32);
     if (err != cudaSuccess) return err;
-    flash_fwd_f32<DQK, DV><<<dim3(q_tiles, p.B * p.H), F32_THREADS, smem, stream>>>(p);
+    flash_fwd_tf32<DQK, DV><<<dim3(p.B * p.H, q_tiles), FWD_THREADS, smem, stream>>>(p);
   } else if constexpr ((DQK == 128 && DV == 128) || (DQK == 192 && DV == 128) ||
                        (DQK == 256 && DV == 256)) {
     return launch_wide<DQK, DV>(p, device, set_bf16, stream);

@@ -143,15 +143,67 @@
 // the two warpgroups' products are a third smaller than at 192/128 while
 // the exchange, barriers and waits a tile pair stay.
 //
-// f32 (the parity path; bwd_dkdv, bwd_dq): FMA tiles on the FP32 pipes, as
-// the forward's f32 form: the tensor cores take no f32 operand that holds a
-// 1e-4 tolerance. Each thread owns a 4 x 4 micro-tile of the 64 x 64 score
+// f32 at 32/32, 64/64 and 128/128, the parity path and the training
+// tutorial's (bwd_dkdv_tf32, bwd_dq_tf32, "tf32x3"): every product (S^T,
+// dP^T, dV and dK in the dK/dV launch, S, dP and dQ in the dQ launch) on
+// the tensor cores as split TF32, as the forward's f32 form: operands split
+// into TF32 hi and lo parts as they are loaded, three mma.sync.m16n8k8 a
+// product into f32 accumulators (tensor_core.cuh), from shared-memory tiles
+// of rows D + 4 floats filled by two-stage 16-byte cp.async rings; P^T,
+// dS^T and dS from registers. D, P, dS and every mask stay in f32
+// registers. It replaces the FMA tiles (bwd_dkdv, bwd_dq at these pairs),
+// which read 1.36x slower than SDPA's f32 backward at the tutorial's shape;
+// their 64-key dK/dV grid was 128 CTAs there, on 132 SMs.
+//  What bounds it: the five products' FLOPs at a third of the TF32 peak
+//  (165 TFLOP/s), 0.0122 ms at the tutorial's shape (B=8 H=12 KV=4 Dh=64
+//  S=256 causal).
+//  - dK/dV: one CTA per (batch * kv-head, 32-key tile), 256 at the
+//    tutorial's shape; 8 warps, two key halves of 16 by four q parts of 16
+//    rows of each streamed 64-row q tile. S^T and dP^T come out with the
+//    keys as rows, P^T and dS^T feed dV and dK from registers, and the q
+//    parts' dK and dV are added through shared memory in a fixed order at
+//    the end: no atomics, the same bits from run to run. 86 KiB of shared
+//    memory at 64/64, 166 KiB at 128/128.
+//  - dQ: one CTA per (batch * q-head, 64-row q tile), 4 warps of 16 rows,
+//    64-key K and V tiles; 102 KiB at 64/64, 198 KiB at 128/128.
+//  Trials (python3 chip_smoke.py --k1-f32 in each form's checkout, device ms
+//  by CUDA-graph replay at the tutorial's shape, the profiler's dK/dV and dQ
+//  launches in brackets, on an H100 80GB HBM3 at 700 W; the losing forms'
+//  code is gone):
+//  - the FMA form 0.2396 (0.1614, 0.0727); split TF32 rounded by
+//    cvt.rna.tf32.f32 0.1459 (0.0860, 0.0532), by two integer instructions
+//    (kept) 0.1222 (0.0692, 0.0468), one call.
+//  - K and V split once into shared memory for the dK/dV launch, Q and dO
+//    for dQ: no faster (dK/dV 0.0973 against 0.0989 at 128/128's f32-gate
+//    shape); dQ on 32-key tiles 0.0479 against 0.0470; the n-tiles a warp's
+//    mask empties skipped by branches in the unrolled loops: dQ 0.0720
+//    against 0.0468.
+//  - dK/dV with 8 warps (kept) 0.0615 against 4 (two q halves of 32 rows)
+//    0.0701; dQ's key tiles split between two groups of 4 warps 0.0459 /
+//    0.0426 against 0.0421 / 0.0419, and the one-group form without the
+//    group index in its addressing 0.0470 / 0.0471 against 0.0423 / 0.0441.
+//  The kept form against the FMA form in one call, two runs each: 0.1103 /
+//  0.1103 (dK/dV 0.0604 / 0.0626, dQ 0.0407 / 0.0424) against 0.2429 /
+//  0.2411 at the tutorial's shape, SDPA's f32 backward 0.177; 0.1433 /
+//  0.1434 against 0.3793 / 0.3788 at 128/128 (B=1 H=48 KV=16 S=256), SDPA
+//  0.144.
+//  What bounds it next: 0.1103 ms is 11 % of its bound. The heaviest dK/dV
+//  CTAs (the first key tiles under causality) walk 12 q tiles where the
+//  mean is 7.5; no profiler here reads the stalls.
+//
+// f32 at 192/128 and 256/256 (bwd_dkdv, bwd_dq; "fma-f32"): FMA tiles on
+// the FP32 pipes. Each thread owns a 4 x 4 micro-tile of the 64 x 64 score
 // tile and 4 rows x Dh/16 columns of its gradient tile, operands in padded
 // f32 shared-memory tiles. At Dh = 256 the key tiles hold 32 keys (a 4 x 2
 // micro-tile, 2 keys x 16 columns of dK and dV a thread): 64-key K and V
 // tiles beside the 64-row Q and dO tiles would take 298 496 bytes of
 // shared memory, over the 232 448 a CTA may opt in to, and 128 dK and dV
-// registers a thread.
+// registers a thread. The split-TF32 form does not take these pairs: at
+// 256/256 its dK/dV tiles (32 keys, two stages of Q and dO) take 333 824
+// bytes; at 192/128 they fit (210 944), but a warp's 96 dK and 64 dV
+// accumulators beside its score fragments spill at 255 registers (4 bytes
+// stored and 8 loaded with 8 warps, 12 and 28 with 4, in chip_smoke.py's
+// ptxas report), and the build holds the wide pairs to no spill.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1336,6 +1388,362 @@ __global__ void __launch_bounds__(128 * QW, 1) bwd_dq_wg(Params p) {
   }
 }
 
+// -- f32 at 32/32, 64/64 and 128/128: split TF32 on the tensor cores --------------
+
+constexpr int TF_THREADS = 128;  // 4 warps
+constexpr int TF_KEYS = 32;      // keys of a dK/dV CTA
+constexpr float TF_LOG2E = 1.4426950408889634f;
+
+// the f32 tiles in shared memory, rows of D + 4 floats (tensor_core.cuh)
+template <int DQK, int DV>
+struct Tf32Bwd {
+  static constexpr int LQ = DQK + 4, LV = DV + 4;
+  // dK/dV: the 32-key K and V tiles, two stages of the streamed 64-row Q
+  // and dO tiles and of their rows' lse and D (64/64: 88 064 bytes)
+  static constexpr int SMEM_KV = (TF_KEYS * (LQ + LV) + 2 * BQ * (LQ + LV) + 4 * BQ) * 4;
+  // dQ: the 64-row Q and dO tiles, two stages of BKQ-key K and V tiles
+  // (64/64: 104 448 bytes; 128/128: 202 752)
+  static constexpr int BKQ = 64;
+  static constexpr int SMEM_Q = (BQ * (LQ + LV) + 2 * BKQ * (LQ + LV)) * 4;
+  static_assert(SMEM_KV <= 232448 && SMEM_Q <= 232448, "the tiles fit the 227 KiB a CTA may opt in to");
+};
+
+// dK and dV: one CTA per (batch * kv-head, 32-key tile) of DKDV_WARPS
+// warps, warp w owning keys 16 (w % 2) .. + 15 of the tile and the w / 2-th
+// QR-row part of each streamed 64-row q tile. S^T = K Q^T and dP^T = V dO^T
+// come out with the keys as rows, so P^T and dS^T are the A operands of dV
+// += P^T dO and dK += dS^T Q from registers. At the end the q parts' sums
+// are added through shared memory, in a fixed order.
+constexpr int DKDV_WARPS = 8;
+constexpr int DKDV_THREADS = 32 * DKDV_WARPS;
+
+template <int DQK, int DV>
+__global__ void __launch_bounds__(DKDV_THREADS) bwd_dkdv_tf32(Params p) {
+  using F = Tf32Bwd<DQK, DV>;
+  constexpr int LQ = F::LQ, LV = F::LV, NT = DKDV_THREADS;
+  constexpr int NK = DQK / 8, NV = DV / 8;  // n-tiles of dK and of dV
+  constexpr int QP = DKDV_WARPS / 2;        // q parts
+  constexpr int QR = BQ / QP, NQ = QR / 8;  // a part's q rows, and their n-tiles
+  extern __shared__ __align__(16) float smem_f[];
+  float* k_s = smem_f;                // [TF_KEYS][LQ]
+  float* v_s = k_s + TF_KEYS * LQ;    // [TF_KEYS][LV]
+  float* q_s = v_s + TF_KEYS * LV;    // [stage][BQ][LQ]
+  float* do_s = q_s + 2 * BQ * LQ;    // [stage][BQ][LV]
+  float* lse_s = do_s + 2 * BQ * LV;  // [stage][BQ]
+  float* dl_s = lse_s + 2 * BQ;       // [stage][BQ]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int kw = warp & 1, qw = warp >> 1;  // this warp's key half and q part
+  const int bkv = blockIdx.x, b = bkv / p.KV, kvh = bkv % p.KV;
+  const int k0 = blockIdx.y * TF_KEYS;  // the first key tiles see the most q rows under causality
+  const int G = p.H / p.KV;
+  const int k_valid = min(p.k_len, p.Sk);
+
+  tc::cp_rows_f32<DQK, NT>(k_s, static_cast<const float*>(p.k) + b * p.sk.b + kvh * p.sk.h,
+                           p.sk.s, k0, TF_KEYS, p.Sk);
+  tc::cp_rows_f32<DV, NT>(v_s, static_cast<const float*>(p.v) + b * p.sv.b + kvh * p.sv.h,
+                          p.sv.s, k0, TF_KEYS, p.Sk);
+
+  // the q rows that can see a key of this tile, as in bwd_dkdv_mma; the
+  // CTA walks n_q q tiles for each of the G q-heads, one stream
+  const int q_lo = p.causal && k0 >= p.prefix_len ? k0 / BQ * BQ : 0;
+  int q_hi = p.Sq;
+  if (p.window > 0) q_hi = min(q_hi, k0 + TF_KEYS - 1 + p.window);
+  if (k0 >= k_valid) q_hi = 0;
+  const int n_q = q_hi > q_lo ? (q_hi - q_lo + BQ - 1) / BQ : 0;
+  const int n_it = G * n_q;
+
+  auto load_q = [&](int it, int stage) {
+    const int h = kvh * G + it / n_q, q0 = q_lo + (it % n_q) * BQ;
+    tc::cp_rows_f32<DQK, NT>(q_s + stage * BQ * LQ,
+                             static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.s,
+                             q0, BQ, p.Sq);
+    tc::cp_rows_f32<DV, NT>(do_s + stage * BQ * LV,
+                            static_cast<const float*>(p.dO) + b * p.sdo.b + h * p.sdo.h,
+                            p.sdo.s, q0, BQ, p.Sq);
+    const long long row = (long long)(b * p.H + h) * p.Sq;
+    for (int r = threadIdx.x; r < BQ; r += NT) {
+      const int qi = q0 + r;
+      const long long at_ = row + min(qi, p.Sq - 1);
+      tc::cp_async4(lse_s + stage * BQ + r, p.lse + at_, qi < p.Sq);
+      tc::cp_async4(dl_s + stage * BQ + r, p.delta + at_, qi < p.Sq);
+    }
+  };
+  if (n_it > 0) load_q(0, 0);
+  tc::cp_async_commit();  // with K and V
+
+  const float sl2 = p.scale * TF_LOG2E;  // P = 2^(S * scale * log2(e) - lse * log2(e))
+  const int kwf = k0 + 16 * kw;          // this warp's first key
+  const int kr = kwf + (lane >> 2);      // this lane's keys: kr and kr + 8
+  float dk[NK][4], dv[NV][4];
+#pragma unroll
+  for (int n = 0; n < NK; ++n) dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NV; ++n) dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_it) load_q(it + 1, stage ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // this tile (and, the first time, K and V) has landed
+    __syncthreads();
+    const int qwf = q_lo + (it % n_q) * BQ + QR * qw;  // this warp's first q row
+    // a warp none of whose (key, q) pairs is visible skips the tile: q rows
+    // past Sq, keys past the valid length, keys after its last row (past
+    // the prefix span), or keys before its first row's window
+    const bool sees = qwf < p.Sq && kwf < k_valid &&
+                      !(p.causal && kwf > min(qwf + QR - 1, p.Sq - 1) && kwf >= p.prefix_len) &&
+                      !(p.window > 0 && kwf + 15 <= qwf - p.window);
+    if (sees) {
+      const float* qs = q_s + stage * BQ * LQ;
+      const float* ds = do_s + stage * BQ * LV;
+      const float* ls = lse_s + stage * BQ + QR * qw;
+      const float* dls = dl_s + stage * BQ + QR * qw;
+
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x QR q rows
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll 4
+      for (int kd = 0; kd < DQK / 8; ++kd) {
+        const tc::FragA a = tc::ld_a<LQ>(k_s, 16 * kw, 8 * kd, lane);
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)
+          tc::mma3(s[n], a, tc::ld_b_nk<LQ>(qs, QR * qw + 8 * n, 8 * kd, lane));
+      }
+#pragma unroll 4
+      for (int kd = 0; kd < DV / 8; ++kd) {
+        const tc::FragA a = tc::ld_a<LV>(v_s, 16 * kw, 8 * kd, lane);
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)
+          tc::mma3(dp[n], a, tc::ld_b_nk<LV>(ds, QR * qw + 8 * n, 8 * kd, lane));
+      }
+
+      // P^T and dS^T in place, f32; only tiles at the diagonal (past the
+      // prefix span), the window's edge, the valid length or the ragged q
+      // end evaluate the mask
+      const bool edge = (p.causal && kwf + 15 > qwf && kwf + 16 > p.prefix_len) ||
+                        (p.window > 0 && kwf <= qwf + QR - 1 - p.window) || kwf + 16 > k_valid ||
+                        qwf + QR > p.Sq;
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const float2 l = *reinterpret_cast<const float2*>(ls + 8 * n + 2 * t);
+        const float2 d = *reinterpret_cast<const float2*>(dls + 8 * n + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = qwf + 8 * n + 2 * t + (e & 1), kj = kr + 8 * (e >> 1);
+          float pr = exp2_ftz(s[n][e] * sl2 - ((e & 1) ? l.y : l.x) * TF_LOG2E);
+          if (edge && !(qi < p.Sq && visible(p, k_valid, qi, kj))) pr = 0.f;
+          s[n][e] = pr;
+          dp[n][e] = pr * (dp[n][e] - ((e & 1) ? d.y : d.x));
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q: 8 q rows (one n-tile) a k-step
+#pragma unroll
+      for (int kk = 0; kk < NQ; ++kk) {
+        const tc::FragA a = tc::a_from_c(s[kk]);
+#pragma unroll
+        for (int n = 0; n < NV; ++n)
+          tc::mma3(dv[n], a, tc::ld_b_kn<LV>(ds, QR * qw + 8 * kk, 8 * n, lane));
+      }
+#pragma unroll
+      for (int kk = 0; kk < NQ; ++kk) {
+        const tc::FragA a = tc::a_from_c(dp[kk]);
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+          tc::mma3(dk[n], a, tc::ld_b_kn<LQ>(qs, QR * qw + 8 * kk, 8 * n, lane));
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  tc::cp_async_wait<0>();  // with no q tile at all, K and V may still be in flight
+  __syncthreads();
+
+  // the q parts' sums: the warps of parts 1.. leave theirs in shared memory
+  // (laid out [part - 1][key half][value][lane], over the Q and dO stages),
+  // the warps of part 0 add them in part order and write
+  constexpr int VALS = 4 * (NK + NV);
+  float* red = q_s + kw * VALS * 32 + lane;
+  if (qw > 0) {
+    float* mine = red + (qw - 1) * 2 * VALS * 32;
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[(4 * n + e) * 32] = dk[n][e];
+#pragma unroll
+    for (int n = 0; n < NV; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[(4 * (NK + n) + e) * 32] = dv[n][e];
+  }
+  __syncthreads();
+  if (qw > 0) return;
+#pragma unroll
+  for (int part = 0; part < QP - 1; ++part) {
+    const float* other = red + part * 2 * VALS * 32;
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[n][e] += other[(4 * n + e) * 32];
+#pragma unroll
+    for (int n = 0; n < NV; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv[n][e] += other[(4 * (NK + n) + e) * 32];
+  }
+  float* dkg = static_cast<float*>(p.dk) + b * p.sdk.b + kvh * p.sdk.h;
+  float* dvg = static_cast<float*>(p.dv) + b * p.sdv.b + kvh * p.sdv.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kj = kr + 8 * i;
+    if (kj >= p.Sk) continue;
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+      *reinterpret_cast<float2*>(dkg + (long long)kj * p.sdk.s + 8 * n + 2 * t) =
+          make_float2(dk[n][2 * i] * p.scale, dk[n][2 * i + 1] * p.scale);
+#pragma unroll
+    for (int n = 0; n < NV; ++n)
+      *reinterpret_cast<float2*>(dvg + (long long)kj * p.sdv.s + 8 * n + 2 * t) =
+          make_float2(dv[n][2 * i], dv[n][2 * i + 1]);
+  }
+}
+
+// dQ: one CTA per (batch * q-head, 64-row q tile), warp w owning rows
+// 16 w .. 16 w + 15, walking two-stage BKQ-key K and V tiles; S = Q K^T and
+// dP = dO V^T, then dQ += dS K with dS from registers
+// one group of 4 warps takes all of each K/V tile's keys (two groups, each
+// taking half, read slower); the group index (0) stays in the addressing,
+// where the form without it read 0.047 ms against 0.042 at the training
+// tutorial's shape (the header's trials)
+constexpr int QG = 1;
+constexpr int DQ_THREADS = TF_THREADS * QG;
+
+template <int DQK, int DV>
+__global__ void __launch_bounds__(DQ_THREADS) bwd_dq_tf32(Params p) {
+  using F = Tf32Bwd<DQK, DV>;
+  constexpr int LQ = F::LQ, LV = F::LV, BKQ = F::BKQ, NT = DQ_THREADS;
+  constexpr int HK = BKQ / QG;               // keys of a tile for one group
+  constexpr int NS = HK / 8, ND = DQK / 8;  // n-tiles of S (keys) and of dQ
+  extern __shared__ __align__(16) float smem_f[];
+  float* q_s = smem_f;              // [BQ][LQ]
+  float* do_s = q_s + BQ * LQ;      // [BQ][LV]
+  float* k_s = do_s + BQ * LV;      // [stage][BKQ][LQ]
+  float* v_s = k_s + 2 * BKQ * LQ;  // [stage][BKQ][LV]
+
+  const int warp = (threadIdx.x >> 5) & 3, grp = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int kvh = h / (p.H / p.KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last (heaviest causal) tiles first
+  const int k_valid = min(p.k_len, p.Sk);
+
+  tc::cp_rows_f32<DQK, NT>(q_s, static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h,
+                                   p.sq.s, q0, BQ, p.Sq);
+  tc::cp_rows_f32<DV, NT>(do_s,
+                                  static_cast<const float*>(p.dO) + b * p.sdo.b + h * p.sdo.h,
+                                  p.sdo.s, q0, BQ, p.Sq);
+  // the keys these rows see, as the forward walks them
+  const int q_last = min(q0 + BQ, p.Sq) - 1;
+  const int k_hi = p.causal ? min(k_valid, max(q_last + 1, p.prefix_len)) : k_valid;
+  const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) / BKQ * BKQ : 0;
+  const float* kg = static_cast<const float*>(p.k) + b * p.sk.b + kvh * p.sk.h;
+  const float* vg = static_cast<const float*>(p.v) + b * p.sv.b + kvh * p.sv.h;
+  auto load_kv = [&](int kt, int stage) {
+    tc::cp_rows_f32<DQK, NT>(k_s + stage * BKQ * LQ, kg, p.sk.s, kt, BKQ, p.Sk);
+    tc::cp_rows_f32<DV, NT>(v_s + stage * BKQ * LV, vg, p.sv.s, kt, BKQ, p.Sk);
+  };
+  if (k_lo < k_hi) load_kv(k_lo, 0);
+  tc::cp_async_commit();  // with Q and dO
+
+  // this lane's q rows qr and qr + 8, and their lse (log2 domain) and D
+  const int r0 = 16 * warp, qr = q0 + r0 + (lane >> 2);
+  const int w_last = min(q0 + r0 + 15, p.Sq - 1);  // this warp's last row
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = qr + 8 * i;
+    const long long at_ = (long long)bh * p.Sq + min(qi, p.Sq - 1);
+    lse2[i] = qi < p.Sq ? p.lse[at_] * TF_LOG2E : 0.f;
+    dl[i] = qi < p.Sq ? p.delta[at_] : 0.f;
+  }
+  const float sl2 = p.scale * TF_LOG2E;
+  float dq[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  int stage = 0;
+  for (int kt = k_lo; kt < k_hi; kt += BKQ, stage ^= 1) {
+    if (kt + BKQ < k_hi) load_kv(kt + BKQ, stage ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // this tile (and, the first time, Q and dO) has landed
+    __syncthreads();
+    // a warp none of whose rows sees a key of the tile skips it, as the
+    // forward's
+    const int kh = kt + HK * grp;  // this group's first key
+    const bool sees = q0 + r0 < p.Sq && kh < k_valid &&
+                      !(p.causal && kh > w_last && kh >= p.prefix_len) &&
+                      !(p.window > 0 && kh + HK - 1 <= q0 + r0 - p.window);
+    if (sees) {
+      const float* ks = k_s + (stage * BKQ + HK * grp) * LQ;
+      const float* vs = v_s + (stage * BKQ + HK * grp) * LV;
+
+      // S = Q K^T and dP = dO V^T: this warp's 16 q rows x BKQ keys
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll 4
+      for (int kd = 0; kd < DQK / 8; ++kd) {
+        const tc::FragA a = tc::ld_a<LQ>(q_s, r0, 8 * kd, lane);
+#pragma unroll
+        for (int n = 0; n < NS; ++n) tc::mma3(s[n], a, tc::ld_b_nk<LQ>(ks, 8 * n, 8 * kd, lane));
+      }
+#pragma unroll 4
+      for (int kd = 0; kd < DV / 8; ++kd) {
+        const tc::FragA a = tc::ld_a<LV>(do_s, r0, 8 * kd, lane);
+#pragma unroll
+        for (int n = 0; n < NS; ++n) tc::mma3(dp[n], a, tc::ld_b_nk<LV>(vs, 8 * n, 8 * kd, lane));
+      }
+
+      const bool edge = (p.causal && kh + HK - 1 > q0 + r0 && kh + HK > p.prefix_len) ||
+                        (p.window > 0 && kh <= w_last - p.window) || kh + HK > k_valid ||
+                        q0 + r0 + 16 > p.Sq;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, qi = qr + 8 * i, kj = kh + 8 * n + 2 * t + (e & 1);
+          float pr = exp2_ftz(s[n][e] * sl2 - lse2[i]);
+          if (edge && !(qi < p.Sq && visible(p, k_valid, qi, kj))) pr = 0.f;
+          dp[n][e] = pr * (dp[n][e] - dl[i]);
+        }
+
+      // dQ += dS K: 8 keys (one n-tile of dS) a k-step
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        const tc::FragA a = tc::a_from_c(dp[kk]);
+#pragma unroll
+        for (int n = 0; n < ND; ++n) tc::mma3(dq[n], a, tc::ld_b_kn<LQ>(ks, 8 * kk, 8 * n, lane));
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  tc::cp_async_wait<0>();  // with no key tile at all, Q and dO may still be in flight
+
+  float* dqg = static_cast<float*>(p.dq) + b * p.sdq.b + h * p.sdq.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = qr + 8 * i;
+    if (qi >= p.Sq) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<float2*>(dqg + (long long)qi * p.sdq.s + 8 * n + 2 * t) =
+          make_float2(dq[n][2 * i] * p.scale, dq[n][2 * i + 1] * p.scale);
+  }
+}
+
 // -- launch ---------------------------------------------------------------------
 
 // the opt-in above 48 KiB belongs to the function on one device: set it once
@@ -1362,14 +1770,22 @@ template <typename T, int DQK, int DV>
 cudaError_t launch(const Params& p, int device, cudaStream_t stream) {
   static std::atomic<bool> set_dkdv[MAX_DEVICES], set_dq[MAX_DEVICES];
   constexpr bool F32 = std::is_same<T, float>::value;
-  constexpr int key_tile = F32 ? f32_keys<DQK, DV>() : BK;
+  constexpr bool SPLIT = F32 && DQK + DV <= 256;  // split TF32; FMA tiles at 192/128, 256/256
+  constexpr int key_tile = SPLIT ? TF_KEYS : F32 ? f32_keys<DQK, DV>() : BK;
   const int q_tiles = (p.Sq + BQ - 1) / BQ, k_tiles = (p.Sk + key_tile - 1) / key_tile;
   if (q_tiles > 65535 || k_tiles > 65535) return cudaErrorInvalidValue;
   bwd_preprocess<T, DV><<<dim3((p.Sq + 7) / 8, p.B * p.H), THREADS, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 dkdv_grid(p.B * p.KV, k_tiles), dq_grid(p.B * p.H, q_tiles);
-  if constexpr (F32) {
+  if constexpr (SPLIT) {
+    using F = Tf32Bwd<DQK, DV>;
+    err = launch_one(bwd_dkdv_tf32<DQK, DV>, dkdv_grid, DKDV_THREADS, F::SMEM_KV, device,
+                     set_dkdv, stream, p);
+    if (err != cudaSuccess) return err;
+    return launch_one(bwd_dq_tf32<DQK, DV>, dq_grid, DQ_THREADS, F::SMEM_Q, device, set_dq, stream,
+                      p);
+  } else if constexpr (F32) {
     constexpr int smem = smem_bytes<DQK, DV>();
     err = launch_one(bwd_dkdv<DQK, DV>, dkdv_grid, THREADS, smem, device, set_dkdv, stream, p);
     if (err != cudaSuccess) return err;

@@ -1,5 +1,6 @@
-// Warp-level tensor-core and asynchronous-copy helpers shared by the bf16
-// kernels (sm_80+ instructions, built here for sm_90a).
+// Warp-level tensor-core and asynchronous-copy helpers shared by the
+// kernels: the bf16 forms' and, below, the f32 forms' split TF32 (sm_80+
+// instructions, built here for sm_90a).
 //
 // mma.sync.m16n8k16 with bf16 operands and f32 accumulators. Per lane, with
 // g = lane / 4 and t = lane % 4:
@@ -110,6 +111,114 @@ __device__ __forceinline__ void pack_a_split(uint32_t (&hi)[4], uint32_t (&lo)[4
   split_bf16(hi[1], lo[1], s0[2], s0[3]);
   split_bf16(hi[2], lo[2], s1[0], s1[1]);
   split_bf16(hi[3], lo[3], s1[2], s1[3]);
+}
+
+// -- split TF32: the f32 forms' products (sm_80+) -----------------------------------
+//
+// mma.sync.m16n8k8 with tf32 operands and f32 accumulators. Per lane, with
+// g = lane / 4 and t = lane % 4:
+//   A (16 x 8, row-major)  a[0] = (g, t)  a[1] = (g+8, t)  a[2] = (g, t+4)  a[3] = (g+8, t+4)
+//   B (8 x 8, k-major)     b[0] = (k t, n g)  b[1] = (k t+4, n g)
+//   C (16 x 8, f32)        as m16n8k16's: c[0..1] = (g, 2t..2t+1), c[2..3] = (g+8, 2t..2t+1)
+// An f32 operand x is carried as hi = tf32(x) and lo = tf32(x - hi), both
+// rounded to nearest (ties away, cvt.rna), about 22 of f32's 24 bits, and
+// a product as hi hi + hi lo + lo hi into one f32 sum; lo lo, under 2^-22
+// of the product, is dropped. A C tile feeds a following product over its 8
+// columns as that product's A operand with the depth permuted, slot t being
+// column 2t and slot t + 4 column 2t + 1 (a_from_c); the B operand of that
+// product reads its depth rows in the same order (ld_b_kn).
+//
+// The f32 tiles in shared memory are row-major with rows of D + 4 floats (D
+// a multiple of 32): the row stride is 4 banks mod 32, so each fragment
+// load below reads 32 distinct banks, and rows stay 16-byte aligned for
+// cp.async.
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero: half an ulp added to the magnitude, the 13 low bits cleared),
+// in two integer instructions; cvt.rna itself read slower (the flash
+// attention headers' trials)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32(uint32_t& hi, uint32_t& lo, float x) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+struct FragA {  // an A operand as hi and lo parts
+  uint32_t hi[4], lo[4];
+};
+struct FragB {  // a B operand as hi and lo parts
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// c += A B to about f32 precision: the two small products first, then hi hi
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB& b) {
+  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.lo);
+  mma_tf32(c, a.hi, b.hi);
+}
+
+// the A operand at rows r0.., depth k0.. of a row-major [m][k] tile
+template <int LD>
+__device__ __forceinline__ FragA ld_a(const float* tile, int r0, int k0, int lane) {
+  const float* p = tile + (r0 + (lane >> 2)) * LD + k0 + (lane & 3);
+  FragA a;
+  split_tf32(a.hi[0], a.lo[0], p[0]);
+  split_tf32(a.hi[1], a.lo[1], p[8 * LD]);
+  split_tf32(a.hi[2], a.lo[2], p[4]);
+  split_tf32(a.hi[3], a.lo[3], p[8 * LD + 4]);
+  return a;
+}
+// the B operand at columns n0.., depth k0.. of an [n][k] tile (B's
+// transpose row-major: K in Q K^T)
+template <int LD>
+__device__ __forceinline__ FragB ld_b_nk(const float* tile, int n0, int k0, int lane) {
+  const float* p = tile + (n0 + (lane >> 2)) * LD + k0 + (lane & 3);
+  FragB b;
+  split_tf32(b.hi[0], b.lo[0], p[0]);
+  split_tf32(b.hi[1], b.lo[1], p[4]);
+  return b;
+}
+// the B operand at depth k0.., columns n0.. of a [k][n] tile (V in P V),
+// the depth permuted as a_from_c's
+template <int LD>
+__device__ __forceinline__ FragB ld_b_kn(const float* tile, int k0, int n0, int lane) {
+  const float* p = tile + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
+  FragB b;
+  split_tf32(b.hi[0], b.lo[0], p[0]);
+  split_tf32(b.hi[1], b.lo[1], p[LD]);
+  return b;
+}
+// a C tile (16 rows x 8 columns) as the A operand of a product over its columns
+__device__ __forceinline__ FragA a_from_c(const float (&c)[4]) {
+  FragA a;
+  split_tf32(a.hi[0], a.lo[0], c[0]);
+  split_tf32(a.hi[1], a.lo[1], c[2]);
+  split_tf32(a.hi[2], a.lo[2], c[1]);
+  split_tf32(a.hi[3], a.lo[3], c[3]);
+  return a;
+}
+
+// rows [r0, r0 + n) of an f32 (seq, D) slice into a tile of rows D + 4
+// floats by 16-byte copies from NT threads, zeros from row `len` of the
+// slice on
+template <int D, int NT>
+__device__ __forceinline__ void cp_rows_f32(float* dst, const float* src, long long ss, int r0,
+                                            int n, int len) {
+  constexpr int CH = D / 4;
+  for (int c = threadIdx.x; c < n * CH; c += NT) {
+    const int r = c / CH, pc = c % CH, i = r0 + r;
+    cp_async16(dst + r * (D + 4) + 4 * pc, src + (long long)min(i, len - 1) * ss + 4 * pc,
+               i < len);
+  }
 }
 
 // -- wgmma (sm_90a) ---------------------------------------------------------------

@@ -16,14 +16,20 @@ probabilities from the forward's row statistics ``lse``.
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch
 the kernels (or raise), CPU tensors take the plain versions. There is no
 fallback from one to the other. On the card, bfloat16 (the served and
-trained path) runs on the tensor cores and float32 (the parity path) on
-FMA tiles, forward (:func:`design`) and backward (:func:`design_bwd`). The
-bf16 backward splits P and dS into bf16 hi and lo parts for the products
-that take them, so its gradients keep the precision of the f32 formulas to
-within one bf16 rounding. At the wide pairs (:data:`WIDE_PAIRS`) its
-dK/dV launch may split a kv-head's q-heads over CTAs
-(:func:`bwd_head_split`), whose f32 partials the wrapper's scratch holds
-until a reduce launch sums them.
+trained path) runs on the tensor cores, forward (:func:`design`) and
+backward (:func:`design_bwd`). The bf16 backward splits P and dS into bf16
+hi and lo parts for the products that take them, so its gradients keep the
+precision of the f32 formulas to within one bf16 rounding. float32 (the
+parity path and the training tutorial's) runs its products on the tensor
+cores as split TF32 ("tf32x3"): each operand split into TF32 hi and lo
+parts and each product issued as hi·hi + hi·lo + lo·hi into one f32 sum,
+about 2^-21 of relative error a product; the backward at 192/128 and
+256/256 keeps FMA tiles (:data:`TF32X3_BWD_PAIRS`). The f32 forms copy
+their inputs in 16-byte pieces: an f32 view whose base address or rows are
+off 16 bytes is copied before the launch. At the wide pairs
+(:data:`WIDE_PAIRS`) the bf16 backward's dK/dV launch may split a
+kv-head's q-heads over CTAs (:func:`bwd_head_split`), whose f32 partials
+the wrapper's scratch holds until a reduce launch sums them.
 
 Under autograd (grad enabled and an input requiring grad) the wrappers go
 through :class:`FlashAttention`, whose backward launches the backward
@@ -71,6 +77,10 @@ BWD_HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 # the wide pairs, whose bf16 forward is "wgmma-wide" and backward
 # "wgmma-split-2wg": every pair with a head dim of 128 or more
 WIDE_PAIRS = ((128, 128), (192, 128), (256, 256))
+# the pairs whose f32 backward is "tf32x3"; 192/128 and 256/256 keep
+# "fma-f32" (csrc/flash_attention_bwd.cu: at 256/256 the tiles pass a
+# CTA's shared memory, at 192/128 a warp's dK and dV accumulators spill)
+TF32X3_BWD_PAIRS = ((32, 32), (64, 64), (128, 128))
 
 
 def fit_head_dims(cfg):
@@ -104,12 +114,18 @@ def design(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = None) 
     64-key K and V tiles by TMA into a ring of 64-column swizzled slabs,
     and two consumer warpgroups, each owning 64 q rows of the CTA's 128,
     with Q·Kᵀ as chains of m64n64k16 and P·V one m64n128k16 a k-step per
-    128 columns of V, P from registers; f32 on FMA tiles."""
+    128 columns of V, P from registers. f32 at every pair is "tf32x3":
+    ``mma.sync.m16n8k8`` with TF32 operands, each split into hi and lo
+    parts and each product issued three times (hi·hi, hi·lo, lo·hi) into
+    f32 accumulators, Q·Kᵀ from padded shared-memory tiles and P·V with P
+    from registers; 64 q rows a CTA of two groups of 4 warps, each group
+    taking half of every K/V tile's keys (merged exactly at the end), K
+    and V in a two-stage ``cp.async`` ring."""
     v_head_dim = head_dim if v_head_dim is None else v_head_dim
     if (head_dim, v_head_dim) not in HEAD_DIM_PAIRS:
         raise ValueError(f"head dims {(head_dim, v_head_dim)} not in the kernel's {HEAD_DIM_PAIRS}")
     if dtype == torch.float32:
-        return "fma-f32"
+        return "tf32x3"
     if (head_dim, v_head_dim) in WIDE_PAIRS:
         return "wgmma-wide"
     return "wgmma" if (head_dim, v_head_dim) == (64, 64) else "mma.sync"
@@ -125,13 +141,17 @@ def design_bwd(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = No
     accumulating dV, the other taking Pᵀ through shared memory and
     accumulating dK, with a group's q-heads split over
     :func:`bwd_head_split` CTAs (f32 partials, then a reduce launch), and dQ
-    on ``wgmma``; f32 on FMA tiles."""
+    on ``wgmma``. f32 at :data:`TF32X3_BWD_PAIRS` is "tf32x3", every
+    product as the forward's split TF32 on ``mma.sync.m16n8k8``: a dK/dV
+    CTA per 32-key tile (8 warps, two key halves by four q parts, whose
+    sums are added in a fixed order at the end), a dQ CTA per 64 q rows;
+    f32 at 192/128 and 256/256 on FMA tiles ("fma-f32")."""
     v_head_dim = head_dim if v_head_dim is None else v_head_dim
     if (head_dim, v_head_dim) not in BWD_HEAD_DIM_PAIRS:
         raise ValueError(f"head_dim {(head_dim, v_head_dim)} not in the backward's "
                          f"{BWD_HEAD_DIM_PAIRS}")
     if dtype == torch.float32:
-        return "fma-f32"
+        return "tf32x3" if (head_dim, v_head_dim) in TF32X3_BWD_PAIRS else "fma-f32"
     if (head_dim, v_head_dim) in WIDE_PAIRS:
         return "wgmma-split-2wg"
     return ("wgmma" if head_dim == 64 else "mma.sync") + "-split"
@@ -427,8 +447,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None, k_len=
             or do.dtype != q.dtype:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} {do.dtype} "
                          f"must be {out_shape} {q.dtype}")
-    if do.stride(-1) != 1 or (do.dtype == torch.bfloat16 and not build.rows_16_byte_aligned(do)):
-        do = do.contiguous()  # the bf16 kernels copy dO's rows in 16-byte pieces
+    if do.stride(-1) != 1:
+        do = do.contiguous()  # the kernels copy dO's rows in 16-byte pieces (_rows_16_byte)
     _check_first_bwd_launch(q.device, q.dtype, q.shape[-1], v.shape[-1])
     grads = _launch_bwd(q, k, v, o, lse, do, causal=causal, window=window, k_len=k_len,
                         bshd=bshd, prefix_len=prefix_len)
@@ -510,6 +530,7 @@ def _launch(q, k, v, *, causal, window, k_len, bshd=False, lse=False, prefix_len
             "flash_attention's raw launch gives no gradient; under autograd call "
             "flash_attention / FlashAttention.apply"
         )
+    q, k, v = _rows_16_byte(q, k, v)
     hd, sd = (2, 1) if bshd else (1, 2)
     B, H, Sq, Dh = q.shape[0], q.shape[hd], q.shape[sd], q.shape[3]
     KV, Sk, Dv = k.shape[hd], k.shape[sd], v.shape[3]
@@ -530,6 +551,15 @@ def _launch(q, k, v, *, causal, window, k_len, bshd=False, lse=False, prefix_len
     return (o, stats) if lse else o
 
 
+def _rows_16_byte(*tensors) -> tuple:
+    """The tensors as the kernels copy them, in 16-byte pieces: one whose
+    base address or rows are off 16 bytes (an f32 input, or dO: bf16 q, k
+    and v are refused by :func:`check_inputs`) comes back as a contiguous
+    copy."""
+    return tuple(t if build.rows_16_byte_aligned(t)
+                 else t.clone(memory_format=torch.contiguous_format) for t in tensors)
+
+
 def _bhs_strides(hd, sd, *tensors) -> list:
     """Each tensor's (batch, head, seq) strides, in elements."""
     out = []
@@ -543,6 +573,7 @@ def _launch_bwd(q, k, v, o, lse, do, *, causal, window, k_len, bshd=False, prefi
     """One set of the backward launches: preprocess, dK/dV, dQ, and in bf16
     at the wide pairs with a head split (:func:`bwd_head_split`) a reduce
     of the dK/dV partials, which go to a scratch allocated here."""
+    q, k, v, do = _rows_16_byte(q, k, v, do)
     hd, sd = (2, 1) if bshd else (1, 2)
     B, H, Sq, Dh, Dv = q.shape[0], q.shape[hd], q.shape[sd], q.shape[3], v.shape[3]
     KV, Sk = k.shape[hd], k.shape[sd]

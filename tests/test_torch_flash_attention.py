@@ -15,6 +15,7 @@ import torch
 from repro.kernels.flash_attention import flash_attention_bhsd as jax_flash
 from repro.kernels.ref import attention_ref as jax_attention_ref
 from repro_torch.configs import ARCH_NAMES, get_config, get_reduced
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as tfa
 
 # the suite runs in several worker processes that share the host's cores:
@@ -152,8 +153,14 @@ def test_bf16_views_off_16_byte_boundaries_raise_before_launch(device, offset, s
     aligned = _views(device, torch.bfloat16)
     assert tfa.check_inputs(*aligned, bshd=True) == 8
     assert tfa.check_inputs(*(t.transpose(1, 2) for t in aligned)) == 8
-    # the f32 design reads single elements and takes the same views
-    assert tfa.check_inputs(*_views(device, torch.float32, offset, seq_pad), bshd=True) == 8
+    # the f32 design takes the same views (one off 16 bytes is copied
+    # before the launch: _rows_16_byte)
+    f32_views = _views(device, torch.float32, offset, seq_pad)
+    assert tfa.check_inputs(*f32_views, bshd=True) == 8
+    if device == "cpu":
+        copied = tfa._rows_16_byte(*f32_views)
+        assert all(torch.equal(c, t) and build.rows_16_byte_aligned(c)
+                   for c, t in zip(copied, f32_views))
 
 
 def test_input_check_refuses_what_the_kernel_does_not_take():
@@ -336,9 +343,131 @@ def test_split_parts_carry_sixteen_bits():
     assert ((hi.float() - x).abs() / x).max().item() > 2.0**-10
 
 
+# -- the precision of the f32 forms' design: split TF32 ---------------------------------
+#
+# The kernel's f32 forward and backward ("tf32x3") run every product on the
+# tensor cores with TF32 operands: each f32 operand x is split into hi =
+# tf32(x) and lo = tf32(x − hi), both rounded to nearest with ties away from
+# zero on the 13 low mantissa bits, and each product is issued as hi·hi +
+# hi·lo + lo·hi into one f32 sum. The emulation below repeats that in PyTorch
+# (S = Q Kᵀ and P V in the forward; Sᵀ, dPᵀ, dV, dK and dQ in the backward;
+# the softmax, D and dS in f32) and is held against the float64 formulas at
+# the f32 gates that ``chip_smoke.py`` holds the kernel to: the output
+# within 1e-4, the lse and the gradients within 1e-4 scaled. The control,
+# one TF32 product per product on the same inputs, reads above those gates.
+
+F32_TOL = 1e-4
+
+# BWD_PRECISION_CASES, and the training tutorial's attention
+# (examples/train_lm_torch.py: 12 heads in groups of 3, head dim 64, B=8,
+# S=256, causal); (B, H, KV, S, Dh, causal, window, k_len[, prefix_len])
+TF32_CASES = {**BWD_PRECISION_CASES, "train_lm tutorial": (8, 12, 4, 256, 64, True, None, None)}
+
+
+def _tf32(x):
+    """f32 rounded to TF32 as ``cvt.rna.tf32.f32``: half an ulp of the 13
+    low mantissa bits added to the magnitude, those bits then cleared."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_tf32(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _products(kind):
+    """The product of the f32 forms (``"tf32x3"``), its one-pass control
+    (``"tf32"``), or the float64 formulas (``"f64"``): an einsum of two
+    operands in that arithmetic."""
+    def mm(eq, a, b):
+        if kind == "f64":
+            return torch.einsum(eq, a, b)
+        if kind == "tf32":
+            return torch.einsum(eq, _tf32(a), _tf32(b))
+        (ah, al), (bh, bl) = _split_tf32(a), _split_tf32(b)
+        return torch.einsum(eq, ah, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)
+    return mm
+
+
+def _f32_design(q, k, v, do, *, causal, window, k_len, prefix_len=None, kind):
+    """K1 and K1-bwd by their formulas, each product as ``kind`` makes it
+    (:func:`_products`), everything else in the inputs' dtype: (o, lse, dq,
+    dk, dv), (B, H, S, D) layout."""
+    B, H, Sq, Dh = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G, scale = H // KV, Dh**-0.5
+    mm = _products(kind)
+    qg, dog = (t.reshape(B, KV, G, Sq, Dh) for t in (q, do))
+    mask = tfa._mask(Sq, Sk, causal, window, k_len, q.device, prefix_len)
+    s = torch.where(mask, mm("bkgqd,bksd->bkgqs", qg, k) * scale, tfa.NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = mm("bkgqs,bksd->bkgqd", e, v) / l
+    lse = m + torch.log(l)
+    p = torch.where(mask, torch.exp(s - lse), 0.0)
+    delta = (dog * o).sum(dim=-1, keepdim=True)
+    dv = mm("bkgqs,bkgqd->bksd", p, dog)
+    ds = p * (mm("bkgqd,bksd->bkgqs", dog, v) - delta)
+    dk = mm("bkgqs,bkgqd->bksd", ds, qg) * scale
+    dq = mm("bkgqs,bksd->bkgqd", ds, k) * scale
+    return (o.reshape(B, H, Sq, Dh), lse.reshape(B, H, Sq), dq.reshape(B, H, Sq, Dh), dk, dv)
+
+
+def _f32_design_errors(name, kind) -> dict:
+    """Each output's error against the float64 formulas on the same f32
+    inputs: the output's max abs error, the lse's and the gradients' scaled
+    by max(1, max |float64 value|)."""
+    B, H, KV, S, Dh, causal, window, k_len = TF32_CASES[name][:8]
+    prefix = TF32_CASES[name][8] if len(TF32_CASES[name]) > 8 else None
+    rng = np.random.default_rng(len(name))
+    shapes = [(B, H, S, Dh), (B, KV, S, Dh), (B, KV, S, Dh), (B, H, S, Dh)]
+    args = [torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)) for sh in shapes]
+    mask = dict(causal=causal, window=window, k_len=k_len, prefix_len=prefix)
+    got = _f32_design(*args, **mask, kind=kind)
+    want = _f32_design(*(t.double() for t in args), **mask, kind="f64")
+    errs = {"o": (got[0].double() - want[0]).abs().max().item()}
+    for label, g, w in zip(("lse", "dq", "dk", "dv"), got[1:], want[1:]):
+        errs[label] = (g.double() - w).abs().max().item() / max(1.0, w.abs().max().item())
+    return errs
+
+
+@pytest.mark.parametrize("name", list(TF32_CASES))
+def test_f32_split_tf32_design_holds_the_f32_tolerances(name):
+    errs = _f32_design_errors(name, "tf32x3")
+    assert max(errs.values()) <= F32_TOL, (name, errs)
+
+
+@pytest.mark.parametrize("name", list(TF32_CASES))
+def test_f32_with_one_tf32_product_misses_the_f32_tolerances(name):
+    """The control: one TF32 product per product (a third of the
+    tensor-core work) reads above the f32 gates on the same inputs."""
+    errs = _f32_design_errors(name, "tf32")
+    assert max(errs.values()) > F32_TOL, (name, errs)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """The 13 low mantissa bits round half away from zero, carrying into
+    the exponent; hi + lo keeps about 22 bits of an f32 value, hi alone 11."""
+    one = torch.tensor([1.0], dtype=torch.float32)
+    ulp = 2.0**-10  # TF32's at 1
+    for x, want in [(1 + ulp / 2, 1 + ulp), (1 + ulp / 2 - 2.0**-23, 1.0),
+                    (-(1 + ulp / 2), -(1 + ulp)), (2 - ulp / 4, 2.0)]:
+        assert _tf32(one * x).item() == want, x
+    x = torch.from_numpy(np.random.default_rng(0).random(4096, dtype=np.float32)) + 1e-3
+    hi, lo = _split_tf32(x)
+    assert ((hi + lo - x).abs() / x).max().item() <= 2.0**-21
+    assert ((hi - x).abs() / x).max().item() > 2.0**-13
+
+
 def test_backward_design_names():
-    assert tfa.design_bwd(torch.float32, 64) == "fma-f32"
-    assert tfa.design_bwd(torch.float32, 128) == "fma-f32"
+    """f32 on split TF32 at 32/32, 64/64 and 128/128 (FMA tiles at 192/128
+    and 256/256); bf16 on the tensor cores with P and dS split."""
+    for dh in (32, 64, 128):
+        assert tfa.design_bwd(torch.float32, dh) == "tf32x3"
+    assert tfa.TF32X3_BWD_PAIRS == ((32, 32), (64, 64), (128, 128))
+    for dqk, dv in ((192, 128), (256, 256)):
+        assert tfa.design_bwd(torch.float32, dqk, dv) == "fma-f32"
     assert tfa.design_bwd(torch.bfloat16, 64) == "wgmma-split"
     assert tfa.design_bwd(torch.bfloat16, 32) == "mma.sync-split"
     for dqk, dv in ((128, 128), (256, 256), (192, 128)):
@@ -349,14 +478,15 @@ def test_backward_design_names():
 
 def test_forward_design_names():
     """bf16 on wgmma at 64/64, on mma.sync at 32/32, "wgmma-wide" at every
-    pair of head dim 128 or more (the wide pairs); f32 on FMA tiles."""
+    pair of head dim 128 or more (the wide pairs); f32 on split TF32 at
+    every pair."""
     assert tfa.design(torch.bfloat16, 64) == "wgmma"
     assert tfa.design(torch.bfloat16, 32) == "mma.sync"
     assert tfa.WIDE_PAIRS == ((128, 128), (192, 128), (256, 256))
     for dqk, dv in tfa.WIDE_PAIRS:
         assert tfa.design(torch.bfloat16, dqk, dv) == "wgmma-wide"
     for dqk, dv in tfa.HEAD_DIM_PAIRS:
-        assert tfa.design(torch.float32, dqk, dv) == "fma-f32"
+        assert tfa.design(torch.float32, dqk, dv) == "tf32x3"
     with pytest.raises(ValueError, match="head dims"):
         tfa.design(torch.bfloat16, 128, 192)
 

@@ -4,9 +4,9 @@ device and import nothing of JAX, so they run on the GPU machine with
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 The CUDA flash and SSD kernels are held against their plain versions, in
-bf16 (the tensor-core designs) and f32 (the FMA designs), over shape sweeps
-and tile edges, and small models served on the card are held against the
-same weights decoded on the CPU. Flash attention's backward is held against
+bf16 (the tensor-core designs) and f32 (flash attention's split TF32, SSD's
+FMA designs), over shape sweeps and tile edges, and small models served on
+the card are held against the same weights decoded on the CPU. Flash attention's backward is held against
 its plain version over the same sweeps and its own tile edges, in bf16 also
 in ulps, and two of its launches against each other bit for bit, and the
 SSD scan's backward the same way (at mamba2's training shape beside a
@@ -88,7 +88,7 @@ def _cuda():
     return torch.device("cuda", 0)
 
 
-# tile edges of both designs (bf16 tensor cores, f32 FMA tiles), one
+# tile edges of both designs (bf16 tensor cores, f32 split TF32), one
 # case each: a window across 18 key tiles, rectangular Sq < Sk, and the
 # head dims other than 64 with ragged lengths
 FLASH_EDGES = {
@@ -298,13 +298,13 @@ def _fwd_lse_errors(dev, rng, case) -> tuple:
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", list(FWD_WIDE))
 def test_flash_wide_forward_matches_plain_version_on_card(name):
-    """The wide pairs' bf16 forward ("wgmma-wide"; f32 keeps "fma-f32")
+    """The wide pairs' bf16 forward ("wgmma-wide"; f32 runs "tf32x3")
     against the plain version: the output within 2e-2 and the lse within
     1e-4 scaled, chip_smoke.py's tolerances, each launch counted."""
     dev = _cuda()
     case = FWD_WIDE[name]
     assert tfa.design(torch.bfloat16, case[5], case[9]) == "wgmma-wide"
-    assert tfa.design(torch.float32, case[5], case[9]) == "fma-f32"
+    assert tfa.design(torch.float32, case[5], case[9]) == "tf32x3"
     before = tfa.flash_attention_bhsd.launches
     o_err, lse_err = _fwd_lse_errors(dev, np.random.default_rng(44), case)
     assert tfa.flash_attention_bhsd.launches == before + 2  # the lse's launch and the output's
@@ -770,6 +770,47 @@ def test_flash_bwd_is_bitwise_repeatable_on_card(dtype):
         second = tfa.flash_attention_bwd(*args, bshd=True, **mask)
         for label, a, b in zip(("dq", "dk", "dv"), first, second):
             assert torch.equal(a, b), (name, dtype, label)
+
+
+# the f32 forms on split TF32 ("tf32x3"), one case a pair: the forward at
+# every pair, the backward at each of TF32X3_BWD_PAIRS (192/128 and 256/256
+# keep "fma-f32"); (B, H, KV, Sq, Sk, Dqk, causal, window, k_len, Dv)
+TF32X3_CASES = {
+    (32, 32): (1, 4, 2, 300, 300, 32, True, None, None, 32),
+    (64, 64): (8, 12, 4, 256, 256, 64, True, None, None, 64),  # the training tutorial's
+    (128, 128): (1, 6, 2, 257, 257, 128, True, 70, None, 128),
+    (192, 128): (1, 8, 2, 200, 200, 192, True, None, 150, 128),
+    (256, 256): (1, 8, 1, 130, 130, 256, True, None, None, 256),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", list(TF32X3_CASES))
+def test_flash_f32_split_tf32_forms_on_card(pair):
+    """f32 on the tensor cores as split TF32 at each pair: design() names
+    "tf32x3" and design_bwd() too where the pair takes it; the first launch
+    of each instantiation was checked; the output within 1e-4 and the
+    gradients within 1e-4 scaled of the plain versions; two launches of
+    each equal bit for bit (no float atomics)."""
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dqk, dv = pair
+    case = TF32X3_CASES[pair]
+    assert tfa.design(torch.float32, dqk, dv) == "tf32x3"
+    assert tfa.design_bwd(torch.float32, dqk, dv) == (
+        "tf32x3" if pair in tfa.TF32X3_BWD_PAIRS else "fma-f32")
+    assert _flash_error(dev, np.random.default_rng(51), torch.float32, case) <= 1e-4
+    args, mask = _bwd_inputs(dev, np.random.default_rng(52), torch.float32, case)
+    q, k, v, o, lse, _do = args
+    with torch.no_grad():
+        o2, lse2 = tfa.flash_attention_lse(q, k, v, bshd=True, **mask)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert (0, torch.float32, dqk, dv) in tfa._guard.checked
+    assert _bwd_error(dev, np.random.default_rng(53), torch.float32, case) <= 1e-4
+    first = tfa.flash_attention_bwd(*args, bshd=True, **mask)
+    again = tfa.flash_attention_bwd(*args, bshd=True, **mask)
+    assert all(torch.equal(a, b) for a, b in zip(first, again)), pair
+    assert (0, torch.float32, dqk, dv) in tfa._bwd_guard.checked
 
 
 # deepseek-v2's training attention at Dqk=192, Dv=128 (K1-bwd's own

@@ -244,7 +244,7 @@ def test_input_check_takes_the_four_head_dim_pairs(dtype, bshd):
 
 def test_design_names_the_192_128_instantiation():
     assert tfa.design(torch.bfloat16, 192, 128) == "wgmma-wide"
-    assert tfa.design(torch.float32, 192, 128) == "fma-f32"
+    assert tfa.design(torch.float32, 192, 128) == "tf32x3"
     assert tfa.design(torch.bfloat16, 64) == "wgmma"
     with pytest.raises(ValueError, match="head dims"):
         tfa.design(torch.bfloat16, 192)
